@@ -1,0 +1,373 @@
+"""Smoke run of the PyTorch port on one NVIDIA GPU (H100).
+
+    python3 chip_smoke.py
+
+1. Builds the CUDA kernel from ``src/repro_torch/kernels/csrc``.
+2. Holds both forms of the low-rank forward kernel (shared B at prefill,
+   M = 128, or 1 for the unembedding; one B per row at decode, batch 4 x
+   seq 1) against their
+   plain PyTorch version at the five (K, N) shapes of qwen2-7b, in bf16,
+   and times kernel, plain version and a cuBLAS yardstick.
+3. Serves qwen2-7b at full width and depth (28 layers) in bf16 with 4
+   tenants: 8 requests of 128 prompt tokens and 32 new tokens through
+   the continuous-batching engine, and checks that the main path
+   launched the kernel in both forms.
+4. Checks lazy adapter serving against merged weights on a 2-layer
+   full-width cut in fp32, and that a paged decode step makes no host
+   sync.
+
+The last line is ``{"ok": true, "device": {...}}``; the line before it
+holds the card's name and power limit, and the one before that the
+per-kernel JSON.  Any failed check exits non-zero.  Without CUDA the
+script exits non-zero before printing any result.
+"""
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
+BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
+REPLACES = "src/repro/kernels/lowrank_forward.py:72"
+SOURCE = "src/repro_torch/kernels/csrc/lowrank_forward.cu"
+# (K, N) the low-rank forward sees in qwen2-7b -> (leaves, rows at
+# prefill): a 128-token prefill runs the projections at M = 128 and the
+# unembedding on the last position only
+SHAPES = {(3584, 3584): ("wq,wo", 128), (3584, 512): ("wk,wv", 128),
+          (3584, 18944): ("w_gate,w_up", 128),
+          (18944, 3584): ("w_down", 128), (3584, 152064): ("unembed", 1)}
+RANK = 128
+RTOL = 2e-2        # bf16 output rounding, plus fp32 sums in another order
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def time_ms(fn, iters=20, warmup=3):
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(M, K, N, r, n_b, itemsize):
+    """Least time for the work: each input read once, y written once;
+    operations at the bf16 tensor-core peak."""
+    nbytes = (M * K + K * N + K * r + n_b * N * r + M * N) * itemsize
+    ops = 2 * M * K * N + 2 * M * K * r + 2 * M * r * N
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def compare_kernels(lf, ref, dev):
+    """Phase 2: kernel vs plain version and yardstick, both forms."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    rows = []
+    for (K, N), (leaves, prefill_rows) in SHAPES.items():
+        w = torch.randn((K, N), generator=gen, device=dev) / K ** 0.5
+        v = torch.randn((K, RANK), generator=gen, device=dev) / K ** 0.5
+        for form, M, batch in (("shared", prefill_rows, None),
+                               ("batched", 4, 4)):
+            if batch is None:
+                x = torch.randn((M, K), generator=gen, device=dev)
+                b = 0.02 * torch.randn((N, RANK), generator=gen, device=dev)
+            else:
+                x = torch.randn((batch, 1, K), generator=gen, device=dev)
+                b = 0.02 * torch.randn((batch, N, RANK), generator=gen,
+                                       device=dev)
+            x, wb, vb, b = (t.bfloat16() for t in (x, w, v, b))
+            kern = lf.lowrank_forward if batch is None \
+                else lf.lowrank_batch_forward
+            plain = ref.lowrank_forward if batch is None \
+                else ref.lowrank_batch_forward
+            y = kern(x, wb, vb, b)
+            torch.cuda.synchronize()
+            want = plain(x, wb, vb, b)
+            err = (y.float() - want.float()).abs()
+            scale = want.float().abs().max().item()
+            ok = bool((err <= RTOL * scale + RTOL * want.float().abs())
+                      .all().item())
+            if not ok or not torch.isfinite(y).all().item():
+                raise SystemExit(
+                    f"kernel disagrees with its plain version: {form} "
+                    f"K={K} N={N} max_abs_err={err.max().item():.4g}")
+
+            def library():
+                return torch.matmul(x, wb) + torch.matmul(
+                    torch.matmul(x, vb), b.mT)
+
+            ms = time_ms(lambda: kern(x, wb, vb, b))
+            plain_ms = time_ms(lambda: plain(x, wb, vb, b), iters=5)
+            library_ms = time_ms(library)
+            rows_m = M if batch is None else batch
+            bms, by = bound(rows_m, K, N, RANK, 1 if batch is None
+                            else batch, 2)
+            rows.append(dict(form=form, K=K, N=N, M=rows_m, leaves=leaves,
+                             max_abs_err=err.max().item(), ms=ms,
+                             plain_ms=plain_ms, library_ms=library_ms,
+                             bound_ms=bms, bound_by=by))
+            log(f"[kernel] {form:7s} M={rows_m:3d} K={K:5d} N={N:6d} "
+                f"({leaves}) max_abs_err={err.max().item():.4g} "
+                f"(tol {RTOL}*(max|y|+|y|), max|y|={scale:.3g}) "
+                f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"library_ms={library_ms:.4f} bound_ms={bms:.4f} ({by})")
+            del x, b, y, want
+        del w, v, wb, vb
+    torch.cuda.empty_cache()
+    return rows
+
+
+def make_store(cfg, tcfg, n_tenants, dev, AdapterStore, scale=0.02):
+    """A store with ``n_tenants`` random adapters over one shared V."""
+    store = AdapterStore(cfg, tcfg, max_tenants=n_tenants, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    projs = [scale * torch.randn(v.shape, generator=gen, device=dev)
+             for v in store.projs]
+    for t in range(n_tenants):
+        bs = [scale * torch.randn(b.shape[:-3] + b.shape[-2:],
+                                  generator=gen, device=dev)
+              for b in store.b_full]
+        store.add_tenant(f"tenant{t}", bs, projs)
+    return store
+
+
+def serve(dev, mods, smi):
+    """Phase 3: qwen2-7b, 4 tenants, 8 requests through the engine."""
+    import numpy as np
+    lf, lm, configs, serve_mod = (mods["lf"], mods["lm"], mods["configs"],
+                                  mods["serve"])
+    cfg = configs.get_config("qwen2-7b")
+    log(f"[serve] qwen2-7b d_model={cfg.d_model} layers={cfg.num_layers} "
+        f"vocab={cfg.vocab_size} dtype={cfg.dtype}")
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device=dev)
+    tcfg = configs.TrainConfig(rank=RANK)
+    store = make_store(cfg, tcfg, 4, dev, serve_mod.AdapterStore)
+    torch.cuda.synchronize()
+    log(f"[serve] weights + 4 tenants made in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    ecfg = serve_mod.EngineConfig(page_size=16, max_batch=4, max_len=160,
+                                  max_out=32)
+    eng = serve_mod.Engine(params, cfg, adapters=store, engine_cfg=ecfg,
+                           device=dev)
+    prefill_s, decode_s = [], []
+
+    def timed(fn, bucket):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            bucket.append(time.perf_counter() - t)
+            return out
+        return wrapper
+
+    eng._prefill = timed(eng._prefill, prefill_s)
+    eng._decode = timed(eng._decode, decode_s)
+    rng = np.random.default_rng(0)
+    n_req, prompt_len, new = 8, 128, 32
+    for i in range(n_req):
+        eng.submit(serve_mod.Request(
+            f"req{i}", rng.integers(0, cfg.vocab_size, prompt_len),
+            new, tenant=f"tenant{i % 4}"))
+    lf.reset_launches()
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(lf.LAUNCHES)
+    bad = [r for r, v in out.items()
+           if len(v) != new or v.min() < 0 or v.max() >= cfg.vocab_size]
+    if len(out) != n_req or bad or eng.errors or \
+            set(eng.reasons.values()) != {"completed"}:
+        raise SystemExit(f"serving failed: outputs {len(out)}/{n_req}, "
+                         f"bad {bad}, errors {eng.errors}, "
+                         f"reasons {eng.reasons}")
+    if lf.launches("shared") == 0 or lf.launches("batched") == 0:
+        raise SystemExit(f"the main path missed a kernel form: {counts}")
+    n_tok = sum(len(v) for v in out.values())
+    log(f"[serve] {n_req} requests x {new} tokens over 4 tenants: "
+        f"{n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tok/s; "
+        f"prefill {1e3 * sum(prefill_s) / len(prefill_s):.1f} ms/request "
+        f"({len(prefill_s)} prefills), decode "
+        f"{1e3 * sum(decode_s) / len(decode_s):.1f} ms/step "
+        f"({len(decode_s)} steps, batch 4) on {smi}")
+    log(f"[serve] launches shared={lf.launches('shared')} "
+        f"batched={lf.launches('batched')}; per step "
+        f"{lf.launches('batched') / len(decode_s):.0f}, per prefill "
+        f"{lf.launches('shared') / len(prefill_s):.0f}")
+    log(f"[serve] first tokens req0: {out['req0'][:8].tolist()}")
+    profile_decode(eng, cfg, serve_mod, rng)
+    del eng, store, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def profile_decode(eng, cfg, serve_mod, rng, steps=2):
+    """Where a decode step's time goes: the device time by kernel over
+    ``steps`` decode steps at batch 4 (torch.profiler), against the host
+    clock.  The profiler slows the host, so the idle share it shows is
+    an upper bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(4):
+        eng.submit(serve_mod.Request(
+            f"prof{i}", rng.integers(0, cfg.vocab_size, 128), steps + 2,
+            tenant=f"tenant{i}"))
+    eng.step()                      # admissions (prefills) + one decode
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    eng.run()
+    # device-side entries only: a CPU op's row repeats its kernels' time
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    dev_us = sum(e.self_device_time_total for e in rows)
+    if dev_us <= 0:
+        raise SystemExit("the profiler saw no device time")
+    log(f"[profile] {steps} decode steps: host {1e3 * wall / steps:.1f} "
+        f"ms/step, device busy {dev_us / 1e3 / steps:.1f} ms/step "
+        f"({100 * dev_us / 1e6 / wall:.1f}% busy)")
+    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    for e in rows[:8]:
+        log(f"[profile]   {e.self_device_time_total / 1e3 / steps:8.2f} "
+            f"ms/step  x{e.count // steps:5d}  {e.key[:90]}")
+
+
+def lazy_equals_merged(dev, mods):
+    """Phase 4: lazy (B, V) serving == merged W + V B^T, fp32, 2 layers."""
+    lm, configs, serve_mod = mods["lm"], mods["configs"], mods["serve"]
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.linear import effective_weight
+    cfg = configs.get_config("qwen2-7b").replace(
+        num_layers=2, dtype="float32", param_dtype="float32")
+    params = lm.init_params(cfg, seed=3, device=dev)
+    store = make_store(cfg, configs.TrainConfig(rank=RANK), 1, dev,
+                       serve_mod.AdapterStore)
+    merged = tree_map(effective_weight, store.lrpack_tree(params, "tenant0"))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    S, page = 24, 16
+    prompt = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                           device=dev)
+    nxt = torch.randint(0, cfg.vocab_size, (1, 1), generator=gen,
+                        device=dev)
+    tenants = torch.zeros((1,), dtype=torch.long, device=dev)
+    lazy_pre = store.lrpack_tree(params, "tenant0")
+    lazy_dec = serve_mod.batched_pack_tree(params, store.layout,
+                                           store.b_full, store.projs,
+                                           tenants)
+    logits = []
+    for pre_p, dec_p in ((lazy_pre, lazy_dec), (merged, merged)):
+        n_pages = 2
+        st = lm.alloc_decode_state(cfg, 1, n_pages * page, device=dev)
+        lg_pre, st = lm.prefill(pre_p, prompt, cfg, st)
+        ps = lm.alloc_paged_state(cfg, 1, n_pages, page, n_pages * page,
+                                  device=dev)
+        ps.kv_k.copy_(st.kv.k[:, 0].reshape(ps.kv_k.shape))
+        ps.kv_v.copy_(st.kv.v[:, 0].reshape(ps.kv_v.shape))
+        ps = ps._replace(
+            page_table=torch.tensor([[0, 1]], dtype=torch.int32, device=dev),
+            lengths=torch.tensor([S], dtype=torch.int32, device=dev))
+        # the decode step must stay on the device (a host sync would
+        # stall every layer and rule out graph capture): any sync raises
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            lg_dec, _ = lm.decode_step_paged(dec_p, nxt, cfg, ps)
+        finally:
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+        logits.append((lg_pre.float(), lg_dec.float()))
+    tol = 1e-4     # relative to max|logit|: fp32 sums in another order
+    for name, a, b in (("prefill", logits[0][0], logits[1][0]),
+                       ("decode", logits[0][1], logits[1][1])):
+        err = (a - b).abs().max().item()
+        scale = b.abs().max().item()
+        log(f"[lazy==merged] {name} logits max_abs_err={err:.3g} "
+            f"max|logit|={scale:.3g} tol={tol}*max")
+        if not torch.isfinite(a).all().item() or err > tol * scale:
+            raise SystemExit(f"lazy serving disagrees with merged weights "
+                             f"({name}: {err} > {tol * scale})")
+    del params, store, merged, lazy_pre, lazy_dec
+    torch.cuda.empty_cache()
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        sys.exit(2)
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch import configs
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import lowrank_forward as lf
+    from repro_torch.models import lm
+    from repro_torch import serve as serve_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"[device] {torch.cuda.get_device_name(0)} | {smi} | torch "
+        f"{torch.__version__} cuda {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    built = _build.build("lowrank_forward", force=True)
+    log(f"[build] lowrank_forward.cu in {built['seconds']:.1f} s")
+    for line in built["log"].splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[build] {line.strip()}")
+
+    rows = compare_kernels(lf, ref, dev)
+    mods = dict(lf=lf, lm=lm, configs=configs, serve=serve_mod)
+    counts = serve(dev, mods, smi)
+    lazy_equals_merged(dev, mods)
+
+    kernels = []
+    for row in rows:
+        kernels.append({
+            "name": f"lowrank_forward[{row['form']} B] K={row['K']} "
+                    f"N={row['N']} ({row['leaves']})",
+            "route": "cuda", "source": SOURCE, "replaces": REPLACES,
+            "launches": counts.get((row["form"], row["K"], row["N"]), 0),
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    missing = [k["name"] for k in kernels if k["launches"] == 0]
+    if missing:
+        raise SystemExit(f"kernels never launched on the main path: "
+                         f"{missing}")
+    log(f"[done] all phases passed in {time.perf_counter() - t0:.0f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,29 @@
+"""Config registry of the port: the architectures it serves so far.
+
+``qwen2-7b`` is the serving target; the paper's LLaMA grid (with
+``llama-tiny``) is the small dense model the CPU tests run.  Other
+architectures of ``repro.configs`` join as their families are ported.
+"""
+from __future__ import annotations
+
+from . import llama_paper, qwen2_7b
+from .base import ModelConfig, TrainConfig
+
+CONFIGS = {
+    "qwen2-7b": qwen2_7b.CONFIG,
+    "llama-20m": llama_paper.LLAMA_20M,
+    "llama-60m": llama_paper.LLAMA_60M,
+    "llama-100m": llama_paper.LLAMA_100M,
+    "llama-tiny": llama_paper.LLAMA_TINY,
+    "encoder-small": llama_paper.ENCODER_SMALL,
+}
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in CONFIGS:
+        raise KeyError(
+            f"unknown arch '{name}'; known: {sorted(CONFIGS)}")
+    return CONFIGS[name]
+
+
+__all__ = ["ModelConfig", "TrainConfig", "CONFIGS", "get_config"]

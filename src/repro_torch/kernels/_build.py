@@ -1,0 +1,80 @@
+"""Build and load the port's CUDA kernels: ``nvcc`` into a shared
+library with a plain C interface, loaded with ``ctypes``.
+
+Each source under ``csrc/`` compiles at first use into ``build/`` beside
+this file (listed in ``.gitignore``), under a name keyed by a hash of
+the source and the flags, so an edited source never loads a stale
+library.  Nothing is built when the package is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOADED: dict = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin); the CUDA "
+        "kernels of repro_torch build only where the CUDA toolkit is "
+        "installed")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}.{digest}.so"
+
+
+def build(name: str, force: bool = False) -> dict:
+    """Compile ``csrc/<name>.cu``; returns the library path, the build
+    seconds and the compiler's report (``-Xptxas -v``: registers, shared
+    memory and spills per kernel).  Raises on a failed build."""
+    out = library_path(name)
+    if out.exists() and not force:
+        return {"path": out, "seconds": 0.0, "log": "(cached)"}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed for {name}.cu (exit {res.returncode}):\n"
+            f"{res.stdout}\n{res.stderr}")
+    # atomic rename: a concurrent process never loads a half-written file
+    os.replace(tmp, out)
+    return {"path": out, "seconds": secs, "log": res.stdout + res.stderr}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    path = library_path(name)
+    lib = _LOADED.get(path)
+    if lib is None:
+        build(name)
+        lib = ctypes.CDLL(str(path))
+        _LOADED[path] = lib
+    return lib

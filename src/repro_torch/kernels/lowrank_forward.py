@@ -1,0 +1,157 @@
+"""The low-rank forward ``y = xW + (xV)Bᵀ`` on the card: wrapper of the
+hand-written CUDA kernel ``csrc/lowrank_forward.cu``.
+
+Replaces the Pallas TPU kernel ``repro/kernels/lowrank_forward.py::
+lowrank_forward`` (its forward form; the ``return_p`` form belongs to
+training).  Two call forms share one kernel source:
+
+* :func:`lowrank_forward` — one ``B (N, r)`` for every row (prefill,
+  ``LRPack``);
+* :func:`lowrank_batch_forward` — one ``B`` per batch row,
+  ``b (batch, N, r)`` (decode, ``BatchLRPack``).
+
+The route is chosen by the tensor's device alone: a CPU tensor takes the
+plain version in :mod:`.ref`; a CUDA tensor launches the kernel or
+raises.  There is no fallback.  ``LAUNCHES`` counts the kernel's
+launches per ``(form, K, N)``, so a run can show that its main path went
+through the kernel.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+
+import torch
+
+from . import _build, ref
+
+# (form, K, N) -> launches on CUDA tensors; "shared" | "batched"
+LAUNCHES: collections.Counter = collections.Counter()
+
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+TILE = 64                 # BM = BN in the kernel
+SMS = 132                 # H100 SXM streaming multiprocessors
+MIN_K_PER_SPLIT = 256
+
+
+def launches(form: str | None = None) -> int:
+    """Launches counted so far, of one form or of both."""
+    return sum(n for (f, _, _), n in LAUNCHES.items()
+               if form is None or f == form)
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def splits(M: int, N: int, K: int) -> int:
+    """How many K ranges the kernel's GEMM passes split into: enough
+    blocks for about four per SM, each range at least
+    ``MIN_K_PER_SPLIT`` deep."""
+    tiles = -(-N // TILE) * -(-M // TILE)
+    return max(1, min(-(-4 * SMS // tiles), -(-K // MIN_K_PER_SPLIT)))
+
+
+@functools.cache
+def _kernel():
+    """The C entry point, built and loaded on first use."""
+    fn = _build.load("lowrank_forward").lowrank_forward_launch
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, vp, vp, ci,
+                   ci, ci, ci, ci, ci, ctypes.c_longlong, vp]
+    fn.restype = ci
+    return fn
+
+
+def _check(x, w, v, b, b_ndim: int) -> None:
+    dev = x.device
+    for name, t in (("w", w), ("v", v), ("b", b)):
+        if t.device != dev:
+            raise ValueError(
+                f"lowrank_forward: {name} is on {t.device}, x on {dev}")
+        if t.dtype != x.dtype:
+            raise TypeError(
+                f"lowrank_forward: the CUDA kernel takes one dtype for "
+                f"x, w, v, b; got x {x.dtype}, {name} {t.dtype}")
+    if x.dtype not in DTYPE_CODE:
+        raise TypeError(
+            f"lowrank_forward: the CUDA kernel takes float32 or bfloat16, "
+            f"got {x.dtype}")
+    for name, t in (("x", x), ("w", w), ("v", v), ("b", b)):
+        if not t.is_contiguous():
+            raise ValueError(f"lowrank_forward: {name} is not contiguous")
+    K, N, r = x.shape[-1], w.shape[-1], v.shape[-1]
+    if (w.ndim != 2 or v.ndim != 2 or b.ndim != b_ndim
+            or w.shape[0] != K or v.shape[0] != K
+            or tuple(b.shape[-2:]) != (N, r)):
+        raise ValueError(
+            f"lowrank_forward: shapes x {tuple(x.shape)}, w "
+            f"{tuple(w.shape)}, v {tuple(v.shape)}, b {tuple(b.shape)} "
+            f"do not fit x (.., K), w (K, N), v (K, r), b (.., N, r)")
+
+
+def _launch(form: str, x2, w, v, b, seq: int, b_stride: int):
+    M, K = x2.shape
+    N, r = w.shape[1], v.shape[1]
+    y = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
+    if M == 0:
+        return y
+    s_p, s_y = splits(M, r, K), splits(M, N, K)
+    f32 = dict(dtype=torch.float32, device=x2.device)
+    p_part = torch.empty((s_p, M, r), **f32)
+    p = torch.empty((M, r), **f32)
+    y_part = torch.empty((s_y, M, N), **f32)
+    with torch.cuda.device(x2.device):
+        stream = torch.cuda.current_stream(x2.device).cuda_stream
+        rc = _kernel()(DTYPE_CODE[x2.dtype], x2.data_ptr(), w.data_ptr(),
+                       v.data_ptr(), b.data_ptr(), y.data_ptr(),
+                       p_part.data_ptr(), s_p, p.data_ptr(),
+                       y_part.data_ptr(), s_y, M, K, N, r, seq, b_stride,
+                       stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"lowrank_forward kernel launch failed with CUDA error {rc} "
+            f"(x {tuple(x2.shape)}, w {tuple(w.shape)}, r={r})")
+    LAUNCHES[(form, K, N)] += 1
+    return y
+
+
+def _route(x) -> bool:
+    """True for the kernel (CUDA tensor), False for the plain version."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type == "cuda":
+        return True
+    raise ValueError(f"lowrank_forward: no route for device {x.device}")
+
+
+def lowrank_forward(x: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
+                    b: torch.Tensor) -> torch.Tensor:
+    """y = x W + (x V) Bᵀ.  x (M,K), w (K,N), v (K,r), b (N,r); y in
+    x's dtype."""
+    if not _route(x):
+        return ref.lowrank_forward(x, w, v, b)
+    if x.ndim != 2:
+        raise ValueError(f"lowrank_forward: x must be (M, K), got "
+                         f"{tuple(x.shape)}")
+    _check(x, w, v, b, b_ndim=2)
+    return _launch("shared", x, w, v, b, seq=x.shape[0], b_stride=0)
+
+
+def lowrank_batch_forward(x: torch.Tensor, w: torch.Tensor,
+                          v: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """y[i] = x[i] W + (x[i] V) B[i]ᵀ.  x (batch,S,K), b (batch,N,r)."""
+    if x.ndim != 3 or b.ndim != 3 or b.shape[0] != x.shape[0]:
+        raise ValueError(
+            f"lowrank_batch_forward: x must be (batch, seq, k) and b "
+            f"(batch, n, r) with the same batch; got x {tuple(x.shape)}, "
+            f"b {tuple(b.shape)}")
+    if not _route(x):
+        return ref.lowrank_batch_forward(x, w, v, b)
+    _check(x, w, v, b, b_ndim=3)
+    batch, S, K = x.shape
+    N, r = w.shape[1], v.shape[1]
+    y = _launch("batched", x.reshape(batch * S, K), w, v, b, seq=S,
+                b_stride=N * r)
+    return y.reshape(batch, S, N)

@@ -1,0 +1,275 @@
+"""Decoder-only LM for serving, dense family.
+
+Counterpart of ``repro.models.lm`` for the dense family (``qwen2-7b``,
+the LLaMA grid).  Layers stay stacked on a leading ``L`` axis, as in the
+reference, and a Python loop over ``L`` takes the place of ``lax.scan``.
+Every matmul weight is consumed through :func:`repro_torch.models.linear.
+linear`, so a packed adapter threads through unchanged.
+
+Caches are updated in place (the reference returns new arrays): a
+prefill writes into the ``DecodeState`` it was given and a paged decode
+step writes into the arenas of its ``PagedDecodeState``.
+
+Entry points:
+  param_specs / init_params
+  prefill(params, tokens, cfg, state)          -> (last logits, state)
+  decode_step_paged(params, token, cfg, state) -> (logits, state)
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .. import resolve_device
+from .attention import (KVCache, blockwise_attention, cache_update,
+                        paged_decode_attention, paged_write)
+from .common import (ParamSpec, act_dtype, apply_rope, prm_dtype, rms_norm,
+                     swiglu, tree_init, tree_map)
+from .linear import linear
+
+VOCAB_PAD = 256
+
+
+def padded_vocab(cfg) -> int:
+    return -(-cfg.vocab_size // VOCAB_PAD) * VOCAB_PAD
+
+
+def _require_dense(cfg) -> None:
+    if cfg.family != "dense" or cfg.use_mla or cfg.num_experts \
+            or cfg.first_dense_layers or cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family (MoE, MLA, SSM, "
+            f"hybrid, vlm and audio models) is not ported to repro_torch "
+            f"yet; see ROADMAP.md Queue 1")
+
+
+# ---------------------------------------------------------------------------
+# Param specs
+# ---------------------------------------------------------------------------
+
+def _w(shape, cfg, init="scaled"):
+    return ParamSpec(tuple(shape), prm_dtype(cfg), init=init)
+
+
+def _stack(spec: ParamSpec, n: int) -> ParamSpec:
+    return ParamSpec((n,) + spec.shape, spec.dtype, spec.init, spec.scale)
+
+
+def _attn_specs(cfg, d):
+    dh = cfg.resolved_head_dim
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    s = {
+        "wq": _w((d, hq * dh), cfg),
+        "wk": _w((d, hkv * dh), cfg),
+        "wv": _w((d, hkv * dh), cfg),
+        "wo": _w((hq * dh, d), cfg),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = _w((hq * dh,), cfg, "zeros")
+        s["bk"] = _w((hkv * dh,), cfg, "zeros")
+        s["bv"] = _w((hkv * dh,), cfg, "zeros")
+    if cfg.qk_norm:
+        s["q_norm"] = _w((dh,), cfg, "ones")
+        s["k_norm"] = _w((dh,), cfg, "ones")
+    return s
+
+
+def _mlp_specs(cfg, d, ff):
+    return {"w_gate": _w((d, ff), cfg), "w_up": _w((d, ff), cfg),
+            "w_down": _w((ff, d), cfg)}
+
+
+def param_specs(cfg) -> dict:
+    _require_dense(cfg)
+    d = cfg.d_model
+    vp = padded_vocab(cfg)
+    layer = {"ln1": _w((d,), cfg, "ones"), "attn": _attn_specs(cfg, d),
+             "ln2": _w((d,), cfg, "ones"),
+             "mlp": _mlp_specs(cfg, d, cfg.d_ff)}
+    return {
+        "embed": {"tok": _w((vp, d), cfg, "normal")},
+        "final_norm": _w((d,), cfg, "ones"),
+        "unembed": _w((d, vp), cfg),
+        "layers": tree_map(lambda sp: _stack(sp, cfg.num_layers), layer),
+    }
+
+
+def init_params(cfg, seed: int = 0, *, device=None) -> dict:
+    """Random parameters by the reference's laws, drawn from a
+    ``torch.Generator`` seeded with ``seed`` on ``device`` (cuda unless
+    the caller names another)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return tree_init(gen, param_specs(cfg), dev)
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+def _layer(tree, i: int):
+    """Layer ``i`` of an ``(L, ...)``-stacked tree (packs included)."""
+    return tree_map(lambda x: x[i], tree)
+
+
+def attn_apply(h, p, cfg, *, pos_offset=0, cache=None, cache_index=None,
+               decode=False, paged=None):
+    """GQA attention. Returns (out, (k, v) caches or None).
+
+    ``pos_offset`` is an int or a per-row ``(B,)`` tensor (serving:
+    sequences at different depths share one decode batch).  Decoding
+    needs ``paged=(page_table, lengths)``; the cache is then a pair of
+    paged arenas ``(n_pages, page, Hkv, dh)``.
+    """
+    B, S, _ = h.shape
+    dh = cfg.resolved_head_dim
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    q = linear(h, p["wq"], p.get("bq")).reshape(B, S, hq, dh)
+    k = linear(h, p["wk"], p.get("bk")).reshape(B, S, hkv, dh)
+    v = linear(h, p["wv"], p.get("bv")).reshape(B, S, hkv, dh)
+    if "q_norm" in p:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if cfg.rope_theta:
+        ar = torch.arange(S, device=h.device)
+        if torch.is_tensor(pos_offset):
+            positions = pos_offset[:, None] + ar
+        else:
+            positions = (pos_offset + ar).expand(B, S)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    new_kv = None
+    if decode:
+        if paged is None:
+            raise NotImplementedError(
+                "repro_torch decodes over paged caches only")
+        pt, lengths = paged
+        ck, cv = cache
+        paged_write(ck, k, pt, lengths)
+        paged_write(cv, v, pt, lengths)
+        out = paged_decode_attention(q, ck, cv, pt, lengths + 1)
+        new_kv = (ck, cv)
+    else:
+        out = blockwise_attention(
+            q, k, v, q_offset=pos_offset, q_chunk=cfg.attn_chunk // 2,
+            kv_chunk=cfg.attn_chunk)
+        if cache is not None:   # prefill: persist k/v
+            new_kv = cache_update(*cache, k, v, cache_index or 0)
+    return linear(out.reshape(B, S, hq * dh), p["wo"]), new_kv
+
+
+def mlp_apply(h, p, cfg):
+    return linear(swiglu(linear(h, p["w_gate"]), linear(h, p["w_up"])),
+                  p["w_down"])
+
+
+def dense_block(h, p, cfg, **kw):
+    a, kv = attn_apply(rms_norm(h, p["ln1"], cfg.norm_eps), p["attn"], cfg,
+                       **kw)
+    h = h + a
+    h = h + mlp_apply(rms_norm(h, p["ln2"], cfg.norm_eps), p["mlp"], cfg)
+    return h, kv
+
+
+def _embed(params, tokens, cfg):
+    return params["embed"]["tok"][tokens.long()]
+
+
+def logits(params, hidden, cfg):
+    """Full logits; padded vocabulary lanes are filled with -1e30."""
+    lg = linear(hidden, params["unembed"])
+    vp = padded_vocab(cfg)
+    if vp != cfg.vocab_size:
+        pad = torch.arange(vp, device=lg.device) >= cfg.vocab_size
+        lg = lg.masked_fill(pad, -1e30)
+    return lg
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill into a dense cache
+# ---------------------------------------------------------------------------
+
+class DecodeState(NamedTuple):
+    kv: KVCache
+    pos: int                     # tokens already in cache
+
+
+def alloc_decode_state(cfg, batch: int, max_len: int, *,
+                       device) -> DecodeState:
+    _require_dense(cfg)
+    kv = KVCache.alloc(cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+                       cfg.resolved_head_dim, dtype=act_dtype(cfg),
+                       device=device)
+    return DecodeState(kv, 0)
+
+
+def prefill(params, tokens, cfg, state: DecodeState):
+    """Full forward writing the caches; returns (last-position logits,
+    state)."""
+    _require_dense(cfg)
+    h = _embed(params, tokens, cfg)
+    S = h.shape[1]
+    for i in range(cfg.num_layers):
+        h, _ = dense_block(h, _layer(params["layers"], i), cfg,
+                           cache=(state.kv.k[i], state.kv.v[i]),
+                           cache_index=0)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    last = logits(params, h[:, -1:], cfg)
+    return last, DecodeState(state.kv, S)
+
+
+# ---------------------------------------------------------------------------
+# Serving: paged decode state (shared page arena across ragged sequences)
+# ---------------------------------------------------------------------------
+
+class PagedDecodeState(NamedTuple):
+    """Paged decode caches (serving engine).
+
+    ``kv_k`` / ``kv_v``: ``(L, n_pages, page, Hkv, D)`` arenas;
+    ``page_table``: ``(batch, max_pages)`` int32, ``-1`` = unmapped, one
+    page-id space for every layer; ``lengths``: ``(batch,)`` int32 tokens
+    stored per slot, ``0`` marks an inactive slot.
+    """
+    kv_k: torch.Tensor
+    kv_v: torch.Tensor
+    page_table: torch.Tensor
+    lengths: torch.Tensor
+
+
+def alloc_paged_state(cfg, batch: int, num_pages: int, page_size: int,
+                      max_len: int, *, device) -> PagedDecodeState:
+    _require_dense(cfg)
+    max_pages = -(-max_len // page_size)
+    shp = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
+           cfg.resolved_head_dim)
+    dt = act_dtype(cfg)
+    return PagedDecodeState(
+        torch.zeros(shp, dtype=dt, device=device),
+        torch.zeros(shp, dtype=dt, device=device),
+        torch.full((batch, max_pages), -1, dtype=torch.int32,
+                   device=device),
+        torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def decode_step_paged(params, token, cfg, state: PagedDecodeState):
+    """One-token decode over paged caches. token: (B, 1) int.
+
+    Slot ``b``'s new token lands at position ``lengths[b]`` of its page
+    chain; rows with ``lengths == 0`` are inactive — their cache writes
+    are dropped and their logits are never read.
+    """
+    _require_dense(cfg)
+    h = _embed(params, token, cfg)
+    pt, lengths = state.page_table, state.lengths
+    for i in range(cfg.num_layers):
+        h, _ = dense_block(h, _layer(params["layers"], i), cfg,
+                           pos_offset=lengths,
+                           cache=(state.kv_k[i], state.kv_v[i]),
+                           decode=True, paged=(pt, lengths))
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    lg = logits(params, h, cfg)
+    new_len = torch.where(lengths > 0, lengths + 1, 0).to(lengths.dtype)
+    return lg, state._replace(lengths=new_len)

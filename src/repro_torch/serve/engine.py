@@ -1,0 +1,468 @@
+"""Continuous-batching serving engine over the paged decode cache.
+
+Counterpart of ``repro.serve.engine`` (greedy decoding).  One decode
+batch of ``max_batch`` slots is stepped in lock-step; sequences join
+(prefill + page-chain allocation) and leave (evict, pages freed) between
+steps.  The per-step loop is:
+
+  1. evict finished / expired slots (one output-row fetch per finished
+     sequence);
+  2. admit queued requests while a slot AND their whole page chain are
+     available (all-or-nothing admission — the backpressure signal);
+  3. grow page chains for slots whose next token starts a fresh page,
+     preempting the youngest other sequence (recompute-on-readmit) when
+     the pool runs dry;
+  4. run one batched decode step: every active slot advances one token,
+     all tenants answered by one low-rank forward per projection —
+     ``W + V Bᵀ`` is never materialised, token selection stays on the
+     device.
+
+A per-row logit health check (non-finite / collapsed) quarantines only
+the offending rows: a faulted row's length does not advance, so its
+cache write sits past ``length`` where attention never reads it, and its
+co-tenants keep decoding.  The one per-step device-to-host fetch is the
+fault vector.  Temperature/top-k sampling, snapshot/restore and signal
+draining of the reference engine are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from collections import deque
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..models.lm import (alloc_decode_state, alloc_paged_state,
+                         decode_step_paged, prefill)
+from .adapters import AdapterStore, batched_pack_tree
+from .health import logits_row_ok
+from .pages import PagePool
+
+
+class EngineBusy(RuntimeError):
+    """Bounded admission queue is full — explicit backpressure to the
+    caller (resubmit later), never a deadlock."""
+
+
+class TenantQuarantinedError(RuntimeError):
+    """A tenant's adapter produced unhealthy decode rows and was
+    quarantined; surfaced to that tenant's caller, never to co-tenants."""
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Static engine geometry and policy."""
+
+    page_size: int = 16  # tokens per cache page
+    max_batch: int = 4  # decode slots stepped in lock-step
+    num_pages: int = 0  # 0 -> max_batch * ceil(max_len / page_size)
+    max_len: int = 256  # per-sequence cap (page-table width)
+    max_out: int = 128  # widest max_new a request may ask for
+    max_queue: int = 0  # admission-queue bound; 0 -> unbounded
+    guard: bool = True  # per-row logit health guard
+    max_strikes: int = 3  # row faults before a tenant is disabled
+
+    def resolved_num_pages(self) -> int:
+        if self.num_pages:
+            return self.num_pages
+        return self.max_batch * (-(-self.max_len // self.page_size))
+
+
+class Request:
+    """One generation request.
+
+    ``prompt``: 1-D token ids; ``max_new``: tokens to generate (includes
+    the one produced by prefill); ``tenant``: adapter name in the
+    engine's store (``None`` -> base weights); ``ttl``: optional deadline
+    in engine steps from submission, enforced at eviction boundaries.
+    ``_seq``/``_born`` are engine-internal: admission seniority
+    (preserved across preemption) and the submission step.
+    """
+
+    __slots__ = ("rid", "prompt", "max_new", "tenant", "ttl", "_seq",
+                 "_born")
+
+    def __init__(self, rid, prompt, max_new: int,
+                 tenant: Optional[str] = None, ttl: Optional[int] = None):
+        self.rid = rid
+        self.prompt = np.asarray(prompt, np.int32).reshape(-1)
+        self.max_new = int(max_new)
+        self.tenant = tenant
+        self.ttl = None if ttl is None else int(ttl)
+        self._seq: Optional[int] = None
+        self._born: Optional[int] = None
+        if self.max_new < 1:
+            raise ValueError("max_new must be >= 1")
+        if self.ttl is not None and self.ttl < 1:
+            raise ValueError("ttl must be >= 1 (engine steps)")
+
+
+class Engine:
+    """Multi-tenant continuous-batching engine for one model config.
+
+    ``params`` must live on ``device`` (cuda unless the caller names
+    another), as must the adapter store.
+    """
+
+    def __init__(self, params, cfg, *,
+                 adapters: Optional[AdapterStore] = None,
+                 engine_cfg: Optional[EngineConfig] = None, device=None):
+        self.device = resolve_device(device)
+        if adapters is not None and adapters.device != self.device:
+            raise ValueError(
+                f"adapter store lives on {adapters.device}, engine on "
+                f"{self.device}")
+        self.params = params
+        self.cfg = cfg
+        self.adapters = adapters
+        self.ecfg = engine_cfg or EngineConfig()
+        ec = self.ecfg
+        self.num_pages = ec.resolved_num_pages()
+        self.max_pages = -(-ec.max_len // ec.page_size)
+        self.pool = PagePool(self.num_pages, ec.page_size)
+        self.state = alloc_paged_state(cfg, ec.max_batch, self.num_pages,
+                                       ec.page_size, ec.max_len,
+                                       device=self.device)
+        # host mirrors (authoritative for page_table / lengths)
+        self._pt = np.full((ec.max_batch, self.max_pages), -1, np.int32)
+        self._len = np.zeros((ec.max_batch,), np.int32)
+        self._slot_tenant = np.zeros((ec.max_batch,), np.int64)
+        self._slots: List[Optional[dict]] = [None] * ec.max_batch
+        self._queue: deque = deque()
+        self._outputs: Dict = {}
+        self._partial: Dict = {}
+        self.errors: Dict = {}
+        self.reasons: Dict = {}
+        self._strikes: Dict[str, int] = {}
+        self._disabled: set = set()
+        self._admit_seq = 0
+        self._step_count = 0
+        # device-resident decode ring: current token, output ring, counts
+        dev = dict(dtype=torch.long, device=self.device)
+        self._tok = torch.zeros((ec.max_batch, 1), **dev)
+        self._out = torch.zeros((ec.max_batch, ec.max_out), **dev)
+        self._counts = torch.zeros((ec.max_batch,), **dev)
+
+    def strikes(self, tenant: str) -> int:
+        return self._strikes.get(tenant, 0)
+
+    def disabled_tenants(self) -> tuple:
+        return tuple(sorted(self._disabled))
+
+    # -- device programs ---------------------------------------------------
+
+    def _decode(self, state):
+        """One batched decode step with the row-health guard.  Returns
+        (state, tok, out, counts, fault)."""
+        active = state.lengths > 0
+        packed = self.params
+        if self.adapters is not None:
+            tenants = torch.as_tensor(self._slot_tenant, device=self.device)
+            packed = batched_pack_tree(self.params, self.adapters.layout,
+                                       self.adapters.b_full,
+                                       self.adapters.projs, tenants)
+        lg, nstate = decode_step_paged(packed, self._tok, self.cfg, state)
+        row = lg[:, -1, :]
+        # health looks at the REAL vocab lanes only: the -1e30 padding
+        # fill would mask an all-mass collapse
+        if self.ecfg.guard:
+            row_ok = logits_row_ok(row[:, : self.cfg.vocab_size])
+        else:
+            row_ok = torch.ones_like(active)
+        eff = active & row_ok
+        nxt = torch.argmax(row, dim=-1)
+        out, counts = self._out, self._counts
+        col = torch.arange(out.shape[1], device=self.device)
+        write = (col[None, :] == counts[:, None]) & eff[:, None]
+        out = torch.where(write, nxt[:, None], out)
+        counts = counts + eff.long()
+        tok = torch.where(eff[:, None], nxt[:, None], self._tok)
+        # masked write-back: a faulted row's length does not advance
+        nstate = nstate._replace(
+            lengths=torch.where(row_ok, nstate.lengths, state.lengths))
+        fault = active & ~row_ok
+        return nstate, tok, out, counts, fault
+
+    def _prefill(self, req: Request, pages: List[int], slot: int):
+        """Prefill one request into its page chain; returns the first
+        generated token (a device scalar)."""
+        packed = self.params
+        if self.adapters is not None:
+            packed = self.adapters.lrpack_tree(self.params, req.tenant)
+        page = self.ecfg.page_size
+        n = len(pages)
+        tmp = alloc_decode_state(self.cfg, 1, n * page, device=self.device)
+        tokens = torch.as_tensor(req.prompt[None, :], device=self.device)
+        lg, tmp = prefill(packed, tokens, self.cfg, tmp)
+        idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
+        for arena, cache in ((self.state.kv_k, tmp.kv.k),
+                             (self.state.kv_v, tmp.kv.v)):
+            # (L, 1, cap, H, D) -> (L, nP, page, H, D) -> arena pages
+            blocks = cache[:, 0].reshape(
+                (cache.shape[0], n, page) + cache.shape[3:])
+            arena[:, idx] = blocks.to(arena.dtype)
+        return torch.argmax(lg[0, -1])
+
+    # -- host-side bookkeeping ---------------------------------------------
+
+    def submit(self, req: Request) -> None:
+        if req.max_new > self.ecfg.max_out:
+            raise ValueError(
+                f"request {req.rid!r}: max_new={req.max_new} exceeds the "
+                f"engine's max_out={self.ecfg.max_out}")
+        if len(req.prompt) + req.max_new - 1 > self.ecfg.max_len:
+            raise ValueError(
+                f"request {req.rid!r}: prompt+max_new "
+                f"{len(req.prompt) + req.max_new} exceeds "
+                f"max_len={self.ecfg.max_len}")
+        if self.adapters is not None:
+            if req.tenant is None:
+                raise ValueError(
+                    f"request {req.rid!r}: engine has an adapter store — "
+                    f"requests must name a tenant")
+            if not self.adapters.has_tenant(req.tenant):
+                raise KeyError(f"unknown tenant {req.tenant!r}")
+        if req.tenant is not None and req.tenant in self._disabled:
+            raise TenantQuarantinedError(
+                f"request {req.rid!r}: tenant {req.tenant!r} is disabled "
+                f"after {self._strikes.get(req.tenant, 0)} decode faults")
+        if 0 < self.ecfg.max_queue <= len(self._queue):
+            raise EngineBusy(
+                f"admission queue is full ({self.ecfg.max_queue} "
+                f"requests); resubmit {req.rid!r} later")
+        req._born = self._step_count
+        self._queue.append(req)
+
+    def _free_slot(self) -> Optional[int]:
+        for i, s in enumerate(self._slots):
+            if s is None:
+                return i
+        return None
+
+    def _active_slots(self) -> List[int]:
+        return [i for i, s in enumerate(self._slots) if s is not None]
+
+    def _fetch_row(self, slot: int) -> np.ndarray:
+        n = self._slots[slot]["generated"]
+        return self._out[slot, :n].cpu().numpy().astype(np.int32)
+
+    def _release(self, slot: int) -> None:
+        meta = self._slots[slot]
+        self.pool.release(meta["pages"])
+        self._pt[slot, :] = -1
+        self._len[slot] = 0
+        self._slot_tenant[slot] = 0
+        self._slots[slot] = None
+
+    def _finish(self, slot: int, reason: str) -> None:
+        meta = self._slots[slot]
+        row = self._fetch_row(slot)
+        prior = self._partial.pop(meta["rid"], None)
+        if prior is not None:
+            row = np.concatenate([prior, row])
+        self._outputs[meta["rid"]] = row
+        self.reasons[meta["rid"]] = reason
+        self._release(slot)
+
+    def _quarantine(self, slot: int) -> None:
+        """Row fault: fail the request, strike the tenant, free the slot.
+        Co-tenants' device state was never touched (masked write-back)."""
+        meta = self._slots[slot]
+        rid, tenant = meta["rid"], meta["tenant"]
+        self.errors[rid] = TenantQuarantinedError(
+            f"request {rid!r}: decode row {slot} produced non-finite or "
+            f"collapsed logits (tenant {tenant!r}); row quarantined")
+        self.reasons[rid] = "quarantined"
+        self._partial.pop(rid, None)
+        self._release(slot)
+        if tenant is not None:
+            self._strikes[tenant] = self._strikes.get(tenant, 0) + 1
+            if self._strikes[tenant] >= self.ecfg.max_strikes:
+                self._disabled.add(tenant)
+
+    def _evict_finished(self) -> None:
+        """The eviction boundary: done, capped, expired and
+        disabled-tenant slots leave the batch here."""
+        for slot in self._active_slots():
+            meta = self._slots[slot]
+            tenant = meta["tenant"]
+            if tenant is not None and tenant in self._disabled:
+                rid = meta["rid"]
+                self.errors[rid] = TenantQuarantinedError(
+                    f"request {rid!r}: tenant {tenant!r} was disabled "
+                    f"while this request was in flight")
+                self.reasons[rid] = "quarantined"
+                self._partial.pop(rid, None)
+                self._release(slot)
+                continue
+            done = meta["generated"] >= meta["max_new"]
+            capped = int(self._len[slot]) >= self.ecfg.max_len
+            ttl = meta["ttl"]
+            expired = ttl is not None and \
+                self._step_count - meta["born"] >= ttl
+            if done or capped or expired:
+                self._finish(
+                    slot, "deadline" if expired and not done else "completed")
+
+    def _expire_queued(self) -> None:
+        """Deadlines and quarantines apply to queued requests too."""
+        keep: deque = deque()
+        while self._queue:
+            req = self._queue.popleft()
+            if req.tenant is not None and req.tenant in self._disabled:
+                self.errors[req.rid] = TenantQuarantinedError(
+                    f"request {req.rid!r}: tenant {req.tenant!r} is "
+                    f"disabled")
+                self.reasons[req.rid] = "quarantined"
+                self._partial.pop(req.rid, None)
+                continue
+            if req.ttl is not None and \
+                    self._step_count - req._born >= req.ttl:
+                prior = self._partial.pop(req.rid, None)
+                self._outputs[req.rid] = (
+                    prior if prior is not None else np.zeros((0,), np.int32))
+                self.reasons[req.rid] = "deadline"
+                continue
+            keep.append(req)
+        self._queue = keep
+
+    def _preempt(self, slot: int) -> None:
+        meta = self._slots[slot]
+        row = self._fetch_row(slot)
+        prior = self._partial.pop(meta["rid"], None)
+        full = row if prior is None else np.concatenate([prior, row])
+        if meta["generated"] >= meta["max_new"]:
+            # already done — finishing beats recomputing
+            self._outputs[meta["rid"]] = full
+            self.reasons[meta["rid"]] = "completed"
+            self._release(slot)
+            return
+        self._partial[meta["rid"]] = full
+        # recompute-on-readmit: the prompt grows by what this residency
+        # generated, the remaining budget shrinks by the same amount
+        req = Request(meta["rid"], np.concatenate([meta["prompt"], row]),
+                      meta["max_new"] - meta["generated"],
+                      tenant=meta["tenant"], ttl=meta["ttl"])
+        # seniority and deadline survive preemption (starvation guard)
+        req._seq = meta["seq"]
+        req._born = meta["born"]
+        self._release(slot)
+        self._queue.appendleft(req)
+
+    def _admit(self) -> None:
+        while self._queue:
+            req = self._queue[0]
+            slot = self._free_slot()
+            if slot is None:
+                return
+            s_total = len(req.prompt)
+            need = self.pool.pages_for(s_total)
+            pages = self.pool.alloc(need)
+            if pages is None:
+                if not self._active_slots() and \
+                        self.pool.available == self.num_pages:
+                    raise RuntimeError(
+                        f"request {req.rid!r} needs {need} pages but the "
+                        f"pool only has {self.num_pages}; raise "
+                        f"EngineConfig.num_pages")
+                return  # backpressure: wait for evictions
+            self._queue.popleft()
+            try:
+                nxt = self._prefill(req, pages, slot)
+            except Exception:
+                # leak-proof admission: a failed prefill returns the
+                # whole chain before the error propagates
+                self.pool.release(pages)
+                raise
+            tenant_idx = 0
+            if self.adapters is not None:
+                tenant_idx = self.adapters.tenant_index(req.tenant)
+            if req._seq is None:
+                req._seq = self._admit_seq
+                self._admit_seq += 1
+            self._pt[slot, :] = -1
+            self._pt[slot, :need] = pages
+            self._len[slot] = s_total
+            self._slot_tenant[slot] = tenant_idx
+            self._tok[slot, 0] = nxt
+            self._out[slot] = 0
+            self._out[slot, 0] = nxt
+            self._counts[slot] = 1
+            self._slots[slot] = {
+                "rid": req.rid, "prompt": req.prompt,
+                "max_new": req.max_new, "generated": 1,
+                "tenant": req.tenant, "pages": list(pages),
+                "seq": req._seq, "born": req._born, "ttl": req.ttl,
+            }
+
+    def _ensure_pages(self) -> None:
+        for slot in sorted(self._active_slots(),
+                           key=lambda s: self._slots[s]["seq"]):
+            meta = self._slots[slot]
+            if meta is None:
+                continue    # preempted earlier in this pass
+            pos = int(self._len[slot])
+            if pos % self.ecfg.page_size != 0:
+                continue  # current page still has room
+            pidx = pos // self.ecfg.page_size
+            if pidx >= self.max_pages:
+                continue  # at max_len; evicted next cycle
+            got = self.pool.alloc(1)
+            while got is None:
+                victims = [s for s in self._active_slots() if s != slot]
+                if not victims:
+                    raise RuntimeError(
+                        "page pool exhausted with a single active "
+                        "sequence; raise EngineConfig.num_pages")
+                self._preempt(max(victims,
+                                  key=lambda s: self._slots[s]["seq"]))
+                got = self.pool.alloc(1)
+            self._pt[slot, pidx] = got[0]
+            meta["pages"].append(got[0])
+
+    # -- the engine loop ---------------------------------------------------
+
+    def step(self) -> bool:
+        """One engine iteration.  Returns True if any work remains."""
+        self._evict_finished()
+        self._expire_queued()
+        self._admit()
+        if not self._active_slots():
+            if self._queue:
+                raise RuntimeError(
+                    "queued requests cannot be admitted (page pool or "
+                    "batch too small) and nothing is running")
+            return False
+        self._ensure_pages()
+        # _ensure_pages may have preempted; re-check who is still active
+        active = self._active_slots()
+        state = self.state._replace(
+            page_table=torch.as_tensor(self._pt, device=self.device),
+            lengths=torch.as_tensor(self._len, device=self.device))
+        (self.state, self._tok, self._out, self._counts,
+         fault) = self._decode(state)
+        faulted: List[int] = []
+        if self.ecfg.guard:
+            host_fault = fault.cpu().numpy()   # the one fetch per step
+            faulted = [s for s in active if host_fault[s]]
+        for slot in active:
+            if slot in faulted:
+                continue
+            self._slots[slot]["generated"] += 1
+            self._len[slot] += 1
+        for slot in faulted:
+            self._quarantine(slot)
+        self._step_count += 1
+        return True
+
+    def run(self) -> Dict:
+        """Drain the queue; returns {rid: np.int32 generated tokens}.
+        Failed requests surface in ``self.errors``; ``self.reasons``
+        records why each request left the engine."""
+        while self._queue or self._active_slots():
+            self.step()
+        self._evict_finished()
+        out, self._outputs = self._outputs, {}
+        return out

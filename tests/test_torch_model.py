@@ -1,0 +1,226 @@
+"""The port's dense LM against the JAX package, on reduced configs.
+
+Weights are made by the reference (``lm.init_params``) and carried
+across by ``repro_torch.convert``; adapters are numpy arrays installed
+in both packages' stores.  Tolerance for logits in fp32: rtol 1e-4,
+atol 1e-5 — the same fp32 arithmetic, with sums taken in another order.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from repro.configs import TrainConfig as JTrainConfig  # noqa: E402
+from repro.configs import get_config as jget_config  # noqa: E402
+from repro.models import lm as jlm  # noqa: E402
+from repro.models.linear import LRPack as JLRPack  # noqa: E402
+from repro.models.linear import effective_weight as jeffective  # noqa: E402
+from repro.optim import subspace as jsubspace  # noqa: E402
+from repro.serve import AdapterStore as JStore  # noqa: E402
+from repro.serve import batched_pack_tree as jbatched  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.configs import TrainConfig, get_config  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.models.common import tree_flatten_with_path  # noqa: E402
+from repro_torch.models.linear import (LRPack, effective_weight,  # noqa
+                                       weight_of)
+from repro_torch.optim.subspace import build_layout  # noqa: E402
+from repro_torch.serve import AdapterStore, batched_pack_tree  # noqa: E402
+
+RTOL, ATOL = 1e-4, 1e-5
+ARCHS = ["qwen2-7b", "llama-tiny"]
+TCFG = TrainConfig(rank=4, min_dim_for_lowrank=32)
+JTCFG = JTrainConfig(optimizer="lowrank_adam", rank=4,
+                     min_dim_for_lowrank=32)
+
+
+def _pair(arch, seed=0):
+    cfg, jcfg = get_config(arch).reduced(), jget_config(arch).reduced()
+    jp = jlm.init_params(jcfg, jax.random.key(seed))
+    tp = convert.params_from_numpy(jax.tree.map(np.asarray, jp),
+                                   device="cpu")
+    return cfg, jcfg, jp, tp
+
+
+def _stores(cfg, jcfg, n_tenants, seed=1, scale=0.05):
+    js = JStore(jcfg, JTCFG, max_tenants=n_tenants)
+    ts = AdapterStore(cfg, TCFG, max_tenants=n_tenants, device="cpu")
+    rng = np.random.default_rng(seed)
+    projs = [scale * rng.standard_normal(v.shape).astype(np.float32)
+             for v in js.projs]
+    for t in range(n_tenants):
+        bs = [scale * rng.standard_normal(b.shape[:-3] + b.shape[-2:])
+              .astype(np.float32) for b in js.b_full]
+        js.add_tenant(f"t{t}", bs, projs)
+        ts.add_tenant(f"t{t}", bs, projs)
+    return js, ts
+
+
+def _close(got, want):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("arch", ARCHS + ["qwen2-7b-full"])
+def test_layout_groups_match_jax(arch):
+    full = arch.endswith("-full")
+    name = arch.removesuffix("-full")
+    cfg, jcfg = get_config(name), jget_config(name)
+    tcfg, jtcfg = TrainConfig(), JTrainConfig()
+    if not full:
+        cfg, jcfg, tcfg, jtcfg = cfg.reduced(), jcfg.reduced(), TCFG, JTCFG
+    got = build_layout(lm.param_specs(cfg), tcfg)
+    want = jsubspace.build_layout(jlm.abstract_params(jcfg), jtcfg)
+    assert [tuple(g) for g in got.groups] == \
+        [(g.shape, g.rank, g.leaf_idx) for g in want.groups]
+    assert got.dense_idx == want.dense_idx
+    assert got.n_leaves == want.n_leaves
+    if full:    # every projection and the unembedding, all at r = 128
+        assert {g.rank for g in got.groups} == {128}
+        assert sum(len(g.leaf_idx) for g in got.groups) == 8
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_tree_converts_one_to_one(arch):
+    cfg, jcfg, jp, tp = _pair(arch)
+    jflat = jax.tree_util.tree_flatten_with_path(jp)[0]
+    tflat = tree_flatten_with_path(tp)
+    assert [jsubspace._path_str(p) for p, _ in jflat] == \
+        ["/" + "/".join(p) for p, _ in tflat]
+    for (_, a), (_, t) in zip(jflat, tflat):
+        assert tuple(a.shape) == tuple(t.shape)
+        np.testing.assert_array_equal(np.asarray(a), t.numpy())
+    specs = tree_flatten_with_path(lm.param_specs(cfg))
+    assert [tuple(s.shape) for _, s in specs] == \
+        [tuple(t.shape) for _, t in tflat]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_params_follow_the_reference_laws(arch):
+    cfg = get_config(arch).reduced()
+    p = lm.init_params(cfg, seed=3, device="cpu")
+    d = cfg.d_model
+    wq = p["layers"]["attn"]["wq"]
+    assert wq.dtype == torch.float32
+    assert abs(wq.std().item() * d ** 0.5 - 1.0) < 0.05   # 1/sqrt(fan_in)
+    assert abs(p["embed"]["tok"].std().item() - 0.02) < 0.002
+    assert torch.equal(p["final_norm"], torch.ones(d))
+    if cfg.qkv_bias:
+        assert not p["layers"]["attn"]["bq"].any()
+    again = lm.init_params(cfg, seed=3, device="cpu")
+    assert torch.equal(again["unembed"], p["unembed"])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_logits_match_jax_with_lrpack(arch):
+    cfg, jcfg, jp, tp = _pair(arch)
+    js, ts = _stores(cfg, jcfg, 2)
+    toks = np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (1, 7)).astype(np.int32)
+    for tenant in ("t0", "t1"):
+        jst = jlm.alloc_decode_state(jcfg, 1, 16)
+        jlg, jst = jlm.prefill(js.lrpack_tree(jp, tenant),
+                               jnp.asarray(toks), jcfg, jst)
+        tst = lm.alloc_decode_state(cfg, 1, 16, device="cpu")
+        tlg, tst = lm.prefill(ts.lrpack_tree(tp, tenant),
+                              torch.as_tensor(toks), cfg, tst)
+        _close(tlg, jlg)
+        _close(tst.kv.k, jst.kv.k)
+        _close(tst.kv.v, jst.kv.v)
+        assert tst.pos == int(jst.pos) == 7
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_paged_decode_logits_match_jax_with_batch_lrpack(arch):
+    """Teacher-forced decode over a shared arena: two slots on different
+    tenants at different depths plus one inactive slot."""
+    cfg, jcfg, jp, tp = _pair(arch, seed=1)
+    js, ts = _stores(cfg, jcfg, 2, seed=2)
+    page, n_pages, B = 4, 10, 3
+    jst = jlm.alloc_paged_state(jcfg, B, n_pages, page, 16)
+    tst = lm.alloc_paged_state(cfg, B, n_pages, page, 16, device="cpu")
+    rng = np.random.default_rng(6)
+    kk, vv = (rng.standard_normal(jst.kv_k.shape).astype(np.float32)
+              for _ in range(2))
+    pt = np.full((B, 4), -1, np.int32)
+    pt[0, :2] = [0, 1]
+    pt[1, :3] = [5, 2, 7]
+    lens = np.array([3, 9, 0], np.int32)
+    jst = jst._replace(kv_k=jnp.asarray(kk), kv_v=jnp.asarray(vv),
+                       page_table=jnp.asarray(pt), lengths=jnp.asarray(lens))
+    tst = tst._replace(kv_k=torch.tensor(kk), kv_v=torch.tensor(vv),
+                       page_table=torch.tensor(pt),
+                       lengths=torch.tensor(lens))
+    tenants = np.array([1, 0, 0])
+    tok = np.array([[5], [9], [0]], np.int32)
+    for _ in range(3):
+        jlg, jst = jlm.decode_step_paged(
+            jbatched(jp, js.layout, js.b_full, js.projs,
+                     jnp.asarray(tenants)), jnp.asarray(tok), jcfg, jst)
+        tlg, tst = lm.decode_step_paged(
+            batched_pack_tree(tp, ts.layout, ts.b_full, ts.projs,
+                              torch.tensor(tenants)),
+            torch.tensor(tok), cfg, tst)
+        _close(tlg[:2], jlg[:2])          # row 2 is inactive
+        np.testing.assert_array_equal(tst.lengths.numpy(),
+                                      np.asarray(jst.lengths))
+        tok = np.asarray(jnp.argmax(jlg[:, -1], -1))[:, None]
+        tok = tok.astype(np.int32)
+    _close(tst.kv_k, jst.kv_k)
+    _close(tst.kv_v, jst.kv_v)
+
+
+# (page_table, lengths) of 4 slots over 3 pages of 4: some unmapped slots
+# clamp onto page 0 at the slot a mapped row writes, so a redirected
+# write that carried the old value would race the real one
+PAGED_WRITES = {
+    "mixed": ([[0, -1], [-1, -1], [2, 1], [-1, -1]], [1, 1, 5, 0]),
+    "none mapped": ([[-1, -1]] * 4, [0, 3, 1, 0]),
+    "all mapped": ([[0, -1], [1, -1], [2, -1], [-1, 0]], [0, 3, 2, 7]),
+}
+
+
+@pytest.mark.parametrize("case", PAGED_WRITES)
+def test_paged_write_matches_jax_and_drops_unmapped(case):
+    from repro.models.attention import paged_write as jpaged_write
+    from repro_torch.models.attention import paged_write
+    pt, lens = (np.array(a, np.int32) for a in PAGED_WRITES[case])
+    rng = np.random.default_rng(7)
+    arena = rng.standard_normal((3, 4, 2, 3)).astype(np.float32)
+    new = rng.standard_normal((4, 1, 2, 3)).astype(np.float32)
+    want = np.asarray(jpaged_write(jnp.asarray(arena), jnp.asarray(new),
+                                   jnp.asarray(pt), jnp.asarray(lens)))
+    got = torch.tensor(arena)
+    out = paged_write(got, torch.tensor(new), torch.tensor(pt),
+                      torch.tensor(lens))
+    assert out is got                          # written in place
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_effective_weight_matches_jax():
+    cfg, jcfg, jp, tp = _pair("llama-tiny")
+    js, ts = _stores(cfg, jcfg, 1)
+    spec = ts.layout.groups[0]
+    i = spec.leaf_idx[0]
+    jleaf = jax.tree_util.tree_leaves(js.lrpack_tree(jp, "t0"),
+                                      is_leaf=lambda x: isinstance(
+                                          x, JLRPack))[i]
+    tleaf = [x for _, x in tree_flatten_with_path(
+        ts.lrpack_tree(tp, "t0"))][i]
+    assert isinstance(tleaf, LRPack) and weight_of(tleaf) is tleaf.w
+    _close(effective_weight(tleaf), jeffective(jleaf))
+    assert weight_of(tleaf.w) is tleaf.w
+
+
+def test_other_families_are_refused():
+    cfg = dataclasses.replace(get_config("llama-tiny"), family="moe",
+                              num_experts=4)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        lm.param_specs(cfg)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        lm.alloc_paged_state(cfg, 1, 2, 4, 8, device="cpu")
