@@ -2,19 +2,35 @@
 
     python3 chip_smoke.py
 
-1. Builds the CUDA kernel from ``src/repro_torch/kernels/csrc``.
+1. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+   ``nvcc`` per source, all started together).
 2. Holds both forms of the low-rank forward kernel (shared B at prefill,
    M = 128, or 1 for the unembedding; one B per row at decode, batch 4 x
-   seq 1) against their
-   plain PyTorch version at the five (K, N) shapes of qwen2-7b, in bf16,
-   and times kernel, plain version and a cuBLAS yardstick.
-3. Serves qwen2-7b at full width and depth (28 layers) in bf16 with 4
+   seq 1) against their plain PyTorch version at the five (K, N) shapes
+   of qwen2-7b, in bf16, and times kernel, plain version and a cuBLAS
+   yardstick.
+3. Holds the training kernels against their plain versions at the
+   llama-100m shapes, and times them the same way: the forward with its
+   ``p`` residual and the backward at M = 16384 (batch 64 x seq 256) for
+   the four (K, N) of the model, the merge at its four group shapes
+   (bf16 W and V, fp32 B), subspace-Adam at the four group B shapes.
+4. Serves qwen2-7b at full width and depth (28 layers) in bf16 with 4
    tenants: 8 requests of 128 prompt tokens and 32 new tokens through
    the continuous-batching engine, and checks that the main path
-   launched the kernel in both forms.
-4. Checks lazy adapter serving against merged weights on a 2-layer
+   launched the forward kernel in both forms.
+5. Checks lazy adapter serving against merged weights on a 2-layer
    full-width cut in fp32, and that a paged decode step makes no host
    sync.
+6. Trains llama-100m at full width and depth (12 layers) with
+   ``lowrank_adam``: bf16 compute over fp32 B masters and moments,
+   Stiefel V at r = 128, batch 64 x seq 256, lazy_k = 4, 14 steps
+   (three outer merges), and checks that the losses are finite and fall
+   and that the path launched all four training kernels at every shape;
+   then profiles two more steps.
+7. Trains a 2-layer full-width cut of llama-100m in fp32 (TF32 off) for
+   5 steps with lazy_k = 2 twice, from the same weights, V draws and
+   batches: through the kernels on the card and through the plain
+   versions on the CPU, and holds the per-step losses together.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the one before that the
@@ -315,14 +331,330 @@ def lazy_equals_merged(dev, mods):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Training (llama-100m)
+# ---------------------------------------------------------------------------
+
+FP32_FLOP_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+TRAIN_ARCH = "llama-100m"
+TRAIN_BATCH, TRAIN_SEQ = 64, 256
+TRAIN_M = TRAIN_BATCH * TRAIN_SEQ
+# (K, N) the low-rank forward and backward see in llama-100m -> leaves
+TRAIN_SHAPES = {(640, 640): "wq,wk,wv,wo", (640, 1712): "w_gate,w_up",
+                (1712, 640): "w_down", (640, 32256): "unembed"}
+# the grouped weight buffers the merge sees -> leaves
+MERGE_SHAPES = {(4, 12, 640, 640): "wq,wk,wv,wo",
+                (2, 12, 640, 1712): "w_gate,w_up",
+                (1, 12, 1712, 640): "w_down", (1, 640, 32256): "unembed"}
+TRAIN_REPLACES = {
+    "lowrank_forward[p]": "src/repro/kernels/lowrank_forward.py:72",
+    "lowrank_backward": "src/repro/kernels/lowrank_backward.py:64",
+    "lowrank_merge": "src/repro/kernels/lowrank_update.py:38",
+    "subspace_adam": "src/repro/kernels/subspace_adam.py:80"}
+TRAIN_SOURCES = {
+    "lowrank_forward[p]": "src/repro_torch/kernels/csrc/lowrank_forward.cu",
+    "lowrank_backward": "src/repro_torch/kernels/csrc/lowrank_backward.cu",
+    "lowrank_merge": "src/repro_torch/kernels/csrc/lowrank_merge.cu",
+    "subspace_adam": "src/repro_torch/kernels/csrc/subspace_adam.cu"}
+ADAM = dict(beta1=0.9, beta2=0.999, eps=1e-8, wd=0.05)
+
+
+def time_auto(fn, budget_s=0.3):
+    """ms per call: one warm-up call, one timed call, then as many calls
+    (3 to 20) as fit in ``budget_s``."""
+    fn()
+    once = time_ms(fn, iters=1, warmup=0)
+    iters = int(max(3, min(20, budget_s * 1e3 / max(once, 1e-3))))
+    return time_ms(fn, iters=iters, warmup=0)
+
+
+def bound_of(nbytes, ops, peak):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _agree(name, got, want, tol_max, tol_elt=0.0):
+    """max |got - want| within tol_max * max|want| + tol_elt * |want|
+    everywhere; returns the max abs error."""
+    err = (got.float() - want.float()).abs()
+    scale = want.float().abs().max().item()
+    ok = bool((err <= tol_max * scale + tol_elt * want.float().abs())
+              .all().item())
+    if not ok or not torch.isfinite(got).all().item():
+        raise SystemExit(f"kernel disagrees with its plain version: {name} "
+                         f"max_abs_err={err.max().item():.4g} "
+                         f"(max|want|={scale:.4g})")
+    return err.max().item()
+
+
+def compare_train_kernels(mods, dev):
+    """Phase 3: the training kernels at the llama-100m shapes."""
+    ref, dispatch = mods["ref"], mods["dispatch"]
+    lf, lb, lu, sa = mods["lf"], mods["lb"], mods["lu"], mods["sa"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    bf = torch.bfloat16
+    rows = []
+
+    def row(kernel, shape, leaves, err, tol, ms, plain_ms, library_ms,
+            bound):
+        bms, by = bound
+        rows.append(dict(kernel=kernel, shape=shape, leaves=leaves,
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bms, bound_by=by))
+        log(f"[kernel] {kernel:18s} {str(shape):22s} ({leaves}) "
+            f"max_abs_err={err:.4g} (tol {tol}) ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+            f"bound_ms={bms:.4f} ({by})")
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    M, r = TRAIN_M, RANK
+    for (K, N), leaves in TRAIN_SHAPES.items():
+        x = randn(M, K).to(bf)
+        w = randn(K, N, scale=K ** -0.5).to(bf)
+        v = randn(K, r, scale=r ** -0.5).to(bf)
+        b = randn(N, r, scale=0.02).to(bf)
+        # forward with p
+        y, p = lf.lowrank_forward(x, w, v, b, return_p=True)
+        torch.cuda.synchronize()
+        want_y, want_p = ref.lowrank_forward(x, w, v, b, return_p=True)
+        err = max(_agree(f"forward[p] y K={K} N={N}", y, want_y, RTOL, RTOL),
+                  _agree(f"forward[p] p K={K} N={N}", p, want_p, RTOL, RTOL))
+        del y, want_y, want_p
+        nbytes = 2 * (M * K + K * N + K * r + N * r + M * N + M * r)
+        ops = 2 * M * K * N + 2 * M * K * r + 2 * M * r * N
+
+        def lib_fwd():
+            pp = x @ v
+            return x @ w + pp @ b.T, pp
+        row("lowrank_forward[p]", (M, K, N), leaves, err,
+            f"{RTOL}*(max|y|+|y|)",
+            time_auto(lambda: lf.lowrank_forward(x, w, v, b, return_p=True)),
+            time_auto(lambda: ref.lowrank_forward(x, w, v, b,
+                                                  return_p=True)),
+            time_auto(lib_fwd), bound_of(nbytes, ops, BF16_FLOP_PER_S))
+        # backward
+        dy = randn(M, N, scale=1e-2).to(bf)
+        dx, db = lb.lowrank_backward(dy, w, v, b, p)
+        torch.cuda.synchronize()
+        want_dx, want_db = ref.lowrank_backward(dy, w, v, b, p)
+        err = max(_agree(f"backward dx K={K} N={N}", dx, want_dx, RTOL,
+                         RTOL),
+                  _agree(f"backward dB K={K} N={N}", db, want_db, 1e-4))
+        del dx, db, want_dx, want_db
+        nbytes = 2 * (M * N + K * N + K * r + N * r + M * r + M * K) \
+            + 4 * N * r
+        ops = 2 * M * N * K + 4 * M * N * r + 2 * M * r * K
+
+        def lib_bwd():
+            return dy @ w.T + (dy @ b) @ v.T, dy.T @ p
+        row("lowrank_backward", (M, K, N), leaves, err,
+            f"{RTOL}*(max|dx|+|dx|), 1e-4*max|dB|",
+            time_auto(lambda: lb.lowrank_backward(dy, w, v, b, p)),
+            time_auto(lambda: ref.lowrank_backward(dy, w, v, b, p)),
+            time_auto(lib_bwd), bound_of(nbytes, ops, BF16_FLOP_PER_S))
+        del x, w, v, b, p, dy
+        torch.cuda.empty_cache()
+
+    for shape, leaves in MERGE_SHAPES.items():
+        lead, (K, N) = shape[:-2], shape[-2:]
+        w = randn(*shape, scale=K ** -0.5).to(bf)
+        v = randn(*lead, K, r, scale=r ** -0.5).to(bf)
+        b = randn(*lead, N, r, scale=0.02)
+        got = lu.lowrank_merge(w, v, b)
+        torch.cuda.synchronize()
+        want = ref.lowrank_merge(w, v, b)
+        err = _agree(f"merge {shape}", got, want, RTOL, RTOL)
+        items = w.numel() // (K * N)
+        nbytes = 2 * (2 * K * N + K * r) * items + 4 * N * r * items
+        ops = 2 * K * N * r * items
+        w3, v3 = w.reshape(-1, K, N), v.reshape(-1, K, r)
+        b3t = b.reshape(-1, N, r).to(bf).transpose(1, 2)
+        row("lowrank_merge", shape, leaves, err, f"{RTOL}*(max|W'|+|W'|)",
+            time_auto(lambda: lu.lowrank_merge(w, v, b, out=got)),
+            time_auto(lambda: ref.lowrank_merge(w, v, b)),
+            time_auto(lambda: torch.baddbmm(w3, v3, b3t)),
+            bound_of(nbytes, ops, BF16_FLOP_PER_S))
+        del w, v, b, got, want, w3, v3, b3t
+        torch.cuda.empty_cache()
+
+    for shape, leaves in MERGE_SHAPES.items():
+        bshape = shape[:-2] + (shape[-1], r)
+        b, g = randn(*bshape, scale=0.02), randn(*bshape, scale=1e-3)
+        m, v = randn(*bshape, scale=1e-4), randn(*bshape, scale=1e-4) ** 2
+        step = torch.tensor(5, dtype=torch.int32, device=dev)
+        scalars = dispatch.adam_scalars(1e-3, step, ADAM["beta1"],
+                                        ADAM["beta2"], dev)
+        got = sa.subspace_adam(b, g, m, v, scalars, **ADAM)
+        torch.cuda.synchronize()
+        lr, bc1, bc2 = scalars
+        want = ref.subspace_adam(b, g, m, v, lr=lr, bc1=bc1, bc2=bc2, **ADAM)
+        err = max(_agree(f"adam {bshape} {n}", x, y, 1e-6)
+                  for n, x, y in zip("bmv", got, want))
+        n = b.numel()
+        pb = b.clone()
+        pb.grad = g
+        opt = torch.optim.AdamW([pb], lr=1e-3, betas=(ADAM["beta1"],
+                                                      ADAM["beta2"]),
+                                eps=ADAM["eps"], weight_decay=ADAM["wd"],
+                                fused=True)
+        row("subspace_adam", bshape, leaves, err, "1e-6*max|x|",
+            time_auto(lambda: sa.subspace_adam(b, g, m, v, scalars,
+                                               **ADAM)),
+            time_auto(lambda: ref.subspace_adam(b, g, m, v, lr=lr, bc1=bc1,
+                                                bc2=bc2, **ADAM)),
+            time_auto(opt.step), bound_of(28 * n, 15 * n, FP32_FLOP_PER_S))
+        del b, g, m, v, got, want, pb, opt
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train_config(configs, layers=None, dtype=None, **tkw):
+    cfg = configs.get_config(TRAIN_ARCH)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    if dtype is not None:
+        cfg = cfg.replace(dtype=dtype, param_dtype=dtype)
+    return cfg, configs.TrainConfig(rank=RANK, **tkw)
+
+
+def train(dev, mods, smi, cfg, tcfg, batch, seq, steps):
+    """Phase 6: the training path through the Trainer; returns the
+    trainer and the per-step losses."""
+    from repro_torch.data.synthetic import StatelessLoader
+    from repro_torch.train.trainer import Trainer
+    log(f"[train] {cfg.name} layers={cfg.num_layers} d_model={cfg.d_model} "
+        f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} dtype={cfg.dtype} "
+        f"rank={tcfg.rank} sampler={tcfg.sampler} batch={batch}x{seq} "
+        f"lazy_k={tcfg.lazy_k} lr={tcfg.lr}")
+    loader = StatelessLoader("lm", 0, device=dev, batch=batch, seq_len=seq,
+                             vocab=cfg.vocab_size)
+    tr = Trainer(cfg, tcfg, loader, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    for mod in mods["counters"]:
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    report = tr.run(steps, log=lambda s, loss, dt: log(
+        f"[train] step {s:3d} loss {loss:.4f} {1e3 * dt:.1f} ms"
+        + (" (after an outer merge)" if s > 1 and (s - 1) % tcfg.lazy_k == 0
+           else "")))
+    wall = time.perf_counter() - t0
+    losses = report.losses
+    tokens = batch * seq
+    steady = report.step_times[1:] or report.step_times
+    log(f"[train] {steps} steps, {report.outer_steps} outer merges, "
+        f"{tokens * steps / wall:.0f} tok/s over all steps, "
+        f"{tokens * len(steady) / sum(steady):.0f} tok/s over steps "
+        f"2..{steps}, {1e3 * sum(steady) / len(steady):.1f} ms/step there"
+        + (f", peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+           f"allocated on {smi}" if dev.type == "cuda" else ""))
+    if not all(map(lambda x: x == x and abs(x) < float("inf"), losses)):
+        raise SystemExit(f"training produced a non-finite loss: {losses}")
+    if report.outer_steps < 2:
+        raise SystemExit(f"only {report.outer_steps} outer merges ran")
+    last3 = sum(losses[-3:]) / 3
+    log(f"[train] first loss {losses[0]:.4f}, mean of the last 3 "
+        f"{last3:.4f}")
+    if not last3 < losses[0]:
+        raise SystemExit(f"training loss did not fall: first {losses[0]}, "
+                         f"mean of the last 3 {last3}")
+    return tr, losses
+
+
+def train_launches(mods):
+    """The launch counters of the training kernels, by JSON row key."""
+    lf, lb, lu, sa = mods["lf"], mods["lb"], mods["lu"], mods["sa"]
+    out = {}
+    for (K, N) in TRAIN_SHAPES:
+        out[("lowrank_forward[p]", (TRAIN_M, K, N))] = \
+            lf.LAUNCHES.get(("p", K, N), 0)
+        out[("lowrank_backward", (TRAIN_M, K, N))] = lb.LAUNCHES.get((K, N),
+                                                                   0)
+    for shape in MERGE_SHAPES:
+        out[("lowrank_merge", shape)] = lu.LAUNCHES.get(shape, 0)
+        bshape = shape[:-2] + (shape[-1], RANK)
+        out[("subspace_adam", bshape)] = sa.LAUNCHES.get(bshape, 0)
+    log("[train] launches " + ", ".join(
+        f"{k}{list(s)}={n}" for (k, s), n in out.items()))
+    return out
+
+
+def profile_train(tr, steps=2):
+    """Where a training step's time goes: device time by kernel over
+    ``steps`` inner steps (no outer merge among them), against the host
+    clock.  The profiler slows the host, so the idle share is an upper
+    bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if any((tr.step + i) % tr.tcfg.lazy_k == 0 for i in range(steps)):
+        raise SystemExit("profile window would include an outer merge")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.run(steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    dev_us = sum(e.self_device_time_total for e in rows)
+    if dev_us <= 0:
+        raise SystemExit("the profiler saw no device time")
+    log(f"[profile-train] {steps} inner steps: host {1e3 * wall / steps:.1f} "
+        f"ms/step, device busy {dev_us / 1e3 / steps:.1f} ms/step "
+        f"({100 * dev_us / 1e6 / wall:.1f}% busy)")
+    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    for e in rows[:12]:
+        log(f"[profile-train] {e.self_device_time_total / 1e3 / steps:8.2f} "
+            f"ms/step  x{e.count // steps:5d}  {e.key[:90]}")
+
+
+def train_equals_plain(dev, mods, configs, steps=5):
+    """Phase 7: the kernel route on the card against the plain route on
+    the CPU, fp32, from the same weights, V draws and batches."""
+    from repro_torch.data.synthetic import StatelessLoader
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_map
+    from repro_torch.train.trainer import Trainer
+    cfg, tcfg = train_config(configs, layers=2, dtype="float32",
+                             compute_dtype="float32", lazy_k=2, lr=1e-3,
+                             warmup_steps=1, total_steps=steps)
+    cpu = torch.device("cpu")
+    params = lm.init_params(cfg, seed=7, device=cpu)
+    loader = StatelessLoader("lm", 3, device=cpu, batch=4, seq_len=256,
+                             vocab=cfg.vocab_size)
+    card, plain = (
+        Trainer(cfg, tcfg, loader, device=where,
+                params=tree_map(lambda t: t.to(where), params),
+                sample_device=cpu).run(steps).losses
+        for where in (dev, cpu))
+    tol = 1e-4     # relative: fp32 on both sides, sums in another order
+    worst = max(abs(a - b) / abs(b) for a, b in zip(card, plain))
+    log(f"[train==plain] {cfg.name} 2 layers fp32 batch 4x256 lazy_k=2, "
+        f"{steps} steps: card {card}, cpu {plain}, max rel diff "
+        f"{worst:.3g} (tol {tol})")
+    if not worst <= tol:
+        raise SystemExit(f"training through the kernels disagrees with the "
+                         f"plain route: {worst} > {tol}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         sys.exit(2)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch import configs
-    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import _build, dispatch, ref
+    from repro_torch.kernels import lowrank_backward as lb
     from repro_torch.kernels import lowrank_forward as lf
+    from repro_torch.kernels import lowrank_update as lu
+    from repro_torch.kernels import subspace_adam as sa
     from repro_torch.models import lm
     from repro_torch import serve as serve_mod
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -336,16 +668,34 @@ def main():
         f"{torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    built = _build.build("lowrank_forward", force=True)
-    log(f"[build] lowrank_forward.cu in {built['seconds']:.1f} s")
-    for line in built["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    sources = ("lowrank_forward", "lowrank_backward", "lowrank_merge",
+               "subspace_adam")
+    built = _build.build_all(sources, force=True)
+    log(f"[build] {len(sources)} sources in parallel in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, rep in built.items():
+        log(f"[build] {name}.cu: nvcc {rep['seconds']:.1f} s")
+        for line in rep["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build]   {line.strip()}")
 
+    mods = dict(lf=lf, lb=lb, lu=lu, sa=sa, ref=ref, dispatch=dispatch,
+                lm=lm, configs=configs, serve=serve_mod,
+                counters=(lf, lb, lu, sa))
     rows = compare_kernels(lf, ref, dev)
-    mods = dict(lf=lf, lm=lm, configs=configs, serve=serve_mod)
+    train_rows = compare_train_kernels(mods, dev)
     counts = serve(dev, mods, smi)
     lazy_equals_merged(dev, mods)
+
+    cfg, tcfg = train_config(configs, lazy_k=4, lr=3e-3, warmup_steps=2,
+                             total_steps=1000)
+    tr, _ = train(dev, mods, smi, cfg, tcfg, TRAIN_BATCH, TRAIN_SEQ,
+                  steps=14)
+    train_counts = train_launches(mods)
+    profile_train(tr)
+    del tr
+    torch.cuda.empty_cache()
+    train_equals_plain(dev, mods, configs)
 
     kernels = []
     for row in rows:
@@ -354,6 +704,16 @@ def main():
                     f"N={row['N']} ({row['leaves']})",
             "route": "cuda", "source": SOURCE, "replaces": REPLACES,
             "launches": counts.get((row["form"], row["K"], row["N"]), 0),
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    for row in train_rows:
+        kernels.append({
+            "name": f"{row['kernel']} {list(row['shape'])} "
+                    f"({row['leaves']})",
+            "route": "cuda", "source": TRAIN_SOURCES[row["kernel"]],
+            "replaces": TRAIN_REPLACES[row["kernel"]],
+            "launches": train_counts[(row["kernel"], row["shape"])],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

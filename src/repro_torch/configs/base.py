@@ -1,9 +1,10 @@
 """Model and serving configuration dataclasses.
 
 A copy of ``repro.configs.base``: the whole of ``ModelConfig`` (with
-``reduced()``), and the ``TrainConfig`` fields that serving reads.  The
-port keeps its own copy so that it never imports the JAX package;
-``tests/test_torch_isolation.py`` holds the two field by field.
+``reduced()``), and the ``TrainConfig`` fields that serving and training
+read.  The port keeps its own copy so that it never imports the JAX
+package; ``tests/test_torch_isolation.py`` holds the two field by
+field.
 """
 from __future__ import annotations
 
@@ -137,11 +138,33 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The subset of the reference ``TrainConfig`` that serving reads:
-    which leaves carry a low-rank adapter and at what rank.  The
-    optimizer fields arrive with the training slice."""
+    """The fields of the reference ``TrainConfig`` that the port reads:
+    which leaves carry a low-rank adapter and at what rank (serving), and
+    the knobs of Algorithm 1 trained as ``lowrank_adam`` on fp32 state.
+    Defaults equal the reference's.  Values the port does not implement
+    yet (int8 state, bf16 masters, gradient accumulation, samplers other
+    than Stiefel, other methods) are refused where they are read."""
+    optimizer: str = "lowrank_adam"   # registry name (repro_torch.methods)
+    sampler: str = "stiefel"          # projection law of V
     rank: int = 128                   # projection rank r
+    c: float = 1.0                    # weak-unbiasedness scale
+    lazy_k: int = 200                 # inner steps per projection
+    lr: float = 1e-3
+    schedule: str = "cosine"          # 'cosine' | 'constant'
     lowrank_exclude: str = r"(/embed/|/tok$|/pos$|router|conv_w)"
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.05
+    grad_clip: float = 1.0
+    grad_accum: int = 1               # microbatches per step (1 only)
+    warmup_steps: int = 1000
+    total_steps: int = 100_000
+    reset_moments: bool = True        # reset Adam moments at resample
     min_dim_for_lowrank: int = 128    # matrices with n below this stay dense
-    compute_dtype: str = "auto"       # hot-path compute: 'auto' | 'bfloat16'
+    compute_dtype: str = "auto"       # hot-path compute: 'auto' (bf16 on
+                                      # CUDA, fp32 on the CPU) | 'bfloat16'
                                       # | 'float32'
+    state_dtype: str = "float32"      # subspace m/v storage (fp32 only)
+    master_dtype: str = "float32"     # subspace B master storage (fp32 only)
+    seed: int = 0

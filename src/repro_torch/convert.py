@@ -1,11 +1,14 @@
-"""Carry weights across from the JAX package.
+"""Carry weights and training state across from the JAX package.
 
 The reference's parameter tree, as nested dicts of numpy arrays (for
 example ``jax.tree.map(np.asarray, lm.init_params(cfg, key))``), becomes
 the port's tree under the same names, the same ``(L, k, n_out)``
-stacking and the same ``y = x @ W`` orientation.  Adapters need no
-conversion: ``AdapterStore.add_tenant`` takes the numpy ``B`` and ``V``
-buffers the JAX package hands over.
+stacking and the same ``y = x @ W`` orientation.  Its grouped training
+state (``repro.optim.subspace.SubspaceState`` with numpy leaves) becomes
+the port's grouped master weights and subspace state
+(:func:`subspace_from_numpy`).  Adapters need no conversion:
+``AdapterStore.add_tenant`` takes the numpy ``B`` and ``V`` buffers the
+JAX package hands over.
 """
 from __future__ import annotations
 
@@ -13,7 +16,8 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .models.common import tree_map
+from .models.common import DTYPES, tree_map
+from .optim import subspace
 
 
 def to_tensor(a, device, dtype=None) -> torch.Tensor:
@@ -34,3 +38,50 @@ def params_from_numpy(tree, device=None, dtype=None) -> dict:
     numpy arrays).  ``dtype`` casts the floating leaves."""
     dev = resolve_device(device)
     return tree_map(lambda a: to_tensor(a, dev, dtype), tree)
+
+
+def _field(obj, name):
+    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def subspace_from_numpy(params, tcfg, *, groups=None, dense=None, step=0,
+                        outer_step=0, gen=None, device=None):
+    """The port's ``(GroupedParams, SubspaceState)`` from the reference's.
+
+    ``params`` is the model-shaped tree of numpy arrays (the reference's
+    ``subspace.params_of(grouped_params)``); the grouped master buffers
+    are stacked from it in the reference's group order.  ``groups`` holds
+    one item per group with fields ``proj``, ``b``, ``m`` and ``v`` (the
+    reference's ``GroupedLowRankSlot`` with numpy leaves, or dicts);
+    ``dense`` one item per dense leaf with ``m`` and ``v`` (its
+    ``DenseSlot``).  Missing parts start as the port's ``init`` makes
+    them (fresh V from ``gen``, zero B and moments).  ``V`` is stored in
+    the run's compute dtype, everything else as given.
+    """
+    dev = resolve_device(device)
+    tree = params_from_numpy(params, dev)
+    if gen is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(tcfg.seed + 1)
+    gparams, state = subspace.init_grouped(tree, tcfg, gen)
+    cdt = DTYPES[state.layout.compute_dtype]
+    if groups is not None:
+        state.groups = tuple(
+            slot._replace(proj=to_tensor(_field(g, "proj"), dev, cdt),
+                          b=to_tensor(_field(g, "b"), dev),
+                          m=to_tensor(_field(g, "m"), dev),
+                          v=to_tensor(_field(g, "v"), dev))
+            for slot, g in zip(state.groups, groups, strict=True))
+    if dense is not None:
+        state.dense = tuple(
+            subspace.DenseSlot(m=to_tensor(_field(d, "m"), dev),
+                               v=to_tensor(_field(d, "v"), dev))
+            for d in dense)
+        if len(state.dense) != len(state.layout.dense_idx):
+            raise ValueError(
+                f"{len(state.dense)} dense slots for "
+                f"{len(state.layout.dense_idx)} dense leaves")
+    state.step = torch.tensor(int(step), dtype=torch.int32, device=dev)
+    state.outer_step = torch.tensor(int(outer_step), dtype=torch.int32,
+                                    device=dev)
+    return gparams, state

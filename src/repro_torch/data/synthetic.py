@@ -1,0 +1,53 @@
+"""Deterministic, restart-safe synthetic LM data.
+
+Counterpart of ``repro.data.synthetic.lm_batch`` and
+``StatelessLoader("lm")``.  Every batch is a pure function of
+``(seed, step)``: a restarted run resumes with exactly the stream it
+would have seen.  The law is the reference's — a random-walk mode picks
+one of ``n_modes`` vocabulary slices, and tokens are uniform in that
+slice — drawn from a ``torch.Generator`` keyed by ``(seed, step)``.
+JAX's threefry and torch's generators give different numbers, so the
+two streams agree in law, not bit for bit.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import resolve_device
+
+
+def _generator(seed: int, step: int, device) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed((int(seed) * 1_000_003 + int(step)) % (2 ** 63))
+    return gen
+
+
+def lm_batch(seed: int, step: int, *, batch: int, seq_len: int, vocab: int,
+             n_modes: int = 8, device=None) -> dict:
+    """Tokens + next-token labels (int32, ``(batch, seq_len)``), made on
+    ``device`` (cuda unless the caller names another)."""
+    dev = resolve_device(device)
+    gen = _generator(seed, step, dev)
+    i64 = dict(dtype=torch.int64, device=dev, generator=gen)
+    mode0 = torch.randint(0, n_modes, (batch, 1), **i64)
+    walk = torch.rand((batch, seq_len + 1), generator=gen, device=dev) < 0.05
+    mode = (mode0 + torch.cumsum(walk.long(), dim=1)) % n_modes
+    width = max(vocab // n_modes, 2)
+    offs = torch.randint(0, width, (batch, seq_len + 1), **i64)
+    toks = (mode * width + offs).int()
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+class StatelessLoader:
+    """Step-indexed loader: ``loader(step) -> batch``.  Only the ``"lm"``
+    source is ported."""
+
+    def __init__(self, kind: str, seed: int, device=None, **kw):
+        if kind != "lm":
+            raise NotImplementedError(
+                f"data source {kind!r} is not ported to repro_torch yet")
+        self.kind, self.seed, self.kw = kind, seed, dict(kw)
+        self.device = resolve_device(device)
+
+    def __call__(self, step: int) -> dict:
+        return lm_batch(self.seed, step, device=self.device, **self.kw)

@@ -3,8 +3,10 @@ library with a plain C interface, loaded with ``ctypes``.
 
 Each source under ``csrc/`` compiles at first use into ``build/`` beside
 this file (listed in ``.gitignore``), under a name keyed by a hash of
-the source and the flags, so an edited source never loads a stale
-library.  Nothing is built when the package is imported.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source never loads a stale library.  Nothing is built when the
+package is imported.  :func:`build_all` compiles several sources at
+once, one ``nvcc`` process each.
 """
 from __future__ import annotations
 
@@ -39,10 +41,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}.{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}.{h.hexdigest()[:16]}.so"
 
 
 def build(name: str, force: bool = False) -> dict:
@@ -67,6 +70,16 @@ def build(name: str, force: bool = False) -> dict:
     # atomic rename: a concurrent process never loads a half-written file
     os.replace(tmp, out)
     return {"path": out, "seconds": secs, "log": res.stdout + res.stderr}
+
+
+def build_all(names, force: bool = False) -> dict:
+    """Compile several sources in parallel (one ``nvcc`` each, all
+    started together); ``{name: build report}`` as :func:`build` gives
+    it.  Raises on the first failed build."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        futures = {n: pool.submit(build, n, force) for n in names}
+        return {n: f.result() for n, f in futures.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

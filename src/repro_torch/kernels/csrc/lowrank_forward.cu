@@ -3,11 +3,14 @@
 //
 //     y = x W + (x V) B^T        x (M,K), W (K,N), V (K,r), B (N,r)
 //
-// in two call forms: a shared B (prefill through LRPack) and one B per
-// batch row (decode through BatchLRPack: flattened row m uses
-// B[m / seq]).  x, W, V, B and y share one dtype, fp32 or bf16; every
-// product accumulates in fp32 and p = x V is kept in fp32 for the B^T
-// product, as the TPU kernel keeps it in VMEM.
+// in two call forms: a shared B (prefill through LRPack, and the training
+// forward) and one B per batch row (decode through BatchLRPack: flattened
+// row m uses B[m / seq]).  x, W, V, B and y share one dtype, fp32 or
+// bf16; every product accumulates in fp32 and p = x V is kept in fp32 for
+// the B^T product, as the TPU kernel keeps it in VMEM.  The training form
+// (the TPU kernel's return_p) also writes p in x's dtype, the only
+// activation the backward keeps, from the same reduce that builds the
+// fp32 p (step 2 below).
 //
 // The TPU kernel builds p only while its sequential grid sweeps the
 // j == 0 column slab and reuses the VMEM scratch for later slabs.  GPU
@@ -16,7 +19,8 @@
 // port runs four launches on the caller's stream:
 //
 //   1. gemm_partial: p_part[s] = x[:, Ks] V[Ks, :]  (split K, fp32)
-//   2. sum_splits:   p = sum_s p_part[s]            (fixed order)
+//   2. sum_splits:   p = sum_s p_part[s]            (fixed order; with
+//                    return_p also p_out = p cast to x's dtype)
 //   3. gemm_partial: y_part[s] = x[:, Ks] W[Ks, :]  (split K, fp32)
 //   4. finish:       y = sum_s y_part[s] + p B[row]^T, cast to x's dtype
 //
@@ -116,14 +120,18 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// out[i] = sum_s part[s * count + i], s in order
+// out[i] = sum_s part[s * count + i], s in order; cast[i] = out[i] in T
+// when cast is given
+template <typename T>
 __global__ void sum_splits(const float* __restrict__ part,
-                           float* __restrict__ out, int64_t count, int S) {
+                           float* __restrict__ out, T* __restrict__ cast,
+                           int64_t count, int S) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= count) return;
   float s = 0.f;
   for (int j = 0; j < S; ++j) s += part[(int64_t)j * count + i];
   out[i] = s;
+  if (cast != nullptr) store(cast + i, s);
 }
 
 // y[m, n] = sum_s y_part[s, m, n] + sum_c p[m, c] b[m / seq][n, c]
@@ -162,7 +170,8 @@ inline int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
 template <typename T>
 int launch_all(const void* x, const void* w, const void* v, const void* b,
-               void* y, float* p_part, int s_p, float* p, float* y_part,
+               void* y, void* p_out, float* p_part, int s_p, float* p,
+               float* y_part,
                int s_y, int M, int K, int N, int r, int seq,
                int64_t b_stride, cudaStream_t st) {
   cudaError_t err;
@@ -175,8 +184,8 @@ int launch_all(const void* x, const void* w, const void* v, const void* b,
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const int64_t p_count = (int64_t)M * r;
-  sum_splits<<<(unsigned)ceil_div(p_count, 256), 256, 0, st>>>(
-      p_part, p, p_count, s_p);
+  sum_splits<T><<<(unsigned)ceil_div(p_count, 256), 256, 0, st>>>(
+      p_part, p, static_cast<T*>(p_out), p_count, s_p);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const int kc_y = (int)(ceil_div(ceil_div(K, s_y), BK) * BK);
@@ -199,22 +208,24 @@ int launch_all(const void* x, const void* w, const void* v, const void* b,
 
 // dtype: 0 = float32, 1 = bfloat16.  seq: rows per adapter (M for a
 // shared B); b_stride: elements between adapters (0 for a shared B).
+// p_out (M, r) in x's dtype receives p, or is null (serving).
 // p_part (s_p, M, r), p (M, r) and y_part (s_y, M, N) are fp32 scratch.
 // Returns cudaGetLastError() of the launches (0 = all queued).
 extern "C" int lowrank_forward_launch(int dtype, const void* x,
                                       const void* w, const void* v,
-                                      const void* b, void* y, float* p_part,
+                                      const void* b, void* y, void* p_out,
+                                      float* p_part,
                                       int s_p, float* p, float* y_part,
                                       int s_y, int M, int K, int N, int r,
                                       int seq, long long b_stride,
                                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_all<float>(x, w, v, b, y, p_part, s_p, p, y_part, s_y, M,
-                             K, N, r, seq, (int64_t)b_stride, st);
+    return launch_all<float>(x, w, v, b, y, p_out, p_part, s_p, p, y_part,
+                             s_y, M, K, N, r, seq, (int64_t)b_stride, st);
   if (dtype == 1)
-    return launch_all<__nv_bfloat16>(x, w, v, b, y, p_part, s_p, p, y_part,
-                                     s_y, M, K, N, r, seq,
+    return launch_all<__nv_bfloat16>(x, w, v, b, y, p_out, p_part, s_p, p,
+                                     y_part, s_y, M, K, N, r, seq,
                                      (int64_t)b_stride, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -2,19 +2,23 @@
 hand-written CUDA kernel ``csrc/lowrank_forward.cu``.
 
 Replaces the Pallas TPU kernel ``repro/kernels/lowrank_forward.py::
-lowrank_forward`` (its forward form; the ``return_p`` form belongs to
-training).  Two call forms share one kernel source:
+lowrank_forward``, both its forms.  Three call forms share one kernel
+source:
 
 * :func:`lowrank_forward` — one ``B (N, r)`` for every row (prefill,
   ``LRPack``);
+* :func:`lowrank_forward` with ``return_p=True`` — the same, and also
+  ``p = x V`` in x's dtype, the residual the training backward keeps
+  (the TPU kernel's ``return_p`` form);
 * :func:`lowrank_batch_forward` — one ``B`` per batch row,
   ``b (batch, N, r)`` (decode, ``BatchLRPack``).
 
 The route is chosen by the tensor's device alone: a CPU tensor takes the
 plain version in :mod:`.ref`; a CUDA tensor launches the kernel or
 raises.  There is no fallback.  ``LAUNCHES`` counts the kernel's
-launches per ``(form, K, N)``, so a run can show that its main path went
-through the kernel.
+launches per ``(form, K, N)`` — form ``"shared"``, ``"p"`` (return_p) or
+``"batched"`` — so a run can show that its main path went through the
+kernel.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ import torch
 
 from . import _build, ref
 
-# (form, K, N) -> launches on CUDA tensors; "shared" | "batched"
+# (form, K, N) -> launches on CUDA tensors; "shared" | "p" | "batched"
 LAUNCHES: collections.Counter = collections.Counter()
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -36,7 +40,7 @@ MIN_K_PER_SPLIT = 256
 
 
 def launches(form: str | None = None) -> int:
-    """Launches counted so far, of one form or of both."""
+    """Launches counted so far, of one form or of all."""
     return sum(n for (f, _, _), n in LAUNCHES.items()
                if form is None or f == form)
 
@@ -58,7 +62,7 @@ def _kernel():
     """The C entry point, built and loaded on first use."""
     fn = _build.load("lowrank_forward").lowrank_forward_launch
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, vp, vp, ci,
+    fn.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, ci, vp, vp, ci,
                    ci, ci, ci, ci, ci, ctypes.c_longlong, vp]
     fn.restype = ci
     return fn
@@ -92,11 +96,14 @@ def _check(x, w, v, b, b_ndim: int) -> None:
 
 
 def _launch(form: str, x2, w, v, b, seq: int, b_stride: int):
+    """Queue the kernel; returns y, or (y, p) for the ``"p"`` form."""
     M, K = x2.shape
     N, r = w.shape[1], v.shape[1]
     y = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
+    p_out = torch.empty((M, r), dtype=x2.dtype, device=x2.device) \
+        if form == "p" else None
     if M == 0:
-        return y
+        return y if p_out is None else (y, p_out)
     s_p, s_y = splits(M, r, K), splits(M, N, K)
     f32 = dict(dtype=torch.float32, device=x2.device)
     p_part = torch.empty((s_p, M, r), **f32)
@@ -106,6 +113,7 @@ def _launch(form: str, x2, w, v, b, seq: int, b_stride: int):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
         rc = _kernel()(DTYPE_CODE[x2.dtype], x2.data_ptr(), w.data_ptr(),
                        v.data_ptr(), b.data_ptr(), y.data_ptr(),
+                       None if p_out is None else p_out.data_ptr(),
                        p_part.data_ptr(), s_p, p.data_ptr(),
                        y_part.data_ptr(), s_y, M, K, N, r, seq, b_stride,
                        stream)
@@ -114,29 +122,31 @@ def _launch(form: str, x2, w, v, b, seq: int, b_stride: int):
             f"lowrank_forward kernel launch failed with CUDA error {rc} "
             f"(x {tuple(x2.shape)}, w {tuple(w.shape)}, r={r})")
     LAUNCHES[(form, K, N)] += 1
-    return y
+    return y if p_out is None else (y, p_out)
 
 
-def _route(x) -> bool:
+def _route(x, op: str = "lowrank_forward") -> bool:
     """True for the kernel (CUDA tensor), False for the plain version."""
     if x.device.type == "cpu":
         return False
     if x.device.type == "cuda":
         return True
-    raise ValueError(f"lowrank_forward: no route for device {x.device}")
+    raise ValueError(f"{op}: no route for device {x.device}")
 
 
 def lowrank_forward(x: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
-                    b: torch.Tensor) -> torch.Tensor:
+                    b: torch.Tensor, return_p: bool = False):
     """y = x W + (x V) Bᵀ.  x (M,K), w (K,N), v (K,r), b (N,r); y in
-    x's dtype."""
+    x's dtype.  ``return_p=True`` returns ``(y, p)`` with ``p = x V``
+    (M, r) in x's dtype; y is built from the fp32 p either way."""
     if not _route(x):
-        return ref.lowrank_forward(x, w, v, b)
+        return ref.lowrank_forward(x, w, v, b, return_p=return_p)
     if x.ndim != 2:
         raise ValueError(f"lowrank_forward: x must be (M, K), got "
                          f"{tuple(x.shape)}")
     _check(x, w, v, b, b_ndim=2)
-    return _launch("shared", x, w, v, b, seq=x.shape[0], b_stride=0)
+    return _launch("p" if return_p else "shared", x, w, v, b,
+                   seq=x.shape[0], b_stride=0)
 
 
 def lowrank_batch_forward(x: torch.Tensor, w: torch.Tensor,

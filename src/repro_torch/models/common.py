@@ -129,3 +129,18 @@ def act_dtype(cfg) -> torch.dtype:
 
 def prm_dtype(cfg) -> torch.dtype:
     return DTYPES[cfg.param_dtype]
+
+
+def resolve_compute_dtype(tcfg, device) -> torch.dtype:
+    """The hot-path compute dtype: what the packed W/B/V views, the fused
+    forward/backward and the merge read.  ``auto`` is bf16 on CUDA and
+    fp32 on the CPU, as the reference resolves it by backend; masters
+    and moments stay fp32 regardless."""
+    name = getattr(tcfg, "compute_dtype", "auto") or "auto"
+    if name == "auto":
+        return torch.bfloat16 if torch.device(device).type == "cuda" \
+            else torch.float32
+    if name not in DTYPES:
+        raise ValueError(f"compute_dtype {name!r}: expected one of "
+                         f"{', '.join(sorted(DTYPES))} or 'auto'")
+    return DTYPES[name]

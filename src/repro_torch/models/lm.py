@@ -1,4 +1,4 @@
-"""Decoder-only LM for serving, dense family.
+"""Decoder-only LM for training and serving, dense family.
 
 Counterpart of ``repro.models.lm`` for the dense family (``qwen2-7b``,
 the LLaMA grid).  Layers stay stacked on a leading ``L`` axis, as in the
@@ -12,6 +12,7 @@ step writes into the arenas of its ``PagedDecodeState``.
 
 Entry points:
   param_specs / init_params
+  forward_hidden(params, tokens, cfg)          -> ((B, S, d), aux)
   prefill(params, tokens, cfg, state)          -> (last logits, state)
   decode_step_paged(params, token, cfg, state) -> (logits, state)
 """
@@ -20,6 +21,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from .attention import (KVCache, blockwise_attention, cache_update,
@@ -176,6 +178,34 @@ def dense_block(h, p, cfg, **kw):
 
 def _embed(params, tokens, cfg):
     return params["embed"]["tok"][tokens.long()]
+
+
+# ---------------------------------------------------------------------------
+# Forward (train / eval): full sequence, loop over layers
+# ---------------------------------------------------------------------------
+
+def forward_hidden(params, tokens, cfg):
+    """(B, S) tokens -> ((B, S, d) final hidden after the final norm,
+    aux).  ``aux`` holds the reference's MoE loss terms, zero for the
+    dense family.
+
+    With ``cfg.remat`` each block runs under ``torch.utils.checkpoint``
+    (the reference's ``jax.checkpoint`` around the scan body): only the
+    block inputs are kept, and the backward recomputes the block.
+    """
+    _require_dense(cfg)
+    h = _embed(params, tokens, cfg)
+    for i in range(cfg.num_layers):
+        lp = _layer(params["layers"], i)
+
+        def block(h, lp=lp):
+            return dense_block(h, lp, cfg)[0]
+
+        h = checkpoint(block, h, use_reentrant=False) if cfg.remat \
+            else block(h)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, {"lb_loss": zero, "router_z": zero}
 
 
 def logits(params, hidden, cfg):

@@ -1,1 +1,3 @@
-"""Optimizer-side code of the port (the grouped adapter layout so far)."""
+"""Optimizer-side code of the port: global-norm clipping, LR schedules
+and the grouped low-rank subspace optimizer (counterpart of
+``repro.optim``)."""

@@ -1,0 +1,90 @@
+"""Step builders of Algorithm 1.
+
+Counterpart of ``repro.train.steps`` for the dense LM trained as
+``lowrank_adam``: ``build_loss_fn``, ``make_train_step`` (the inner step)
+and ``make_outer_step`` (merge + resample).  The steps run eagerly; the
+LR, the step counter and the bias corrections stay on the device, so an
+inner step makes no host round trip.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from ..models import lm
+from ..models.common import act_dtype, resolve_compute_dtype
+from ..optim import subspace
+from ..optim.schedule import SCHEDULES
+from .loss import chunked_ce
+
+
+def build_loss_fn(cfg) -> Callable:
+    """loss_fn(packed_params, batch) -> scalar (batch-mean token CE)."""
+    if cfg.is_encoder_decoder or cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense family trains in repro_torch yet")
+
+    def loss_fn(packed, batch):
+        h, _ = lm.forward_hidden(packed, batch["tokens"], cfg)
+        return chunked_ce(h, packed["unembed"], batch["labels"],
+                          true_vocab=cfg.vocab_size, chunk=cfg.loss_chunk)
+
+    return loss_fn
+
+
+def lr_at(tcfg, step):
+    sched = SCHEDULES.get(getattr(tcfg, "schedule", "cosine"),
+                          SCHEDULES["cosine"])
+    return sched(step, base_lr=tcfg.lr, warmup_steps=tcfg.warmup_steps,
+                 total_steps=tcfg.total_steps)
+
+
+def pack_dtype(cfg, tcfg, device) -> Optional[torch.dtype]:
+    """Dtype the packed (W, B, V) views are cast to: the run's compute
+    dtype when reduced, else the model's activation dtype when reduced,
+    else None (no cast)."""
+    cdt = resolve_compute_dtype(tcfg, device)
+    if cdt != torch.float32:
+        return cdt
+    dt = act_dtype(cfg)
+    return dt if dt != torch.float32 else None
+
+
+def make_train_step(cfg, tcfg, loss_fn: Optional[Callable] = None):
+    """Inner step: one backward through the packed model, then
+    subspace-Adam on B and AdamW on the dense leaves.
+
+    ``step(params, opt_state, batch) -> (params, opt_state, metrics)``;
+    ``metrics`` holds ``loss``, ``grad_norm`` and ``lr`` as 0-d device
+    tensors.
+    """
+    if getattr(tcfg, "grad_accum", 1) != 1:
+        raise NotImplementedError(
+            "grad_accum > 1 is not ported to repro_torch yet")
+    loss_fn = loss_fn or build_loss_fn(cfg)
+
+    def train_step(params, opt_state: subspace.SubspaceState, batch):
+        lr = lr_at(tcfg, opt_state.step)
+        trainable = subspace.trainable_of(params, opt_state)
+        pdt = pack_dtype(cfg, tcfg, opt_state.step.device)
+        packed = subspace.packed_params(params, opt_state, trainable,
+                                        dtype=pdt)
+        loss = loss_fn(packed, batch)
+        leaves = list(trainable.dense) + list(trainable.groups)
+        grads = torch.autograd.grad(loss, leaves)
+        nd = len(trainable.dense)
+        grads = subspace.Trainable(dense=tuple(grads[:nd]),
+                                   groups=tuple(grads[nd:]))
+        new_params, _, new_state, gn = subspace.inner_update(
+            grads, trainable, params, opt_state, lr=lr, tcfg=tcfg)
+        return new_params, new_state, {"loss": loss.detach(),
+                                       "grad_norm": gn, "lr": lr}
+
+    return train_step
+
+
+def make_outer_step(cfg, tcfg):
+    def outer_step(params, opt_state):
+        return subspace.outer_merge_resample(params, opt_state, tcfg)
+    return outer_step

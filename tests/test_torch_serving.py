@@ -246,6 +246,44 @@ def test_adapter_store_refusals_leave_it_unchanged():
     assert all(torch.equal(a, b) for a, b in zip(before, roomy.b_full))
 
 
+# (store dtype, V of the second tenant, port accepts, reference accepts).
+# The last case is a deliberate departure: the reference compares its
+# stored (bf16-cast) V with the incoming fp32 V at rtol 1e-5, so a bf16
+# store refuses the very V it was installed from; the port compares after
+# the store's own cast and accepts it.
+DRIFT_CASES = [("float32", "same", True, True),
+               ("float32", "drifted", False, False),
+               ("bfloat16", "drifted", False, False),
+               ("bfloat16", "same", True, False)]
+
+
+@pytest.mark.parametrize("dtype,second,port_ok,ref_ok", DRIFT_CASES,
+                         ids=[f"{d}-{s}" for d, s, _, _ in DRIFT_CASES])
+def test_proj_drift_check_against_the_reference(dtype, second, port_ok,
+                                                 ref_ok):
+    from repro.serve import AdapterMismatchError as JMismatch
+    cfg, jcfg = CFG.replace(dtype=dtype), JCFG.replace(dtype=dtype)
+    js = JStore(jcfg, JTCFG, max_tenants=2)
+    ts = AdapterStore(cfg, TCFG, max_tenants=2, device="cpu")
+    rng = np.random.default_rng(21)
+    projs = [rng.standard_normal(v.shape).astype(np.float32)
+             for v in js.projs]
+    bs = [0.1 * rng.standard_normal(b.shape[:-3] + b.shape[-2:])
+          .astype(np.float32) for b in js.b_full]
+    js.add_tenant("t0", bs, projs)
+    ts.add_tenant("t0", bs, projs)
+    again = projs if second == "same" else [1.01 * v for v in projs]
+    for store, mismatch, ok in ((ts, AdapterMismatchError, port_ok),
+                                (js, JMismatch, ref_ok)):
+        if ok:
+            store.add_tenant("t1", bs, again)
+            assert store.n_tenants == 2
+        else:
+            with pytest.raises(mismatch, match="lazy_k"):
+                store.add_tenant("t1", bs, again)
+            assert store.n_tenants == 1
+
+
 # ---------------------------------------------------------------------------
 # Page pool
 # ---------------------------------------------------------------------------
