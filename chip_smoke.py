@@ -13,7 +13,10 @@
    llama-100m shapes, and times them the same way: the forward with its
    ``p`` residual and the backward at M = 16384 (batch 64 x seq 256) for
    the four (K, N) of the model, the merge at its four group shapes
-   (bf16 W and V, fp32 B), subspace-Adam at the four group B shapes.
+   (bf16 W and V, fp32 B), subspace-Adam at the four group B shapes; and
+   the compressed-state kernels at the same shapes: subspace-Lion (fp32
+   state), the int8-moment Adam and Lion (bf16 b with rounding bits, and
+   fp32 b without) and the stochastically rounded merge (bf16 W, V, B).
 4. Serves qwen2-7b at full width and depth (28 layers) in bf16 with 4
    tenants: 8 requests of 128 prompt tokens and 32 new tokens through
    the continuous-batching engine, and checks that the main path
@@ -26,18 +29,29 @@
    Stiefel V at r = 128, batch 64 x seq 256, lazy_k = 4, 14 steps
    (three outer merges), and checks that the losses are finite and fall
    and that the path launched all four training kernels at every shape;
-   then profiles two more steps.
+   then profiles two more steps.  Then three more runs at full width and
+   depth, each printing its subspace-state bytes beside the fp32 run's:
+   6b ``lowrank_adam`` on int8 moments with bf16 B masters (14 steps,
+   lazy_k = 4), 6c ``lowrank_lion`` on int8 moments with bf16 masters
+   and 6d ``lowrank_lion`` on fp32 state (8 steps, lazy_k = 3, lr 3e-4,
+   beta2 0.99); each checks that its losses are finite and fall and that
+   its kernels launched at every group shape.
 7. Trains a 2-layer full-width cut of llama-100m in fp32 (TF32 off) for
    5 steps with lazy_k = 2 twice, from the same weights, V draws and
    batches: through the kernels on the card and through the plain
-   versions on the CPU, and holds the per-step losses together.
+   versions on the CPU, and holds the per-step losses together; then the
+   same with int8 moments and bf16 B masters over bf16 stored weights,
+   once with ``lowrank_adam`` and once with ``lowrank_lion`` (V and the
+   rounding bits drawn on the CPU for both sides).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the one before that the
 per-kernel JSON.  Any failed check exits non-zero.  Without CUDA the
 script exits non-zero before printing any result.
 """
+import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -350,13 +364,23 @@ TRAIN_REPLACES = {
     "lowrank_forward[p]": "src/repro/kernels/lowrank_forward.py:72",
     "lowrank_backward": "src/repro/kernels/lowrank_backward.py:64",
     "lowrank_merge": "src/repro/kernels/lowrank_update.py:38",
-    "subspace_adam": "src/repro/kernels/subspace_adam.py:80"}
+    "subspace_adam": "src/repro/kernels/subspace_adam.py:80",
+    "lowrank_merge_sr": "src/repro/kernels/lowrank_update.py:69",
+    "subspace_lion": "src/repro/kernels/subspace_adam.py:123",
+    "subspace_adam_q8": "src/repro/kernels/subspace_adam.py:179",
+    "subspace_lion_q8": "src/repro/kernels/subspace_adam.py:246"}
 TRAIN_SOURCES = {
     "lowrank_forward[p]": "src/repro_torch/kernels/csrc/lowrank_forward.cu",
     "lowrank_backward": "src/repro_torch/kernels/csrc/lowrank_backward.cu",
     "lowrank_merge": "src/repro_torch/kernels/csrc/lowrank_merge.cu",
-    "subspace_adam": "src/repro_torch/kernels/csrc/subspace_adam.cu"}
+    "subspace_adam": "src/repro_torch/kernels/csrc/subspace_adam.cu",
+    "lowrank_merge_sr": "src/repro_torch/kernels/csrc/lowrank_merge.cu",
+    "subspace_lion": "src/repro_torch/kernels/csrc/subspace_adam.cu",
+    "subspace_adam_q8": "src/repro_torch/kernels/csrc/subspace_q8.cu",
+    "subspace_lion_q8": "src/repro_torch/kernels/csrc/subspace_q8.cu"}
 ADAM = dict(beta1=0.9, beta2=0.999, eps=1e-8, wd=0.05)
+LION = dict(beta1=0.9, beta2=0.99, wd=0.05)
+QROW = 128                      # elements per int8 scale (optim.quant)
 
 
 def time_auto(fn, budget_s=0.3):
@@ -512,6 +536,144 @@ def compare_train_kernels(mods, dev):
     return rows
 
 
+def compare_state_kernels(mods, dev):
+    """Phase 3, compressed state: subspace-Lion on fp32 state, the int8
+    Adam and Lion updates in both forms (bf16 b with rounding bits, as
+    the bf16-master runs launch them, and fp32 b without) and the
+    stochastically rounded merge, at the llama-100m group shapes.  The
+    kernels round every operation as the plain version's torch ops do, and
+    all must agree exactly: the merge too, since any round of its sum
+    lies within one bf16 step of it and only equality shows that the
+    stochastic one ran.  No single PyTorch call computes these functions:
+    library_ms is null."""
+    from repro_torch.optim import quant
+    ref, dispatch, sa, lu = mods["ref"], mods["dispatch"], mods["sa"], \
+        mods["lu"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    bf = torch.bfloat16
+    rows = []
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    def bits_like(t):
+        return torch.randint(0, 1 << 16, t.shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def exact(name, got, want):
+        err = 0.0
+        for x, y in zip(got, want):
+            y = y.reshape(x.shape)
+            e = (x.float() - y.float()).abs().max().item()
+            err = max(err, e)
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                raise SystemExit(f"kernel disagrees with its plain version: "
+                                 f"{name} max_abs_err={e:.4g} (exact "
+                                 f"expected)")
+        return err
+
+    def row(kernel, form, shape, leaves, err, tol, ms, plain_ms, n_bytes,
+            ops, peak):
+        bms, by = bound_of(n_bytes, ops, peak)
+        rows.append(dict(kernel=kernel, form=form, shape=shape,
+                         leaves=leaves, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, library_ms=None, bound_ms=bms,
+                         bound_by=by))
+        log(f"[kernel] {kernel:18s} {form:13s} {str(shape):22s} ({leaves}) "
+            f"max_abs_err={err:.4g} (tol {tol}) ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms=null bound_ms={bms:.4f} "
+            f"({by})")
+
+    step = torch.tensor(5, dtype=torch.int32, device=dev)
+    sc3 = dispatch.adam_scalars(3e-3, step, ADAM["beta1"], ADAM["beta2"],
+                                dev)
+    lr3, bc1, bc2 = sc3
+    sc1 = dispatch.lion_scalars(3e-4, dev)
+    for shape, leaves in MERGE_SHAPES.items():
+        bshape = shape[:-2] + (shape[-1], RANK)
+        n = math.prod(bshape)
+        b, g, m = randn(*bshape, scale=0.02), randn(*bshape, scale=1e-3), \
+            randn(*bshape, scale=1e-3)
+        # Lion, fp32 state (run 6d's form: fp32 b and g)
+        got = sa.subspace_lion(b, g, m, sc1, **LION)
+        torch.cuda.synchronize()
+        err = exact(f"lion {bshape}", got,
+                    ref.subspace_lion(b, g, m, lr=sc1[0], **LION))
+        row("subspace_lion", "fp32 state", bshape, leaves, err, "exact",
+            time_auto(lambda: sa.subspace_lion(b, g, m, sc1, **LION)),
+            time_auto(lambda: ref.subspace_lion(b, g, m, lr=sc1[0],
+                                                **LION)),
+            nbytes(b, g, m, *got), 8 * n, FP32_FLOP_PER_S)
+        # int8 moments, (R, 128) rows
+        R = n // QROW
+        mq = quant.quantize(m)
+        vq = quant.quantize(randn(*bshape, scale=1e-3) ** 2, codec="sqrt")
+        g2, mq2, vq2 = (t.reshape(R, QROW) for t in (g, mq.q, vq.q))
+        for form, b2, bits in (
+                ("bf16 b, bits", b.to(bf).reshape(R, QROW),
+                 bits_like(g2)),
+                ("fp32 b", b.reshape(R, QROW), None)):
+            def k_adam():
+                return sa.subspace_adam_q8(b2, g2, mq2, mq.scale, vq2,
+                                           vq.scale, sc3, bits=bits, **ADAM)
+
+            def p_adam():
+                return ref.subspace_adam_q8(
+                    b2, g2, mq2, mq.scale[:, None], vq2, vq.scale[:, None],
+                    lr=lr3, bc1=bc1, bc2=bc2, bits=bits, **ADAM)
+
+            def k_lion():
+                return sa.subspace_lion_q8(b2, g2, mq2, mq.scale, sc1,
+                                           bits=bits, **LION)
+
+            def p_lion():
+                return ref.subspace_lion_q8(b2, g2, mq2, mq.scale[:, None],
+                                            lr=sc1[0], bits=bits, **LION)
+
+            extra = () if bits is None else (bits,)
+            for kernel, kern, plain, ins, ops in (
+                    ("subspace_adam_q8", k_adam, p_adam,
+                     (b2, g2, mq2, mq.scale, vq2, vq.scale), 40 * n),
+                    ("subspace_lion_q8", k_lion, p_lion,
+                     (b2, g2, mq2, mq.scale), 20 * n)):
+                got = kern()
+                torch.cuda.synchronize()
+                err = exact(f"{kernel} {form} {bshape}", got, plain())
+                row(kernel, form, bshape, leaves, err, "exact",
+                    time_auto(kern), time_auto(plain),
+                    nbytes(*ins, *extra, *got), ops, FP32_FLOP_PER_S)
+            del got
+        del b, g, m, mq, vq, g2, mq2, vq2
+        torch.cuda.empty_cache()
+
+    for shape, leaves in MERGE_SHAPES.items():
+        lead, (K, N) = shape[:-2], shape[-2:]
+        w = randn(*shape, scale=K ** -0.5).to(bf)
+        v = randn(*lead, K, RANK, scale=RANK ** -0.5).to(bf)
+        b = randn(*lead, N, RANK, scale=0.02).to(bf)
+        bits = bits_like(w)
+        got = lu.lowrank_merge(w, v, b, bits=bits)
+        torch.cuda.synchronize()
+        # exact: any round of the sum (stochastic, nearest, truncating)
+        # lands within one bf16 step of it, so only equality tells the
+        # stochastic round from the others
+        err = exact(f"merge_sr {shape}", (got,),
+                    (ref.lowrank_merge_sr(w, v, b, bits),))
+        items = w.numel() // (K * N)
+        row("lowrank_merge_sr", "bf16 W, V, B", shape, leaves, err, "exact",
+            time_auto(lambda: lu.lowrank_merge(w, v, b, out=got, bits=bits)),
+            time_auto(lambda: ref.lowrank_merge_sr(w, v, b, bits)),
+            nbytes(w, v, b, bits, got), 2 * K * N * RANK * items,
+            BF16_FLOP_PER_S)
+        del w, v, b, bits, got
+        torch.cuda.empty_cache()
+    return rows
+
+
 def train_config(configs, layers=None, dtype=None, **tkw):
     cfg = configs.get_config(TRAIN_ARCH)
     if layers is not None:
@@ -521,33 +683,47 @@ def train_config(configs, layers=None, dtype=None, **tkw):
     return cfg, configs.TrainConfig(rank=RANK, **tkw)
 
 
-def train(dev, mods, smi, cfg, tcfg, batch, seq, steps):
+def state_bytes(tr) -> int:
+    """Bytes of the subspace state: B, m and v of every group (int8
+    moments with their fp32 scales)."""
+    return sum(t.nbytes for s in tr.opt_state.groups for t in (s.b, s.m, s.v))
+
+
+def train(dev, mods, smi, cfg, tcfg, batch, seq, steps, tag="train"):
     """Phase 6: the training path through the Trainer; returns the
-    trainer and the per-step losses."""
+    trainer and the per-step losses.  Every launch counter is zero when
+    the run starts."""
     from repro_torch.data.synthetic import StatelessLoader
     from repro_torch.train.trainer import Trainer
-    log(f"[train] {cfg.name} layers={cfg.num_layers} d_model={cfg.d_model} "
+    log(f"[{tag}] {cfg.name} layers={cfg.num_layers} d_model={cfg.d_model} "
         f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} dtype={cfg.dtype} "
         f"rank={tcfg.rank} sampler={tcfg.sampler} batch={batch}x{seq} "
-        f"lazy_k={tcfg.lazy_k} lr={tcfg.lr}")
+        f"lazy_k={tcfg.lazy_k} lr={tcfg.lr} optimizer={tcfg.optimizer} "
+        f"state_dtype={tcfg.state_dtype} master_dtype={tcfg.master_dtype}")
     loader = StatelessLoader("lm", 0, device=dev, batch=batch, seq_len=seq,
                              vocab=cfg.vocab_size)
     tr = Trainer(cfg, tcfg, loader, device=dev)
     if dev.type == "cuda":
+        # free what earlier phases left in reference cycles (the serving
+        # engine's timing wrappers hold its weights) before the peak is
+        # reset, so the peak is this run's own
+        gc.collect()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        log(f"[{tag}] {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+            f"allocated when the run starts")
     for mod in mods["counters"]:
         mod.reset_launches()
     t0 = time.perf_counter()
     report = tr.run(steps, log=lambda s, loss, dt: log(
-        f"[train] step {s:3d} loss {loss:.4f} {1e3 * dt:.1f} ms"
+        f"[{tag}] step {s:3d} loss {loss:.4f} {1e3 * dt:.1f} ms"
         + (" (after an outer merge)" if s > 1 and (s - 1) % tcfg.lazy_k == 0
            else "")))
     wall = time.perf_counter() - t0
     losses = report.losses
     tokens = batch * seq
     steady = report.step_times[1:] or report.step_times
-    log(f"[train] {steps} steps, {report.outer_steps} outer merges, "
+    log(f"[{tag}] {steps} steps, {report.outer_steps} outer merges, "
         f"{tokens * steps / wall:.0f} tok/s over all steps, "
         f"{tokens * len(steady) / sum(steady):.0f} tok/s over steps "
         f"2..{steps}, {1e3 * sum(steady) / len(steady):.1f} ms/step there"
@@ -558,8 +734,8 @@ def train(dev, mods, smi, cfg, tcfg, batch, seq, steps):
     if report.outer_steps < 2:
         raise SystemExit(f"only {report.outer_steps} outer merges ran")
     last3 = sum(losses[-3:]) / 3
-    log(f"[train] first loss {losses[0]:.4f}, mean of the last 3 "
-        f"{last3:.4f}")
+    log(f"[{tag}] first loss {losses[0]:.4f}, mean of the last 3 "
+        f"{last3:.4f}; subspace state {state_bytes(tr)} bytes")
     if not last3 < losses[0]:
         raise SystemExit(f"training loss did not fall: first {losses[0]}, "
                          f"mean of the last 3 {last3}")
@@ -576,19 +752,85 @@ def train_launches(mods):
         out[("lowrank_backward", (TRAIN_M, K, N))] = lb.LAUNCHES.get((K, N),
                                                                    0)
     for shape in MERGE_SHAPES:
-        out[("lowrank_merge", shape)] = lu.LAUNCHES.get(shape, 0)
+        out[("lowrank_merge", shape)] = lu.LAUNCHES.get(
+            ("lowrank_merge", shape), 0)
         bshape = shape[:-2] + (shape[-1], RANK)
-        out[("subspace_adam", bshape)] = sa.LAUNCHES.get(bshape, 0)
+        out[("subspace_adam", bshape)] = sa.LAUNCHES.get(
+            ("subspace_adam", bshape), 0)
     log("[train] launches " + ", ".join(
         f"{k}{list(s)}={n}" for (k, s), n in out.items()))
     return out
 
 
-def profile_train(tr, steps=2):
+# the compressed-state runs: (tag, TrainConfig fields, steps, kernels the
+# run must launch at every group shape)
+STATE_RUNS = (
+    ("train 6b", dict(optimizer="lowrank_adam", state_dtype="int8",
+                      master_dtype="bfloat16", lazy_k=4, lr=3e-3), 14,
+     ("subspace_adam_q8", "lowrank_merge_sr")),
+    ("train 6c", dict(optimizer="lowrank_lion", state_dtype="int8",
+                      master_dtype="bfloat16", lazy_k=3, lr=3e-4,
+                      beta2=0.99), 8,
+     ("subspace_lion_q8", "lowrank_merge_sr")),
+    ("train 6d", dict(optimizer="lowrank_lion", lazy_k=3, lr=3e-4,
+                      beta2=0.99), 8,
+     ("subspace_lion", "lowrank_merge")),
+)
+
+
+def state_launches(mods, kernel):
+    """{group shape: launches} of one update or merge kernel, keyed by the
+    group's B shape (updates) or W shape (merges).  The q8 wrappers see a
+    group as (R, 128) rows and count it so."""
+    sa, lu = mods["sa"], mods["lu"]
+    out = {}
+    for shape in MERGE_SHAPES:
+        bshape = shape[:-2] + (shape[-1], RANK)
+        if kernel.startswith("lowrank_merge"):
+            out[shape] = lu.LAUNCHES.get((kernel, shape), 0)
+        elif kernel.endswith("_q8"):
+            out[bshape] = sa.LAUNCHES.get(
+                (kernel, (math.prod(bshape) // QROW, QROW)), 0)
+        else:
+            out[bshape] = sa.LAUNCHES.get((kernel, bshape), 0)
+    return out
+
+
+def train_state_runs(dev, mods, smi, configs, fp32_bytes):
+    """Phase 6b-6d; returns {(kernel, group shape): launches} summed over
+    the runs."""
+    counts = {}
+    for tag, fields, steps, kernels in STATE_RUNS:
+        cfg, tcfg = train_config(configs, warmup_steps=2, total_steps=1000,
+                                 **fields)
+        tr, _ = train(dev, mods, smi, cfg, tcfg, TRAIN_BATCH, TRAIN_SEQ,
+                      steps, tag=tag)
+        nb = state_bytes(tr)
+        log(f"[{tag}] subspace state {nb} bytes = {nb / 1e6:.1f} MB, "
+            f"{100 * nb / fp32_bytes:.1f}% of lowrank_adam on fp32 state "
+            f"({fp32_bytes / 1e6:.1f} MB)")
+        for kernel in kernels:
+            got = state_launches(mods, kernel)
+            log(f"[{tag}] launches {kernel} " + ", ".join(
+                f"{list(s)}={n}" for s, n in got.items()))
+            if not all(got.values()):
+                raise SystemExit(f"{tag} missed {kernel} at a group shape: "
+                                 f"{got}")
+            for shape, n in got.items():
+                counts[(kernel, shape)] = counts.get((kernel, shape), 0) + n
+        profile_train(tr, steps=1, tag=f"profile {tag}",
+                      match=("q8_kernel", "lion_kernel"), top=0)
+        del tr
+        torch.cuda.empty_cache()
+    return counts
+
+
+def profile_train(tr, steps=2, tag="profile-train", match=(), top=12):
     """Where a training step's time goes: device time by kernel over
     ``steps`` inner steps (no outer merge among them), against the host
-    clock.  The profiler slows the host, so the idle share is an upper
-    bound."""
+    clock, and the device time of the kernels whose names hold one of
+    ``match``.  The profiler slows the host, so the idle share is an
+    upper bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     if any((tr.step + i) % tr.tcfg.lazy_k == 0 for i in range(steps)):
@@ -606,42 +848,93 @@ def profile_train(tr, steps=2):
     dev_us = sum(e.self_device_time_total for e in rows)
     if dev_us <= 0:
         raise SystemExit("the profiler saw no device time")
-    log(f"[profile-train] {steps} inner steps: host {1e3 * wall / steps:.1f} "
+    log(f"[{tag}] {steps} inner steps: host {1e3 * wall / steps:.1f} "
         f"ms/step, device busy {dev_us / 1e3 / steps:.1f} ms/step "
         f"({100 * dev_us / 1e6 / wall:.1f}% busy)")
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    for e in rows[:12]:
-        log(f"[profile-train] {e.self_device_time_total / 1e3 / steps:8.2f} "
+    for e in rows[:top]:
+        log(f"[{tag}] {e.self_device_time_total / 1e3 / steps:8.2f} "
             f"ms/step  x{e.count // steps:5d}  {e.key[:90]}")
+    for e in rows:
+        if any(m in e.key for m in match):
+            log(f"[{tag}] {e.key[:60]}: {e.count // steps} calls/step, "
+                f"{e.self_device_time_total / e.count / 1e3:.4f} ms device "
+                f"time per call")
 
 
-def train_equals_plain(dev, mods, configs, steps=5):
+# Phase 7's runs: (label, TrainConfig fields, relative per-step loss gap
+# allowed between the card's kernel route and the CPU's plain route).
+# fp32 state: the same fp32 arithmetic, sums in another order.  int8
+# moments + bf16 masters (bf16 stored weights): the B gradient is bf16, so
+# a last-bit difference of the fp32 gradient moves its bf16 rounding, a
+# stochastic round of B or W, or an int8 payload by one step at a few
+# elements per thousand, and the next steps carry it.  Each limit is
+# about five times its own gap as measured on an H100 80GB HBM3 (700 W;
+# the same to the last digit in three runs): Adam 3.06e-6, Lion 6.08e-6.
+PLAIN_RUNS = (
+    ("fp32", dict(), 1e-4),
+    ("lowrank_adam int8+bf16", dict(optimizer="lowrank_adam",
+                                    state_dtype="int8",
+                                    master_dtype="bfloat16"), 1.5e-5),
+    ("lowrank_lion int8+bf16", dict(optimizer="lowrank_lion",
+                                    state_dtype="int8",
+                                    master_dtype="bfloat16", lr=3e-4,
+                                    beta2=0.99), 3e-5),
+)
+
+
+def train_equals_plain(dev, mods, configs, label="fp32", fields=(),
+                       tol=1e-4, steps=5):
     """Phase 7: the kernel route on the card against the plain route on
-    the CPU, fp32, from the same weights, V draws and batches."""
+    the CPU, fp32 compute, from the same weights, V draws, rounding bits
+    (drawn on the CPU for both) and batches.  Under bf16 masters the
+    low-rank weights are stored in bf16, so the merge is the
+    stochastically rounded one."""
     from repro_torch.data.synthetic import StatelessLoader
     from repro_torch.models import lm
-    from repro_torch.models.common import tree_map
+    from repro_torch.models.common import (tree_flatten_with_path,
+                                           tree_map, tree_unflatten)
+    from repro_torch.optim import subspace
     from repro_torch.train.trainer import Trainer
+    fields = dict(dict(lr=1e-3), **dict(fields))
     cfg, tcfg = train_config(configs, layers=2, dtype="float32",
-                             compute_dtype="float32", lazy_k=2, lr=1e-3,
-                             warmup_steps=1, total_steps=steps)
+                             compute_dtype="float32", lazy_k=2,
+                             warmup_steps=1, total_steps=steps, **fields)
     cpu = torch.device("cpu")
     params = lm.init_params(cfg, seed=7, device=cpu)
+    if tcfg.master_dtype == "bfloat16":
+        low = {i for spec in subspace.build_layout(params, tcfg).groups
+               for i in spec.leaf_idx}
+        flat = tree_flatten_with_path(params)
+        params = tree_unflatten(
+            [p for p, _ in flat],
+            [x.bfloat16() if i in low else x for i, (_, x) in
+             enumerate(flat)])
     loader = StatelessLoader("lm", 3, device=cpu, batch=4, seq_len=256,
                              vocab=cfg.vocab_size)
+    for mod in mods.get("counters", ()):
+        mod.reset_launches()
     card, plain = (
         Trainer(cfg, tcfg, loader, device=where,
                 params=tree_map(lambda t: t.to(where), params),
                 sample_device=cpu).run(steps).losses
         for where in (dev, cpu))
-    tol = 1e-4     # relative: fp32 on both sides, sums in another order
     worst = max(abs(a - b) / abs(b) for a, b in zip(card, plain))
-    log(f"[train==plain] {cfg.name} 2 layers fp32 batch 4x256 lazy_k=2, "
-        f"{steps} steps: card {card}, cpu {plain}, max rel diff "
-        f"{worst:.3g} (tol {tol})")
+    log(f"[train==plain] {cfg.name} 2 layers, {label}, fp32 compute, batch "
+        f"4x256 lazy_k=2, {steps} steps: card {card}, cpu {plain}, max rel "
+        f"diff {worst:.3g} (tol {tol})")
+    if "sa" in mods and tcfg.state_dtype == "int8":
+        kernel = f"subspace_{tcfg.optimizer.removeprefix('lowrank_')}_q8"
+        n_upd, n_sr = (mods["sa"].launches(kernel),
+                       mods["lu"].launches("lowrank_merge_sr"))
+        log(f"[train==plain] card launches {kernel}={n_upd} "
+            f"lowrank_merge_sr={n_sr}")
+        if not (n_upd and n_sr):
+            raise SystemExit(f"the card run missed a kernel: {kernel}="
+                             f"{n_upd}, lowrank_merge_sr={n_sr}")
     if not worst <= tol:
         raise SystemExit(f"training through the kernels disagrees with the "
-                         f"plain route: {worst} > {tol}")
+                         f"plain route ({label}): {worst} > {tol}")
 
 
 def main():
@@ -669,7 +962,7 @@ def main():
 
     t0 = time.perf_counter()
     sources = ("lowrank_forward", "lowrank_backward", "lowrank_merge",
-               "subspace_adam")
+               "subspace_adam", "subspace_q8")
     built = _build.build_all(sources, force=True)
     log(f"[build] {len(sources)} sources in parallel in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -684,6 +977,7 @@ def main():
                 counters=(lf, lb, lu, sa))
     rows = compare_kernels(lf, ref, dev)
     train_rows = compare_train_kernels(mods, dev)
+    state_rows = compare_state_kernels(mods, dev)
     counts = serve(dev, mods, smi)
     lazy_equals_merged(dev, mods)
 
@@ -692,10 +986,13 @@ def main():
     tr, _ = train(dev, mods, smi, cfg, tcfg, TRAIN_BATCH, TRAIN_SEQ,
                   steps=14)
     train_counts = train_launches(mods)
-    profile_train(tr)
+    profile_train(tr, match=("adam_kernel",))
+    fp32_bytes = state_bytes(tr)
     del tr
     torch.cuda.empty_cache()
-    train_equals_plain(dev, mods, configs)
+    state_counts = train_state_runs(dev, mods, smi, configs, fp32_bytes)
+    for label, fields, tol in PLAIN_RUNS:
+        train_equals_plain(dev, mods, configs, label, fields, tol)
 
     kernels = []
     for row in rows:
@@ -717,6 +1014,27 @@ def main():
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    # compressed state: one row per kernel and group shape, in the form the
+    # training runs launch (the q8 updates on a bf16 b with rounding
+    # bits); the q8 updates' fp32-b form, which no run launches, rides in
+    # the same row under "fp32_b"
+    by_key = {}
+    for row in state_rows:
+        key = (row["kernel"], row["shape"])
+        if row["form"] == "fp32 b":
+            by_key[key]["fp32_b"] = {k: row[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+            continue
+        by_key[key] = {
+            "name": f"{row['kernel']} [{row['form']}] {list(row['shape'])} "
+                    f"({row['leaves']})",
+            "route": "cuda", "source": TRAIN_SOURCES[row["kernel"]],
+            "replaces": TRAIN_REPLACES[row["kernel"]],
+            "launches": state_counts.get(key, 0),
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+    kernels.extend(by_key.values())
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     if missing:
         raise SystemExit(f"kernels never launched on the main path: "

@@ -140,11 +140,13 @@ class ModelConfig:
 class TrainConfig:
     """The fields of the reference ``TrainConfig`` that the port reads:
     which leaves carry a low-rank adapter and at what rank (serving), and
-    the knobs of Algorithm 1 trained as ``lowrank_adam`` on fp32 state.
+    the knobs of Algorithm 1 trained as ``lowrank_adam`` or
+    ``lowrank_lion``, on fp32 or int8 moments and fp32 or bf16 B masters.
     Defaults equal the reference's.  Values the port does not implement
-    yet (int8 state, bf16 masters, gradient accumulation, samplers other
-    than Stiefel, other methods) are refused where they are read."""
-    optimizer: str = "lowrank_adam"   # registry name (repro_torch.methods)
+    yet (gradient accumulation, samplers other than Stiefel, other
+    methods) are refused where they are read."""
+    optimizer: str = "lowrank_adam"   # 'lowrank_adam' | 'lowrank_lion'
+                                      # (repro_torch.methods registry)
     sampler: str = "stiefel"          # projection law of V
     rank: int = 128                   # projection rank r
     c: float = 1.0                    # weak-unbiasedness scale
@@ -165,6 +167,11 @@ class TrainConfig:
     compute_dtype: str = "auto"       # hot-path compute: 'auto' (bf16 on
                                       # CUDA, fp32 on the CPU) | 'bfloat16'
                                       # | 'float32'
-    state_dtype: str = "float32"      # subspace m/v storage (fp32 only)
-    master_dtype: str = "float32"     # subspace B master storage (fp32 only)
+    state_dtype: str = "float32"      # subspace m/v storage: 'float32' |
+                                      # 'int8' (block-quantized, 128 per
+                                      # fp32 scale, v in the sqrt codec)
+    master_dtype: str = "float32"     # subspace B master storage:
+                                      # 'float32' | 'bfloat16' (updates
+                                      # and the merge into a bf16 W
+                                      # stochastically rounded)
     seed: int = 0

@@ -15,9 +15,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import resolve_device
+from . import methods, resolve_device
 from .models.common import DTYPES, tree_map
-from .optim import subspace
+from .optim import quant, subspace
 
 
 def to_tensor(a, device, dtype=None) -> torch.Tensor:
@@ -44,6 +44,30 @@ def _field(obj, name):
     return obj[name] if isinstance(obj, dict) else getattr(obj, name)
 
 
+def _moment(ref_m, like, dev):
+    """One moment buffer in the form of ``like`` (the port's zero
+    moment): a tensor, or a quantized moment whose block and codec must
+    be ``like``'s."""
+    if not quant.is_quantized(like):
+        return to_tensor(ref_m, dev)
+    block, codec = _field(ref_m, "block"), _field(ref_m, "codec")
+    if (block, codec) != (like.block, like.codec):
+        raise ValueError(
+            f"quantized moment with block {block} and codec {codec!r}; the "
+            f"layout expects block {like.block} and codec {like.codec!r}")
+    return quant.QuantizedTensor(q=to_tensor(_field(ref_m, "q"), dev),
+                                 scale=to_tensor(_field(ref_m, "scale"), dev),
+                                 block=block, codec=codec)
+
+
+def _b_master(ref_b, like, dev):
+    b = to_tensor(ref_b, dev)
+    if b.dtype != like.dtype:
+        raise ValueError(f"B is {b.dtype}; the layout's masters are "
+                         f"{like.dtype}")
+    return b
+
+
 def subspace_from_numpy(params, tcfg, *, groups=None, dense=None, step=0,
                         outer_step=0, gen=None, device=None):
     """The port's ``(GroupedParams, SubspaceState)`` from the reference's.
@@ -56,21 +80,28 @@ def subspace_from_numpy(params, tcfg, *, groups=None, dense=None, step=0,
     ``dense`` one item per dense leaf with ``m`` and ``v`` (its
     ``DenseSlot``).  Missing parts start as the port's ``init`` makes
     them (fresh V from ``gen``, zero B and moments).  ``V`` is stored in
-    the run's compute dtype, everything else as given.
+    the run's compute dtype, everything else as given: an int8 moment
+    (the reference's ``QuantizedTensor``, or a dict with its ``q``,
+    ``scale``, ``block`` and ``codec``) carries its payload and scales,
+    and its block and codec must be the ones the port's layout expects;
+    ``B`` must be in the layout's master dtype, and Lion's ``v`` is the
+    zero-size placeholder.
+    ``tcfg.optimizer`` names the registered method whose ``init`` builds
+    the port's side (its update rule).
     """
     dev = resolve_device(device)
     tree = params_from_numpy(params, dev)
     if gen is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(tcfg.seed + 1)
-    gparams, state = subspace.init_grouped(tree, tcfg, gen)
+    gparams, state = methods.get(tcfg.optimizer).init(tree, tcfg, gen)
     cdt = DTYPES[state.layout.compute_dtype]
     if groups is not None:
         state.groups = tuple(
             slot._replace(proj=to_tensor(_field(g, "proj"), dev, cdt),
-                          b=to_tensor(_field(g, "b"), dev),
-                          m=to_tensor(_field(g, "m"), dev),
-                          v=to_tensor(_field(g, "v"), dev))
+                          b=_b_master(_field(g, "b"), slot.b, dev),
+                          m=_moment(_field(g, "m"), slot.m, dev),
+                          v=_moment(_field(g, "v"), slot.v, dev))
             for slot, g in zip(state.groups, groups, strict=True))
     if dense is not None:
         state.dense = tuple(

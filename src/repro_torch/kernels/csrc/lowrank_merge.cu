@@ -1,9 +1,14 @@
-// Hopper (sm_90a) port of the TPU kernel
-// repro/kernels/lowrank_update.py::lowrank_merge, the outer step's weight
-// merge (Algorithm 1, line 8):
+// Hopper (sm_90a) ports of the TPU kernels
+// repro/kernels/lowrank_update.py::lowrank_merge and ::lowrank_merge_sr,
+// the outer step's weight merge (Algorithm 1, line 8):
 //
 //     W' = W + V Bᵀ        W (K, N), V (K, r), B (N, r); fp32 accumulate,
 //                          W' in W's dtype
+//     W' = sr_bf16(W + V Bᵀ, bits)
+//                          the same sum stochastically rounded into a
+//                          bf16 W with caller-supplied (K, N) noise in
+//                          [0, 2^16): bf16 masters stay unbiased across
+//                          outer cycles
 //
 // over `batch` leading items (a group's (G, L) dims folded) in one launch.
 // The dtypes are mixed on the training path: W is the stored parameter
@@ -32,7 +37,8 @@ using lrk::View;
 
 template <typename TW, typename TV, typename TB>
 int merge(const void* w, const void* v, const void* b, void* out,
-          int64_t batch, int K, int N, int r, cudaStream_t st) {
+          const uint32_t* bits, int64_t batch, int K, int N, int r,
+          cudaStream_t st) {
   Gemm<TV, TB, float, float, TW, TW> g{};
   g.a = View<TV>{static_cast<const TV*>(v), r, 1, (int64_t)K * r};
   // Bᵀ(c, n) = b[n * r + c]
@@ -41,6 +47,8 @@ int merge(const void* w, const void* v, const void* b, void* out,
   g.c_batch = (int64_t)K * N;
   g.out = static_cast<TW*>(out);
   g.out_batch = (int64_t)K * N;
+  g.bits = bits;
+  g.bits_batch = (int64_t)K * N;
   g.rows = K;
   g.cols = N;
   g.k = r;
@@ -50,19 +58,25 @@ int merge(const void* w, const void* v, const void* b, void* out,
 
 template <typename TW, typename TV>
 int pick_b(int tb, const void* w, const void* v, const void* b, void* out,
-           int64_t batch, int K, int N, int r, cudaStream_t st) {
-  if (tb == 0) return merge<TW, TV, float>(w, v, b, out, batch, K, N, r, st);
+           const uint32_t* bits, int64_t batch, int K, int N, int r,
+           cudaStream_t st) {
+  if (tb == 0)
+    return merge<TW, TV, float>(w, v, b, out, bits, batch, K, N, r, st);
   if (tb == 1)
-    return merge<TW, TV, __nv_bfloat16>(w, v, b, out, batch, K, N, r, st);
+    return merge<TW, TV, __nv_bfloat16>(w, v, b, out, bits, batch, K, N, r,
+                                        st);
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename TW>
 int pick_v(int tv, int tb, const void* w, const void* v, const void* b,
-           void* out, int64_t batch, int K, int N, int r, cudaStream_t st) {
-  if (tv == 0) return pick_b<TW, float>(tb, w, v, b, out, batch, K, N, r, st);
+           void* out, const uint32_t* bits, int64_t batch, int K, int N,
+           int r, cudaStream_t st) {
+  if (tv == 0)
+    return pick_b<TW, float>(tb, w, v, b, out, bits, batch, K, N, r, st);
   if (tv == 1)
-    return pick_b<TW, __nv_bfloat16>(tb, w, v, b, out, batch, K, N, r, st);
+    return pick_b<TW, __nv_bfloat16>(tb, w, v, b, out, bits, batch, K, N, r,
+                                     st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -70,15 +84,20 @@ int pick_v(int tv, int tb, const void* w, const void* v, const void* b,
 
 // dtype codes: 0 = float32, 1 = bfloat16, one per operand (W and the
 // output share tw).  w, v, b hold `batch` contiguous (K, N), (K, r),
-// (N, r) items; out may equal w.  Returns cudaGetLastError() (0 = queued).
+// (N, r) items; out may equal w.  `bits` is nullptr for the plain merge;
+// given, it holds `batch` contiguous (K, N) items of values in [0, 2^16)
+// and the merge is the stochastically rounded one, which needs a bf16 W.
+// Returns cudaGetLastError() (0 = queued).
 extern "C" int lowrank_merge_launch(int tw, int tv, int tb, const void* w,
-                                    const void* v, const void* b, void* out,
+                                    const void* v, const void* b,
+                                    const uint32_t* bits, void* out,
                                     long long batch, int K, int N, int r,
                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (tw == 0)
-    return pick_v<float>(tv, tb, w, v, b, out, batch, K, N, r, st);
+  if (tw == 0 && bits == nullptr)
+    return pick_v<float>(tv, tb, w, v, b, out, nullptr, batch, K, N, r, st);
   if (tw == 1)
-    return pick_v<__nv_bfloat16>(tv, tb, w, v, b, out, batch, K, N, r, st);
+    return pick_v<__nv_bfloat16>(tv, tb, w, v, b, out, bits, batch, K, N, r,
+                                 st);
   return (int)cudaErrorInvalidValue;
 }

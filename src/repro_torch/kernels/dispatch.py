@@ -3,9 +3,12 @@
 Counterpart of ``repro.kernels.dispatch``: the public ops with the
 reference's signatures and leading-dim folding — ``lowrank_forward``
 (with ``return_p``), ``lowrank_batch_forward``, ``lowrank_backward``
-(every leading axis contracted into ``dB``), ``lowrank_merge`` (over
-leading dims, one launch per group) and ``subspace_adam`` (leading dims
-folded into rows, one launch per group).  The route is the tensor's
+(every leading axis contracted into ``dB``), ``lowrank_merge`` and
+``lowrank_merge_sr`` (over leading dims, one launch per group),
+``subspace_adam`` and ``subspace_lion`` (leading dims folded into rows,
+one launch per group) and ``subspace_adam_q8`` / ``subspace_lion_q8``
+(the whole buffer tiled into ``(R, qblock)`` rows, a ragged last row
+zero-padded, one launch per group).  The route is the tensor's
 device alone — a CPU tensor takes the plain version, a CUDA tensor the
 kernel (see the wrapper modules).  There is no environment knob and no
 ``auto`` route that would prefer the plain version on a CUDA tensor.
@@ -24,6 +27,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import lowrank_backward as _lb
 from . import lowrank_forward as _lf
@@ -81,6 +85,18 @@ def lowrank_merge(w: torch.Tensor, v: torch.Tensor, b: torch.Tensor,
     return _lu.lowrank_merge(w, v, b, out=out)
 
 
+def lowrank_merge_sr(w: torch.Tensor, v: torch.Tensor, b: torch.Tensor,
+                     bits: torch.Tensor,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """W + V Bᵀ stochastically rounded into a bf16 W: the
+    :func:`lowrank_merge` contract plus ``bits`` (w-shaped, values in
+    ``[0, 2**16)``) feeding the unbiased round — the merge under bf16
+    masters, so the once-per-``lazy_k`` merge accumulates no
+    round-to-nearest bias across outer cycles."""
+    return _lu.lowrank_merge(w, v, b, out=out,
+                             bits=bits.to(torch.int32))
+
+
 def adam_scalars(lr, step, beta1: float, beta2: float,
                  device) -> torch.Tensor:
     """``(lr, 1 − β1**step, 1 − β2**step)`` as one (3,) fp32 tensor on
@@ -108,3 +124,86 @@ def subspace_adam(b: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     return _sa.subspace_adam(b.contiguous(), g.contiguous(), m.contiguous(),
                              v.contiguous(), scalars, beta1=beta1,
                              beta2=beta2, eps=eps, wd=wd)
+
+
+def lion_scalars(lr, device) -> torch.Tensor:
+    """``(lr,)`` as one (1,) fp32 tensor on ``device`` (the Lion kernels
+    read only the LR)."""
+    return torch.as_tensor(lr, dtype=torch.float32,
+                           device=device).reshape(1)
+
+
+def subspace_lion(b: torch.Tensor, g: torch.Tensor, m: torch.Tensor, *,
+                  lr, beta1: float = 0.9, beta2: float = 0.99,
+                  wd: float = 0.0):
+    """Fused momentum-only Lion on stacked subspace variables: the
+    :func:`subspace_adam` contract minus v (b fp32 or bf16, m fp32, g any
+    compute dtype).  Returns (b', m') fp32 with the input shape."""
+    return _sa.subspace_lion(b.contiguous(), g.contiguous(), m.contiguous(),
+                             lion_scalars(lr, b.device), beta1=beta1,
+                             beta2=beta2, wd=wd)
+
+
+# --- int8 block-quantized state ---------------------------------------------
+#
+# The whole flattened buffer is tiled into (R, qblock) rows, one
+# quantization block (and one fp32 scale) per row.  The public functions
+# take LOGICAL shapes — b/g/mq/vq the state's (..., n, r), ms/vs the flat
+# (R,) scale vectors of ``optim.quant`` — and own the tiling both ways.
+
+def _to_blocks(a: torch.Tensor, R: int, L: int) -> torch.Tensor:
+    flat = a.reshape(-1)
+    pad = R * L - flat.shape[0]
+    if pad:
+        flat = F.pad(flat, (0, pad))
+    return flat.reshape(R, L)
+
+
+def _unblock(a: torch.Tensor, shape, size: int) -> torch.Tensor:
+    return a.reshape(-1)[:size].reshape(shape)
+
+
+def _rows(b: torch.Tensor, qblock: int) -> int:
+    return max(1, -(-b.numel() // qblock))
+
+
+def subspace_adam_q8(b: torch.Tensor, g: torch.Tensor, mq: torch.Tensor,
+                     ms: torch.Tensor, vq: torch.Tensor, vs: torch.Tensor, *,
+                     lr, step, beta1: float = 0.9, beta2: float = 0.999,
+                     eps: float = 1e-8, wd: float = 0.0, qblock: int = 128,
+                     bits: Optional[torch.Tensor] = None):
+    """Fused Adam with int8 block-quantized moments.
+
+    b/g/mq/vq share the logical state shape (..., n, r) — b the fp32 or
+    bf16 master, g any compute dtype, mq/vq int8; ms/vs are (R,) fp32
+    absmax scales (R = ceil(size / qblock)).  ``bits`` (b-shaped, values
+    in [0, 2**16)) stochastically rounds b' (bf16 values in b's dtype).
+    Returns (b', mq', ms', vq', vs').
+    """
+    shape, size, R = b.shape, b.numel(), _rows(b, qblock)
+    nb, nmq, nms, nvq, nvs = _sa.subspace_adam_q8(
+        _to_blocks(b, R, qblock), _to_blocks(g, R, qblock),
+        _to_blocks(mq, R, qblock), ms.reshape(R),
+        _to_blocks(vq, R, qblock), vs.reshape(R),
+        adam_scalars(lr, step, beta1, beta2, b.device),
+        beta1=beta1, beta2=beta2, eps=eps, wd=wd,
+        bits=None if bits is None
+        else _to_blocks(bits.to(torch.int32), R, qblock))
+    return (_unblock(nb, shape, size), _unblock(nmq, shape, size), nms,
+            _unblock(nvq, shape, size), nvs)
+
+
+def subspace_lion_q8(b: torch.Tensor, g: torch.Tensor, mq: torch.Tensor,
+                     ms: torch.Tensor, *, lr, beta1: float = 0.9,
+                     beta2: float = 0.99, wd: float = 0.0, qblock: int = 128,
+                     bits: Optional[torch.Tensor] = None):
+    """Fused Lion with int8 block-quantized momentum — the
+    :func:`subspace_adam_q8` contract minus v.  Returns (b', mq', ms')."""
+    shape, size, R = b.shape, b.numel(), _rows(b, qblock)
+    nb, nmq, nms = _sa.subspace_lion_q8(
+        _to_blocks(b, R, qblock), _to_blocks(g, R, qblock),
+        _to_blocks(mq, R, qblock), ms.reshape(R),
+        lion_scalars(lr, b.device), beta1=beta1, beta2=beta2, wd=wd,
+        bits=None if bits is None
+        else _to_blocks(bits.to(torch.int32), R, qblock))
+    return _unblock(nb, shape, size), _unblock(nmq, shape, size), nms

@@ -4,8 +4,13 @@ CUDA kernel is held to, and the route a CPU tensor takes.
 Counterpart of ``repro.kernels.ref``.  Operands may be mixed-dtype (bf16
 compute slices over fp32 masters); every contraction runs in fp32.
 Outputs: forward ``y`` and ``p`` in x's dtype; backward ``dx`` in dy's
-dtype and ``dB`` in fp32; merge ``W'`` in W's dtype; subspace-Adam
-``b'/m'/v'`` in fp32.
+dtype and ``dB`` in fp32; merge ``W'`` in W's dtype; subspace-Adam and
+-Lion ``b'/m'/v'`` in fp32; the q8 variants ``b'`` in b's dtype (fp32 or
+bf16), int8 moments and fp32 scales.
+
+Stochastic rounding (:func:`sr_bf16`) takes its noise from the caller:
+``bits`` holds values in ``[0, 2**16)`` (int32 here, uint32 in the
+reference; the same bit patterns).
 
 ``p = x V`` stays fp32 for the forward's ``Bᵀ`` product, as in the TPU
 kernel (``repro/kernels/lowrank_forward.py``); the reference's XLA route
@@ -14,6 +19,48 @@ rounds ``p`` to x's dtype first, so the two agree exactly only in fp32.
 from __future__ import annotations
 
 import torch
+
+
+def sr_bf16(x: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """Stochastically round fp32 ``x`` to bf16 with ``bits`` uniform over
+    ``[0, 2**16)``: add them to the fp32 bit pattern and drop the low 16
+    bits, so a value rounds up with probability equal to the dropped
+    fraction (unbiased, unlike round to nearest)."""
+    u = x.float().contiguous().view(torch.int32)
+    u = (u + bits.to(torch.int32)) & -0x10000       # & 0xFFFF0000
+    return u.view(torch.float32).to(torch.bfloat16)
+
+
+def _requant(x: torch.Tensor):
+    """Per-row absmax int8 requantization of (R, L) rows: (q, scale) with
+    scale (R, 1) = absmax / 127 (a true division: a Python divisor would
+    become a multiply by its reciprocal on CUDA), rounded half to
+    even."""
+    amax = x.abs().amax(dim=1, keepdim=True)
+    scale = amax / torch.full_like(amax, 127.0)
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.clamp(torch.round(x / safe), -127.0, 127.0).to(torch.int8)
+    return q, scale
+
+
+def _requant_sqrt(x: torch.Tensor):
+    """The sqrt codec (second moments): requant of ``sqrt(max(x, 0))``."""
+    return _requant(torch.sqrt(torch.clamp(x, min=0.0)))
+
+
+def _deq(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    return q.float() * s
+
+
+def _deq_sqrt(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    y = q.float() * s
+    return y * y
+
+
+def _round_b(b_new: torch.Tensor, bits, dtype) -> torch.Tensor:
+    if bits is not None:
+        return sr_bf16(b_new, bits).to(dtype)
+    return b_new.to(dtype)
 
 
 def lowrank_forward(x: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
@@ -52,13 +99,22 @@ def lowrank_merge(w: torch.Tensor, v: torch.Tensor,
     return (w.float() + v.float() @ b.float().transpose(-1, -2)).to(w.dtype)
 
 
+def lowrank_merge_sr(w: torch.Tensor, v: torch.Tensor, b: torch.Tensor,
+                     bits: torch.Tensor) -> torch.Tensor:
+    """W + V Bᵀ stochastically rounded into bf16 with w-shaped ``bits``
+    (bf16 stored weights under bf16 masters)."""
+    acc = w.float() + v.float() @ b.float().transpose(-1, -2)
+    return sr_bf16(acc, bits).to(w.dtype)
+
+
 def subspace_adam(b, g, m, v, *, lr, bc1, bc2, beta1, beta2, eps, wd):
     """Fused Adam-with-decay on the subspace variable B.
 
-    b/m/v are the fp32 masters and moments; g may arrive in a reduced
-    compute dtype (cast up once).  ``bc1``/``bc2`` are the bias
-    corrections ``1 − β**step``; ``lr``, ``bc1`` and ``bc2`` may be
-    Python numbers or 0-d tensors.  Outputs are always fp32.
+    m/v are the fp32 moments; b is the fp32 master or a bf16 one, and g
+    may arrive in a reduced compute dtype (both cast up once).
+    ``bc1``/``bc2`` are the bias corrections ``1 − β**step``; ``lr``,
+    ``bc1`` and ``bc2`` may be Python numbers or 0-d tensors.  Outputs
+    are always fp32.
     """
     g = g.float()
     b = b.float()
@@ -66,3 +122,43 @@ def subspace_adam(b, g, m, v, *, lr, bc1, bc2, beta1, beta2, eps, wd):
     v2 = beta2 * v.float() + (1 - beta2) * g * g
     delta = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps) + wd * b
     return b - lr * delta, m2, v2
+
+
+def subspace_lion(b, g, m, *, lr, beta1, beta2, wd):
+    """Momentum-only Lion on B: ``b' = b − lr (sign(β1 m + (1−β1) g) +
+    wd b)``, ``m' = β2 m + (1−β2) g``; b fp32 or bf16, g any compute
+    dtype; outputs fp32."""
+    g = g.float()
+    b = b.float()
+    m = m.float()
+    u = torch.sign(beta1 * m + (1 - beta1) * g)
+    return b - lr * (u + wd * b), beta2 * m + (1 - beta2) * g
+
+
+def subspace_adam_q8(b, g, mq, ms, vq, vs, *, lr, bc1, bc2, beta1, beta2,
+                     eps, wd, bits=None):
+    """int8-state Adam over (R, L) blocks: mq/vq (R, L) int8 with ms/vs
+    (R, 1) fp32 scales (m linear codec, v sqrt codec); b fp32 or bf16,
+    b' in b's dtype, stochastically rounded when ``bits`` is given.
+    Returns (b', mq', ms', vq', vs')."""
+    g = g.float()
+    bf = b.float()
+    m2 = beta1 * _deq(mq, ms) + (1 - beta1) * g
+    v2 = beta2 * _deq_sqrt(vq, vs) + (1 - beta2) * g * g
+    delta = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps) + wd * bf
+    b2 = _round_b(bf - lr * delta, bits, b.dtype)
+    mq2, ms2 = _requant(m2)
+    vq2, vs2 = _requant_sqrt(v2)
+    return b2, mq2, ms2, vq2, vs2
+
+
+def subspace_lion_q8(b, g, mq, ms, *, lr, beta1, beta2, wd, bits=None):
+    """int8-momentum Lion over (R, L) blocks; the
+    :func:`subspace_adam_q8` contract minus v.  Returns (b', mq', ms')."""
+    g = g.float()
+    bf = b.float()
+    m = _deq(mq, ms)
+    u = torch.sign(beta1 * m + (1 - beta1) * g)
+    b2 = _round_b(bf - lr * (u + wd * bf), bits, b.dtype)
+    mq2, ms2 = _requant(beta2 * m + (1 - beta2) * g)
+    return b2, mq2, ms2

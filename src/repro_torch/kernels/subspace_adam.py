@@ -1,97 +1,255 @@
-"""Fused Adam-with-decay on the subspace variable ``B`` on the card:
-wrapper of the hand-written CUDA kernel ``csrc/subspace_adam.cu``.
+"""Fused subspace optimizer updates on ``B`` on the card: wrappers of the
+hand-written CUDA kernels ``csrc/subspace_adam.cu`` (fp32 moments) and
+``csrc/subspace_q8.cu`` (int8 moments).
 
-Replaces the Pallas TPU kernel ``repro/kernels/subspace_adam.py::
-subspace_adam``.  ``b``, ``m`` and ``v`` are fp32 (masters and moments
-are never downcast); ``g`` is fp32 or bf16.  ``lr``, ``bc1`` and ``bc2``
-reach the kernel as one ``(3,)`` fp32 tensor on the device, so a step
-never waits on the host for them.  One launch covers a whole group
-buffer, any shape.  The route is the tensor's device alone: a CPU tensor
-takes the plain version in :mod:`.ref`; a CUDA tensor launches the
-kernel or raises.  ``LAUNCHES`` counts launches per shape of ``b``.
-Lion and the int8-state variants of the reference module are not ported
-yet.
+Replace the Pallas TPU kernels of ``repro/kernels/subspace_adam.py``:
+
+* :func:`subspace_adam` — Adam with decay on fp32 ``m``/``v``;
+* :func:`subspace_lion` — momentum-only Lion on fp32 ``m``;
+* :func:`subspace_adam_q8` / :func:`subspace_lion_q8` — the same rules
+  on int8 block-quantized moments in the ``(R, 128)`` row layout, one
+  fp32 scale per row (``(R,)``), dequantized, updated and requantized in
+  one pass; with ``bits`` the new ``b`` is stochastically rounded to
+  bf16.
+
+``b`` is the fp32 or bf16 master and ``g`` fp32 or bf16.  The fp32-state
+kernels write ``b'`` in fp32; the q8 kernels in ``b``'s dtype.  ``lr``
+(and the bias corrections ``bc1``, ``bc2`` for Adam) reach the kernels
+as a small fp32 tensor on the device, so a step never waits on the host
+for them.  One launch covers a whole group buffer.  The route is the
+tensor's device alone: a CPU tensor takes the plain version in
+:mod:`.ref`; a CUDA tensor launches the kernel or raises.  ``LAUNCHES``
+counts launches per ``(kernel, shape of b)``.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
 from . import _build, ref
 from .lowrank_forward import DTYPE_CODE, _route
 
-# b's shape -> launches on CUDA tensors
+# (kernel, b's shape) -> launches on CUDA tensors; kernel is one of
+# "subspace_adam" | "subspace_lion" | "subspace_adam_q8" | "subspace_lion_q8"
 LAUNCHES: collections.Counter = collections.Counter()
+QROW = 128                # elements per quantization row (the q8 kernels)
 
 
-def launches() -> int:
-    return sum(LAUNCHES.values())
+def launches(kernel: Optional[str] = None) -> int:
+    """Launches counted so far, of one kernel or of all."""
+    return sum(n for (k, _), n in LAUNCHES.items()
+               if kernel is None or k == kernel)
 
 
 def reset_launches() -> None:
     LAUNCHES.clear()
 
 
+_VP, _CI, _CF, _CL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_longlong)
+_ARGTYPES = {
+    ("subspace_adam", "subspace_adam_launch"):
+        [_CI, _CI] + [_VP] * 8 + [_CL] + [_CF] * 6 + [_VP],
+    ("subspace_adam", "subspace_lion_launch"):
+        [_CI, _CI] + [_VP] * 6 + [_CL] + [_CF] * 5 + [_VP],
+    ("subspace_q8", "subspace_adam_q8_launch"):
+        [_CI, _CI] + [_VP] * 13 + [_CL] + [_CF] * 6 + [_VP],
+    ("subspace_q8", "subspace_lion_q8_launch"):
+        [_CI, _CI] + [_VP] * 9 + [_CL] + [_CF] * 5 + [_VP],
+}
+
+
 @functools.cache
-def _kernel():
-    fn = _build.load("subspace_adam").subspace_adam_launch
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, vp, ctypes.c_longlong,
-                   cf, cf, cf, cf, cf, cf, vp]
-    fn.restype = ci
+def _kernel(source: str, entry: str):
+    """The C entry point, built and loaded on first use."""
+    fn = getattr(_build.load(source), entry)
+    fn.argtypes = _ARGTYPES[(source, entry)]
+    fn.restype = _CI
     return fn
 
 
-def _check(b, g, m, v, scalars) -> None:
-    for name, t in (("g", g), ("m", m), ("v", v), ("scalars", scalars)):
-        if t.device != b.device:
+def _check(name, b, tensors: dict, scalars, n_scalars: int) -> None:
+    """Same device, contiguity; b and g fp32 or bf16."""
+    for t_name, t in tensors.items():
+        if t is not None and t.device != b.device:
             raise ValueError(
-                f"subspace_adam: {name} is on {t.device}, b on {b.device}")
-    for name, t in (("b", b), ("m", m), ("v", v), ("scalars", scalars)):
-        if t.dtype != torch.float32:
-            raise TypeError(
-                f"subspace_adam: {name} must be float32, got {t.dtype}")
-    if g.dtype not in DTYPE_CODE:
-        raise TypeError(
-            f"subspace_adam: g must be float32 or bfloat16, got {g.dtype}")
-    for name, t in (("b", b), ("g", g), ("m", m), ("v", v),
-                    ("scalars", scalars)):
-        if not t.is_contiguous():
-            raise ValueError(f"subspace_adam: {name} is not contiguous")
-    if not (b.shape == g.shape == m.shape == v.shape) \
-            or tuple(scalars.shape) != (3,):
-        raise ValueError(
-            f"subspace_adam: b {tuple(b.shape)}, g {tuple(g.shape)}, m "
-            f"{tuple(m.shape)}, v {tuple(v.shape)} must share one shape "
-            f"and scalars {tuple(scalars.shape)} must be (3,)")
+                f"{name}: {t_name} is on {t.device}, b on {b.device}")
+    if scalars.device != b.device:
+        raise ValueError(f"{name}: scalars is on {scalars.device}, b on "
+                         f"{b.device}")
+    for t_name in ("b", "g"):
+        if tensors[t_name].dtype not in DTYPE_CODE:
+            raise TypeError(f"{name}: {t_name} must be float32 or bfloat16, "
+                            f"got {tensors[t_name].dtype}")
+    if scalars.dtype != torch.float32 \
+            or tuple(scalars.shape) != (n_scalars,):
+        raise ValueError(f"{name}: scalars must be ({n_scalars},) float32, "
+                         f"got {tuple(scalars.shape)} {scalars.dtype}")
+    for t_name, t in tensors.items():
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name}: {t_name} is not contiguous")
 
+
+def _check_dtypes(name, **want) -> None:
+    for t_name, (t, dtype) in want.items():
+        if t is not None and t.dtype != dtype:
+            raise TypeError(f"{name}: {t_name} must be {dtype}, got "
+                            f"{t.dtype}")
+
+
+def _check_shapes(name, shape, **tensors) -> None:
+    bad = {k: tuple(t.shape) for k, t in tensors.items()
+           if t is not None and tuple(t.shape) != tuple(shape)}
+    if bad:
+        raise ValueError(f"{name}: {bad} must share one shape with b "
+                         f"{tuple(shape)}")
+
+
+def _launch(name, source, entry, b, args):
+    with torch.cuda.device(b.device):
+        stream = torch.cuda.current_stream(b.device).cuda_stream
+        rc = _kernel(source, entry)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error "
+                           f"{rc} (b {tuple(b.shape)})")
+    LAUNCHES[(name, tuple(b.shape))] += 1
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# fp32 moments
+# ---------------------------------------------------------------------------
 
 def subspace_adam(b: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                   v: torch.Tensor, scalars: torch.Tensor, *, beta1: float,
                   beta2: float, eps: float, wd: float):
     """(b', m', v') fp32.  ``scalars`` is ``(lr, bc1, bc2)`` as a (3,)
     fp32 tensor on b's device."""
-    if not _route(b, "subspace_adam"):
+    name = "subspace_adam"
+    if not _route(b, name):
         lr, bc1, bc2 = scalars.float()
         return ref.subspace_adam(b, g, m, v, lr=lr, beta1=beta1,
                                  beta2=beta2, eps=eps, wd=wd, bc1=bc1,
                                  bc2=bc2)
-    _check(b, g, m, v, scalars)
-    outs = tuple(torch.empty_like(t) for t in (b, m, v))
+    _check(name, b, dict(b=b, g=g, m=m, v=v), scalars, 3)
+    _check_dtypes(name, m=(m, torch.float32), v=(v, torch.float32))
+    _check_shapes(name, b.shape, g=g, m=m, v=v)
+    outs = tuple(torch.empty(b.shape, dtype=torch.float32, device=b.device)
+                 for _ in range(3))
     if b.numel():
-        with torch.cuda.device(b.device):
-            stream = torch.cuda.current_stream(b.device).cuda_stream
-            rc = _kernel()(DTYPE_CODE[g.dtype], b.data_ptr(), g.data_ptr(),
-                           m.data_ptr(), v.data_ptr(),
-                           *(o.data_ptr() for o in outs),
-                           scalars.data_ptr(), b.numel(), beta1, 1 - beta1,
-                           beta2, 1 - beta2, eps, wd, stream)
-        if rc != 0:
-            raise RuntimeError(
-                f"subspace_adam kernel launch failed with CUDA error {rc} "
-                f"(b {tuple(b.shape)})")
-        LAUNCHES[tuple(b.shape)] += 1
+        _launch(name, "subspace_adam", "subspace_adam_launch", b,
+                (DTYPE_CODE[b.dtype], DTYPE_CODE[g.dtype], b.data_ptr(),
+                 g.data_ptr(), m.data_ptr(), v.data_ptr(),
+                 *(o.data_ptr() for o in outs), scalars.data_ptr(),
+                 b.numel(), beta1, 1 - beta1, beta2, 1 - beta2, eps, wd))
     return outs
+
+
+def subspace_lion(b: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+                  scalars: torch.Tensor, *, beta1: float, beta2: float,
+                  wd: float):
+    """(b', m') fp32.  ``scalars`` is ``(lr,)`` as a (1,) fp32 tensor on
+    b's device."""
+    name = "subspace_lion"
+    if not _route(b, name):
+        return ref.subspace_lion(b, g, m, lr=scalars.float()[0],
+                                 beta1=beta1, beta2=beta2, wd=wd)
+    _check(name, b, dict(b=b, g=g, m=m), scalars, 1)
+    _check_dtypes(name, m=(m, torch.float32))
+    _check_shapes(name, b.shape, g=g, m=m)
+    outs = tuple(torch.empty(b.shape, dtype=torch.float32, device=b.device)
+                 for _ in range(2))
+    if b.numel():
+        _launch(name, "subspace_adam", "subspace_lion_launch", b,
+                (DTYPE_CODE[b.dtype], DTYPE_CODE[g.dtype], b.data_ptr(),
+                 g.data_ptr(), m.data_ptr(),
+                 *(o.data_ptr() for o in outs), scalars.data_ptr(),
+                 b.numel(), beta1, 1 - beta1, beta2, 1 - beta2, wd))
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# int8 moments, (R, 128) rows
+# ---------------------------------------------------------------------------
+
+def _check_q8(name, b, g, bits, moments) -> None:
+    if b.ndim != 2 or b.shape[1] != QROW:
+        raise ValueError(f"{name}: the CUDA kernel takes (R, {QROW}) rows, "
+                         f"got b {tuple(b.shape)}")
+    R = b.shape[0]
+    _check_shapes(name, b.shape, g=g, bits=bits,
+                  **{k: q for k, (q, _) in moments.items()})
+    for k, (q, s) in moments.items():
+        _check_dtypes(name, **{k: (q, torch.int8),
+                               f"{k} scales": (s, torch.float32)})
+        if tuple(s.shape) != (R,):
+            raise ValueError(f"{name}: {k} scales {tuple(s.shape)} must be "
+                             f"({R},), one per row")
+    _check_dtypes(name, bits=(bits, torch.int32))
+
+
+def subspace_adam_q8(b: torch.Tensor, g: torch.Tensor, mq: torch.Tensor,
+                     ms: torch.Tensor, vq: torch.Tensor, vs: torch.Tensor,
+                     scalars: torch.Tensor, *, beta1: float, beta2: float,
+                     eps: float, wd: float,
+                     bits: Optional[torch.Tensor] = None):
+    """(b', mq', ms', vq', vs') over (R, 128) rows: b (fp32 or bf16;
+    b' keeps its dtype), g, int8 mq/vq, (R,) fp32 scales ms/vs, and
+    ``bits`` (R, 128) int32 noise in [0, 2**16) (b' stochastically
+    rounded to bf16 values; round to nearest without).  ``scalars`` is
+    (lr, bc1, bc2) on b's device."""
+    name = "subspace_adam_q8"
+    if not _route(b, name):
+        lr, bc1, bc2 = scalars.float()
+        nb, nmq, nms, nvq, nvs = ref.subspace_adam_q8(
+            b, g, mq, ms.reshape(-1, 1), vq, vs.reshape(-1, 1), lr=lr,
+            bc1=bc1, bc2=bc2, beta1=beta1, beta2=beta2, eps=eps, wd=wd,
+            bits=bits)
+        return nb, nmq, nms.reshape(-1), nvq, nvs.reshape(-1)
+    _check(name, b, dict(b=b, g=g, mq=mq, ms=ms, vq=vq, vs=vs, bits=bits),
+           scalars, 3)
+    _check_q8(name, b, g, bits, dict(m=(mq, ms), v=(vq, vs)))
+    nb = torch.empty_like(b)
+    nmq, nvq = torch.empty_like(mq), torch.empty_like(vq)
+    nms, nvs = torch.empty_like(ms), torch.empty_like(vs)
+    if b.numel():
+        _launch(name, "subspace_q8", "subspace_adam_q8_launch", b,
+                (DTYPE_CODE[b.dtype], DTYPE_CODE[g.dtype], b.data_ptr(),
+                 g.data_ptr(), mq.data_ptr(), ms.data_ptr(), vq.data_ptr(),
+                 vs.data_ptr(), _ptr(bits), nb.data_ptr(), nmq.data_ptr(),
+                 nms.data_ptr(), nvq.data_ptr(), nvs.data_ptr(),
+                 scalars.data_ptr(), b.shape[0], beta1, 1 - beta1, beta2,
+                 1 - beta2, eps, wd))
+    return nb, nmq, nms, nvq, nvs
+
+
+def subspace_lion_q8(b: torch.Tensor, g: torch.Tensor, mq: torch.Tensor,
+                     ms: torch.Tensor, scalars: torch.Tensor, *,
+                     beta1: float, beta2: float, wd: float,
+                     bits: Optional[torch.Tensor] = None):
+    """(b', mq', ms'): the :func:`subspace_adam_q8` contract minus v;
+    ``scalars`` is (lr,) on b's device."""
+    name = "subspace_lion_q8"
+    if not _route(b, name):
+        nb, nmq, nms = ref.subspace_lion_q8(
+            b, g, mq, ms.reshape(-1, 1), lr=scalars.float()[0], beta1=beta1,
+            beta2=beta2, wd=wd, bits=bits)
+        return nb, nmq, nms.reshape(-1)
+    _check(name, b, dict(b=b, g=g, mq=mq, ms=ms, bits=bits), scalars, 1)
+    _check_q8(name, b, g, bits, dict(m=(mq, ms)))
+    nb, nmq, nms = (torch.empty_like(t) for t in (b, mq, ms))
+    if b.numel():
+        _launch(name, "subspace_q8", "subspace_lion_q8_launch", b,
+                (DTYPE_CODE[b.dtype], DTYPE_CODE[g.dtype], b.data_ptr(),
+                 g.data_ptr(), mq.data_ptr(), ms.data_ptr(), _ptr(bits),
+                 nb.data_ptr(), nmq.data_ptr(), nms.data_ptr(),
+                 scalars.data_ptr(), b.shape[0], beta1, 1 - beta1, beta2,
+                 1 - beta2, wd))
+    return nb, nmq, nms

@@ -3,8 +3,11 @@
 Counterpart of ``repro.methods.lowrank``: grouped master weights and
 grouped subspace state built once by ``subspace.init_grouped``, the
 inner step through autodiff of the packed model, and the lazy outer
-merge + resample every ``lazy_k`` steps.  ``lowrank_lr`` (the
-forward-only estimator) is not ported yet.
+merge + resample every ``lazy_k`` steps.  :class:`_LowRankBase` holds
+what the subspace paradigms share (``lowrank_lion`` in
+:mod:`.lion` too).  ``lowrank_lr`` (the forward-only estimator), the
+fused outer step, the sharding hook and the rollback reseed are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -16,17 +19,24 @@ from .base import Method
 from .registry import register
 
 
-@register("lowrank_adam")
-class LowRankAdamMethod(Method):
-    name = "lowrank_adam"
-    family = "bp"
+class _LowRankBase(Method):
+    """Shared init, inner and outer step of the subspace paradigms; the
+    update rule is the layout's ``algo``."""
+    algo = "adam"
 
     def init(self, params, tcfg, gen):
-        return subspace.init_grouped(params, tcfg, gen)
+        return subspace.init_grouped(params, tcfg, gen, algo=self.algo)
 
     def make_inner_step(self, cfg, tcfg,
                         loss_fn: Optional[Callable] = None) -> Callable:
+        # one train step for both rules: inner_update branches on the
+        # layout's algo, state_dtype and master_dtype
         return steps_mod.make_train_step(cfg, tcfg, loss_fn)
 
     def make_outer_step(self, cfg, tcfg) -> Optional[Callable]:
         return steps_mod.make_outer_step(cfg, tcfg)
+
+
+@register("lowrank_adam")
+class LowRankAdamMethod(_LowRankBase):
+    name = "lowrank_adam"

@@ -144,3 +144,34 @@ def resolve_compute_dtype(tcfg, device) -> torch.dtype:
         raise ValueError(f"compute_dtype {name!r}: expected one of "
                          f"{', '.join(sorted(DTYPES))} or 'auto'")
     return DTYPES[name]
+
+
+STATE_DTYPES = ("float32", "int8")
+MASTER_DTYPES = ("float32", "bfloat16")
+
+
+def _storage_dtype(tcfg, field: str, allowed) -> str:
+    name = getattr(tcfg, field, "float32") or "float32"
+    if name == "auto":
+        name = "float32"
+    if name not in allowed:
+        raise ValueError(f"{field} {name!r}: expected one of "
+                         f"{', '.join(allowed)}")
+    return name
+
+
+def resolve_state_dtype(tcfg=None) -> str:
+    """Storage dtype NAME of the grouped subspace moments m/v:
+    ``'float32'`` (dense fp32 buffers) or ``'int8'`` (block-quantized,
+    dequant -> update -> requant fused in the kernels).  Read from
+    ``tcfg.state_dtype`` alone (``''`` and ``'auto'`` mean fp32); the
+    reference's ``REPRO_STATE_DTYPE`` override is not read."""
+    return _storage_dtype(tcfg, "state_dtype", STATE_DTYPES)
+
+
+def resolve_master_dtype(tcfg=None) -> str:
+    """Storage dtype NAME of the subspace B masters: ``'float32'`` or
+    ``'bfloat16'`` (updates stochastically rounded, so the narrow store
+    stays unbiased).  Read from ``tcfg.master_dtype`` alone; the
+    reference's ``REPRO_MASTER_DTYPE`` override is not read."""
+    return _storage_dtype(tcfg, "master_dtype", MASTER_DTYPES)

@@ -1,42 +1,56 @@
 """LowRankLazyAdam — the paper's Algorithm 1 — on grouped structure-of-
 arrays state.
 
-Counterpart of ``repro.optim.subspace`` on its fp32-state path:
+Counterpart of ``repro.optim.subspace``:
 
 * the layout (``is_lowrank_leaf``, ``_rank_for``, ``GroupSpec``,
   ``SubspaceLayout``, ``build_layout``): leaves are numbered in
   sorted-key order, as JAX flattens dicts, so ``leaf_idx`` agrees with
   the reference and adapters and states cross over one to one;
 * the state: every group of same-shape, same-rank low-rank leaves keeps
-  its ``B``/``m``/``v`` stacked as one ``(G,) + lead + (n_out, r)`` fp32
+  its ``B``/``m``/``v`` stacked as one ``(G,) + lead + (n_out, r)``
   buffer and its ``V`` as ``(G,) + lead + (k, r)`` in the compute dtype
   (:class:`GroupedLowRankSlot`); the master weights are stacked the same
-  way (:class:`GroupedParams`), so the Adam and merge kernels take a
+  way (:class:`GroupedParams`), so the update and merge kernels take a
   whole group in one launch and the model sees views;
+* the storage precision (``SubspaceLayout.state_dtype`` and
+  ``master_dtype``): fp32 or int8 block-quantized moments
+  (:class:`~repro_torch.optim.quant.QuantizedTensor`), fp32 or bf16 ``B``
+  masters whose updates are stochastically rounded with noise drawn
+  from the state's generator (:func:`_sr_bits`);
+* the update rule (``SubspaceLayout.algo``): ``"adam"``, or ``"lion"``
+  (one moment; ``v`` is a zero-size ``(G,) + lead + (0, r)``
+  placeholder);
 * the INNER step (:func:`inner_update`): global-norm clip, one fused
-  ``subspace_adam`` launch per group, plain AdamW on the dense leaves;
+  update launch per group (Adam or Lion, on fp32 or int8 moments), plain
+  AdamW or Lion on the dense leaves;
 * the OUTER step (:func:`outer_merge_resample`): ``W += V Bᵀ`` per group
-  in place, a fresh Stiefel ``V``, ``B`` zeroed, moments reset.
+  in place (stochastically rounded into a bf16 ``W`` under bf16
+  masters), a fresh Stiefel ``V``, ``B`` zeroed, moments reset.
 
 Unlike the reference's pure functions, the outer merge updates the
 grouped master buffer where it lies (the training loop never reads the
 old weights again).  The reference key becomes a ``torch.Generator``
-carried in the state.  int8 moments, bf16 masters, Lion and the
-instance-dependent sampler's energy EMA are not ported yet.
+carried in the state, which also draws the stochastic-rounding noise.
+The instance-dependent sampler's energy EMA, the reference's
+``REPRO_STATE_DTYPE``/``REPRO_MASTER_DTYPE`` overrides and its GaLore
+opt-out (``quantize_state``) are not ported.
 """
 from __future__ import annotations
 
 import dataclasses
 import re
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from ..core import samplers
-from ..kernels import dispatch
-from ..models.common import (resolve_compute_dtype, tree_flatten_with_path,
-                             tree_unflatten)
+from ..kernels import dispatch, ref
+from ..models.common import (DTYPES, resolve_compute_dtype,
+                             resolve_master_dtype, resolve_state_dtype,
+                             tree_flatten_with_path, tree_unflatten)
 from ..models.linear import LRPack
+from . import quant
 from .adamw import clip_by_global_norm
 
 EXCLUDE_DEFAULT = r"(/embed/|/tok$|/pos$|router|conv_w)"
@@ -51,11 +65,19 @@ class GroupSpec(NamedTuple):
 
 class SubspaceLayout(NamedTuple):
     """Static index map param-tree <-> grouped buffers.  ``compute_dtype``
-    names the dtype V is stored in and the packed views are cast to."""
+    names the dtype V is stored in and the packed views are cast to;
+    ``state_dtype`` the moments' storage (``'float32'`` | ``'int8'``),
+    ``master_dtype`` the B masters' (``'float32'`` | ``'bfloat16'``),
+    ``qblock`` the elements per int8 scale and ``algo`` the update rule
+    (``'adam'`` | ``'lion'``)."""
     n_leaves: int
     dense_idx: Tuple[int, ...]
     groups: Tuple[GroupSpec, ...]
     compute_dtype: str = "float32"
+    state_dtype: str = "float32"
+    master_dtype: str = "float32"
+    qblock: int = quant.QBLOCK
+    algo: str = "adam"
 
 
 class DenseSlot(NamedTuple):
@@ -65,12 +87,14 @@ class DenseSlot(NamedTuple):
 
 class GroupedLowRankSlot(NamedTuple):
     """All same-shape low-rank leaves of one group, pre-stacked: ``proj``
-    (V) ``(G,) + lead + (k, r)``; ``b``/``m``/``v`` ``(G,) + lead +
-    (n_out, r)`` fp32."""
+    (V) ``(G,) + lead + (k, r)``; ``b`` ``(G,) + lead + (n_out, r)`` in
+    the master dtype; ``m``/``v`` the same shape, fp32 tensors or
+    :class:`~repro_torch.optim.quant.QuantizedTensor` (``v`` is
+    ``(G,) + lead + (0, r)`` under Lion)."""
     proj: torch.Tensor
     b: torch.Tensor
-    m: torch.Tensor
-    v: torch.Tensor
+    m: Union[torch.Tensor, quant.QuantizedTensor]
+    v: Union[torch.Tensor, quant.QuantizedTensor]
 
 
 @dataclasses.dataclass
@@ -127,10 +151,14 @@ def _rank_for(shape, tcfg) -> int:
     return max(1, min(tcfg.rank, min(k, n_out) // 2))
 
 
-def build_layout(params, tcfg) -> SubspaceLayout:
+def build_layout(params, tcfg, algo: str = "adam") -> SubspaceLayout:
     """Classify leaves once; same-shape, same-rank low-rank leaves share a
     group.  ``params`` may hold tensors or ``ParamSpec``s — only shapes
-    are read."""
+    are read.  The layout also pins the storage precision
+    (``tcfg.state_dtype``, ``tcfg.master_dtype``) and the update rule
+    (``algo``)."""
+    if algo not in ("adam", "lion"):
+        raise ValueError(f"algo {algo!r}: expected 'adam' or 'lion'")
     leaves = tree_flatten_with_path(params)
     dense_idx = []
     by_sig: dict = {}
@@ -143,15 +171,10 @@ def build_layout(params, tcfg) -> SubspaceLayout:
     groups = tuple(GroupSpec(shape=sig[0], rank=sig[1], leaf_idx=tuple(idx))
                    for sig, idx in by_sig.items())
     return SubspaceLayout(n_leaves=len(leaves), dense_idx=tuple(dense_idx),
-                          groups=groups)
-
-
-def _require_fp32_state(tcfg) -> None:
-    for field in ("state_dtype", "master_dtype"):
-        if getattr(tcfg, field, "float32") != "float32":
-            raise NotImplementedError(
-                f"{field}={getattr(tcfg, field)!r}: only fp32 subspace "
-                f"state is ported to repro_torch yet (ROADMAP.md Queue 1)")
+                          groups=groups,
+                          state_dtype=resolve_state_dtype(tcfg),
+                          master_dtype=resolve_master_dtype(tcfg),
+                          qblock=quant.QBLOCK, algo=algo)
 
 
 # ---------------------------------------------------------------------------
@@ -200,17 +223,31 @@ def params_of(params):
     return tree_unflatten(params.paths, out)
 
 
-def init(params, tcfg, gen: torch.Generator) -> SubspaceState:
+def _moment_zeros(shape, layout: SubspaceLayout, device,
+                  codec: str = "linear"):
+    """A zeroed grouped moment buffer in the layout's storage precision
+    (second moments use the sqrt codec)."""
+    if layout.state_dtype == "int8":
+        return quant.zeros(shape, layout.qblock, codec=codec, device=device)
+    return torch.zeros(shape, dtype=torch.float32, device=device)
+
+
+def init(params, tcfg, gen: torch.Generator,
+         algo: str = "adam") -> SubspaceState:
     """Classify leaves, build the grouped layout, draw the initial
     projections (one batched draw per group, from ``gen``), zero B and
-    the moments.  The state lives on the device of ``params``."""
-    _require_fp32_state(tcfg)
+    the moments.  The state lives on the device of ``params``.
+
+    B is stored in ``tcfg.master_dtype`` and the moments in
+    ``tcfg.state_dtype`` (int8: :class:`quant.QuantizedTensor`, v in the
+    sqrt codec); ``algo="lion"`` keeps only the first moment."""
     params = params_of(params)
     flat = tree_flatten_with_path(params)
     device = flat[0][1].device
     cdt = resolve_compute_dtype(tcfg, device)
-    layout = build_layout(params, tcfg)._replace(
+    layout = build_layout(params, tcfg, algo)._replace(
         compute_dtype=str(cdt).removeprefix("torch."))
+    mdt = DTYPES[layout.master_dtype]
     f32 = dict(dtype=torch.float32, device=device)
     dense = tuple(DenseSlot(m=torch.zeros(flat[i][1].shape, **f32),
                             v=torch.zeros(flat[i][1].shape, **f32))
@@ -222,9 +259,12 @@ def init(params, tcfg, gen: torch.Generator) -> SubspaceState:
                                                    spec.rank)
         proj = _sample_proj_group(tcfg.sampler, gen, spec, n_members,
                                   tcfg.c, cdt, device)
+        v = (torch.zeros(bshape[:-2] + (0, spec.rank), **f32)
+             if layout.algo == "lion"
+             else _moment_zeros(bshape, layout, device, codec="sqrt"))
         groups.append(GroupedLowRankSlot(
-            proj=proj, b=torch.zeros(bshape, **f32),
-            m=torch.zeros(bshape, **f32), v=torch.zeros(bshape, **f32)))
+            proj=proj, b=torch.zeros(bshape, dtype=mdt, device=device),
+            m=_moment_zeros(bshape, layout, device), v=v))
     i32 = dict(dtype=torch.int32, device=device)
     return SubspaceState(dense=dense, groups=tuple(groups),
                          step=torch.zeros((), **i32),
@@ -232,10 +272,10 @@ def init(params, tcfg, gen: torch.Generator) -> SubspaceState:
                          layout=layout)
 
 
-def init_grouped(params, tcfg, gen: torch.Generator):
+def init_grouped(params, tcfg, gen: torch.Generator, algo: str = "adam"):
     """The trainer's entry: ``(grouped_params, state)`` built from one
     layout."""
-    state = init(params, tcfg, gen)
+    state = init(params, tcfg, gen, algo)
     return group_params(params, state.layout), state
 
 
@@ -258,9 +298,10 @@ def packed_params(params: GroupedParams, state: SubspaceState,
     low-rank leaves and the trainable tensor at the dense leaves.
 
     ``dtype`` casts all three pack members of a group once (the compute
-    dtype of the fused forward/backward); the fp32 B masters and the
-    stored weights are untouched, and autograd carries the B gradient
-    back up through the cast to fp32.
+    dtype of the fused forward/backward); the B masters and the stored
+    weights are untouched, and autograd carries the B gradient back
+    through the cast to the master's dtype (a bf16 master gets a bf16
+    gradient, as the reference's cotangent of a bf16 primal).
     """
     def cast(x):
         return x if dtype is None else x.to(dtype)
@@ -291,23 +332,79 @@ def _dense_adam(slot: DenseSlot, p, g, *, lr, bc1, bc2, tcfg):
     return (p.float() - lr * delta).to(p.dtype), DenseSlot(m, v)
 
 
+def _dense_lion(slot: DenseSlot, p, g, *, lr, tcfg):
+    """Momentum-only Lion on a dense leaf; its v slot rides along
+    unchanged (zero), as in the reference."""
+    g32 = g.float()
+    u = torch.sign(tcfg.beta1 * slot.m + (1 - tcfg.beta1) * g32)
+    if tcfg.weight_decay and p.ndim >= 2:
+        u = u + tcfg.weight_decay * p.float()
+    m = tcfg.beta2 * slot.m + (1 - tcfg.beta2) * g32
+    return (p.float() - lr * u).to(p.dtype), DenseSlot(m, slot.v)
+
+
+def _sr_bits(gen: torch.Generator, shape, device) -> torch.Tensor:
+    """Stochastic-rounding noise for a bf16 store: int32 values uniform
+    over ``[0, 2**16)``, drawn from the state's generator on its own
+    device (the reference keys them from its PRNG key, step and group)."""
+    return torch.randint(0, 1 << 16, tuple(shape), dtype=torch.int32,
+                         generator=gen, device=gen.device).to(device)
+
+
+def _update_group(slot: GroupedLowRankSlot, g32, bits, *, lr, stepf,
+                  layout: SubspaceLayout, tcfg) -> GroupedLowRankSlot:
+    """One group's fused update through the kernel that fits its layout:
+    Adam or Lion on fp32 or int8 moments; bf16 masters are rounded with
+    ``bits`` (fused into the q8 kernels, after the fp32-state ones)."""
+    lion = layout.algo == "lion"
+    wd = float(tcfg.weight_decay)
+    if layout.state_dtype == "int8":
+        if lion:
+            nb, nmq, nms = dispatch.subspace_lion_q8(
+                slot.b, g32, slot.m.q, slot.m.scale, lr=lr,
+                beta1=tcfg.beta1, beta2=tcfg.beta2, wd=wd,
+                qblock=layout.qblock, bits=bits)
+            return slot._replace(b=nb, m=quant.QuantizedTensor(
+                nmq, nms, layout.qblock))
+        nb, nmq, nms, nvq, nvs = dispatch.subspace_adam_q8(
+            slot.b, g32, slot.m.q, slot.m.scale, slot.v.q, slot.v.scale,
+            lr=lr, step=stepf, beta1=tcfg.beta1, beta2=tcfg.beta2,
+            eps=tcfg.eps, wd=wd, qblock=layout.qblock, bits=bits)
+        return slot._replace(
+            b=nb, m=quant.QuantizedTensor(nmq, nms, layout.qblock),
+            v=quant.QuantizedTensor(nvq, nvs, layout.qblock, codec="sqrt"))
+    if lion:
+        nb, nm = dispatch.subspace_lion(slot.b, g32, slot.m, lr=lr,
+                                        beta1=tcfg.beta1, beta2=tcfg.beta2,
+                                        wd=wd)
+        nv = slot.v
+    else:
+        nb, nm, nv = dispatch.subspace_adam(
+            slot.b, g32, slot.m, slot.v, lr=lr, step=stepf,
+            beta1=tcfg.beta1, beta2=tcfg.beta2, eps=tcfg.eps, wd=wd)
+    if bits is not None:
+        nb = ref.sr_bf16(nb, bits).to(slot.b.dtype)
+    return slot._replace(b=nb, m=nm, v=nv)
+
+
 @torch.no_grad()
 def inner_update(grads: Trainable, trainable: Trainable,
                  params: GroupedParams, state: SubspaceState, *, lr,
                  tcfg) -> Tuple[GroupedParams, Trainable, SubspaceState,
                                 torch.Tensor]:
-    """One Adam step on the trainable tree.
+    """One optimizer step on the trainable tree.
 
     Returns ``(new_params, new_trainable, new_state, grad_norm)``.  Dense
-    updates land in the params' dense leaves; low-rank updates land in
-    each group's stacked B through one ``subspace_adam`` launch.  ``lr``
-    is a 0-d tensor on the device (or a number); nothing here waits on
-    the host.
+    updates (AdamW, or Lion under ``algo="lion"``) land in the params'
+    dense leaves; low-rank updates land in each group's stacked B through
+    one fused launch per group.  ``lr`` is a 0-d tensor on the device (or
+    a number); nothing here waits on the host.
     """
     flat, gn = clip_by_global_norm(list(grads.dense) + list(grads.groups),
                                    tcfg.grad_clip)
     nd = len(grads.dense)
     g_dense, g_groups = flat[:nd], flat[nd:]
+    layout = state.layout
     step = state.step + 1
     stepf = step.float()
     bc1 = 1.0 - tcfg.beta1 ** stepf
@@ -315,18 +412,22 @@ def inner_update(grads: Trainable, trainable: Trainable,
 
     new_dense_w, new_dense = [], []
     for di, w in enumerate(params.dense):
-        new_p, slot = _dense_adam(state.dense[di], w, g_dense[di], lr=lr,
-                                  bc1=bc1, bc2=bc2, tcfg=tcfg)
+        if layout.algo == "lion":
+            new_p, slot = _dense_lion(state.dense[di], w, g_dense[di],
+                                      lr=lr, tcfg=tcfg)
+        else:
+            new_p, slot = _dense_adam(state.dense[di], w, g_dense[di],
+                                      lr=lr, bc1=bc1, bc2=bc2, tcfg=tcfg)
         new_dense_w.append(new_p)
         new_dense.append(slot)
 
     new_groups = []
     for slot, g in zip(state.groups, g_groups):
-        nb, nm, nv = dispatch.subspace_adam(
-            slot.b, g.float(), slot.m, slot.v, lr=lr, step=stepf,
-            beta1=tcfg.beta1, beta2=tcfg.beta2, eps=tcfg.eps,
-            wd=float(tcfg.weight_decay))
-        new_groups.append(slot._replace(b=nb, m=nm, v=nv))
+        bits = (_sr_bits(state.gen, slot.b.shape, slot.b.device)
+                if layout.master_dtype == "bfloat16" else None)
+        new_groups.append(_update_group(slot, g.float(), bits, lr=lr,
+                                        stepf=stepf, layout=layout,
+                                        tcfg=tcfg))
 
     new_params = dataclasses.replace(params, dense=tuple(new_dense_w))
     new_state = dataclasses.replace(state, dense=tuple(new_dense),
@@ -343,23 +444,29 @@ def inner_update(grads: Trainable, trainable: Trainable,
 @torch.no_grad()
 def outer_merge_resample(params: GroupedParams, state: SubspaceState,
                          tcfg) -> Tuple[GroupedParams, SubspaceState]:
-    """``W += V Bᵀ`` (fp32 accumulate, one ``lowrank_merge`` launch per
-    group, in place on the grouped buffer), a fresh V per group from the
-    state's generator (stored in V's dtype), B zeroed, and the moments
-    zeroed when ``tcfg.reset_moments``."""
+    """``W += V Bᵀ`` (fp32 accumulate, one merge launch per group, in
+    place on the grouped buffer; stochastically rounded into a bf16 W
+    under bf16 masters), a fresh V per group from the state's generator
+    (stored in V's dtype), B zeroed, and the moments zeroed when
+    ``tcfg.reset_moments``."""
+    sr_master = state.layout.master_dtype == "bfloat16"
     new_groups = []
     for g, (spec, slot) in enumerate(zip(state.layout.groups,
                                          state.groups)):
-        dispatch.lowrank_merge(params.groups[g], slot.proj, slot.b,
-                               out=params.groups[g])
+        w = params.groups[g]
+        if sr_master and w.dtype == torch.bfloat16:
+            dispatch.lowrank_merge_sr(
+                w, slot.proj, slot.b, _sr_bits(state.gen, w.shape, w.device),
+                out=w)
+        else:
+            dispatch.lowrank_merge(w, slot.proj, slot.b, out=w)
         proj = _sample_proj_group(tcfg.sampler, state.gen, spec,
                                   len(spec.leaf_idx), tcfg.c,
                                   slot.proj.dtype, slot.proj.device)
-        m, v = ((torch.zeros_like(slot.m), torch.zeros_like(slot.v))
+        m, v = ((quant.zeros_like(slot.m), quant.zeros_like(slot.v))
                 if tcfg.reset_moments else (slot.m, slot.v))
         new_groups.append(slot._replace(proj=proj,
                                         b=torch.zeros_like(slot.b), m=m,
                                         v=v))
     return params, dataclasses.replace(state, groups=tuple(new_groups),
                                        outer_step=state.outer_step + 1)
-

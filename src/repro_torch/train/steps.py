@@ -1,10 +1,11 @@
 """Step builders of Algorithm 1.
 
 Counterpart of ``repro.train.steps`` for the dense LM trained as
-``lowrank_adam``: ``build_loss_fn``, ``make_train_step`` (the inner step)
-and ``make_outer_step`` (merge + resample).  The steps run eagerly; the
-LR, the step counter and the bias corrections stay on the device, so an
-inner step makes no host round trip.
+``lowrank_adam`` or ``lowrank_lion``: ``build_loss_fn``,
+``make_train_step`` (the inner step) and ``make_outer_step`` (merge +
+resample).  The steps run eagerly; the LR, the step counter and the
+bias corrections stay on the device, so an inner step makes no host
+round trip.
 """
 from __future__ import annotations
 
@@ -40,20 +41,21 @@ def lr_at(tcfg, step):
                  total_steps=tcfg.total_steps)
 
 
-def pack_dtype(cfg, tcfg, device) -> Optional[torch.dtype]:
+def pack_dtype(cfg, tcfg, device) -> torch.dtype:
     """Dtype the packed (W, B, V) views are cast to: the run's compute
-    dtype when reduced, else the model's activation dtype when reduced,
-    else None (no cast)."""
+    dtype when reduced, else the model's activation dtype.  With both
+    fp32 the stored members that are narrower (bf16 weights, bf16 B
+    masters) are cast up, as the reference's mixed-dtype dots promote
+    them, so the fused forward and backward see one dtype; fp32 members
+    are not copied."""
     cdt = resolve_compute_dtype(tcfg, device)
-    if cdt != torch.float32:
-        return cdt
-    dt = act_dtype(cfg)
-    return dt if dt != torch.float32 else None
+    return cdt if cdt != torch.float32 else act_dtype(cfg)
 
 
 def make_train_step(cfg, tcfg, loss_fn: Optional[Callable] = None):
-    """Inner step: one backward through the packed model, then
-    subspace-Adam on B and AdamW on the dense leaves.
+    """Inner step: one backward through the packed model, then the
+    method's update (subspace-Adam or -Lion on B, AdamW or Lion on the
+    dense leaves; see ``subspace.inner_update``).
 
     ``step(params, opt_state, batch) -> (params, opt_state, metrics)``;
     ``metrics`` holds ``loss``, ``grad_norm`` and ``lr`` as 0-d device

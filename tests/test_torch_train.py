@@ -279,6 +279,95 @@ def test_trainer_tracks_the_jax_trainer_over_two_outer_cycles(monkeypatch):
     assert all(np.isfinite(losses))
 
 
+# (optimizer, state_dtype, master_dtype) -> the relative per-step loss
+# gap allowed against the JAX Trainer; see the test's docstring
+COMPRESSED = {("lowrank_lion", "float32", "float32"): 1e-5,
+              ("lowrank_adam", "int8", "bfloat16"): 2e-4,
+              ("lowrank_lion", "int8", "bfloat16"): 1e-5}
+
+
+@pytest.mark.parametrize("optimizer,state_dtype,master_dtype",
+                         list(COMPRESSED))
+def test_compressed_trainers_track_the_jax_trainer_over_two_outer_cycles(
+        monkeypatch, optimizer, state_dtype, master_dtype):
+    """The gate above for Lion and for int8 moments with bf16 masters
+    (the grouped weights stored in bf16 too, so the merge is the
+    stochastically rounded one).  The reference's ``V`` and rounding
+    ``bits`` are injected.  Lion on fp32 state keeps the gate's 1e-5.
+    Under bf16 masters the B gradient is bf16, and a last-bit difference
+    of the fp32 gradient moves its bf16 rounding at a few elements per
+    thousand by one part in 2**8; SR rounds of B and W and int8 payloads
+    move by one step the same way, and Adam's steps after a moment reset
+    are nearly sign-like, so the gap grows after the first merge.
+    Measured per-step worst (CPU): ``lowrank_adam`` int8 + bf16 4.5e-5
+    relative (1.4e-7 before the first merge), held at 2e-4;
+    ``lowrank_lion`` int8 + bf16 1.4e-7 (the sign update absorbs it),
+    held at Lion on fp32 state's 1e-5."""
+    kw = dict(KW, optimizer=optimizer, state_dtype=state_dtype,
+              master_dtype=master_dtype)
+    if optimizer == "lowrank_lion":       # the reference tests' Lion recipe
+        kw.update(lr=3e-4, beta2=0.99)
+    tcfg, jtcfg = TrainConfig(**kw), JTrainConfig(**kw)
+    sr = master_dtype == "bfloat16"
+    jloader = JLoader("lm", 0, **BATCH)
+    jt = JTrainer(JCFG, jtcfg, jloader)
+    if sr:
+        jt.params = dataclasses.replace(jt.params, groups=tuple(
+            w.astype(jax.numpy.bfloat16) for w in jt.params.groups))
+    params0 = _np(jsub.params_of(jt.params))
+    groups0, dense0 = _np(jt.opt_state.groups), _np(jt.opt_state.dense)
+    jlosses, projs, bits = [], [], []
+    for s in range(7):
+        st, step_bits = jt.opt_state, []
+        if sr:      # the reference's draws, in the order the port asks
+            key = st.key
+            if s > 0 and s % tcfg.lazy_k == 0:
+                key, skey = jax.random.split(key)
+                step_bits += [jsub._sr_bits(skey, st.outer_step, g, w.shape)
+                              for g, w in enumerate(jt.params.groups)]
+            step_bits += [jsub._sr_bits(key, st.step, g, slot.b.shape)
+                          for g, slot in enumerate(st.groups)]
+        bits.append([np.asarray(b).astype(np.int32) for b in step_bits])
+        jlosses += jt.run(1).losses
+        projs.append([np.asarray(g.proj) for g in jt.opt_state.groups])
+
+    tr = Trainer(CFG, tcfg,
+                 lambda s: {k: _t(v) for k, v in jloader(s).items()},
+                 device="cpu", params=convert.params_from_numpy(params0,
+                                                                "cpu"))
+    tr.params, tr.opt_state = convert.subspace_from_numpy(
+        params0, tcfg, groups=groups0, dense=dense0, device="cpu")
+    v_queue, bits_queue = [], []
+
+    def injected_bits(gen, shape, device):
+        b = bits_queue.pop(0)
+        assert tuple(shape) == b.shape
+        return _t(b).to(device)
+
+    monkeypatch.setattr(
+        subspace, "_sample_proj_group",
+        lambda name, gen, spec, n, c, dtype, device:
+        _t(v_queue.pop(0)).to(device, dtype))
+    monkeypatch.setattr(subspace, "_sr_bits", injected_bits)
+    losses, outer = [], 0
+    for s in range(7):
+        if tr.outer_due():
+            v_queue[:] = projs[s]
+        bits_queue[:] = bits[s]
+        report = tr.run(1)
+        losses += report.losses
+        outer += report.outer_steps
+        assert not v_queue and not bits_queue
+    assert outer == 2 and int(tr.opt_state.outer_step) == 2
+    assert tr.opt_state.layout.algo == optimizer.removeprefix("lowrank_")
+    if sr:
+        assert all(w.dtype == torch.bfloat16 for w in tr.params.groups)
+        assert all(s.b.dtype == torch.bfloat16 for s in tr.opt_state.groups)
+    np.testing.assert_allclose(
+        losses, jlosses, rtol=COMPRESSED[optimizer, state_dtype, master_dtype])
+    assert all(np.isfinite(losses))
+
+
 # ---------------------------------------------------------------------------
 # (f) the Stiefel law, (g) the synthetic stream's law
 # ---------------------------------------------------------------------------
@@ -383,15 +472,68 @@ def test_clip_by_global_norm_matches_jax(max_norm):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6)
 
 
+def test_clip_promotes_a_bf16_gradient_to_fp32_as_jax_does():
+    """A bf16 B master has a bf16 gradient; the reference scales it by an
+    fp32 array, which promotes it to fp32 unrounded."""
+    rng = np.random.default_rng(10)
+    a = rng.standard_normal((6, 5)).astype(np.float32)
+    jg = jax.numpy.asarray(a).astype(jax.numpy.bfloat16)
+    (want,), jgn = jadamw.clip_by_global_norm([jg], 0.5)
+    (got,), gn = adamw.clip_by_global_norm([_t(a).bfloat16()], 0.5)
+    assert got.dtype == torch.float32 and np.asarray(want).dtype == \
+        np.float32
+    assert abs(gn.item() - float(jgn)) <= 1e-6 * float(jgn)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+
+
+def test_packs_reach_the_kernels_in_one_dtype():
+    """Under fp32 compute, bf16 stored weights and bf16 B masters are cast
+    up in the pack (fp32 members are not copied); under bf16 compute
+    everything is bf16."""
+    cfg = CFG.replace(param_dtype="bfloat16")
+    tcfg = TrainConfig(**dict(KW, master_dtype="bfloat16",
+                              compute_dtype="float32"))
+    loader = StatelessLoader("lm", 0, device="cpu", **BATCH)
+    tr = Trainer(cfg, tcfg, loader, device="cpu")
+    assert tr.params.groups[0].dtype == torch.bfloat16
+    assert tr.opt_state.groups[0].b.dtype == torch.bfloat16
+    for compute, want in (("float32", torch.float32),
+                          ("bfloat16", torch.bfloat16)):
+        tc = TrainConfig(**dict(KW, master_dtype="bfloat16",
+                                compute_dtype=compute))
+        pdt = steps.pack_dtype(cfg.replace(dtype="float32"), tc, "cpu")
+        assert pdt == want
+        tb = subspace.trainable_of(tr.params, tr.opt_state)
+        packed = subspace.packed_params(tr.params, tr.opt_state, tb, pdt)
+        packs = [leaf for _, leaf in subspace.tree_flatten_with_path(packed)
+                 if isinstance(leaf, LRPack)]
+        assert packs and all(p.w.dtype == p.b.dtype == p.v.dtype == want
+                             for p in packs)
+    fp32_tr = Trainer(CFG, TCFG, loader, device="cpu")
+    tb = subspace.trainable_of(fp32_tr.params, fp32_tr.opt_state)
+    packed = subspace.packed_params(fp32_tr.params, fp32_tr.opt_state, tb,
+                                    steps.pack_dtype(CFG, TCFG, "cpu"))
+    assert packed["unembed"].b.data_ptr() == tb.groups[-1].data_ptr()
+
+
 def test_only_the_ported_method_and_state_are_accepted():
-    assert methods.available() == ("lowrank_adam",)
-    with pytest.raises(ValueError, match="available: lowrank_adam"):
+    assert methods.available() == ("lowrank_adam", "lowrank_lion")
+    with pytest.raises(ValueError,
+                       match="available: lowrank_adam, lowrank_lion"):
         methods.get("galore")
     loader = StatelessLoader("lm", 0, device="cpu", **BATCH)
     with pytest.raises(ValueError, match="unknown method"):
         Trainer(CFG, TrainConfig(optimizer="adamw"), loader, device="cpu")
-    for bad in (dict(state_dtype="int8"), dict(master_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError, match="fp32"):
+    for ok in (dict(state_dtype="int8"), dict(master_dtype="bfloat16"),
+               dict(optimizer="lowrank_lion", state_dtype="int8",
+                    master_dtype="bfloat16")):
+        tr = Trainer(CFG, TrainConfig(**ok), loader, device="cpu")
+        layout = tr.opt_state.layout
+        assert (layout.state_dtype, layout.master_dtype) == (
+            ok.get("state_dtype", "float32"),
+            ok.get("master_dtype", "float32"))
+    for bad in (dict(state_dtype="int4"), dict(master_dtype="float16")):
+        with pytest.raises(ValueError, match="expected one of"):
             Trainer(CFG, TrainConfig(**bad), loader, device="cpu")
     with pytest.raises(NotImplementedError, match="grad_accum"):
         Trainer(CFG, TrainConfig(grad_accum=2), loader, device="cpu")
