@@ -16,7 +16,10 @@
    (bf16 W and V, fp32 B), subspace-Adam at the four group B shapes; and
    the compressed-state kernels at the same shapes: subspace-Lion (fp32
    state), the int8-moment Adam and Lion (bf16 b with rounding bits, and
-   fp32 b without) and the stochastically rounded merge (bf16 W, V, B).
+   fp32 b without) and the stochastically rounded merge (bf16 W, V, B);
+   the forward in its shared-B form (no ``p``) at M = 16384, as the
+   forward-only ``lowrank_lr`` runs it; and GaLore's projection
+   ``Gᵀ V`` at the four group shapes (fp32 G, bf16 V).
 4. Serves qwen2-7b at full width and depth (28 layers) in bf16 with 4
    tenants: 8 requests of 128 prompt tokens and 32 new tokens through
    the continuous-batching engine, and checks that the main path
@@ -35,20 +38,30 @@
    lazy_k = 4), 6c ``lowrank_lion`` on int8 moments with bf16 masters
    and 6d ``lowrank_lion`` on fp32 state (8 steps, lazy_k = 3, lr 3e-4,
    beta2 0.99); each checks that its losses are finite and fall and that
-   its kernels launched at every group shape.
+   its kernels launched at every group shape.  Then the paper's
+   comparison methods at full width and depth, each printing ms/step,
+   tok/s, peak memory and optimizer-state bytes: 6e ``galore`` (8 steps,
+   lazy_k = 4: two basis refreshes, whose step times print apart), 6f
+   ``adamw`` (8 steps), both with falling losses, and 6g ``lowrank_lr``
+   (9 steps, lazy_k = 4: two outer merges; finite losses, reported
+   only: nine forward-only steps at 100M parameters move the loss by
+   less than its noise).
 7. Trains a 2-layer full-width cut of llama-100m in fp32 (TF32 off) for
    5 steps with lazy_k = 2 twice, from the same weights, V draws and
    batches: through the kernels on the card and through the plain
    versions on the CPU, and holds the per-step losses together; then the
    same with int8 moments and bf16 B masters over bf16 stored weights,
    once with ``lowrank_adam`` and once with ``lowrank_lion`` (V and the
-   rounding bits drawn on the CPU for both sides).
+   rounding bits drawn on the CPU for both sides); then ``galore``,
+   ``adamw`` and ``lowrank_lr`` (its noise drawn on the CPU for both
+   sides) in fp32.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the one before that the
 per-kernel JSON.  Any failed check exits non-zero.  Without CUDA the
 script exits non-zero before printing any result.
 """
+import dataclasses
 import gc
 import json
 import math
@@ -368,7 +381,9 @@ TRAIN_REPLACES = {
     "lowrank_merge_sr": "src/repro/kernels/lowrank_update.py:69",
     "subspace_lion": "src/repro/kernels/subspace_adam.py:123",
     "subspace_adam_q8": "src/repro/kernels/subspace_adam.py:179",
-    "subspace_lion_q8": "src/repro/kernels/subspace_adam.py:246"}
+    "subspace_lion_q8": "src/repro/kernels/subspace_adam.py:246",
+    "lowrank_forward[shared]": "src/repro/kernels/lowrank_forward.py:72",
+    "lowrank_project": "src/repro/kernels/lowrank_update.py:113"}
 TRAIN_SOURCES = {
     "lowrank_forward[p]": "src/repro_torch/kernels/csrc/lowrank_forward.cu",
     "lowrank_backward": "src/repro_torch/kernels/csrc/lowrank_backward.cu",
@@ -377,7 +392,10 @@ TRAIN_SOURCES = {
     "lowrank_merge_sr": "src/repro_torch/kernels/csrc/lowrank_merge.cu",
     "subspace_lion": "src/repro_torch/kernels/csrc/subspace_adam.cu",
     "subspace_adam_q8": "src/repro_torch/kernels/csrc/subspace_q8.cu",
-    "subspace_lion_q8": "src/repro_torch/kernels/csrc/subspace_q8.cu"}
+    "subspace_lion_q8": "src/repro_torch/kernels/csrc/subspace_q8.cu",
+    "lowrank_forward[shared]":
+        "src/repro_torch/kernels/csrc/lowrank_forward.cu",
+    "lowrank_project": "src/repro_torch/kernels/csrc/lowrank_project.cu"}
 ADAM = dict(beta1=0.9, beta2=0.999, eps=1e-8, wd=0.05)
 LION = dict(beta1=0.9, beta2=0.99, wd=0.05)
 QROW = 128                      # elements per int8 scale (optim.quant)
@@ -460,6 +478,18 @@ def compare_train_kernels(mods, dev):
             time_auto(lambda: ref.lowrank_forward(x, w, v, b,
                                                   return_p=True)),
             time_auto(lib_fwd), bound_of(nbytes, ops, BF16_FLOP_PER_S))
+        # forward, shared B and no p: the forward-only lowrank_lr's form
+        y = lf.lowrank_forward(x, w, v, b)
+        torch.cuda.synchronize()
+        err = _agree(f"forward[shared] y K={K} N={N}", y,
+                     ref.lowrank_forward(x, w, v, b), RTOL, RTOL)
+        del y
+        row("lowrank_forward[shared]", (M, K, N), leaves, err,
+            f"{RTOL}*(max|y|+|y|)",
+            time_auto(lambda: lf.lowrank_forward(x, w, v, b)),
+            time_auto(lambda: ref.lowrank_forward(x, w, v, b)),
+            time_auto(lambda: x @ w + (x @ v) @ b.T),
+            bound_of(nbytes - 2 * M * r, ops, BF16_FLOP_PER_S))
         # backward
         dy = randn(M, N, scale=1e-2).to(bf)
         dx, db = lb.lowrank_backward(dy, w, v, b, p)
@@ -674,6 +704,45 @@ def compare_state_kernels(mods, dev):
     return rows
 
 
+def compare_project_kernel(mods, dev):
+    """Phase 3, GaLore: the projection ``Gᵀ V`` at the four llama-100m
+    group shapes, in the form the path runs it (the clipped fp32
+    gradient, the basis stored in bf16), within 1e-4 of max|out| (fp32
+    sums of the same products in another order).  library_ms times
+    ``torch.matmul(g.mT, v.float())`` (cuBLAS, TF32 off)."""
+    ref, lu = mods["ref"], mods["lu"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    rows = []
+    for shape, leaves in MERGE_SHAPES.items():
+        lead, (K, N) = shape[:-2], shape[-2:]
+        g = 1e-3 * torch.randn(shape, generator=gen, device=dev)
+        v = (K ** -0.5 * torch.randn(lead + (K, RANK), generator=gen,
+                                     device=dev)).bfloat16()
+        got = lu.lowrank_project(g, v)
+        torch.cuda.synchronize()
+        err = _agree(f"project {shape}", got, ref.lowrank_project(g, v),
+                     1e-4)
+        n_bytes = 4 * g.numel() + 2 * v.numel() + 4 * got.numel()
+        ops = 2 * K * N * RANK * math.prod(lead)
+        bms, by = bound_of(n_bytes, ops, FP32_FLOP_PER_S)
+        r = dict(kernel="lowrank_project", shape=shape, leaves=leaves,
+                 max_abs_err=err,
+                 ms=time_auto(lambda: lu.lowrank_project(g, v)),
+                 plain_ms=time_auto(lambda: ref.lowrank_project(g, v)),
+                 library_ms=time_auto(lambda: torch.matmul(g.mT,
+                                                           v.float())),
+                 bound_ms=bms, bound_by=by)
+        rows.append(r)
+        log(f"[kernel] {'lowrank_project':18s} {str(shape):22s} ({leaves}) "
+            f"max_abs_err={err:.4g} (tol 1e-4*max|out|) ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} "
+            f"library_ms={r['library_ms']:.4f} bound_ms={bms:.4f} ({by})")
+        del g, v, got
+        torch.cuda.empty_cache()
+    return rows
+
+
 def train_config(configs, layers=None, dtype=None, **tkw):
     cfg = configs.get_config(TRAIN_ARCH)
     if layers is not None:
@@ -689,10 +758,28 @@ def state_bytes(tr) -> int:
     return sum(t.nbytes for s in tr.opt_state.groups for t in (s.b, s.m, s.v))
 
 
-def train(dev, mods, smi, cfg, tcfg, batch, seq, steps, tag="train"):
+def opt_state_bytes(state) -> int:
+    """Bytes of every tensor an optimizer state holds: moments, B, the
+    bases V or U, int8 scales, dense leaves' moments (not the weights)."""
+    if torch.is_tensor(state):
+        return state.nbytes
+    if isinstance(state, dict):
+        return sum(map(opt_state_bytes, state.values()))
+    if isinstance(state, (tuple, list)):
+        return sum(map(opt_state_bytes, state))
+    if dataclasses.is_dataclass(state):
+        return sum(opt_state_bytes(getattr(state, f.name))
+                   for f in dataclasses.fields(state))
+    return 0
+
+
+def train(dev, mods, smi, cfg, tcfg, batch, seq, steps, tag="train",
+          cadence="merges", falling=True):
     """Phase 6: the training path through the Trainer; returns the
     trainer and the per-step losses.  Every launch counter is zero when
-    the run starts."""
+    the run starts.  The run must show at least two of its ``cadence``
+    (``"merges"``: outer merges, ``"refreshes"``: GaLore bases, None: no
+    check) and, when ``falling``, a falling loss."""
     from repro_torch.data.synthetic import StatelessLoader
     from repro_torch.train.trainer import Trainer
     log(f"[{tag}] {cfg.name} layers={cfg.num_layers} d_model={cfg.d_model} "
@@ -712,13 +799,20 @@ def train(dev, mods, smi, cfg, tcfg, batch, seq, steps, tag="train"):
         torch.cuda.reset_peak_memory_stats()
         log(f"[{tag}] {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
             f"allocated when the run starts")
+    def step_note(s):
+        if (s - 1) % tcfg.lazy_k:
+            return ""
+        if cadence == "refreshes":
+            return " (a basis refresh)"
+        return " (after an outer merge)" if cadence == "merges" and s > 1 \
+            else ""
+
     for mod in mods["counters"]:
         mod.reset_launches()
     t0 = time.perf_counter()
     report = tr.run(steps, log=lambda s, loss, dt: log(
         f"[{tag}] step {s:3d} loss {loss:.4f} {1e3 * dt:.1f} ms"
-        + (" (after an outer merge)" if s > 1 and (s - 1) % tcfg.lazy_k == 0
-           else "")))
+        + step_note(s)))
     wall = time.perf_counter() - t0
     losses = report.losses
     tokens = batch * seq
@@ -731,12 +825,25 @@ def train(dev, mods, smi, cfg, tcfg, batch, seq, steps, tag="train"):
            f"allocated on {smi}" if dev.type == "cuda" else ""))
     if not all(map(lambda x: x == x and abs(x) < float("inf"), losses)):
         raise SystemExit(f"training produced a non-finite loss: {losses}")
-    if report.outer_steps < 2:
-        raise SystemExit(f"only {report.outer_steps} outer merges ran")
+    if cadence == "refreshes":
+        due = [i for i in range(steps) if i % tcfg.lazy_k == 0]
+        rest = [t for i, t in enumerate(report.step_times) if i not in due]
+        log(f"[{tag}] {tr.opt_state.refreshes} basis refreshes; refresh "
+            f"steps {[i + 1 for i in due]}: " + ", ".join(
+                f"{1e3 * report.step_times[i]:.1f}" for i in due)
+            + f" ms; the other steps {1e3 * sum(rest) / len(rest):.1f} "
+            f"ms/step")
+    ran = {"merges": report.outer_steps,
+           "refreshes": getattr(tr.opt_state, "refreshes", 0)}.get(cadence)
+    if ran is not None and ran < 2:
+        raise SystemExit(f"only {ran} {cadence} ran")
     last3 = sum(losses[-3:]) / 3
+    sub = (f"; subspace state {state_bytes(tr)} bytes"
+           if tcfg.optimizer.startswith("lowrank_") else "")
     log(f"[{tag}] first loss {losses[0]:.4f}, mean of the last 3 "
-        f"{last3:.4f}; subspace state {state_bytes(tr)} bytes")
-    if not last3 < losses[0]:
+        f"{last3:.4f}; optimizer state {opt_state_bytes(tr.opt_state)} "
+        f"bytes{sub}")
+    if falling and not last3 < losses[0]:
         raise SystemExit(f"training loss did not fall: first {losses[0]}, "
                          f"mean of the last 3 {last3}")
     return tr, losses
@@ -825,15 +932,64 @@ def train_state_runs(dev, mods, smi, configs, fp32_bytes):
     return counts
 
 
+# the comparison methods' runs: (tag, TrainConfig fields, steps, the
+# cadence the run must show twice, whether its loss must fall)
+METHOD_RUNS = (
+    ("train 6e", dict(optimizer="galore", lazy_k=4, lr=3e-3), 8,
+     "refreshes", True),
+    ("train 6f", dict(optimizer="adamw", lr=3e-3), 8, None, True),
+    ("train 6g", dict(optimizer="lowrank_lr", lazy_k=4, lr=3e-3), 9,
+     "merges", False),
+)
+
+
+def method_runs(dev, mods, smi, configs):
+    """Phase 6e-6g; returns {(JSON row key): launches} of the kernels
+    these paths add: GaLore's projection (6e) and the shared-B forward of
+    the forward-only estimator (6g)."""
+    lf, lu = mods["lf"], mods["lu"]
+    counts = {}
+    for tag, fields, steps, cadence, falling in METHOD_RUNS:
+        cfg, tcfg = train_config(configs, warmup_steps=2, total_steps=1000,
+                                 **fields)
+        tr, _ = train(dev, mods, smi, cfg, tcfg, TRAIN_BATCH, TRAIN_SEQ,
+                      steps, tag=tag, cadence=cadence, falling=falling)
+        new, also = {}, {}       # this path's new rows; earlier rows
+        if tcfg.optimizer == "galore":
+            new = {("lowrank_project", shape): lu.LAUNCHES.get(
+                ("lowrank_project", shape), 0) for shape in MERGE_SHAPES}
+        elif tcfg.optimizer == "lowrank_lr":
+            new = {("lowrank_forward[shared]", (TRAIN_M, K, N)):
+                   lf.LAUNCHES.get(("shared", K, N), 0)
+                   for K, N in TRAIN_SHAPES}
+            for kernel in ("subspace_adam", "lowrank_merge"):
+                also.update({(kernel, shape): n for shape, n in
+                             state_launches(mods, kernel).items()})
+        got = {**new, **also}
+        total = sum(mod.launches() for mod in mods["counters"])
+        log(f"[{tag}] launches " + (", ".join(
+            f"{k}{list(s)}={n}" for (k, s), n in got.items())
+            or f"of the port's kernels: {total} (dense GEMMs only)"))
+        if not all(got.values()):
+            raise SystemExit(f"{tag} missed a kernel at a shape: {got}")
+        counts.update(new)
+        profile_train(tr, steps=2 if cadence == "refreshes" else 1,
+                      tag=f"profile {tag}", top=8)
+        del tr
+        torch.cuda.empty_cache()
+    return counts
+
+
 def profile_train(tr, steps=2, tag="profile-train", match=(), top=12):
     """Where a training step's time goes: device time by kernel over
-    ``steps`` inner steps (no outer merge among them), against the host
-    clock, and the device time of the kernels whose names hold one of
-    ``match``.  The profiler slows the host, so the idle share is an
-    upper bound."""
+    ``steps`` inner steps (no outer merge among them; a GaLore window
+    may hold a basis refresh), against the host clock, and the device
+    time of the kernels whose names hold one of ``match``.  The profiler
+    slows the host, so the idle share is an upper bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    if any((tr.step + i) % tr.tcfg.lazy_k == 0 for i in range(steps)):
+    if tr.method.make_outer_step(tr.cfg, tr.tcfg) is not None and any(
+            (tr.step + i) % tr.tcfg.lazy_k == 0 for i in range(steps)):
         raise SystemExit("profile window would include an outer merge")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -868,9 +1024,14 @@ def profile_train(tr, steps=2, tag="profile-train", match=(), top=12):
 # moments + bf16 masters (bf16 stored weights): the B gradient is bf16, so
 # a last-bit difference of the fp32 gradient moves its bf16 rounding, a
 # stochastic round of B or W, or an int8 payload by one step at a few
-# elements per thousand, and the next steps carry it.  Each limit is
-# about five times its own gap as measured on an H100 80GB HBM3 (700 W;
-# the same to the last digit in three runs): Adam 3.06e-6, Lion 6.08e-6.
+# elements per thousand, and the next steps carry it.  GaLore: cuSOLVER's
+# and LAPACK's eigenvectors differ in their last bits, more where two
+# eigenvalues lie close, and the basis carries that into every step of
+# its interval.  AdamW and LowRank-LR: fp32 sums in another order.  Each
+# limit is about five times its own gap as measured on an H100 80GB HBM3
+# (700 W; the same to the last digit in every run): Adam int8 + bf16
+# 3.06e-6, Lion int8 + bf16 6.08e-6, GaLore 8.1e-6, AdamW 1.76e-7,
+# LowRank-LR 8.8e-8.
 PLAIN_RUNS = (
     ("fp32", dict(), 1e-4),
     ("lowrank_adam int8+bf16", dict(optimizer="lowrank_adam",
@@ -880,6 +1041,9 @@ PLAIN_RUNS = (
                                     state_dtype="int8",
                                     master_dtype="bfloat16", lr=3e-4,
                                     beta2=0.99), 3e-5),
+    ("galore", dict(optimizer="galore"), 4e-5),
+    ("adamw", dict(optimizer="adamw"), 1e-6),
+    ("lowrank_lr", dict(optimizer="lowrank_lr"), 5e-7),
 )
 
 
@@ -923,6 +1087,16 @@ def train_equals_plain(dev, mods, configs, label="fp32", fields=(),
     log(f"[train==plain] {cfg.name} 2 layers, {label}, fp32 compute, batch "
         f"4x256 lazy_k=2, {steps} steps: card {card}, cpu {plain}, max rel "
         f"diff {worst:.3g} (tol {tol})")
+    if "lu" in mods and tcfg.optimizer == "galore":
+        n = mods["lu"].launches("lowrank_project")
+        log(f"[train==plain] card launches lowrank_project={n}")
+        if not n:
+            raise SystemExit("the card run missed lowrank_project")
+    if "lf" in mods and tcfg.optimizer == "lowrank_lr":
+        n = mods["lf"].launches("shared")
+        log(f"[train==plain] card launches lowrank_forward[shared]={n}")
+        if not n:
+            raise SystemExit("the card run missed lowrank_forward[shared]")
     if "sa" in mods and tcfg.state_dtype == "int8":
         kernel = f"subspace_{tcfg.optimizer.removeprefix('lowrank_')}_q8"
         n_upd, n_sr = (mods["sa"].launches(kernel),
@@ -962,7 +1136,7 @@ def main():
 
     t0 = time.perf_counter()
     sources = ("lowrank_forward", "lowrank_backward", "lowrank_merge",
-               "subspace_adam", "subspace_q8")
+               "subspace_adam", "subspace_q8", "lowrank_project")
     built = _build.build_all(sources, force=True)
     log(f"[build] {len(sources)} sources in parallel in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -978,6 +1152,7 @@ def main():
     rows = compare_kernels(lf, ref, dev)
     train_rows = compare_train_kernels(mods, dev)
     state_rows = compare_state_kernels(mods, dev)
+    project_rows = compare_project_kernel(mods, dev)
     counts = serve(dev, mods, smi)
     lazy_equals_merged(dev, mods)
 
@@ -991,6 +1166,7 @@ def main():
     del tr
     torch.cuda.empty_cache()
     state_counts = train_state_runs(dev, mods, smi, configs, fp32_bytes)
+    train_counts.update(method_runs(dev, mods, smi, configs))
     for label, fields, tol in PLAIN_RUNS:
         train_equals_plain(dev, mods, configs, label, fields, tol)
 
@@ -1035,6 +1211,16 @@ def main():
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
     kernels.extend(by_key.values())
+    for row in project_rows:
+        kernels.append({
+            "name": f"lowrank_project [fp32 G, bf16 V] "
+                    f"{list(row['shape'])} ({row['leaves']})",
+            "route": "cuda", "source": TRAIN_SOURCES["lowrank_project"],
+            "replaces": TRAIN_REPLACES["lowrank_project"],
+            "launches": train_counts[("lowrank_project", row["shape"])],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     if missing:
         raise SystemExit(f"kernels never launched on the main path: "

@@ -140,13 +140,16 @@ class ModelConfig:
 class TrainConfig:
     """The fields of the reference ``TrainConfig`` that the port reads:
     which leaves carry a low-rank adapter and at what rank (serving), and
-    the knobs of Algorithm 1 trained as ``lowrank_adam`` or
-    ``lowrank_lion``, on fp32 or int8 moments and fp32 or bf16 B masters.
-    Defaults equal the reference's.  Values the port does not implement
-    yet (gradient accumulation, samplers other than Stiefel, other
-    methods) are refused where they are read."""
-    optimizer: str = "lowrank_adam"   # 'lowrank_adam' | 'lowrank_lion'
-                                      # (repro_torch.methods registry)
+    the knobs of every registered training method (Algorithm 1 as
+    ``lowrank_adam`` or ``lowrank_lion`` on fp32 or int8 moments and fp32
+    or bf16 B masters, the forward-only ``lowrank_lr``, and the
+    ``galore`` and ``adamw`` baselines).  Defaults equal the reference's.
+    Values the port does not implement yet (gradient accumulation,
+    samplers other than Stiefel) are refused where they are read."""
+    optimizer: str = "lowrank_adam"   # any repro_torch.methods registry
+                                      # name: 'adamw' | 'galore' |
+                                      # 'lowrank_adam' | 'lowrank_lion' |
+                                      # 'lowrank_lr'
     sampler: str = "stiefel"          # projection law of V
     rank: int = 128                   # projection rank r
     c: float = 1.0                    # weak-unbiasedness scale
@@ -162,6 +165,7 @@ class TrainConfig:
     grad_accum: int = 1               # microbatches per step (1 only)
     warmup_steps: int = 1000
     total_steps: int = 100_000
+    zo_sigma: float = 1e-3            # LowRank-LR perturbation scale
     reset_moments: bool = True        # reset Adam moments at resample
     min_dim_for_lowrank: int = 128    # matrices with n below this stay dense
     compute_dtype: str = "auto"       # hot-path compute: 'auto' (bf16 on

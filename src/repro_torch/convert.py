@@ -6,7 +6,10 @@ the port's tree under the same names, the same ``(L, k, n_out)``
 stacking and the same ``y = x @ W`` orientation.  Its grouped training
 state (``repro.optim.subspace.SubspaceState`` with numpy leaves) becomes
 the port's grouped master weights and subspace state
-(:func:`subspace_from_numpy`).  Adapters need no conversion:
+(:func:`subspace_from_numpy`); a GaLore state becomes the port's
+(:func:`galore_from_numpy`), and a dense AdamW run's parameters and
+moments the port's (:func:`adamw_from_numpy`).  Adapters need no
+conversion:
 ``AdapterStore.add_tenant`` takes the numpy ``B`` and ``V`` buffers the
 JAX package hands over.
 """
@@ -17,7 +20,7 @@ import torch
 
 from . import methods, resolve_device
 from .models.common import DTYPES, tree_map
-from .optim import quant, subspace
+from .optim import adamw, quant, subspace
 
 
 def to_tensor(a, device, dtype=None) -> torch.Tensor:
@@ -116,3 +119,35 @@ def subspace_from_numpy(params, tcfg, *, groups=None, dense=None, step=0,
     state.outer_step = torch.tensor(int(outer_step), dtype=torch.int32,
                                     device=dev)
     return gparams, state
+
+
+def galore_from_numpy(params, tcfg, *, groups=None, dense=None, step=0,
+                      device=None):
+    """The port's ``(GroupedParams, GaLoreState)`` from the reference's
+    GaLore run: the model-shaped param tree, one item per group with its
+    basis ``proj`` (``U``), ``b`` and the projected moments ``m``/``v``,
+    the dense slots and ``step`` (see :func:`subspace_from_numpy`).  The
+    host's cadence counter starts at ``step``.  ``tcfg.optimizer`` must
+    be ``"galore"``."""
+    if tcfg.optimizer != "galore":
+        raise ValueError(f"galore_from_numpy: tcfg.optimizer is "
+                         f"{tcfg.optimizer!r}, not 'galore'")
+    gparams, state = subspace_from_numpy(params, tcfg, groups=groups,
+                                         dense=dense, step=step,
+                                         device=device)
+    state.host_step = int(step)
+    return gparams, state
+
+
+def adamw_from_numpy(params, *, m=None, v=None, step=0, device=None):
+    """The port's ``(params, AdamWState)`` from the reference's dense AdamW
+    run: its param tree and its ``AdamWState`` moments ``m``/``v`` (trees
+    of fp32 numpy arrays with the params' structure; zeros when absent)
+    and ``step``."""
+    dev = resolve_device(device)
+    tree = params_from_numpy(params, dev)
+    state = adamw.init(tree)
+    return tree, adamw.AdamWState(
+        m=state.m if m is None else params_from_numpy(m, dev),
+        v=state.v if v is None else params_from_numpy(v, dev),
+        step=torch.tensor(int(step), dtype=torch.int32, device=dev))

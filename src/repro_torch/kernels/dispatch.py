@@ -5,6 +5,8 @@ reference's signatures and leading-dim folding — ``lowrank_forward``
 (with ``return_p``), ``lowrank_batch_forward``, ``lowrank_backward``
 (every leading axis contracted into ``dB``), ``lowrank_merge`` and
 ``lowrank_merge_sr`` (over leading dims, one launch per group),
+``lowrank_project`` (GaLore's ``Gᵀ V``, over leading dims, one launch
+per group),
 ``subspace_adam`` and ``subspace_lion`` (leading dims folded into rows,
 one launch per group) and ``subspace_adam_q8`` / ``subspace_lion_q8``
 (the whole buffer tiled into ``(R, qblock)`` rows, a ragged last row
@@ -95,6 +97,15 @@ def lowrank_merge_sr(w: torch.Tensor, v: torch.Tensor, b: torch.Tensor,
     round-to-nearest bias across outer cycles."""
     return _lu.lowrank_merge(w, v, b, out=out,
                              bits=bits.to(torch.int32))
+
+
+def lowrank_project(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Gᵀ V (.., N, r) in fp32 over any leading (group/layer) dims of g
+    (.., K, N) and v (.., K, r): GaLore's projection of the full
+    gradient onto its basis.  g and v may differ in dtype (an fp32
+    gradient and a basis stored in the compute dtype); the product
+    accumulates in fp32 either way."""
+    return _lu.lowrank_project(g, v)
 
 
 def adam_scalars(lr, step, beta1: float, beta2: float,

@@ -1,10 +1,11 @@
-"""The outer step's weight merge ``W' = W + V Bᵀ`` on the card: the
-wrapper of the hand-written CUDA kernel ``csrc/lowrank_merge.cu``.
+"""The outer step's weight merge ``W' = W + V Bᵀ`` and GaLore's
+projection ``G_B = Gᵀ V`` on the card: the wrappers of the hand-written
+CUDA kernels ``csrc/lowrank_merge.cu`` and ``csrc/lowrank_project.cu``.
 
 Replaces the Pallas TPU kernels ``repro/kernels/lowrank_update.py::
-lowrank_merge`` and ``::lowrank_merge_sr`` and the reference dispatch's
-vmap over leading dims: one launch covers every leading item of a group
-buffer (``(G, L, K, N)``).
+lowrank_merge``, ``::lowrank_merge_sr`` and ``::lowrank_project`` and the
+reference dispatch's vmap over leading dims: one call covers every
+leading item of a group buffer (``(G, L, K, N)``).
 ``W``, ``V`` and ``B`` may each be fp32 or bf16 (the training path
 meets a bf16 W, a bf16 V and the fp32 B master); the sum accumulates in
 fp32 and is written in W's dtype, into ``out`` when given (``out=w``
@@ -14,24 +15,31 @@ kernel or raises.
 
 With ``bits`` (W-shaped int32, values in ``[0, 2**16)``) it is the merge
 into a bf16 ``W`` under bf16 masters: the fp32 sum is stochastically
-rounded with that caller-supplied noise.  ``LAUNCHES`` counts launches
-per ``(kernel, shape of w)``, kernel ``"lowrank_merge"`` or
-``"lowrank_merge_sr"`` (the rounded form).  ``project`` of the reference
-module is not ported yet.
+rounded with that caller-supplied noise.
+
+:func:`lowrank_project` takes ``g`` (..,K,N) and ``v`` (..,K,r), each
+fp32 or bf16 (GaLore's path meets an fp32 gradient and a bf16 basis),
+and returns ``Gᵀ V`` (..,N,r) in fp32; a long K is split into ranges
+summed in a fixed order.
+
+``LAUNCHES`` counts launches per ``(kernel, shape)``: kernel
+``"lowrank_merge"`` or ``"lowrank_merge_sr"`` (the rounded form) with
+the shape of w, or ``"lowrank_project"`` with the shape of g.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
 import functools
+import math
 from typing import Optional
 
 import torch
 
 from . import _build, ref
-from .lowrank_forward import DTYPE_CODE, _route
+from .lowrank_forward import DTYPE_CODE, MIN_K_PER_SPLIT, SMS, TILE, _route
 
-# (kernel, w's shape) -> launches on CUDA tensors
+# (kernel, shape of w or g) -> launches on CUDA tensors
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -126,4 +134,81 @@ def lowrank_merge(w: torch.Tensor, v: torch.Tensor, b: torch.Tensor,
             f"{name} kernel launch failed with CUDA error {rc} "
             f"(w {tuple(w.shape)}, r={r})")
     LAUNCHES[(name, tuple(w.shape))] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# G_B = Gᵀ V (GaLore's projection)
+# ---------------------------------------------------------------------------
+
+MAX_GRID_Z = 65535          # the grid's z extent: items x K ranges
+
+
+def project_splits(items: int, K: int, N: int, r: int) -> int:
+    """How many K ranges the projection splits into: about four blocks
+    per SM over all ``items``, each range at least ``MIN_K_PER_SPLIT``
+    deep, and ``items`` x ranges within the grid's z extent."""
+    tiles = items * -(-N // TILE) * -(-r // TILE)
+    s = min(-(-4 * SMS // tiles), -(-K // MIN_K_PER_SPLIT),
+            MAX_GRID_Z // items)
+    return max(1, s)
+
+
+@functools.cache
+def _project_kernel():
+    fn = _build.load("lowrank_project").lowrank_project_launch
+    # tg, tv, g, v, out, part, splits, batch, K, N, r, stream
+    fn.argtypes = [_CI, _CI, _VP, _VP, _VP, _VP, _CI, ctypes.c_longlong,
+                   _CI, _CI, _CI, _VP]
+    fn.restype = _CI
+    return fn
+
+
+def _check_project(g, v) -> None:
+    name = "lowrank_project"
+    if v.device != g.device:
+        raise ValueError(f"{name}: v is on {v.device}, g on {g.device}")
+    for t_name, t in (("g", g), ("v", v)):
+        if t.dtype not in DTYPE_CODE:
+            raise TypeError(
+                f"{name}: the CUDA kernel takes float32 or bfloat16 "
+                f"operands, got {t_name} {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {t_name} is not contiguous")
+    if v.ndim != g.ndim or tuple(v.shape[:-1]) != tuple(g.shape[:-1]):
+        raise ValueError(
+            f"{name}: shapes g {tuple(g.shape)}, v {tuple(v.shape)} do not "
+            f"fit g (.., K, N), v (.., K, r)")
+
+
+def lowrank_project(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Gᵀ V over any leading dims: g (..,K,N), v (..,K,r), each fp32 or
+    bf16 -> (..,N,r) fp32, accumulated in fp32."""
+    if g.ndim < 2:
+        raise ValueError(f"lowrank_project: g must be (.., K, N), got "
+                         f"{tuple(g.shape)}")
+    if not _route(g, "lowrank_project"):
+        return ref.lowrank_project(g, v)
+    _check_project(g, v)
+    lead, (K, N), r = tuple(g.shape[:-2]), g.shape[-2:], v.shape[-1]
+    out = torch.empty(lead + (N, r), dtype=torch.float32, device=g.device)
+    items = math.prod(lead)
+    if out.numel() == 0 or K == 0:
+        return out.zero_()
+    if items > MAX_GRID_Z:
+        raise ValueError(f"lowrank_project: {items} leading items, the "
+                         f"kernel takes at most {MAX_GRID_Z}")
+    s = project_splits(items, K, N, r)
+    part = torch.empty((items * s, N, r) if s > 1 else (0,),
+                       dtype=torch.float32, device=g.device)
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        rc = _project_kernel()(DTYPE_CODE[g.dtype], DTYPE_CODE[v.dtype],
+                               g.data_ptr(), v.data_ptr(), out.data_ptr(),
+                               part.data_ptr(), s, items, K, N, r, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"lowrank_project kernel launch failed with CUDA error {rc} "
+            f"(g {tuple(g.shape)}, r={r})")
+    LAUNCHES[("lowrank_project", tuple(g.shape))] += 1
     return out

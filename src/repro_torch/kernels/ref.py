@@ -4,7 +4,8 @@ CUDA kernel is held to, and the route a CPU tensor takes.
 Counterpart of ``repro.kernels.ref``.  Operands may be mixed-dtype (bf16
 compute slices over fp32 masters); every contraction runs in fp32.
 Outputs: forward ``y`` and ``p`` in x's dtype; backward ``dx`` in dy's
-dtype and ``dB`` in fp32; merge ``W'`` in W's dtype; subspace-Adam and
+dtype and ``dB`` in fp32; merge ``W'`` in W's dtype; the projection
+``Gᵀ V`` in fp32; subspace-Adam and
 -Lion ``b'/m'/v'`` in fp32; the q8 variants ``b'`` in b's dtype (fp32 or
 bf16), int8 moments and fp32 scales.
 
@@ -105,6 +106,12 @@ def lowrank_merge_sr(w: torch.Tensor, v: torch.Tensor, b: torch.Tensor,
     (bf16 stored weights under bf16 masters)."""
     acc = w.float() + v.float() @ b.float().transpose(-1, -2)
     return sr_bf16(acc, bits).to(w.dtype)
+
+
+def lowrank_project(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """G_B = Gᵀ V over any leading dims: g (..,K,N), v (..,K,r) ->
+    (..,N,r) in fp32 (GaLore's projection of a full gradient)."""
+    return g.float().mT @ v.float()
 
 
 def subspace_adam(b, g, m, v, *, lr, bc1, bc2, beta1, beta2, eps, wd):

@@ -1,13 +1,14 @@
-"""LowRank-IPA (Algorithm 1) as the ``lowrank_adam`` method.
+"""The paper's own paradigms: LowRank-IPA (Algorithm 1) as
+``lowrank_adam`` and LowRank-LR as ``lowrank_lr``.
 
 Counterpart of ``repro.methods.lowrank``: grouped master weights and
-grouped subspace state built once by ``subspace.init_grouped``, the
-inner step through autodiff of the packed model, and the lazy outer
-merge + resample every ``lazy_k`` steps.  :class:`_LowRankBase` holds
-what the subspace paradigms share (``lowrank_lion`` in
-:mod:`.lion` too).  ``lowrank_lr`` (the forward-only estimator), the
-fused outer step, the sharding hook and the rollback reseed are not
-ported yet.
+grouped subspace state built once by ``subspace.init_grouped``, and the
+lazy outer merge + resample every ``lazy_k`` steps.  The two differ only
+in how the subspace gradient ``g_B`` is produced: autodiff through the
+packed model (IPA) or the antithetic two-point forward-only estimate
+(LR).  :class:`_LowRankBase` holds what the subspace paradigms share
+(``lowrank_lion`` in :mod:`.lion` too).  The fused outer step, the
+sharding hook and the rollback reseed are not ported yet.
 """
 from __future__ import annotations
 
@@ -40,3 +41,13 @@ class _LowRankBase(Method):
 @register("lowrank_adam")
 class LowRankAdamMethod(_LowRankBase):
     name = "lowrank_adam"
+
+
+@register("lowrank_lr")
+class LowRankLRMethod(_LowRankBase):
+    name = "lowrank_lr"
+    family = "zo"
+
+    def make_inner_step(self, cfg, tcfg,
+                        loss_fn: Optional[Callable] = None) -> Callable:
+        return steps_mod.make_zo_train_step(cfg, tcfg, loss_fn)

@@ -175,3 +175,16 @@ def resolve_master_dtype(tcfg=None) -> str:
     stays unbiased).  Read from ``tcfg.master_dtype`` alone; the
     reference's ``REPRO_MASTER_DTYPE`` override is not read."""
     return _storage_dtype(tcfg, "master_dtype", MASTER_DTYPES)
+
+
+def compute_view(tree, cdt: torch.dtype):
+    """Reduced-precision read view of a weight tree for the loss and its
+    backward (the ``adamw`` and ``galore`` baselines).
+
+    Floating leaves are cast to ``cdt`` (nothing is copied at fp32);
+    the masters the optimizer updates keep their dtype, and gradients
+    flow back through the cast into the master's dtype."""
+    if cdt == torch.float32:
+        return tree
+    return tree_map(lambda x: x.to(cdt) if x.is_floating_point() else x,
+                    tree)

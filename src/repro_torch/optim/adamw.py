@@ -1,13 +1,40 @@
-"""Global-norm gradient clipping.
+"""Dense AdamW — the Vanilla-IPA baseline (full backprop, full moments),
+and the global-norm clip every method shares.
 
-Counterpart of ``global_norm`` and ``clip_by_global_norm`` of
-``repro.optim.adamw`` (the dense AdamW baseline itself is not ported
-yet).  The norm and the clip factor stay tensors on the device: clipping
-never waits on the host.
+Counterpart of ``repro.optim.adamw``: fp32 moments per leaf of a nested
+dict tree, decoupled weight decay, the global-norm clip.  The norm, the
+clip factor, the step and the bias corrections stay tensors on the
+device: an update never waits on the host.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+
+from ..models.common import tree_flatten_with_path, tree_unflatten
+
+
+class AdamWState(NamedTuple):
+    m: dict                 # fp32, the params' tree
+    v: dict
+    step: torch.Tensor      # 0-d int32 on the device
+
+
+def init(params) -> AdamWState:
+    """Zero fp32 moments for every leaf, on the leaves' devices."""
+    flat = tree_flatten_with_path(params)
+    paths = [p for p, _ in flat]
+
+    def zeros():
+        return tree_unflatten(paths, [torch.zeros(x.shape,
+                                                  dtype=torch.float32,
+                                                  device=x.device)
+                                      for _, x in flat])
+
+    return AdamWState(m=zeros(), v=zeros(),
+                      step=torch.zeros((), dtype=torch.int32,
+                                       device=flat[0][1].device))
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -28,3 +55,35 @@ def clip_by_global_norm(tensors, max_norm: float):
     gn = global_norm(tensors)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     return [t.float() * scale for t in tensors], gn
+
+
+@torch.no_grad()
+def update(grads, state: AdamWState, params, *, lr, beta1=0.9,
+           beta2=0.999, eps=1e-8, weight_decay=0.0, grad_clip=0.0):
+    """One AdamW step over a nested dict tree; returns ``(new_params,
+    new_state, grad_norm)``.  Each new parameter is computed in fp32 and
+    stored in its master's dtype; ``lr`` may be a 0-d device tensor."""
+    flat = tree_flatten_with_path(params)
+    paths = [p for p, _ in flat]
+    flat_g = [g for _, g in tree_flatten_with_path(grads)]
+    flat_m = [m for _, m in tree_flatten_with_path(state.m)]
+    flat_v = [v for _, v in tree_flatten_with_path(state.v)]
+    flat_g, gn = clip_by_global_norm(flat_g, grad_clip)
+    step = state.step + 1
+    stepf = step.float()
+    bc1 = 1.0 - beta1 ** stepf
+    bc2 = 1.0 - beta2 ** stepf
+    new_p, new_m, new_v = [], [], []
+    for (_, p), g, m, v in zip(flat, flat_g, flat_m, flat_v, strict=True):
+        g = g.float()
+        m = beta1 * m + (1 - beta1) * g
+        v = beta2 * v + (1 - beta2) * g * g
+        delta = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+        if weight_decay:
+            delta = delta + weight_decay * p.float()
+        new_p.append((p.float() - lr * delta).to(p.dtype))
+        new_m.append(m)
+        new_v.append(v)
+    return (tree_unflatten(paths, new_p),
+            AdamWState(tree_unflatten(paths, new_m),
+                       tree_unflatten(paths, new_v), step), gn)

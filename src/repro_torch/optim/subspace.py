@@ -32,9 +32,10 @@ Unlike the reference's pure functions, the outer merge updates the
 grouped master buffer where it lies (the training loop never reads the
 old weights again).  The reference key becomes a ``torch.Generator``
 carried in the state, which also draws the stochastic-rounding noise.
-The instance-dependent sampler's energy EMA, the reference's
-``REPRO_STATE_DTYPE``/``REPRO_MASTER_DTYPE`` overrides and its GaLore
-opt-out (``quantize_state``) are not ported.
+GaLore's opt-out (``quantize_state=False``) pins fp32 storage whatever
+the knobs say.  The instance-dependent sampler's energy EMA and the
+reference's ``REPRO_STATE_DTYPE``/``REPRO_MASTER_DTYPE`` overrides are
+not ported.
 """
 from __future__ import annotations
 
@@ -151,12 +152,13 @@ def _rank_for(shape, tcfg) -> int:
     return max(1, min(tcfg.rank, min(k, n_out) // 2))
 
 
-def build_layout(params, tcfg, algo: str = "adam") -> SubspaceLayout:
+def build_layout(params, tcfg, algo: str = "adam",
+                 quantize_state: bool = True) -> SubspaceLayout:
     """Classify leaves once; same-shape, same-rank low-rank leaves share a
     group.  ``params`` may hold tensors or ``ParamSpec``s — only shapes
     are read.  The layout also pins the storage precision
-    (``tcfg.state_dtype``, ``tcfg.master_dtype``) and the update rule
-    (``algo``)."""
+    (``tcfg.state_dtype``, ``tcfg.master_dtype``; fp32 for both under
+    ``quantize_state=False``) and the update rule (``algo``)."""
     if algo not in ("adam", "lion"):
         raise ValueError(f"algo {algo!r}: expected 'adam' or 'lion'")
     leaves = tree_flatten_with_path(params)
@@ -172,8 +174,10 @@ def build_layout(params, tcfg, algo: str = "adam") -> SubspaceLayout:
                    for sig, idx in by_sig.items())
     return SubspaceLayout(n_leaves=len(leaves), dense_idx=tuple(dense_idx),
                           groups=groups,
-                          state_dtype=resolve_state_dtype(tcfg),
-                          master_dtype=resolve_master_dtype(tcfg),
+                          state_dtype=(resolve_state_dtype(tcfg)
+                                       if quantize_state else "float32"),
+                          master_dtype=(resolve_master_dtype(tcfg)
+                                        if quantize_state else "float32"),
                           qblock=quant.QBLOCK, algo=algo)
 
 
@@ -232,20 +236,22 @@ def _moment_zeros(shape, layout: SubspaceLayout, device,
     return torch.zeros(shape, dtype=torch.float32, device=device)
 
 
-def init(params, tcfg, gen: torch.Generator,
-         algo: str = "adam") -> SubspaceState:
+def init(params, tcfg, gen: torch.Generator, algo: str = "adam",
+         quantize_state: bool = True) -> SubspaceState:
     """Classify leaves, build the grouped layout, draw the initial
     projections (one batched draw per group, from ``gen``), zero B and
     the moments.  The state lives on the device of ``params``.
 
     B is stored in ``tcfg.master_dtype`` and the moments in
     ``tcfg.state_dtype`` (int8: :class:`quant.QuantizedTensor`, v in the
-    sqrt codec); ``algo="lion"`` keeps only the first moment."""
+    sqrt codec); ``algo="lion"`` keeps only the first moment.
+    ``quantize_state=False`` (GaLore, whose moment math runs in plain
+    torch ops) keeps B and the moments fp32 whatever the knobs say."""
     params = params_of(params)
     flat = tree_flatten_with_path(params)
     device = flat[0][1].device
     cdt = resolve_compute_dtype(tcfg, device)
-    layout = build_layout(params, tcfg, algo)._replace(
+    layout = build_layout(params, tcfg, algo, quantize_state)._replace(
         compute_dtype=str(cdt).removeprefix("torch."))
     mdt = DTYPES[layout.master_dtype]
     f32 = dict(dtype=torch.float32, device=device)

@@ -1,11 +1,13 @@
-"""Step builders of Algorithm 1.
+"""Step builders of the training methods.
 
-Counterpart of ``repro.train.steps`` for the dense LM trained as
-``lowrank_adam`` or ``lowrank_lion``: ``build_loss_fn``,
-``make_train_step`` (the inner step) and ``make_outer_step`` (merge +
-resample).  The steps run eagerly; the LR, the step counter and the
-bias corrections stay on the device, so an inner step makes no host
-round trip.
+Counterpart of ``repro.train.steps`` for the dense LM: ``build_loss_fn``,
+``make_train_step`` (Algorithm 1's inner step, ``lowrank_adam`` and
+``lowrank_lion``), ``make_outer_step`` (merge + resample),
+``make_adamw_train_step`` (the dense AdamW baseline) and
+``make_zo_train_step`` (the forward-only LowRank-LR step).  GaLore's
+steps live in :mod:`repro_torch.optim.galore`.  The steps run eagerly;
+the LR, the step counter and the bias corrections stay on the device, so
+an inner step makes no host round trip.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch
 
 from ..models import lm
 from ..models.common import act_dtype, resolve_compute_dtype
-from ..optim import subspace
+from ..optim import adamw, galore, subspace, zo
 from ..optim.schedule import SCHEDULES
 from .loss import chunked_ce
 
@@ -90,3 +92,47 @@ def make_outer_step(cfg, tcfg):
     def outer_step(params, opt_state):
         return subspace.outer_merge_resample(params, opt_state, tcfg)
     return outer_step
+
+
+# ---------------------------------------------------------------------------
+# Vanilla IPA (dense AdamW) baseline
+# ---------------------------------------------------------------------------
+
+def make_adamw_train_step(cfg, tcfg, loss_fn: Optional[Callable] = None):
+    """Full backprop through the compute-dtype view of the weights, then
+    AdamW on the masters (fp32 moments, each master in its own dtype)."""
+    loss_fn = loss_fn or build_loss_fn(cfg)
+
+    def train_step(params, opt_state: adamw.AdamWState, batch):
+        lr = lr_at(tcfg, opt_state.step)
+        loss, grads = galore.value_and_full_grads(
+            galore.view_loss(loss_fn, tcfg, opt_state.step.device), params,
+            batch)
+        new_params, new_state, gn = adamw.update(
+            grads, opt_state, params, lr=lr, beta1=tcfg.beta1,
+            beta2=tcfg.beta2, eps=tcfg.eps, weight_decay=tcfg.weight_decay,
+            grad_clip=tcfg.grad_clip)
+        return new_params, new_state, {"loss": loss, "grad_norm": gn,
+                                       "lr": lr}
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# LowRank-LR (forward-only) step
+# ---------------------------------------------------------------------------
+
+def make_zo_train_step(cfg, tcfg, loss_fn: Optional[Callable] = None):
+    """Two forwards at ``B ± σ Z`` (no autograd), then the subspace update
+    of :func:`make_train_step`'s methods on the estimate."""
+    loss_fn = loss_fn or build_loss_fn(cfg)
+
+    def train_step(params, opt_state: subspace.SubspaceState, batch):
+        lr = lr_at(tcfg, opt_state.step)
+        pdt = pack_dtype(cfg, tcfg, opt_state.step.device)
+        loss, new_params, new_state, gn = zo.zo_inner_step(
+            loss_fn, params, opt_state, batch, lr=lr, tcfg=tcfg, dtype=pdt)
+        return new_params, new_state, {"loss": loss, "grad_norm": gn,
+                                       "lr": lr}
+
+    return train_step

@@ -517,13 +517,15 @@ def test_packs_reach_the_kernels_in_one_dtype():
 
 
 def test_only_the_ported_method_and_state_are_accepted():
-    assert methods.available() == ("lowrank_adam", "lowrank_lion")
+    assert methods.available() == ("adamw", "galore", "lowrank_adam",
+                                   "lowrank_lion", "lowrank_lr")
     with pytest.raises(ValueError,
-                       match="available: lowrank_adam, lowrank_lion"):
-        methods.get("galore")
+                       match="available: adamw, galore, lowrank_adam, "
+                             "lowrank_lion, lowrank_lr"):
+        methods.get("vanilla_lr")
     loader = StatelessLoader("lm", 0, device="cpu", **BATCH)
     with pytest.raises(ValueError, match="unknown method"):
-        Trainer(CFG, TrainConfig(optimizer="adamw"), loader, device="cpu")
+        Trainer(CFG, TrainConfig(optimizer="sgd"), loader, device="cpu")
     for ok in (dict(state_dtype="int8"), dict(master_dtype="bfloat16"),
                dict(optimizer="lowrank_lion", state_dtype="int8",
                     master_dtype="bfloat16")):
