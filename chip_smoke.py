@@ -7,8 +7,12 @@
 2. Holds both forms of the low-rank forward kernel (shared B at prefill,
    M = 128, or 1 for the unembedding; one B per row at decode, batch 4 x
    seq 1) against their plain PyTorch version at the five (K, N) shapes
-   of qwen2-7b, in bf16, and times kernel, plain version and a cuBLAS
-   yardstick.
+   of qwen2-7b, and at mamba2-780m's three (shared B at M = 512, or 1
+   for the unembedding), in bf16, and times kernel, plain version and a
+   cuBLAS yardstick.  Holds the SSD intra-chunk kernel against its plain
+   version at mamba2-780m's four prefill shapes (prompts of 100, 128,
+   256 and 512 tokens), fp32, with dt and A drawn by the mixer's laws,
+   and times both.
 3. Holds the training kernels against their plain versions at the
    llama-100m shapes, and times them the same way: the forward with its
    ``p`` residual and the backward at M = 16384 (batch 64 x seq 256) for
@@ -23,10 +27,19 @@
 4. Serves qwen2-7b at full width and depth (28 layers) in bf16 with 4
    tenants: 8 requests of 128 prompt tokens and 32 new tokens through
    the continuous-batching engine, and checks that the main path
-   launched the forward kernel in both forms.
+   launched the forward kernel in both forms; profiles two decode steps.
 5. Checks lazy adapter serving against merged weights on a 2-layer
    full-width cut in fp32, and that a paged decode step makes no host
-   sync.
+   sync.  Then the same two phases for mamba2-780m (48 layers, bf16, 4
+   tenants, 8 requests of 100, 128, 256 and 512 prompt tokens, two of
+   each, and 32 new tokens), which also checks that every prefill
+   launched the SSD kernel once per layer, prints prefill time by prompt
+   length and the peak memory, and profiles a 512-token prefill; its
+   lazy == merged check prefills 256 tokens (two chunks).  Then a
+   2-layer full-width fp32 cut of mamba2-780m serves two tenants
+   (prefill of 256 tokens each, 4 decode steps at batch 2) through the
+   kernels on the card and through the plain versions on the CPU, from
+   the same weights and adapters, and holds the logits together.
 6. Trains llama-100m at full width and depth (12 layers) with
    ``lowrank_adam``: bf16 compute over fp32 B masters and moments,
    Stiefel V at r = 128, batch 64 x seq 256, lazy_k = 4, 14 steps
@@ -114,12 +127,13 @@ def bound(M, K, N, r, n_b, itemsize):
                                        else "operations")
 
 
-def compare_kernels(lf, ref, dev):
-    """Phase 2: kernel vs plain version and yardstick, both forms."""
+def compare_kernels(lf, ref, dev, shapes=SHAPES):
+    """Phase 2: kernel vs plain version and yardstick, both forms, at the
+    (K, N) -> (leaves, prefill rows) of ``shapes``."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     rows = []
-    for (K, N), (leaves, prefill_rows) in SHAPES.items():
+    for (K, N), (leaves, prefill_rows) in shapes.items():
         w = torch.randn((K, N), generator=gen, device=dev) / K ** 0.5
         v = torch.randn((K, RANK), generator=gen, device=dev) / K ** 0.5
         for form, M, batch in (("shared", prefill_rows, None),
@@ -188,52 +202,70 @@ def make_store(cfg, tcfg, n_tenants, dev, AdapterStore, scale=0.02):
     return store
 
 
-def serve(dev, mods, smi):
-    """Phase 3: qwen2-7b, 4 tenants, 8 requests through the engine."""
+# (model, prompt lengths of its 8 requests, max_len): qwen2-7b's one
+# prompt length; mamba2-780m's four, two requests each, give the SSD a
+# chunk shorter than 128 (Q = 100), one chunk, and 2 or 4 chunks
+SERVE_RUNS = {"qwen2-7b": ((128,) * 8, 160),
+              "mamba2-780m": ((100, 128, 256, 512) * 2, 544)}
+
+
+def serve(dev, mods, smi, arch="qwen2-7b"):
+    """Phase 4: one model at full width and depth, 4 tenants, 8 requests
+    of 32 new tokens through the engine.  Returns the forward's launch
+    counts and, for the SSM family, the SSD kernel's."""
     import numpy as np
-    lf, lm, configs, serve_mod = (mods["lf"], mods["lm"], mods["configs"],
-                                  mods["serve"])
-    cfg = configs.get_config("qwen2-7b")
-    log(f"[serve] qwen2-7b d_model={cfg.d_model} layers={cfg.num_layers} "
+    lf, sc, lm, configs, serve_mod = (mods["lf"], mods["sc"], mods["lm"],
+                                      mods["configs"], mods["serve"])
+    tag = "serve" if arch == "qwen2-7b" else f"serve {arch.split('-')[0]}"
+    prompts, max_len = SERVE_RUNS[arch]
+    cfg = configs.get_config(arch)
+    log(f"[{tag}] {arch} d_model={cfg.d_model} layers={cfg.num_layers} "
         f"vocab={cfg.vocab_size} dtype={cfg.dtype}")
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = lm.init_params(cfg, seed=0, device=dev)
     tcfg = configs.TrainConfig(rank=RANK)
     store = make_store(cfg, tcfg, 4, dev, serve_mod.AdapterStore)
     torch.cuda.synchronize()
-    log(f"[serve] weights + 4 tenants made in "
+    log(f"[{tag}] weights + 4 tenants made in "
         f"{time.perf_counter() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
-    ecfg = serve_mod.EngineConfig(page_size=16, max_batch=4, max_len=160,
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    ecfg = serve_mod.EngineConfig(page_size=16, max_batch=4, max_len=max_len,
                                   max_out=32)
     eng = serve_mod.Engine(params, cfg, adapters=store, engine_cfg=ecfg,
                            device=dev)
     prefill_s, decode_s = [], []
 
-    def timed(fn, bucket):
+    def timed(fn, bucket, key=None):
         def wrapper(*a, **kw):
             torch.cuda.synchronize()
             t = time.perf_counter()
             out = fn(*a, **kw)
             torch.cuda.synchronize()
-            bucket.append(time.perf_counter() - t)
+            dt = time.perf_counter() - t
+            bucket.append(dt if key is None else (key(*a), dt))
             return out
         return wrapper
 
-    eng._prefill = timed(eng._prefill, prefill_s)
+    eng._prefill = timed(eng._prefill, prefill_s,
+                         key=lambda req, *_: len(req.prompt))
     eng._decode = timed(eng._decode, decode_s)
     rng = np.random.default_rng(0)
-    n_req, prompt_len, new = 8, 128, 32
-    for i in range(n_req):
+    new = 32
+    for i, n in enumerate(prompts):
         eng.submit(serve_mod.Request(
-            f"req{i}", rng.integers(0, cfg.vocab_size, prompt_len),
-            new, tenant=f"tenant{i % 4}"))
+            f"req{i}", rng.integers(0, cfg.vocab_size, n), new,
+            tenant=f"tenant{i % 4}"))
     lf.reset_launches()
+    sc.reset_launches()
     t0 = time.perf_counter()
     out = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(lf.LAUNCHES)
+    counts, ssd_counts = dict(lf.LAUNCHES), dict(sc.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_req = len(prompts)
     bad = [r for r, v in out.items()
            if len(v) != new or v.min() < 0 or v.max() >= cfg.vocab_size]
     if len(out) != n_req or bad or eng.errors or \
@@ -243,30 +275,94 @@ def serve(dev, mods, smi):
                          f"reasons {eng.reasons}")
     if lf.launches("shared") == 0 or lf.launches("batched") == 0:
         raise SystemExit(f"the main path missed a kernel form: {counts}")
+    if cfg.family == "ssm":
+        # one launch per layer and prefill, at the prompt's chunking
+        want = {}
+        for n in prompts:
+            q = min(cfg.ssd_chunk, n)
+            key = ("ssd_intra_chunk", (n // q, q, cfg.ssm_heads,
+                                       cfg.ssm_head_dim, cfg.ssm_state))
+            want[key] = want.get(key, 0) + cfg.num_layers
+        log(f"[{tag}] launches ssd_intra_chunk " + ", ".join(
+            f"{list(k[1])}={v}" for k, v in ssd_counts.items())
+            + f"; {sc.launches() / len(prefill_s):.0f} per prefill")
+        if ssd_counts != want:
+            raise SystemExit(f"ssd_intra_chunk launches {ssd_counts}, the "
+                             f"path should make {want}")
     n_tok = sum(len(v) for v in out.values())
-    log(f"[serve] {n_req} requests x {new} tokens over 4 tenants: "
+    by_len = {}
+    for n, dt in prefill_s:
+        by_len.setdefault(n, []).append(dt)
+    log(f"[{tag}] {n_req} requests x {new} tokens over 4 tenants: "
         f"{n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tok/s; "
-        f"prefill {1e3 * sum(prefill_s) / len(prefill_s):.1f} ms/request "
-        f"({len(prefill_s)} prefills), decode "
+        f"prefill ms/request by prompt length " + ", ".join(
+            f"{n}: {1e3 * sum(v) / len(v):.1f}" for n, v in
+            sorted(by_len.items()))
+        + f" ({len(prefill_s)} prefills), decode "
         f"{1e3 * sum(decode_s) / len(decode_s):.1f} ms/step "
-        f"({len(decode_s)} steps, batch 4) on {smi}")
-    log(f"[serve] launches shared={lf.launches('shared')} "
+        f"({len(decode_s)} steps, batch 4); peak {peak / 2**30:.2f} GiB "
+        f"allocated on {smi}")
+    log(f"[{tag}] launches shared={lf.launches('shared')} "
         f"batched={lf.launches('batched')}; per step "
         f"{lf.launches('batched') / len(decode_s):.0f}, per prefill "
         f"{lf.launches('shared') / len(prefill_s):.0f}")
-    log(f"[serve] first tokens req0: {out['req0'][:8].tolist()}")
-    profile_decode(eng, cfg, serve_mod, rng)
+    log(f"[{tag}] first tokens req0: {out['req0'][:8].tolist()}")
+    if cfg.family == "ssm":
+        profile_prefill(params, store, cfg, lm, max(prompts), tag, rng)
+    profile_decode(eng, cfg, serve_mod, rng, tag=tag)
     del eng, store, params
+    gc.collect()
     torch.cuda.empty_cache()
-    return counts
+    return counts, ssd_counts
 
 
-def profile_decode(eng, cfg, serve_mod, rng, steps=2):
+def device_rows(prof):
+    """The profiler's device-side rows (a CPU op's row repeats its
+    kernels' time) and their total device microseconds."""
+    from torch.autograd import DeviceType
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    dev_us = sum(e.self_device_time_total for e in rows)
+    if dev_us <= 0:
+        raise SystemExit("the profiler saw no device time")
+    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return rows, dev_us
+
+
+def log_profile(tag, what, prof, wall, steps, top=8):
+    rows, dev_us = device_rows(prof)
+    log(f"[{tag}] {steps} {what}: host {1e3 * wall / steps:.1f} "
+        f"ms each, device busy {dev_us / 1e3 / steps:.1f} ms each "
+        f"({100 * dev_us / 1e6 / wall:.1f}% busy)")
+    for e in rows[:top]:
+        log(f"[{tag}]   {e.self_device_time_total / 1e3 / steps:8.2f} "
+            f"ms  x{e.count // steps:5d}  {e.key[:90]}")
+
+
+def profile_prefill(params, store, cfg, lm, n, tag, rng):
+    """Where one ``n``-token prefill's time goes (tenant 0's adapter)."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = params["unembed"].device
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, n)),
+                             device=dev)
+    packed = store.lrpack_tree(params, "tenant0")
+    st = lm.alloc_decode_state(cfg, 1, n, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lm.prefill(packed, tokens, cfg, st)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    log_profile(f"profile {tag}", f"prefill of {n} tokens", prof, wall, 1)
+
+
+def profile_decode(eng, cfg, serve_mod, rng, steps=2, tag="serve"):
     """Where a decode step's time goes: the device time by kernel over
     ``steps`` decode steps at batch 4 (torch.profiler), against the host
     clock.  The profiler slows the host, so the idle share it shows is
     an upper bound."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for i in range(4):
         eng.submit(serve_mod.Request(
@@ -282,28 +378,37 @@ def profile_decode(eng, cfg, serve_mod, rng, steps=2):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     eng.run()
-    # device-side entries only: a CPU op's row repeats its kernels' time
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    dev_us = sum(e.self_device_time_total for e in rows)
-    if dev_us <= 0:
-        raise SystemExit("the profiler saw no device time")
-    log(f"[profile] {steps} decode steps: host {1e3 * wall / steps:.1f} "
-        f"ms/step, device busy {dev_us / 1e3 / steps:.1f} ms/step "
-        f"({100 * dev_us / 1e6 / wall:.1f}% busy)")
-    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    for e in rows[:8]:
-        log(f"[profile]   {e.self_device_time_total / 1e3 / steps:8.2f} "
-            f"ms/step  x{e.count // steps:5d}  {e.key[:90]}")
+    log_profile("profile" if tag == "serve" else f"profile {tag}",
+                "decode steps", prof, wall, steps)
 
 
-def lazy_equals_merged(dev, mods):
-    """Phase 4: lazy (B, V) serving == merged W + V B^T, fp32, 2 layers."""
+def paged_from_prefill(lm, cfg, st, S, page, dev):
+    """A one-slot paged state holding what a prefill of ``S`` tokens left
+    in ``st``, with room for one more token."""
+    n_pages = S // page + 1
+    ps = lm.alloc_paged_state(cfg, 1, n_pages, page, n_pages * page,
+                              device=dev)
+    if cfg.family == "ssm":
+        for arena, cache in zip(ps.ssm, st.ssm):
+            arena.copy_(cache)
+    else:
+        ps.kv_k.copy_(st.kv.k[:, 0].reshape(ps.kv_k.shape))
+        ps.kv_v.copy_(st.kv.v[:, 0].reshape(ps.kv_v.shape))
+    return ps._replace(
+        page_table=torch.arange(n_pages, dtype=torch.int32,
+                                device=dev)[None],
+        lengths=torch.tensor([S], dtype=torch.int32, device=dev))
+
+
+def lazy_equals_merged(dev, mods, arch="qwen2-7b", S=24):
+    """Phase 5: lazy (B, V) serving == merged W + V B^T, fp32, 2 layers:
+    prefill of ``S`` tokens and one paged decode step."""
     lm, configs, serve_mod = mods["lm"], mods["configs"], mods["serve"]
     from repro_torch.models.common import tree_map
     from repro_torch.models.linear import effective_weight
-    cfg = configs.get_config("qwen2-7b").replace(
+    tag = "lazy==merged" if arch == "qwen2-7b" \
+        else f"lazy==merged {arch.split('-')[0]}"
+    cfg = configs.get_config(arch).replace(
         num_layers=2, dtype="float32", param_dtype="float32")
     params = lm.init_params(cfg, seed=3, device=dev)
     store = make_store(cfg, configs.TrainConfig(rank=RANK), 1, dev,
@@ -311,7 +416,7 @@ def lazy_equals_merged(dev, mods):
     merged = tree_map(effective_weight, store.lrpack_tree(params, "tenant0"))
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
-    S, page = 24, 16
+    page = 16
     prompt = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
                            device=dev)
     nxt = torch.randint(0, cfg.vocab_size, (1, 1), generator=gen,
@@ -323,16 +428,10 @@ def lazy_equals_merged(dev, mods):
                                            tenants)
     logits = []
     for pre_p, dec_p in ((lazy_pre, lazy_dec), (merged, merged)):
-        n_pages = 2
-        st = lm.alloc_decode_state(cfg, 1, n_pages * page, device=dev)
+        st = lm.alloc_decode_state(cfg, 1, (S // page + 1) * page,
+                                   device=dev)
         lg_pre, st = lm.prefill(pre_p, prompt, cfg, st)
-        ps = lm.alloc_paged_state(cfg, 1, n_pages, page, n_pages * page,
-                                  device=dev)
-        ps.kv_k.copy_(st.kv.k[:, 0].reshape(ps.kv_k.shape))
-        ps.kv_v.copy_(st.kv.v[:, 0].reshape(ps.kv_v.shape))
-        ps = ps._replace(
-            page_table=torch.tensor([[0, 1]], dtype=torch.int32, device=dev),
-            lengths=torch.tensor([S], dtype=torch.int32, device=dev))
+        ps = paged_from_prefill(lm, cfg, st, S, page, dev)
         # the decode step must stay on the device (a host sync would
         # stall every layer and rule out graph capture): any sync raises
         if dev.type == "cuda":
@@ -343,19 +442,180 @@ def lazy_equals_merged(dev, mods):
         finally:
             if dev.type == "cuda":
                 torch.cuda.set_sync_debug_mode("default")
-        logits.append((lg_pre.float(), lg_dec.float()))
+        # the real vocab lanes: the padding's -1e30 would set the scale
+        logits.append((lg_pre[..., :cfg.vocab_size].float(),
+                       lg_dec[..., :cfg.vocab_size].float()))
     tol = 1e-4     # relative to max|logit|: fp32 sums in another order
     for name, a, b in (("prefill", logits[0][0], logits[1][0]),
                        ("decode", logits[0][1], logits[1][1])):
         err = (a - b).abs().max().item()
         scale = b.abs().max().item()
-        log(f"[lazy==merged] {name} logits max_abs_err={err:.3g} "
+        log(f"[{tag}] {name} logits max_abs_err={err:.3g} "
             f"max|logit|={scale:.3g} tol={tol}*max")
         if not torch.isfinite(a).all().item() or err > tol * scale:
             raise SystemExit(f"lazy serving disagrees with merged weights "
                              f"({name}: {err} > {tol * scale})")
     del params, store, merged, lazy_pre, lazy_dec
     torch.cuda.empty_cache()
+
+
+# [serve==plain mamba2]: relative to max|logit| over the real vocab
+# lanes; fp32 sums in another order.  About five times the gap measured
+# on an H100 80GB HBM3 (700 W): 2.98e-6.
+SERVE_PLAIN_TOL = 1.5e-5
+
+
+def serve_equals_plain(dev, mods, arch="mamba2-780m", S=256, steps=4):
+    """Phase 5b: a 2-layer full-width fp32 cut, two tenants: prefill of
+    ``S`` tokens per tenant, then ``steps`` batched paged decode steps on
+    fixed tokens, through the kernels on the card and through the plain
+    versions on the CPU, from the same weights and adapters."""
+    lm, configs, serve_mod = mods["lm"], mods["configs"], mods["serve"]
+    from repro_torch.models.common import tree_map
+    cfg = configs.get_config(arch).replace(
+        num_layers=2, dtype="float32", param_dtype="float32")
+    cpu = torch.device("cpu")
+    tcfg = configs.TrainConfig(rank=RANK)
+    params = lm.init_params(cfg, seed=5, device=cpu)
+    cpu_store = make_store(cfg, tcfg, 2, cpu, serve_mod.AdapterStore)
+    gen = torch.Generator()
+    gen.manual_seed(6)
+    prompts = torch.randint(0, cfg.vocab_size, (2, S), generator=gen)
+    toks = torch.randint(0, cfg.vocab_size, (steps, 2, 1), generator=gen)
+    page = 16
+    mods["sc"].reset_launches()
+    runs = []
+    for where in (dev, cpu):
+        if where.type == "cpu":
+            p, store = params, cpu_store
+        else:
+            p = tree_map(lambda t: t.to(where), params)
+            store = serve_mod.AdapterStore(cfg, tcfg, max_tenants=2,
+                                           device=where)
+            for t in range(2):
+                store.add_tenant(f"tenant{t}",
+                                 [b[..., t, :, :] for b in cpu_store.b_full],
+                                 cpu_store.projs)
+        lgs = []
+        # the recurrent state is per slot: no page is read
+        ps = lm.alloc_paged_state(cfg, 2, 2, page, S + page, device=where)
+        ps = ps._replace(lengths=torch.full((2,), S, dtype=torch.int32,
+                                            device=where))
+        for t in range(2):      # prefill each tenant's prompt into slot t
+            st = lm.alloc_decode_state(cfg, 1, S, device=where)
+            lg, st = lm.prefill(store.lrpack_tree(p, f"tenant{t}"),
+                                prompts[t:t + 1].to(where), cfg, st)
+            lgs.append(lg)
+            for arena, cache in zip(ps.ssm, st.ssm):
+                arena[:, t] = cache[:, 0]
+        packed = serve_mod.batched_pack_tree(
+            p, store.layout, store.b_full, store.projs,
+            torch.arange(2, device=where))
+        for k in range(steps):
+            lg, ps = lm.decode_step_paged(packed, toks[k].to(where), cfg, ps)
+            lgs.append(lg)
+        runs.append([g[..., :cfg.vocab_size].float().cpu() for g in lgs])
+    worst = 0.0
+    for a, b in zip(*runs):
+        err = (a - b).abs().max().item() / b.abs().max().item()
+        if not torch.isfinite(a).all().item():
+            raise SystemExit("serving through the kernels gave non-finite "
+                             "logits")
+        worst = max(worst, err)
+    log(f"[serve==plain {arch.split('-')[0]}] {arch} 2 layers fp32, 2 "
+        f"tenants: prefill of {S} tokens each + {steps} decode steps at "
+        f"batch 2, card against cpu: max abs err / max|logit| "
+        f"{worst:.3g} (tol {SERVE_PLAIN_TOL}); card launches "
+        f"ssd_intra_chunk={mods['sc'].launches()}")
+    if not mods["sc"].launches():
+        raise SystemExit("the card run missed ssd_intra_chunk")
+    if worst > SERVE_PLAIN_TOL:
+        raise SystemExit(f"serving through the kernels disagrees with the "
+                         f"plain route: {worst} > {SERVE_PLAIN_TOL}")
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# The SSD intra-chunk kernel (mamba2-780m)
+# ---------------------------------------------------------------------------
+
+SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_chunk.cu"
+SSD_REPLACES = "src/repro/kernels/ssd_chunk.py:63"
+# (BC, Q, H, P, N) of mamba2-780m's prefills -> prompt tokens
+SSD_SHAPES = {(1, 100, 48, 64, 128): 100, (1, 128, 48, 64, 128): 128,
+              (2, 128, 48, 64, 128): 256, (4, 128, 48, 64, 128): 512}
+# relative to max|y| and max|state|.  Measured 0 at all four shapes on an
+# H100 80GB HBM3 (700 W): the kernel sums in the order of cuBLAS's
+# unsplit FFMA GEMM and of torch's outer-dim scan, and both call the same
+# expf.  The limit covers another cuBLAS kernel or scan order, under which
+# clog (up to 317 in magnitude here, one fp32 step 3e-5) moves each decay
+# factor by up to about 3e-5.
+SSD_TOL = 1e-4
+# mamba2-780m's projections (K, N) -> (leaves, prefill rows): the
+# projections at the longest prompt, the unembedding at one position
+MAMBA_SHAPES = {(1536, 6448): ("in_proj", 512),
+                (3072, 1536): ("out_proj", 512),
+                (1536, 50432): ("unembed", 1)}
+
+
+def compare_ssd_kernel(mods, dev):
+    """Phase 3b: the SSD intra-chunk kernel against its plain version at
+    the prefill shapes, in fp32 as the mixer calls it, with B and C one
+    group broadcast over the heads (head stride 0, as the path passes
+    them) and dt, A drawn by the mixer's laws: dt = softplus(z +
+    dt_bias), z ~ N(0, 1), dt_bias the inverse softplus of exp(U[log
+    1e-3, log 0.1]), A = -U[1, 16].  No single PyTorch call computes
+    this function: library_ms is null."""
+    ref, sc = mods["ref"], mods["sc"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    rows = []
+    for shape, tokens in SSD_SHAPES.items():
+        BC, Q, H, P, N = shape
+
+        def uniform(lo, hi, *size):
+            return lo + (hi - lo) * torch.rand(size, generator=gen,
+                                               device=dev)
+        dt0 = torch.exp(uniform(math.log(1e-3), math.log(0.1), H))
+        dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+        dt = torch.nn.functional.softplus(
+            torch.randn((BC, Q, H), generator=gen, device=dev) + dt_bias)
+        da = dt * -uniform(1.0, 16.0, H)
+        x = torch.randn((BC, Q, H, P), generator=gen, device=dev)
+        b, c = (torch.randn((BC, Q, 1, N), generator=gen, device=dev)
+                .expand(-1, -1, H, -1) for _ in range(2))
+        y, st = sc.ssd_intra_chunk(x, dt, da, b, c)
+        torch.cuda.synchronize()
+        want_y, want_st = ref.ssd_intra_chunk(x, dt, da, b, c)
+        err = max(_agree(f"ssd y {shape}", y, want_y, SSD_TOL),
+                  _agree(f"ssd state {shape}", st, want_st, SSD_TOL))
+        rel = max((y - want_y).abs().max().item()
+                  / want_y.abs().max().item(),
+                  (st - want_st).abs().max().item()
+                  / want_st.abs().max().item())
+        clog = torch.cumsum(da, dim=1)
+        overflow = (clog[:, :1] - clog[:, -1:]).max().item()
+        ops = BC * H * (Q * (Q + 1) * (N + P) + 2 * Q * N * P)
+        # b and c count once per B/C group: a head broadcast (stride 0)
+        # is one group read by every head
+        groups = 1 if b.stride(2) == 0 else H
+        nbytes = 4 * (2 * BC * Q * H * P + 2 * BC * Q * H
+                      + 2 * BC * Q * groups * N + BC * H * N * P)
+        bms, by = bound_of(nbytes, ops, FP32_FLOP_PER_S)
+        r = dict(shape=shape, tokens=tokens, max_abs_err=err,
+                 ms=time_auto(lambda: sc.ssd_intra_chunk(x, dt, da, b, c)),
+                 plain_ms=time_auto(lambda: ref.ssd_intra_chunk(x, dt, da,
+                                                                b, c)),
+                 library_ms=None, bound_ms=bms, bound_by=by)
+        rows.append(r)
+        log(f"[kernel] ssd_intra_chunk {list(shape)} ({tokens}-token "
+            f"prompt) max_abs_err={err:.4g} (max rel {rel:.3g}, tol "
+            f"{SSD_TOL}*max; the largest masked clog_i - clog_j "
+            f"{overflow:.1f}) ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"library_ms=null bound_ms={bms:.4f} ({by})")
+        del x, dt, da, b, c, y, st, want_y, want_st
+    torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -986,7 +1246,6 @@ def profile_train(tr, steps=2, tag="profile-train", match=(), top=12):
     may hold a basis refresh), against the host clock, and the device
     time of the kernels whose names hold one of ``match``.  The profiler
     slows the host, so the idle share is an upper bound."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     if tr.method.make_outer_step(tr.cfg, tr.tcfg) is not None and any(
             (tr.step + i) % tr.tcfg.lazy_k == 0 for i in range(steps)):
@@ -998,16 +1257,10 @@ def profile_train(tr, steps=2, tag="profile-train", match=(), top=12):
         tr.run(steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    dev_us = sum(e.self_device_time_total for e in rows)
-    if dev_us <= 0:
-        raise SystemExit("the profiler saw no device time")
+    rows, dev_us = device_rows(prof)
     log(f"[{tag}] {steps} inner steps: host {1e3 * wall / steps:.1f} "
         f"ms/step, device busy {dev_us / 1e3 / steps:.1f} ms/step "
         f"({100 * dev_us / 1e6 / wall:.1f}% busy)")
-    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
     for e in rows[:top]:
         log(f"[{tag}] {e.self_device_time_total / 1e3 / steps:8.2f} "
             f"ms/step  x{e.count // steps:5d}  {e.key[:90]}")
@@ -1121,6 +1374,7 @@ def main():
     from repro_torch.kernels import lowrank_backward as lb
     from repro_torch.kernels import lowrank_forward as lf
     from repro_torch.kernels import lowrank_update as lu
+    from repro_torch.kernels import ssd_chunk as sc
     from repro_torch.kernels import subspace_adam as sa
     from repro_torch.models import lm
     from repro_torch import serve as serve_mod
@@ -1136,7 +1390,7 @@ def main():
 
     t0 = time.perf_counter()
     sources = ("lowrank_forward", "lowrank_backward", "lowrank_merge",
-               "subspace_adam", "subspace_q8", "lowrank_project")
+               "subspace_adam", "subspace_q8", "lowrank_project", "ssd_chunk")
     built = _build.build_all(sources, force=True)
     log(f"[build] {len(sources)} sources in parallel in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1146,15 +1400,20 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
 
-    mods = dict(lf=lf, lb=lb, lu=lu, sa=sa, ref=ref, dispatch=dispatch,
-                lm=lm, configs=configs, serve=serve_mod,
+    mods = dict(lf=lf, lb=lb, lu=lu, sa=sa, sc=sc, ref=ref,
+                dispatch=dispatch, lm=lm, configs=configs, serve=serve_mod,
                 counters=(lf, lb, lu, sa))
     rows = compare_kernels(lf, ref, dev)
+    mamba_rows = compare_kernels(lf, ref, dev, MAMBA_SHAPES)
+    ssd_rows = compare_ssd_kernel(mods, dev)
     train_rows = compare_train_kernels(mods, dev)
     state_rows = compare_state_kernels(mods, dev)
     project_rows = compare_project_kernel(mods, dev)
-    counts = serve(dev, mods, smi)
+    counts, _ = serve(dev, mods, smi)
     lazy_equals_merged(dev, mods)
+    mamba_counts, ssd_counts = serve(dev, mods, smi, "mamba2-780m")
+    lazy_equals_merged(dev, mods, "mamba2-780m", S=256)
+    serve_equals_plain(dev, mods)
 
     cfg, tcfg = train_config(configs, lazy_k=4, lr=3e-3, warmup_steps=2,
                              total_steps=1000)
@@ -1171,12 +1430,25 @@ def main():
         train_equals_plain(dev, mods, configs, label, fields, tol)
 
     kernels = []
-    for row in rows:
+    for model, rws, cnt in (("", rows, counts),
+                            ("mamba2-780m ", mamba_rows, mamba_counts)):
+        for row in rws:
+            kernels.append({
+                "name": f"lowrank_forward[{row['form']} B] K={row['K']} "
+                        f"N={row['N']} ({model}{row['leaves']})",
+                "route": "cuda", "source": SOURCE, "replaces": REPLACES,
+                "launches": cnt.get((row["form"], row["K"], row["N"]), 0),
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"]})
+    for row in ssd_rows:
         kernels.append({
-            "name": f"lowrank_forward[{row['form']} B] K={row['K']} "
-                    f"N={row['N']} ({row['leaves']})",
-            "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-            "launches": counts.get((row["form"], row["K"], row["N"]), 0),
+            "name": f"ssd_intra_chunk [fp32, B/C head stride 0] "
+                    f"{list(row['shape'])} (mamba2-780m, "
+                    f"{row['tokens']}-token prompt)",
+            "route": "cuda", "source": SSD_SOURCE, "replaces": SSD_REPLACES,
+            "launches": ssd_counts.get(("ssd_intra_chunk", row["shape"]), 0),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

@@ -1,16 +1,19 @@
-"""Config registry of the port: the architectures it serves so far.
+"""Config registry of the port: the architectures of the families it
+has ported, dense and SSM.
 
-``qwen2-7b`` is the serving target; the paper's LLaMA grid (with
-``llama-tiny``) is the small dense model the CPU tests run.  Other
-architectures of ``repro.configs`` join as their families are ported.
+``qwen2-7b`` and ``mamba2-780m`` are the serving targets; the paper's
+LLaMA grid (with ``llama-tiny``) is what training runs and the small
+dense model the CPU tests run.  Other architectures of ``repro.configs``
+join as their families are ported.
 """
 from __future__ import annotations
 
-from . import llama_paper, qwen2_7b
+from . import llama_paper, mamba2_780m, qwen2_7b
 from .base import ModelConfig, TrainConfig
 
 CONFIGS = {
     "qwen2-7b": qwen2_7b.CONFIG,
+    "mamba2-780m": mamba2_780m.CONFIG,
     "llama-20m": llama_paper.LLAMA_20M,
     "llama-60m": llama_paper.LLAMA_60M,
     "llama-100m": llama_paper.LLAMA_100M,

@@ -7,7 +7,8 @@ Outputs: forward ``y`` and ``p`` in x's dtype; backward ``dx`` in dy's
 dtype and ``dB`` in fp32; merge ``W'`` in W's dtype; the projection
 ``Gᵀ V`` in fp32; subspace-Adam and
 -Lion ``b'/m'/v'`` in fp32; the q8 variants ``b'`` in b's dtype (fp32 or
-bf16), int8 moments and fp32 scales.
+bf16), int8 moments and fp32 scales; the SSD intra-chunk block ``y`` in
+x's dtype and its chunk end states in fp32.
 
 Stochastic rounding (:func:`sr_bf16`) takes its noise from the caller:
 ``bits`` holds values in ``[0, 2**16)`` (int32 here, uint32 in the
@@ -169,3 +170,27 @@ def subspace_lion_q8(b, g, mq, ms, *, lr, beta1, beta2, wd, bits=None):
     b2 = _round_b(bf - lr * (u + wd * bf), bits, b.dtype)
     mq2, ms2 = _requant(beta2 * m + (1 - beta2) * g)
     return b2, mq2, ms2
+
+
+def ssd_intra_chunk(x, dt, da, b, c):
+    """Mamba2 SSD intra-chunk block over BC = batch x chunks flattened.
+
+    x (BC,Q,H,P); dt, da (BC,Q,H); b, c (BC,Q,H,N), heads already
+    broadcast.  With ``clog = cumsum(da)`` over the chunk,
+    ``y_i = sum_{j<=i} (C_i . B_j) exp(clog_i - clog_j) dt_j x_j`` (x's
+    dtype) and the chunk's local end state
+    ``sum_j exp(clog_last - clog_j) dt_j B_j x_jᵀ`` (BC,H,N,P) in fp32.
+    """
+    xf, dtf, daf, bf, cf = (t.float() for t in (x, dt, da, b, c))
+    Q = x.shape[1]
+    clog = torch.cumsum(daf, dim=1)                         # (BC,Q,H)
+    diff = clog[:, :, None, :] - clog[:, None, :, :]        # (BC,Q,Q,H) i-j
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    # exp of a masked pair may overflow; where() drops it without inf * 0
+    L = torch.where(mask[:, :, None], torch.exp(diff), 0.0)
+    s = torch.einsum("bihn,bjhn->bijh", cf, bf)
+    att = s * L * dtf[:, None, :, :]
+    y = torch.einsum("bijh,bjhp->bihp", att, xf)
+    wj = torch.exp(clog[:, -1:, :] - clog) * dtf            # (BC,Q,H)
+    state = torch.einsum("bjhn,bjhp,bjh->bhnp", bf, xf, wj)
+    return y.to(x.dtype), state

@@ -1,0 +1,146 @@
+"""The Mamba2 SSD intra-chunk block on the card: wrapper of the
+hand-written CUDA kernel ``csrc/ssd_chunk.cu``.
+
+Replaces the Pallas TPU kernel ``repro/kernels/ssd_chunk.py::
+ssd_intra_chunk``.  x (BC,Q,H,P); dt, da (BC,Q,H); b, c (BC,Q,H,N) with
+BC = batch x chunks flattened and the B/C groups already broadcast to
+heads; all five share one dtype, fp32 or bf16.  Returns y (BC,Q,H,P) in
+x's dtype and the chunks' local end states (BC,H,N,P) in fp32.  b and c
+may be contiguous or a head broadcast of one group (``expand`` of a
+contiguous (BC,Q,1,N) tensor: head stride 0), which the kernel reads
+without a copy.
+
+Both routes refuse what the kernel cannot take (another dtype, a
+mismatched shape, a non-contiguous x, dt or da, Q, N or P outside
+1..128).  Then the route is the tensor's device alone: a CPU tensor
+takes the plain version in :mod:`.ref`; a CUDA tensor launches the
+kernel or raises.
+The kernel has no backward (nor has the TPU kernel): CUDA inputs that
+require a gradient raise ``NotImplementedError``.
+
+``LAUNCHES`` counts launches per ``("ssd_intra_chunk", (BC, Q, H, P,
+N))``.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+import torch
+
+from . import _build, ref
+from .lowrank_forward import DTYPE_CODE, _route
+
+# ("ssd_intra_chunk", (BC, Q, H, P, N)) -> launches on CUDA tensors
+LAUNCHES: collections.Counter = collections.Counter()
+MAX_Q = MAX_N = MAX_P = 128         # the kernel's register tiles
+
+
+def launches() -> int:
+    """Launches counted so far, over every shape."""
+    return sum(LAUNCHES.values())
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+_VP, _CI, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+@functools.cache
+def _kernel():
+    fn = _build.load("ssd_chunk").ssd_intra_chunk_launch
+    # dtype, x, dt, da, b, c, y, state, BC, Q, H, P, N, b strides (3),
+    # c strides (3), stream
+    fn.argtypes = [_CI] + [_VP] * 7 + [_LL] + [_CI] * 4 + [_LL] * 6 + [_VP]
+    fn.restype = _CI
+    return fn
+
+
+def _bc_strides(name: str, t: torch.Tensor):
+    """(bc, q, head) element strides of b or c: contiguous, or a head
+    broadcast of a contiguous one-group tensor."""
+    BC, Q, H, N = t.shape
+    broadcast = (t.stride(2) == 0 and t.stride(3) == 1
+                 and t.stride(1) == N and t.stride(0) == Q * N)
+    if not (t.is_contiguous() or broadcast):
+        raise ValueError(
+            f"ssd_intra_chunk: {name} must be contiguous or a head "
+            f"broadcast of a contiguous (BC, Q, 1, N) tensor; got strides "
+            f"{t.stride()}")
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def _check(x, dt, da, b, c):
+    """Refuse what the kernel cannot take, on either route (so the plain
+    version on the CPU holds callers to the kernel's contract); returns
+    the (bc, q, head) strides of b and c."""
+    if x.ndim != 4 or b.ndim != 4:
+        raise ValueError(
+            f"ssd_intra_chunk: x must be (BC, Q, H, P) and b, c (BC, Q, H, "
+            f"N); got x {tuple(x.shape)}, b {tuple(b.shape)}")
+    lead = tuple(x.shape[:3])
+    if (tuple(dt.shape) != lead or tuple(da.shape) != lead
+            or tuple(b.shape[:3]) != lead or tuple(c.shape) != tuple(b.shape)):
+        raise ValueError(
+            f"ssd_intra_chunk: shapes x {tuple(x.shape)}, dt "
+            f"{tuple(dt.shape)}, da {tuple(da.shape)}, b {tuple(b.shape)}, "
+            f"c {tuple(c.shape)} do not fit x (BC, Q, H, P), dt and da "
+            f"(BC, Q, H), b and c (BC, Q, H, N)")
+    named = (("x", x), ("dt", dt), ("da", da), ("b", b), ("c", c))
+    for name, t in named:
+        if t.device != x.device:
+            raise ValueError(
+                f"ssd_intra_chunk: {name} is on {t.device}, x on {x.device}")
+        if t.dtype != x.dtype:
+            raise TypeError(
+                f"ssd_intra_chunk: the kernel takes one dtype for x, dt, da, "
+                f"b, c; got x {x.dtype}, {name} {t.dtype}")
+    if x.dtype not in DTYPE_CODE:
+        raise TypeError(f"ssd_intra_chunk: the kernel takes float32 or "
+                        f"bfloat16, got {x.dtype}")
+    for name, t in named[:3]:
+        if not t.is_contiguous():
+            raise ValueError(f"ssd_intra_chunk: {name} is not contiguous")
+    _, Q, _, P = x.shape
+    N = b.shape[-1]
+    if not (0 < Q <= MAX_Q and 0 < N <= MAX_N and 0 < P <= MAX_P):
+        raise ValueError(
+            f"ssd_intra_chunk: the kernel takes chunks of 1..{MAX_Q} "
+            f"tokens, state 1..{MAX_N} and head dim 1..{MAX_P}; got Q={Q}, "
+            f"N={N}, P={P}")
+    return _bc_strides("b", b), _bc_strides("c", c)
+
+
+def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, da: torch.Tensor,
+                    b: torch.Tensor, c: torch.Tensor):
+    """Batched intra-chunk SSD: ``(y (BC,Q,H,P) in x's dtype, state
+    (BC,H,N,P) fp32)``; see :func:`repro_torch.kernels.ref.
+    ssd_intra_chunk` for the function."""
+    b_strides, c_strides = _check(x, dt, da, b, c)
+    if not _route(x, "ssd_intra_chunk"):
+        return ref.ssd_intra_chunk(x, dt, da, b, c)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, da, b, c)):
+        raise NotImplementedError(
+            "ssd_intra_chunk: the CUDA kernel has no backward; SSM training "
+            "through it is not ported yet (ROADMAP.md Queue 1 item 12)")
+    BC, Q, H, P = x.shape
+    N = b.shape[-1]
+    y = torch.empty_like(x)
+    state = torch.empty((BC, H, N, P), dtype=torch.float32, device=x.device)
+    if BC == 0 or H == 0:
+        return y, state
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _kernel()(DTYPE_CODE[x.dtype], x.data_ptr(), dt.data_ptr(),
+                       da.data_ptr(), b.data_ptr(), c.data_ptr(),
+                       y.data_ptr(), state.data_ptr(), BC, Q, H, P, N,
+                       *b_strides, *c_strides, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"ssd_intra_chunk kernel launch failed with CUDA error {rc} "
+            f"(x {tuple(x.shape)}, N={N})")
+    LAUNCHES[("ssd_intra_chunk", (BC, Q, H, P, N))] += 1
+    return y, state

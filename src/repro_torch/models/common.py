@@ -9,6 +9,7 @@ indices (the adapter layout's ``leaf_idx``) agree between the packages.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
 
@@ -23,7 +24,7 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 class ParamSpec:
     shape: Tuple[int, ...]
     dtype: torch.dtype
-    init: str = "normal"                      # normal | zeros | ones | scaled
+    init: str = "normal"      # normal | zeros | ones | scaled | ssm_a | ssm_dt
     scale: float = 0.02
 
 
@@ -31,7 +32,9 @@ def init_param(gen: torch.Generator, spec: ParamSpec,
                device) -> torch.Tensor:
     """One parameter drawn from ``gen`` (which lives on ``device``) by the
     reference's laws: ``normal`` is N(0, scale²), ``scaled`` is
-    N(0, 1/fan_in) with fan_in the second-to-last dim."""
+    N(0, 1/fan_in) with fan_in the second-to-last dim; ``ssm_a`` (Mamba's
+    ``A_log``) is log of U[1, 16]; ``ssm_dt`` (``dt_bias``) is the
+    inverse softplus of dt = exp(U[log 1e-3, log 0.1])."""
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
     if spec.init == "ones":
@@ -46,6 +49,15 @@ def init_param(gen: torch.Generator, spec: ParamSpec,
         z = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
                         device=device)
         return z.mul_(s).to(spec.dtype)
+    if spec.init in ("ssm_a", "ssm_dt"):
+        lo, hi = (1.0, 16.0) if spec.init == "ssm_a" \
+            else (math.log(1e-3), math.log(0.1))
+        u = torch.rand(spec.shape, generator=gen, dtype=torch.float32,
+                       device=device) * (hi - lo) + lo
+        if spec.init == "ssm_a":
+            return torch.log(u).to(spec.dtype)
+        dt = torch.exp(u)
+        return (dt + torch.log(-torch.expm1(-dt))).to(spec.dtype)
     raise ValueError(f"init {spec.init!r} is not ported yet")
 
 

@@ -1,14 +1,19 @@
-"""Decoder-only LM for training and serving, dense family.
+"""Decoder-only LM: the dense family for training and serving, the SSM
+family (Mamba2) for serving.
 
 Counterpart of ``repro.models.lm`` for the dense family (``qwen2-7b``,
-the LLaMA grid).  Layers stay stacked on a leading ``L`` axis, as in the
-reference, and a Python loop over ``L`` takes the place of ``lax.scan``.
-Every matmul weight is consumed through :func:`repro_torch.models.linear.
-linear`, so a packed adapter threads through unchanged.
+the LLaMA grid) and the SSM family (``mamba2-780m``).  Layers stay
+stacked on a leading ``L`` axis, as in the reference, and a Python loop
+over ``L`` takes the place of ``lax.scan``.  Every matmul weight is
+consumed through :func:`repro_torch.models.linear.linear`, so a packed
+adapter threads through unchanged.
 
 Caches are updated in place (the reference returns new arrays): a
 prefill writes into the ``DecodeState`` it was given and a paged decode
-step writes into the arenas of its ``PagedDecodeState``.
+step writes into the KV arenas of its ``PagedDecodeState``.  The SSM
+family's per-slot recurrent state is the exception in decode: the step
+returns it as new tensors and leaves the old ones as they were, so the
+serving engine can keep a faulted row's state (a masked write-back).
 
 Entry points:
   param_specs / init_params
@@ -18,7 +23,7 @@ Entry points:
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -29,6 +34,7 @@ from .attention import (KVCache, blockwise_attention, cache_update,
 from .common import (ParamSpec, act_dtype, apply_rope, prm_dtype, rms_norm,
                      swiglu, tree_init, tree_map)
 from .linear import linear
+from .ssm import SSMState, mamba2_mixer
 
 VOCAB_PAD = 256
 
@@ -37,13 +43,17 @@ def padded_vocab(cfg) -> int:
     return -(-cfg.vocab_size // VOCAB_PAD) * VOCAB_PAD
 
 
-def _require_dense(cfg) -> None:
-    if cfg.family != "dense" or cfg.use_mla or cfg.num_experts \
+def _require_ported(cfg, families=("dense", "ssm")) -> None:
+    """Refuse a family the port does not run: MoE, MLA, hybrid, vlm and
+    audio everywhere, and SSM where ``families`` leaves it out
+    (training)."""
+    if cfg.family not in families or cfg.use_mla or cfg.num_experts \
             or cfg.first_dense_layers or cfg.is_encoder_decoder:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family (MoE, MLA, SSM, "
-            f"hybrid, vlm and audio models) is not ported to repro_torch "
-            f"yet; see ROADMAP.md Queue 1")
+            f"{cfg.name}: the {cfg.family!r} family is not ported to "
+            f"repro_torch for this entry point (serving runs the dense and "
+            f"SSM families, training the dense one); see ROADMAP.md "
+            f"Queue 1 item 12")
 
 
 # ---------------------------------------------------------------------------
@@ -82,13 +92,37 @@ def _mlp_specs(cfg, d, ff):
             "w_down": _w((ff, d), cfg)}
 
 
+def _ssm_specs(cfg, d):
+    d_in, n, h = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
+    g = max(1, cfg.ssm_groups)
+    conv_ch = d_in + 2 * g * n
+    f32 = torch.float32
+    return {
+        "in_proj": _w((d, 2 * d_in + 2 * g * n + h), cfg),
+        "conv_w": _w((cfg.ssm_conv_dim, conv_ch), cfg),
+        "conv_b": _w((conv_ch,), cfg, "zeros"),
+        "a_log": ParamSpec((h,), f32, "ssm_a"),
+        "d_skip": ParamSpec((h,), f32, "ones"),
+        "dt_bias": ParamSpec((h,), f32, "ssm_dt"),
+        "norm": _w((d_in,), cfg, "ones"),
+        "out_proj": _w((d_in, d), cfg),
+    }
+
+
+def _layer_specs(cfg, d):
+    """Specs of one stacked layer (without the leading L axis)."""
+    if cfg.family == "ssm":
+        return {"ln1": _w((d,), cfg, "ones"), "ssm": _ssm_specs(cfg, d)}
+    return {"ln1": _w((d,), cfg, "ones"), "attn": _attn_specs(cfg, d),
+            "ln2": _w((d,), cfg, "ones"),
+            "mlp": _mlp_specs(cfg, d, cfg.d_ff)}
+
+
 def param_specs(cfg) -> dict:
-    _require_dense(cfg)
+    _require_ported(cfg)
     d = cfg.d_model
     vp = padded_vocab(cfg)
-    layer = {"ln1": _w((d,), cfg, "ones"), "attn": _attn_specs(cfg, d),
-             "ln2": _w((d,), cfg, "ones"),
-             "mlp": _mlp_specs(cfg, d, cfg.d_ff)}
+    layer = _layer_specs(cfg, d)
     return {
         "embed": {"tok": _w((vp, d), cfg, "normal")},
         "final_norm": _w((d,), cfg, "ones"),
@@ -187,13 +221,13 @@ def _embed(params, tokens, cfg):
 def forward_hidden(params, tokens, cfg):
     """(B, S) tokens -> ((B, S, d) final hidden after the final norm,
     aux).  ``aux`` holds the reference's MoE loss terms, zero for the
-    dense family.
+    dense family.  The SSM family does not train in the port yet.
 
     With ``cfg.remat`` each block runs under ``torch.utils.checkpoint``
     (the reference's ``jax.checkpoint`` around the scan body): only the
     block inputs are kept, and the backward recomputes the block.
     """
-    _require_dense(cfg)
+    _require_ported(cfg, families=("dense",))
     h = _embed(params, tokens, cfg)
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
@@ -223,32 +257,54 @@ def logits(params, hidden, cfg):
 # ---------------------------------------------------------------------------
 
 class DecodeState(NamedTuple):
-    kv: KVCache
+    kv: Optional[KVCache]        # dense family
+    ssm: Optional[SSMState]      # SSM family
     pos: int                     # tokens already in cache
+
+
+def _alloc_ssm(cfg, batch: int, device) -> SSMState:
+    conv_ch = cfg.ssm_d_inner + 2 * max(1, cfg.ssm_groups) * cfg.ssm_state
+    return SSMState.alloc(cfg.num_layers, batch, cfg.ssm_heads,
+                          cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_conv_dim,
+                          conv_ch, dtype=act_dtype(cfg), device=device)
 
 
 def alloc_decode_state(cfg, batch: int, max_len: int, *,
                        device) -> DecodeState:
-    _require_dense(cfg)
+    _require_ported(cfg)
+    if cfg.family == "ssm":
+        return DecodeState(None, _alloc_ssm(cfg, batch, device), 0)
     kv = KVCache.alloc(cfg.num_layers, batch, max_len, cfg.num_kv_heads,
                        cfg.resolved_head_dim, dtype=act_dtype(cfg),
                        device=device)
-    return DecodeState(kv, 0)
+    return DecodeState(kv, None, 0)
+
+
+def _mamba_block(h, lp, cfg, **kw):
+    m, states = mamba2_mixer(rms_norm(h, lp["ln1"], cfg.norm_eps), lp["ssm"],
+                             cfg, **kw)
+    return h + m, states
 
 
 def prefill(params, tokens, cfg, state: DecodeState):
-    """Full forward writing the caches; returns (last-position logits,
-    state)."""
-    _require_dense(cfg)
+    """Full forward writing the caches (the SSM family: each layer's end
+    state and conv window); returns (last-position logits, state)."""
+    _require_ported(cfg)
     h = _embed(params, tokens, cfg)
     S = h.shape[1]
     for i in range(cfg.num_layers):
-        h, _ = dense_block(h, _layer(params["layers"], i), cfg,
-                           cache=(state.kv.k[i], state.kv.v[i]),
-                           cache_index=0)
+        lp = _layer(params["layers"], i)
+        if cfg.family == "ssm":
+            h, (ns, nc) = _mamba_block(h, lp, cfg, want_state=True)
+            state.ssm.ssm[i].copy_(ns)
+            state.ssm.conv[i].copy_(nc)
+        else:
+            h, _ = dense_block(h, lp, cfg,
+                               cache=(state.kv.k[i], state.kv.v[i]),
+                               cache_index=0)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     last = logits(params, h[:, -1:], cfg)
-    return last, DecodeState(state.kv, S)
+    return last, state._replace(pos=S)
 
 
 # ---------------------------------------------------------------------------
@@ -258,27 +314,34 @@ def prefill(params, tokens, cfg, state: DecodeState):
 class PagedDecodeState(NamedTuple):
     """Paged decode caches (serving engine).
 
-    ``kv_k`` / ``kv_v``: ``(L, n_pages, page, Hkv, D)`` arenas;
-    ``page_table``: ``(batch, max_pages)`` int32, ``-1`` = unmapped, one
-    page-id space for every layer; ``lengths``: ``(batch,)`` int32 tokens
-    stored per slot, ``0`` marks an inactive slot.
+    ``kv_k`` / ``kv_v``: ``(L, n_pages, page, Hkv, D)`` arenas (dense
+    family); ``ssm``: the SSM family's slot-indexed :class:`SSMState`
+    (O(1) per slot, so not paged); ``page_table``: ``(batch,
+    max_pages)`` int32, ``-1`` = unmapped, one page-id space for every
+    layer; ``lengths``: ``(batch,)`` int32 tokens stored per slot, ``0``
+    marks an inactive slot.
     """
-    kv_k: torch.Tensor
-    kv_v: torch.Tensor
+    kv_k: Optional[torch.Tensor]
+    kv_v: Optional[torch.Tensor]
+    ssm: Optional[SSMState]
     page_table: torch.Tensor
     lengths: torch.Tensor
 
 
 def alloc_paged_state(cfg, batch: int, num_pages: int, page_size: int,
                       max_len: int, *, device) -> PagedDecodeState:
-    _require_dense(cfg)
+    _require_ported(cfg)
     max_pages = -(-max_len // page_size)
-    shp = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
-           cfg.resolved_head_dim)
-    dt = act_dtype(cfg)
+    kv_k = kv_v = ssm = None
+    if cfg.family == "ssm":
+        ssm = _alloc_ssm(cfg, batch, device)
+    else:
+        shp = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
+               cfg.resolved_head_dim)
+        kv_k = torch.zeros(shp, dtype=act_dtype(cfg), device=device)
+        kv_v = torch.zeros(shp, dtype=act_dtype(cfg), device=device)
     return PagedDecodeState(
-        torch.zeros(shp, dtype=dt, device=device),
-        torch.zeros(shp, dtype=dt, device=device),
+        kv_k, kv_v, ssm,
         torch.full((batch, max_pages), -1, dtype=torch.int32,
                    device=device),
         torch.zeros((batch,), dtype=torch.int32, device=device))
@@ -289,17 +352,29 @@ def decode_step_paged(params, token, cfg, state: PagedDecodeState):
 
     Slot ``b``'s new token lands at position ``lengths[b]`` of its page
     chain; rows with ``lengths == 0`` are inactive — their cache writes
-    are dropped and their logits are never read.
+    are dropped and their logits are never read.  The SSM family steps
+    every slot's recurrent state (inactive rows included, as in the
+    reference) into new tensors; ``state.ssm`` is left as it was.
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
     h = _embed(params, token, cfg)
     pt, lengths = state.page_table, state.lengths
+    ssm = state.ssm
+    if cfg.family == "ssm":
+        ssm = SSMState(torch.empty_like(ssm.ssm), torch.empty_like(ssm.conv))
     for i in range(cfg.num_layers):
-        h, _ = dense_block(h, _layer(params["layers"], i), cfg,
-                           pos_offset=lengths,
-                           cache=(state.kv_k[i], state.kv_v[i]),
-                           decode=True, paged=(pt, lengths))
+        lp = _layer(params["layers"], i)
+        if cfg.family == "ssm":
+            h, (ns, nc) = _mamba_block(
+                h, lp, cfg, ssm_state=state.ssm.ssm[i],
+                conv_state=state.ssm.conv[i], decode=True)
+            ssm.ssm[i].copy_(ns)
+            ssm.conv[i].copy_(nc)
+        else:
+            h, _ = dense_block(h, lp, cfg, pos_offset=lengths,
+                               cache=(state.kv_k[i], state.kv_v[i]),
+                               decode=True, paged=(pt, lengths))
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     lg = logits(params, h, cfg)
     new_len = torch.where(lengths > 0, lengths + 1, 0).to(lengths.dtype)
-    return lg, state._replace(lengths=new_len)
+    return lg, state._replace(ssm=ssm, lengths=new_len)

@@ -17,9 +17,15 @@ steps.  The per-step loop is:
      ``W + V Bᵀ`` is never materialised, token selection stays on the
      device.
 
+The dense family pages its KV cache; the SSM family (Mamba2) keeps one
+fixed-size recurrent state per slot, which prefill writes into the
+request's slot (page chains are still kept, as in the reference, for
+admission and backpressure).
+
 A per-row logit health check (non-finite / collapsed) quarantines only
 the offending rows: a faulted row's length does not advance, so its
 cache write sits past ``length`` where attention never reads it, and its
+SSM state is selected back to its value before the step; its
 co-tenants keep decoding.  The one per-step device-to-host fetch is the
 fault vector.  Temperature/top-k sampling, snapshot/restore and signal
 draining of the reference engine are not ported yet.
@@ -179,15 +185,23 @@ class Engine:
         out = torch.where(write, nxt[:, None], out)
         counts = counts + eff.long()
         tok = torch.where(eff[:, None], nxt[:, None], self._tok)
-        # masked write-back: a faulted row's length does not advance
+        # masked write-back: a faulted row's length does not advance, and
+        # its slot-indexed SSM state keeps its pre-step value (the decode
+        # step returned the new state beside the old one)
         nstate = nstate._replace(
             lengths=torch.where(row_ok, nstate.lengths, state.lengths))
+        if nstate.ssm is not None:
+            nstate = nstate._replace(ssm=type(nstate.ssm)(*(
+                torch.where(row_ok.reshape((1, -1) + (1,) * (new.ndim - 2)),
+                            new, old)
+                for new, old in zip(nstate.ssm, state.ssm))))
         fault = active & ~row_ok
         return nstate, tok, out, counts, fault
 
     def _prefill(self, req: Request, pages: List[int], slot: int):
-        """Prefill one request into its page chain; returns the first
-        generated token (a device scalar)."""
+        """Prefill one request into its page chain (dense) or its slot's
+        recurrent state (SSM); returns the first generated token (a
+        device scalar)."""
         packed = self.params
         if self.adapters is not None:
             packed = self.adapters.lrpack_tree(self.params, req.tenant)
@@ -196,6 +210,10 @@ class Engine:
         tmp = alloc_decode_state(self.cfg, 1, n * page, device=self.device)
         tokens = torch.as_tensor(req.prompt[None, :], device=self.device)
         lg, tmp = prefill(packed, tokens, self.cfg, tmp)
+        if tmp.ssm is not None:
+            for arena, cache in zip(self.state.ssm, tmp.ssm):
+                arena[:, slot] = cache[:, 0].to(arena.dtype)
+            return torch.argmax(lg[0, -1])
         idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
         for arena, cache in ((self.state.kv_k, tmp.kv.k),
                              (self.state.kv_v, tmp.kv.v)):

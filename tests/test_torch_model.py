@@ -1,4 +1,5 @@
-"""The port's dense LM against the JAX package, on reduced configs.
+"""The port's LM (dense and SSM families) against the JAX package, on
+reduced configs.
 
 Weights are made by the reference (``lm.init_params``) and carried
 across by ``repro_torch.convert``; adapters are numpy arrays installed
@@ -33,7 +34,11 @@ from repro_torch.optim.subspace import build_layout  # noqa: E402
 from repro_torch.serve import AdapterStore, batched_pack_tree  # noqa: E402
 
 RTOL, ATOL = 1e-4, 1e-5
-ARCHS = ["qwen2-7b", "llama-tiny"]
+ARCHS = ["qwen2-7b", "llama-tiny", "mamba2-780m"]
+# full-size configs: low-rank leaves, all at r = 128 (qwen2-7b: every
+# projection and the unembedding; mamba2-780m: in_proj, out_proj and the
+# unembedding, conv_w excluded)
+FULL_LEAVES = {"qwen2-7b": 8, "mamba2-780m": 3}
 TCFG = TrainConfig(rank=4, min_dim_for_lowrank=32)
 JTCFG = JTrainConfig(optimizer="lowrank_adam", rank=4,
                      min_dim_for_lowrank=32)
@@ -66,7 +71,7 @@ def _close(got, want):
                                rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["qwen2-7b-full"])
+@pytest.mark.parametrize("arch", ARCHS + [f"{a}-full" for a in FULL_LEAVES])
 def test_layout_groups_match_jax(arch):
     full = arch.endswith("-full")
     name = arch.removesuffix("-full")
@@ -80,9 +85,9 @@ def test_layout_groups_match_jax(arch):
         [(g.shape, g.rank, g.leaf_idx) for g in want.groups]
     assert got.dense_idx == want.dense_idx
     assert got.n_leaves == want.n_leaves
-    if full:    # every projection and the unembedding, all at r = 128
+    if full:
         assert {g.rank for g in got.groups} == {128}
-        assert sum(len(g.leaf_idx) for g in got.groups) == 8
+        assert sum(len(g.leaf_idx) for g in got.groups) == FULL_LEAVES[name]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -105,9 +110,21 @@ def test_init_params_follow_the_reference_laws(arch):
     cfg = get_config(arch).reduced()
     p = lm.init_params(cfg, seed=3, device="cpu")
     d = cfg.d_model
-    wq = p["layers"]["attn"]["wq"]
+    layer = p["layers"]
+    wq = layer["ssm"]["in_proj"] if cfg.family == "ssm" \
+        else layer["attn"]["wq"]
     assert wq.dtype == torch.float32
     assert abs(wq.std().item() * d ** 0.5 - 1.0) < 0.05   # 1/sqrt(fan_in)
+    if cfg.family == "ssm":
+        a_log, dt_bias = layer["ssm"]["a_log"], layer["ssm"]["dt_bias"]
+        assert a_log.dtype == dt_bias.dtype == torch.float32
+        # A_log = log U[1, 16]; dt_bias = softplus^-1 of exp(U[log 1e-3,
+        # log 0.1])
+        assert 0.0 <= a_log.min() and a_log.max() <= np.log(16.0)
+        dt = torch.nn.functional.softplus(dt_bias)
+        assert 1e-3 * (1 - 1e-5) <= dt.min() and dt.max() <= 0.1 * (1 + 1e-5)
+        assert a_log.std() > 0.1 and dt.std() > 0.005
+        assert torch.equal(layer["ssm"]["d_skip"], torch.ones_like(a_log))
     assert abs(p["embed"]["tok"].std().item() - 0.02) < 0.002
     assert torch.equal(p["final_norm"], torch.ones(d))
     if cfg.qkv_bias:
@@ -130,8 +147,12 @@ def test_prefill_logits_match_jax_with_lrpack(arch):
         tlg, tst = lm.prefill(ts.lrpack_tree(tp, tenant),
                               torch.as_tensor(toks), cfg, tst)
         _close(tlg, jlg)
-        _close(tst.kv.k, jst.kv.k)
-        _close(tst.kv.v, jst.kv.v)
+        if cfg.family == "ssm":
+            _close(tst.ssm.ssm, jst.ssm.ssm)
+            _close(tst.ssm.conv, jst.ssm.conv)
+        else:
+            _close(tst.kv.k, jst.kv.k)
+            _close(tst.kv.v, jst.kv.v)
         assert tst.pos == int(jst.pos) == 7
 
 
@@ -145,17 +166,25 @@ def test_paged_decode_logits_match_jax_with_batch_lrpack(arch):
     jst = jlm.alloc_paged_state(jcfg, B, n_pages, page, 16)
     tst = lm.alloc_paged_state(cfg, B, n_pages, page, 16, device="cpu")
     rng = np.random.default_rng(6)
-    kk, vv = (rng.standard_normal(jst.kv_k.shape).astype(np.float32)
-              for _ in range(2))
+    ssm = cfg.family == "ssm"
+    caches = (jst.ssm.ssm, jst.ssm.conv) if ssm else (jst.kv_k, jst.kv_v)
+    kk, vv = (rng.standard_normal(a.shape).astype(np.float32)
+              for a in caches)
     pt = np.full((B, 4), -1, np.int32)
     pt[0, :2] = [0, 1]
     pt[1, :3] = [5, 2, 7]
     lens = np.array([3, 9, 0], np.int32)
-    jst = jst._replace(kv_k=jnp.asarray(kk), kv_v=jnp.asarray(vv),
-                       page_table=jnp.asarray(pt), lengths=jnp.asarray(lens))
-    tst = tst._replace(kv_k=torch.tensor(kk), kv_v=torch.tensor(vv),
-                       page_table=torch.tensor(pt),
+    jst = jst._replace(page_table=jnp.asarray(pt), lengths=jnp.asarray(lens))
+    tst = tst._replace(page_table=torch.tensor(pt),
                        lengths=torch.tensor(lens))
+    if ssm:     # slot-indexed recurrent state: nothing paged
+        jst = jst._replace(ssm=type(jst.ssm)(jnp.asarray(kk),
+                                             jnp.asarray(vv)))
+        tst = tst._replace(ssm=type(tst.ssm)(torch.tensor(kk),
+                                             torch.tensor(vv)))
+    else:
+        jst = jst._replace(kv_k=jnp.asarray(kk), kv_v=jnp.asarray(vv))
+        tst = tst._replace(kv_k=torch.tensor(kk), kv_v=torch.tensor(vv))
     tenants = np.array([1, 0, 0])
     tok = np.array([[5], [9], [0]], np.int32)
     for _ in range(3):
@@ -171,8 +200,12 @@ def test_paged_decode_logits_match_jax_with_batch_lrpack(arch):
                                       np.asarray(jst.lengths))
         tok = np.asarray(jnp.argmax(jlg[:, -1], -1))[:, None]
         tok = tok.astype(np.int32)
-    _close(tst.kv_k, jst.kv_k)
-    _close(tst.kv_v, jst.kv_v)
+    if ssm:     # row 2 is inactive but steps its state, as in the reference
+        _close(tst.ssm.ssm, jst.ssm.ssm)
+        _close(tst.ssm.conv, jst.ssm.conv)
+    else:
+        _close(tst.kv_k, jst.kv_k)
+        _close(tst.kv_v, jst.kv_v)
 
 
 # (page_table, lengths) of 4 slots over 3 pages of 4: some unmapped slots
@@ -218,9 +251,18 @@ def test_effective_weight_matches_jax():
 
 
 def test_other_families_are_refused():
-    cfg = dataclasses.replace(get_config("llama-tiny"), family="moe",
+    moe = dataclasses.replace(get_config("llama-tiny"), family="moe",
                               num_experts=4)
+    # zamba2-7b's family: mamba2 layers with a shared attention block
+    hybrid = dataclasses.replace(get_config("mamba2-780m"), family="hybrid",
+                                 attn_every=6).reduced()
+    for cfg in (moe, hybrid):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            lm.param_specs(cfg)
+        with pytest.raises(NotImplementedError, match="not ported"):
+            lm.alloc_paged_state(cfg, 1, 2, 4, 8, device="cpu")
+    # SSM serves but does not train in the port yet
+    ssm = get_config("mamba2-780m").reduced()
+    params = lm.init_params(ssm, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
-        lm.param_specs(cfg)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        lm.alloc_paged_state(cfg, 1, 2, 4, 8, device="cpu")
+        lm.forward_hidden(params, torch.zeros((1, 4), dtype=torch.long), ssm)

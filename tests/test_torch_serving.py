@@ -1,5 +1,6 @@
 """The port's serving engine against the JAX package's, on llama-tiny
-(reduced, fp32).
+and mamba2-780m (reduced, fp32): the dense family's paged KV cache and
+the SSM family's per-slot recurrent state.
 
 Engine parity asserts equal generated tokens — not bit-identical logits.
 Greedy tokens agree between the packages when no step's top-2 logit gap
@@ -8,6 +9,8 @@ chosen so that every generated step has a gap above 1e-4, and each test
 re-checks that with :func:`_min_top2_gap` so a changed model cannot turn
 a near tie into a spurious failure.
 """
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 
@@ -31,20 +34,31 @@ from repro_torch.serve import (AdapterMismatchError, AdapterStore,  # noqa
                                Engine, EngineBusy, EngineConfig, PagePool,
                                Request, TenantQuarantinedError)
 
-CFG = get_config("llama-tiny").reduced()
-JCFG = jget_config("llama-tiny").reduced()
 TCFG = TrainConfig(rank=4, min_dim_for_lowrank=32)
 JTCFG = JTrainConfig(optimizer="lowrank_adam", rank=4,
                      min_dim_for_lowrank=32)
-JPARAMS = jlm.init_params(JCFG, jax.random.key(0))
-PARAMS = convert.params_from_numpy(jax.tree.map(np.asarray, JPARAMS),
-                                   device="cpu")
 MIN_GAP = 1e-4
 
 
-def _stores(n_tenants, seed=1, scale=0.05):
-    js = JStore(JCFG, JTCFG, max_tenants=n_tenants)
-    ts = AdapterStore(CFG, TCFG, max_tenants=n_tenants, device="cpu")
+def _model(arch):
+    """A reduced config of both packages and the reference's weights
+    (seed 0) carried across."""
+    jcfg = jget_config(arch).reduced()
+    jparams = jlm.init_params(jcfg, jax.random.key(0))
+    return SimpleNamespace(
+        cfg=get_config(arch).reduced(), jcfg=jcfg, jparams=jparams,
+        params=convert.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                         device="cpu"))
+
+
+LLAMA, MAMBA = _model("llama-tiny"), _model("mamba2-780m")
+CFG, JCFG, JPARAMS, PARAMS = LLAMA.cfg, LLAMA.jcfg, LLAMA.jparams, \
+    LLAMA.params
+
+
+def _stores(n_tenants, seed=1, scale=0.05, m=LLAMA):
+    js = JStore(m.jcfg, JTCFG, max_tenants=n_tenants)
+    ts = AdapterStore(m.cfg, TCFG, max_tenants=n_tenants, device="cpu")
     rng = np.random.default_rng(seed)
     projs = [scale * rng.standard_normal(v.shape).astype(np.float32)
              for v in js.projs]
@@ -67,27 +81,27 @@ def _ecfg(**over):
     return base
 
 
-def _min_top2_gap(params, prompt, out):
+def _min_top2_gap(params, prompt, out, cfg=CFG):
     """Smallest top-2 logit gap over the greedy steps that produced
     ``out`` (teacher-forced full forwards of the port's model)."""
     gaps = []
     for t in range(len(out)):
         seq = np.concatenate([prompt, out[:t]]).astype(np.int32)
-        st = lm.alloc_decode_state(CFG, 1, len(seq), device="cpu")
-        lg, _ = lm.prefill(params, torch.as_tensor(seq[None]), CFG, st)
-        top = torch.topk(lg[0, -1, :CFG.vocab_size], 2).values
+        st = lm.alloc_decode_state(cfg, 1, len(seq), device="cpu")
+        lg, _ = lm.prefill(params, torch.as_tensor(seq[None]), cfg, st)
+        top = torch.topk(lg[0, -1, :cfg.vocab_size], 2).values
         gaps.append((top[0] - top[1]).item())
     return min(gaps)
 
 
-def _both(ecfg, reqs, stores=None, mid=None):
+def _both(ecfg, reqs, stores=None, mid=None, m=LLAMA):
     """Run the same workload through both engines.  ``reqs``: (rid,
     prompt, max_new, tenant); ``mid``: (after_steps, more reqs)."""
     js, ts = stores if stores is not None else (None, None)
-    jeng = JEngine(JPARAMS, JCFG, adapters=js,
+    jeng = JEngine(m.jparams, m.jcfg, adapters=js,
                    engine_cfg=JEngineConfig(**ecfg))
-    teng = Engine(PARAMS, CFG, adapters=ts, engine_cfg=EngineConfig(**ecfg),
-                  device="cpu")
+    teng = Engine(m.params, m.cfg, adapters=ts,
+                  engine_cfg=EngineConfig(**ecfg), device="cpu")
     outs = []
     for eng, R in ((jeng, JRequest), (teng, Request)):
         for rid, p, n, ten in reqs:
@@ -106,23 +120,31 @@ def _both(ecfg, reqs, stores=None, mid=None):
 # Engine token parity with the JAX engine
 # ---------------------------------------------------------------------------
 
-def test_two_tenants_staggered_joins_and_evictions_match_jax():
-    js, ts = _stores(2)
+def _two_tenants_staggered(m):
+    js, ts = _stores(2, m=m)
     reqs = [("r0", _prompt(3, 5), 6, "t0"), ("r1", _prompt(6, 6), 3, "t1")]
     more = [("r2", _prompt(4, 7), 5, "t1")]
-    (jout, tout), teng = _both(_ecfg(), reqs, (js, ts), mid=(3, more))
+    (jout, tout), teng = _both(_ecfg(), reqs, (js, ts), mid=(3, more), m=m)
     assert sorted(tout) == ["r0", "r1", "r2"]
     for rid, prompt, n, tenant in reqs + more:
         np.testing.assert_array_equal(tout[rid], jout[rid])
         assert len(tout[rid]) == n and teng.reasons[rid] == "completed"
-        assert _min_top2_gap(ts.lrpack_tree(PARAMS, tenant), prompt,
-                             tout[rid]) > MIN_GAP
+        assert _min_top2_gap(ts.lrpack_tree(m.params, tenant), prompt,
+                             tout[rid], m.cfg) > MIN_GAP
     # distinct adapters really change the generation
-    solo = Engine(PARAMS, CFG, adapters=ts,
+    solo = Engine(m.params, m.cfg, adapters=ts,
                   engine_cfg=EngineConfig(**_ecfg()), device="cpu")
     solo.submit(Request("x", _prompt(4, 7), 5, tenant="t0"))
     assert not np.array_equal(solo.run()["x"], tout["r2"])
     assert teng.pool.outstanding == 0
+
+
+def test_two_tenants_staggered_joins_and_evictions_match_jax():
+    _two_tenants_staggered(LLAMA)
+
+
+def test_mamba2_two_tenants_staggered_joins_and_evictions_match_jax():
+    _two_tenants_staggered(MAMBA)
 
 
 def test_backpressure_queues_then_serves_all_like_jax():
@@ -154,43 +176,82 @@ def test_preemption_recomputes_and_matches_jax():
 # Port-only engine behaviour
 # ---------------------------------------------------------------------------
 
-def _engine(adapters=None, **over):
-    return Engine(PARAMS, CFG, adapters=adapters,
+def _engine(adapters=None, m=LLAMA, **over):
+    return Engine(m.params, m.cfg, adapters=adapters,
                   engine_cfg=EngineConfig(**_ecfg(**over)), device="cpu")
 
 
-def test_lazy_adapter_serving_equals_merged_weights():
-    _, ts = _stores(1, scale=0.02)
+def _lazy_equals_merged(m):
+    _, ts = _stores(1, scale=0.02, m=m)
     prompt = _prompt(5, 20)
-    lazy = _engine(ts, max_batch=1)
+    lazy = _engine(ts, m, max_batch=1)
     lazy.submit(Request("r", prompt, 6, tenant="t0"))
-    merged_params = tree_map(effective_weight, ts.lrpack_tree(PARAMS, "t0"))
-    merged = Engine(merged_params, CFG,
+    merged_params = tree_map(effective_weight, ts.lrpack_tree(m.params, "t0"))
+    merged = Engine(merged_params, m.cfg,
                     engine_cfg=EngineConfig(**_ecfg(max_batch=1)),
                     device="cpu")
     merged.submit(Request("r", prompt, 6))
     np.testing.assert_array_equal(lazy.run()["r"], merged.run()["r"])
 
 
-def test_faulted_tenant_is_quarantined_and_co_tenant_unaffected():
-    _, ts = _stores(2)
+def test_lazy_adapter_serving_equals_merged_weights():
+    _lazy_equals_merged(LLAMA)
+
+
+def test_mamba2_lazy_adapter_serving_equals_merged_weights():
+    _lazy_equals_merged(MAMBA)
+
+
+def _quarantine(m):
+    _, ts = _stores(2, m=m)
     bad = [np.full(b.shape[:-3] + b.shape[-2:], np.nan, np.float32)
            for b in ts.b_full]
     ts.add_tenant("t1", bad)                   # hot-swap t1 to a NaN adapter
     prompt = _prompt(4, 21)
-    eng = _engine(ts, max_strikes=1)
+    eng = _engine(ts, m, max_strikes=1)
     eng.submit(Request("good", prompt, 5, tenant="t0"))
     eng.submit(Request("bad", prompt, 5, tenant="t1"))
     out = eng.run()
     assert isinstance(eng.errors["bad"], TenantQuarantinedError)
     assert eng.reasons["bad"] == "quarantined" and "bad" not in out
     assert eng.strikes("t1") == 1 and eng.disabled_tenants() == ("t1",)
-    solo = _engine(ts, max_batch=1)
+    solo = _engine(ts, m, max_batch=1)
     solo.submit(Request("good", prompt, 5, tenant="t0"))
     np.testing.assert_array_equal(out["good"], solo.run()["good"])
     with pytest.raises(TenantQuarantinedError):
         eng.submit(Request("again", prompt, 2, tenant="t1"))
     assert eng.pool.outstanding == 0
+
+
+def test_faulted_tenant_is_quarantined_and_co_tenant_unaffected():
+    _quarantine(LLAMA)
+
+
+def test_mamba2_faulted_tenant_is_quarantined_and_co_tenant_unaffected():
+    _quarantine(MAMBA)
+
+
+def test_mamba2_faulted_row_keeps_its_recurrent_state(monkeypatch):
+    """The masked write-back: a row the guard faults keeps its SSM state
+    and conv window from before the step; the other row advances."""
+    import repro_torch.serve.engine as engine_mod
+    _, ts = _stores(2, m=MAMBA)
+    eng = _engine(ts, MAMBA)
+    eng.submit(Request("a", _prompt(4, 30), 4, tenant="t0"))
+    eng.submit(Request("b", _prompt(5, 31), 4, tenant="t1"))
+    assert eng.step()                         # both admitted and stepped
+    state = eng.state._replace(page_table=torch.as_tensor(eng._pt),
+                               lengths=torch.as_tensor(eng._len))
+    before = [t.clone() for t in state.ssm]
+    monkeypatch.setattr(engine_mod, "logits_row_ok",
+                        lambda rows: torch.tensor([True, False]))
+    nstate, *_, fault = eng._decode(state)
+    assert fault.tolist() == [False, True]
+    for new, old in zip(nstate.ssm, before):
+        assert torch.equal(new[:, 1], old[:, 1])
+        assert not torch.equal(new[:, 0], old[:, 0])
+    # only row 0 advances
+    assert nstate.lengths.tolist() == [eng._len[0] + 1, eng._len[1]]
 
 
 def test_admission_queue_bound_and_deadlines():

@@ -1,0 +1,379 @@
+"""The port's SSM modules against the JAX package, on the CPU.
+
+* The plain ``ssd_intra_chunk`` (the CPU route of the wrapper, and what
+  the CUDA kernel is held to on the card) against the reference's Pallas
+  kernel in interpret mode, at ``tests/test_kernels.py``'s shapes, a
+  chunk of 20 tokens and a strongly negative ``da`` (``dt A`` with A
+  down to -16), where the output must stay finite.
+* ``ssd_chunked`` (with and without ``init_state``, one group and two),
+  ``ssd_decode_step``, ``causal_conv1d`` and ``causal_conv1d_step``
+  against their JAX counterparts, and ``mamba2_mixer`` over an
+  ``LRPack`` in prefill (with and without its state) and in decode.
+* The wrapper's refusals, which both routes make.
+
+Every comparison is fp32 against fp32 with sums in another order: the
+max abs error within ``REL`` = 1e-5 of the output's largest magnitude
+(measured on the CPU: at most 1.3e-6 of it).  The strongly negative
+``da`` case is held within ``REL_STRONG`` = 1e-4: its cumsum reaches
+777 in magnitude, where one fp32 step is 6e-5, so each decay factor
+carries the two cumsums' last-bit differences (measured: 2.2e-5).
+
+The ``cuda``-marked tests hold the CUDA kernel to its plain version on
+the card and check that a CUDA input that requires a gradient raises;
+they skip here with a reason and import no JAX.  Run them on a card with
+``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_ssd.py``.
+"""
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import ssd_chunk as sc  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
+from repro_torch.models.linear import LRPack  # noqa: E402
+
+REL = 1e-5
+REL_STRONG = 1e-4
+
+
+@pytest.fixture(scope="module")
+def jref():
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels.ssd_chunk import ssd_intra_chunk
+    from repro.models import ssm as jssm
+    from repro.models.linear import LRPack as JLRPack
+    return SimpleNamespace(jnp=jnp, pallas=ssd_intra_chunk, ssm=jssm,
+                           LRPack=JLRPack)
+
+
+def _close(got, want, rel=REL):
+    got = np.asarray(got.detach() if torch.is_tensor(got) else got,
+                     np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= rel * np.abs(want).max()
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _softplus(a):
+    return np.logaddexp(a, 0.0).astype(np.float32)
+
+
+def _chunk_operands(bc, q, h, p, n, seed, strong=False):
+    """x, dt, da, b, c as numpy fp32.  ``strong``: dt = softplus(N(0, 1))
+    and A = -U[1, 16] per head (the top of Mamba2's ranges), so
+    clog_i - clog_j of a masked pair reaches hundreds."""
+    rng = np.random.default_rng(seed)
+    x = 0.5 * rng.standard_normal((bc, q, h, p))
+    b = 0.5 * rng.standard_normal((bc, q, h, n))
+    c = 0.5 * rng.standard_normal((bc, q, h, n))
+    if strong:
+        dt = _softplus(rng.standard_normal((bc, q, h)))
+        da = dt * -rng.uniform(1.0, 16.0, h)
+    else:
+        dt = np.abs(0.3 * rng.standard_normal((bc, q, h))) + 0.01
+        da = -np.abs(0.3 * rng.standard_normal((bc, q, h)))
+    return tuple(a.astype(np.float32) for a in (x, dt, da, b, c))
+
+
+# (bc, q, h, p, n, head_block): tests/test_kernels.py's sweep, a chunk of
+# 20 tokens, and two chunks at Mamba2's dt * A
+CHUNK_CASES = {
+    "kernels-sweep-0": ((2, 32, 8, 16, 16, 8), False),
+    "kernels-sweep-1": ((1, 64, 4, 32, 64, 2), False),
+    "kernels-sweep-2": ((3, 16, 16, 64, 32, 8), False),
+    "q20": ((2, 20, 4, 16, 8, 4), False),
+    "strong-da": ((2, 64, 4, 16, 16, 4), True),
+}
+
+
+@pytest.mark.parametrize("case", CHUNK_CASES)
+def test_plain_matches_the_pallas_kernel_interpret(jref, case):
+    (bc, q, h, p, n, hb), strong = CHUNK_CASES[case]
+    ops = _chunk_operands(bc, q, h, p, n, seed=q + h, strong=strong)
+    if strong:   # the masked pairs really would overflow expf
+        clog = np.cumsum(ops[2], axis=1)
+        assert (clog[:, :1] - clog[:, -1:]).max() > 88.7
+    wy, ws = jref.pallas(*(jref.jnp.asarray(a) for a in ops),
+                         head_block=hb, interpret=True)
+    y, st = sc.ssd_intra_chunk(*(_t(a) for a in ops))
+    assert y.dtype == torch.float32 and st.dtype == torch.float32
+    _close(y, wy, REL_STRONG if strong else REL)
+    _close(st, ws, REL_STRONG if strong else REL)
+
+
+def test_plain_takes_a_head_broadcast_of_one_group():
+    x, dt, da, b, c = (_t(a) for a in _chunk_operands(2, 16, 4, 8, 8, 3))
+    b1, c1 = b[:, :, :1].contiguous(), c[:, :, :1].contiguous()
+    got = sc.ssd_intra_chunk(x, dt, da, b1.expand(-1, -1, 4, -1),
+                             c1.expand(-1, -1, 4, -1))
+    want = ref.ssd_intra_chunk(x, dt, da, b1.repeat(1, 1, 4, 1),
+                               c1.repeat(1, 1, 4, 1))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take():
+    x, dt, da, b, c = (_t(a) for a in _chunk_operands(1, 16, 4, 8, 8, 4))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        sc.ssd_intra_chunk(*(t.half() for t in (x, dt, da, b, c)))
+    with pytest.raises(TypeError, match="one dtype"):
+        sc.ssd_intra_chunk(x, dt.double(), da, b, c)
+    with pytest.raises(ValueError, match="shapes"):
+        sc.ssd_intra_chunk(x, dt[:, :8], da, b, c)
+    with pytest.raises(ValueError, match="shapes"):
+        sc.ssd_intra_chunk(x, dt, da, b, c[..., :4])
+    with pytest.raises(ValueError, match="BC, Q, H, P"):
+        sc.ssd_intra_chunk(x[0], dt, da, b, c)
+    with pytest.raises(ValueError, match="contiguous"):
+        sc.ssd_intra_chunk(x.transpose(2, 3).contiguous().transpose(2, 3),
+                           dt, da, b, c)
+    with pytest.raises(ValueError, match="head broadcast"):
+        sc.ssd_intra_chunk(x, dt, da, b.mT.contiguous().mT, c)
+    big = _chunk_operands(1, 160, 1, 4, 4, 5)       # Q = 160 > 128
+    with pytest.raises(ValueError, match="chunks of 1..128"):
+        sc.ssd_intra_chunk(*(_t(a) for a in big))
+
+
+# (s, h, g, n, chunk): tests/test_models.py's recurrence sweep
+SCAN_CASES = [(32, 4, 1, 8, 8), (64, 4, 2, 8, 16), (48, 2, 1, 4, 16)]
+
+
+@pytest.mark.parametrize("with_init", [False, True])
+@pytest.mark.parametrize("s,h,g,n,chunk", SCAN_CASES)
+def test_ssd_chunked_matches_jax(jref, s, h, g, n, chunk, with_init):
+    rng = np.random.default_rng(s + h + g)
+    B, P = 2, 8
+    f = np.float32
+    x = rng.standard_normal((B, s, h, P)).astype(f)
+    dt = _softplus(rng.standard_normal((B, s, h)))
+    a_log = (0.5 * rng.standard_normal((h,))).astype(f)
+    b = (0.5 * rng.standard_normal((B, s, g, n))).astype(f)
+    c = (0.5 * rng.standard_normal((B, s, g, n))).astype(f)
+    d_skip = rng.standard_normal((h,)).astype(f)
+    init = (0.3 * rng.standard_normal((B, h, n, P))).astype(f) \
+        if with_init else None
+    jnp = jref.jnp
+    wy, ws = jref.ssm.ssd_chunked(
+        *(jnp.asarray(a) for a in (x, dt, a_log, b, c, d_skip)),
+        chunk=chunk, init_state=None if init is None else jnp.asarray(init),
+        return_state=True)
+    y, st = ssm.ssd_chunked(*(_t(a) for a in (x, dt, a_log, b, c, d_skip)),
+                            chunk=chunk,
+                            init_state=None if init is None else _t(init),
+                            return_state=True)
+    _close(y, wy)
+    _close(st, ws)
+    assert torch.equal(ssm.ssd_chunked(
+        *(_t(a) for a in (x, dt, a_log, b, c, d_skip)), chunk=chunk,
+        init_state=None if init is None else _t(init)), y)
+
+
+def test_ssd_chunked_refuses_a_ragged_last_chunk():
+    x = torch.zeros((1, 40, 2, 4))
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ssm.ssd_chunked(x, torch.ones((1, 40, 2)), torch.zeros(2),
+                        torch.zeros((1, 40, 1, 4)), torch.zeros((1, 40, 1, 4)),
+                        torch.ones(2), chunk=32)
+
+
+@pytest.mark.parametrize("g", [1, 2])
+def test_ssd_decode_step_matches_jax(jref, g):
+    rng = np.random.default_rng(g)
+    B, H, P, N = 3, 4, 8, 6
+    f = np.float32
+    x = rng.standard_normal((B, H, P)).astype(f)
+    dt = _softplus(rng.standard_normal((B, H)))
+    a_log = (0.5 * rng.standard_normal((H,))).astype(f)
+    b, c = (rng.standard_normal((B, g, N)).astype(f) for _ in range(2))
+    d_skip = rng.standard_normal((H,)).astype(f)
+    state = rng.standard_normal((B, H, N, P)).astype(f)
+    ops = (x, dt, a_log, b, c, d_skip, state)
+    wy, ws = jref.ssm.ssd_decode_step(*(jref.jnp.asarray(a) for a in ops))
+    y, st = ssm.ssd_decode_step(*(_t(a) for a in ops))
+    _close(y, wy)
+    _close(st, ws)
+
+
+def test_causal_conv_and_its_step_match_jax(jref):
+    rng = np.random.default_rng(7)
+    B, S, Ch, K = 2, 9, 12, 4
+    f = np.float32
+    x = rng.standard_normal((B, S, Ch)).astype(f)
+    w = rng.standard_normal((K, Ch)).astype(f)
+    b = rng.standard_normal((Ch,)).astype(f)
+    jnp = jref.jnp
+    _close(ssm.causal_conv1d(_t(x), _t(w), _t(b)),
+           jref.ssm.causal_conv1d(*(jnp.asarray(a) for a in (x, w, b))))
+    state = rng.standard_normal((B, K - 1, Ch)).astype(f)
+    new = rng.standard_normal((B, Ch)).astype(f)
+    out, st = ssm.causal_conv1d_step(_t(new), _t(state), _t(w), _t(b))
+    wout, wst = jref.ssm.causal_conv1d_step(
+        *(jnp.asarray(a) for a in (new, state, w, b)))
+    _close(out, wout)
+    assert np.array_equal(st.numpy(), np.asarray(wst))
+
+
+def _mixer_params(jref, seed=0):
+    """One reduced mamba2 layer's parameters with in_proj and out_proj
+    packed with random adapters, for both packages."""
+    import jax
+    from repro.configs import get_config as jget_config
+    from repro.models import lm as jlm
+    jcfg = jget_config("mamba2-780m").reduced()
+    jp = jax.tree.map(lambda a: np.asarray(a[0]),
+                      jlm.init_params(jcfg, jax.random.key(seed))
+                      ["layers"]["ssm"])
+    rng = np.random.default_rng(seed)
+    r = 4
+    for name in ("in_proj", "out_proj"):
+        k, n = jp[name].shape
+        jp[name] = (jp[name], (0.05 * rng.standard_normal((n, r)))
+                    .astype(np.float32),
+                    (rng.standard_normal((k, r)) / np.sqrt(k))
+                    .astype(np.float32))
+    jnp = jref.jnp
+    jparams = {k: jref.LRPack(*(jnp.asarray(a) for a in v))
+               if isinstance(v, tuple) else jnp.asarray(v)
+               for k, v in jp.items()}
+    tparams = {k: LRPack(*(_t(a) for a in v)) if isinstance(v, tuple)
+               else _t(v) for k, v in jp.items()}
+    return jcfg, jparams, tparams
+
+
+@pytest.mark.parametrize("want_state", [False, True])
+def test_mamba2_mixer_prefill_matches_jax(jref, want_state):
+    jcfg, jparams, tparams = _mixer_params(jref)
+    cfg = get_config("mamba2-780m").reduced()
+    h = np.random.default_rng(8).standard_normal(
+        (2, 64, cfg.d_model)).astype(np.float32)     # two chunks of 32
+    wout, (wssm, wconv) = jref.ssm.mamba2_mixer(
+        jref.jnp.asarray(h), jparams, jcfg, want_state=want_state)
+    out, (st, conv) = ssm.mamba2_mixer(_t(h), tparams, cfg,
+                                       want_state=want_state)
+    _close(out, wout)
+    if want_state:
+        _close(st, wssm)
+        _close(conv, wconv)
+    else:
+        assert st is None and conv is None
+
+
+def test_mamba2_mixer_decode_matches_jax(jref):
+    jcfg, jparams, tparams = _mixer_params(jref, seed=1)
+    cfg = get_config("mamba2-780m").reduced()
+    rng = np.random.default_rng(9)
+    B = 3
+    conv_ch = cfg.ssm_d_inner + 2 * cfg.ssm_state
+    h = rng.standard_normal((B, 1, cfg.d_model)).astype(np.float32)
+    s0 = (0.3 * rng.standard_normal(
+        (B, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim))) \
+        .astype(np.float32)
+    c0 = rng.standard_normal((B, cfg.ssm_conv_dim - 1, conv_ch)) \
+        .astype(np.float32)
+    jnp = jref.jnp
+    wout, (ws, wc) = jref.ssm.mamba2_mixer(
+        jnp.asarray(h), jparams, jcfg, ssm_state=jnp.asarray(s0),
+        conv_state=jnp.asarray(c0), decode=True)
+    out, (st, conv) = ssm.mamba2_mixer(_t(h), tparams, cfg,
+                                       ssm_state=_t(s0), conv_state=_t(c0),
+                                       decode=True)
+    _close(out, wout)
+    _close(st, ws)
+    _close(conv, wc)
+
+
+# ---------------------------------------------------------------------------
+# On the card
+# ---------------------------------------------------------------------------
+
+def _require_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+
+
+@pytest.fixture
+def cuda():
+    _require_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def test_cuda_tests_skip_with_a_reason():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; nothing to skip")
+    with pytest.raises(pytest.skip.Exception, match="CUDA device"):
+        _require_cuda()
+
+
+# (BC, Q, H, P, N): ragged and small shapes, then mamba2-780m's three
+# prefill shapes (prompts of 100, 128 and 512 tokens)
+CARD_SHAPES = [(1, 1, 1, 1, 1), (3, 20, 5, 16, 8), (2, 45, 3, 70, 33),
+               (1, 128, 2, 128, 128), (1, 100, 48, 64, 128),
+               (1, 128, 48, 64, 128), (4, 128, 48, 64, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("broadcast", [False, True])
+@pytest.mark.parametrize("shape", CARD_SHAPES)
+def test_ssd_kernel_matches_plain_on_card(cuda, shape, broadcast):
+    sc.reset_launches()
+    BC, Q, H, P, N = shape
+    x, dt, da, b, c = (_t(a).to(cuda) for a in _chunk_operands(
+        BC, Q, H, P, N, seed=Q + H, strong=True))
+    if broadcast:
+        b, c = (t[:, :, :1].contiguous().expand(-1, -1, H, -1)
+                for t in (b, c))
+    y, st = sc.ssd_intra_chunk(x, dt, da, b, c)
+    torch.cuda.synchronize()
+    wy, ws = ref.ssd_intra_chunk(x, dt, da, b, c)
+    # fp32 sums in another order, expf against torch.exp, and a sequential
+    # cumsum against torch's scan (clog reaches hundreds: REL_STRONG)
+    for got, want in ((y, wy), (st, ws)):
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        err = (got - want).abs().max().item()
+        assert err <= REL_STRONG * want.abs().max().item()
+    assert sc.LAUNCHES == {("ssd_intra_chunk", shape): 1}
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_bf16_matches_plain_on_card(cuda):
+    ops = [_t(a).to(cuda).bfloat16()
+           for a in _chunk_operands(2, 128, 4, 64, 128, seed=1, strong=True)]
+    y, st = sc.ssd_intra_chunk(*ops)
+    torch.cuda.synchronize()
+    wy, ws = ref.ssd_intra_chunk(*ops)
+    assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
+    # the same fp32 sums of exactly cast inputs; y rounds to bf16
+    assert (y.float() - wy.float()).abs().max().item() <= \
+        1e-2 * wy.float().abs().max().item()
+    assert (st - ws).abs().max().item() <= \
+        REL_STRONG * ws.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_refuses_a_gradient_on_card(cuda):
+    ops = [_t(a).to(cuda) for a in _chunk_operands(1, 16, 2, 8, 8, seed=2)]
+    ops[0].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        sc.ssd_intra_chunk(*ops)
+    with torch.no_grad():
+        sc.ssd_intra_chunk(*ops)
+    x = ops[0].detach()
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ssm.ssd_chunked(x.reshape(1, 16, 2, 8).requires_grad_(True),
+                        ops[1].reshape(1, 16, 2), torch.zeros(2, device=cuda),
+                        ops[3][:, :, :1], ops[4][:, :, :1],
+                        torch.ones(2, device=cuda))
+    with pytest.raises(ValueError, match="on"):
+        sc.ssd_intra_chunk(x, ops[1].cpu(), *ops[2:])
