@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 1. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` per source, all started together).
+   ``nvcc`` per source, all started together), and counts the tensor-core
+   (``HGMMA``) instructions in the SASS of the forward's and backward's
+   libraries: none is a failure.
 2. Holds both forms of the low-rank forward kernel (shared B at prefill,
    M = 128, or 1 for the unembedding; one B per row at decode, batch 4 x
    seq 1) against their plain PyTorch version at the five (K, N) shapes
@@ -69,6 +71,13 @@
    ``adamw`` and ``lowrank_lr`` (its noise drawn on the CPU for both
    sides) in fp32.
 
+Each ``[kernel]`` row and JSON entry names the route its launch took,
+``"tc"`` (TMA + ``wgmma``) or ``"simt"`` (JSON ``"path"``).  After every
+bf16 serving and training run the launch counters must show no
+shared-B, ``return_p`` or backward launch on the SIMT route; the
+training profiles print the forward's ``finish`` rows (the per-row-B
+form's epilogue, which no training step should run).
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the one before that the
 per-kernel JSON.  Any failed check exits non-zero.  Without CUDA the
@@ -117,6 +126,33 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def launch_path(mod):
+    """The route ("tc" or "simt") of the launches a wrapper module counted
+    since its counters were reset: one, or the check fails."""
+    paths = {k[-3] for k in mod.LAUNCHES}
+    if len(paths) != 1:
+        raise SystemExit(f"expected launches by one route, counted "
+                         f"{dict(mod.LAUNCHES)}")
+    return paths.pop()
+
+
+def require_tc(mods, tag):
+    """Fail when a launch that a bf16 main path must run on the tensor
+    cores (the shared-B and return_p forward, the backward) took the SIMT
+    route."""
+    lf, lb = mods["lf"], mods["lb"]
+    slow = {("lowrank_forward",) + k: n for k, n in lf.LAUNCHES.items()
+            if k[0] != "batched" and k[1] == "simt"}
+    slow.update({("lowrank_backward",) + k: n
+                 for k, n in lb.LAUNCHES.items() if k[0] == "simt"})
+    log(f"[{tag}] launches by route: forward tc={lf.launches(route='tc')} "
+        f"simt={lf.launches(route='simt')} (batched "
+        f"{lf.launches('batched')}), backward tc={lb.launches('tc')} "
+        f"simt={lb.launches('simt')}")
+    if slow:
+        raise SystemExit(f"{tag}: bf16 launches took the SIMT route: {slow}")
+
+
 def bound(M, K, N, r, n_b, itemsize):
     """Least time for the work: each input read once, y written once;
     operations at the bf16 tensor-core peak."""
@@ -150,8 +186,10 @@ def compare_kernels(lf, ref, dev, shapes=SHAPES):
                 else lf.lowrank_batch_forward
             plain = ref.lowrank_forward if batch is None \
                 else ref.lowrank_batch_forward
+            lf.reset_launches()
             y = kern(x, wb, vb, b)
             torch.cuda.synchronize()
+            path = launch_path(lf)
             want = plain(x, wb, vb, b)
             err = (y.float() - want.float()).abs()
             scale = want.float().abs().max().item()
@@ -173,11 +211,11 @@ def compare_kernels(lf, ref, dev, shapes=SHAPES):
             bms, by = bound(rows_m, K, N, RANK, 1 if batch is None
                             else batch, 2)
             rows.append(dict(form=form, K=K, N=N, M=rows_m, leaves=leaves,
-                             max_abs_err=err.max().item(), ms=ms,
+                             path=path, max_abs_err=err.max().item(), ms=ms,
                              plain_ms=plain_ms, library_ms=library_ms,
                              bound_ms=bms, bound_by=by))
             log(f"[kernel] {form:7s} M={rows_m:3d} K={K:5d} N={N:6d} "
-                f"({leaves}) max_abs_err={err.max().item():.4g} "
+                f"({leaves}) route={path} max_abs_err={err.max().item():.4g} "
                 f"(tol {RTOL}*(max|y|+|y|), max|y|={scale:.3g}) "
                 f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
                 f"library_ms={library_ms:.4f} bound_ms={bms:.4f} ({by})")
@@ -257,8 +295,8 @@ def serve(dev, mods, smi, arch="qwen2-7b"):
         eng.submit(serve_mod.Request(
             f"req{i}", rng.integers(0, cfg.vocab_size, n), new,
             tenant=f"tenant{i % 4}"))
-    lf.reset_launches()
-    sc.reset_launches()
+    for mod in (lf, sc, mods["lb"]):
+        mod.reset_launches()
     t0 = time.perf_counter()
     out = eng.run()
     torch.cuda.synchronize()
@@ -275,6 +313,7 @@ def serve(dev, mods, smi, arch="qwen2-7b"):
                          f"reasons {eng.reasons}")
     if lf.launches("shared") == 0 or lf.launches("batched") == 0:
         raise SystemExit(f"the main path missed a kernel form: {counts}")
+    require_tc(mods, tag)
     if cfg.family == "ssm":
         # one launch per layer and prefill, at the prompt's chunking
         want = {}
@@ -700,13 +739,14 @@ def compare_train_kernels(mods, dev):
     rows = []
 
     def row(kernel, shape, leaves, err, tol, ms, plain_ms, library_ms,
-            bound):
+            bound, path="simt"):
         bms, by = bound
         rows.append(dict(kernel=kernel, shape=shape, leaves=leaves,
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         library_ms=library_ms, bound_ms=bms, bound_by=by))
+                         path=path, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bms, bound_by=by))
         log(f"[kernel] {kernel:18s} {str(shape):22s} ({leaves}) "
-            f"max_abs_err={err:.4g} (tol {tol}) ms={ms:.4f} "
+            f"route={path} max_abs_err={err:.4g} (tol {tol}) ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
             f"bound_ms={bms:.4f} ({by})")
 
@@ -720,8 +760,10 @@ def compare_train_kernels(mods, dev):
         v = randn(K, r, scale=r ** -0.5).to(bf)
         b = randn(N, r, scale=0.02).to(bf)
         # forward with p
+        lf.reset_launches()
         y, p = lf.lowrank_forward(x, w, v, b, return_p=True)
         torch.cuda.synchronize()
+        path = launch_path(lf)
         want_y, want_p = ref.lowrank_forward(x, w, v, b, return_p=True)
         err = max(_agree(f"forward[p] y K={K} N={N}", y, want_y, RTOL, RTOL),
                   _agree(f"forward[p] p K={K} N={N}", p, want_p, RTOL, RTOL))
@@ -737,10 +779,13 @@ def compare_train_kernels(mods, dev):
             time_auto(lambda: lf.lowrank_forward(x, w, v, b, return_p=True)),
             time_auto(lambda: ref.lowrank_forward(x, w, v, b,
                                                   return_p=True)),
-            time_auto(lib_fwd), bound_of(nbytes, ops, BF16_FLOP_PER_S))
+            time_auto(lib_fwd), bound_of(nbytes, ops, BF16_FLOP_PER_S),
+            path)
         # forward, shared B and no p: the forward-only lowrank_lr's form
+        lf.reset_launches()
         y = lf.lowrank_forward(x, w, v, b)
         torch.cuda.synchronize()
+        path = launch_path(lf)
         err = _agree(f"forward[shared] y K={K} N={N}", y,
                      ref.lowrank_forward(x, w, v, b), RTOL, RTOL)
         del y
@@ -749,11 +794,13 @@ def compare_train_kernels(mods, dev):
             time_auto(lambda: lf.lowrank_forward(x, w, v, b)),
             time_auto(lambda: ref.lowrank_forward(x, w, v, b)),
             time_auto(lambda: x @ w + (x @ v) @ b.T),
-            bound_of(nbytes - 2 * M * r, ops, BF16_FLOP_PER_S))
+            bound_of(nbytes - 2 * M * r, ops, BF16_FLOP_PER_S), path)
         # backward
         dy = randn(M, N, scale=1e-2).to(bf)
+        lb.reset_launches()
         dx, db = lb.lowrank_backward(dy, w, v, b, p)
         torch.cuda.synchronize()
+        path = launch_path(lb)
         want_dx, want_db = ref.lowrank_backward(dy, w, v, b, p)
         err = max(_agree(f"backward dx K={K} N={N}", dx, want_dx, RTOL,
                          RTOL),
@@ -769,7 +816,8 @@ def compare_train_kernels(mods, dev):
             f"{RTOL}*(max|dx|+|dx|), 1e-4*max|dB|",
             time_auto(lambda: lb.lowrank_backward(dy, w, v, b, p)),
             time_auto(lambda: ref.lowrank_backward(dy, w, v, b, p)),
-            time_auto(lib_bwd), bound_of(nbytes, ops, BF16_FLOP_PER_S))
+            time_auto(lib_bwd), bound_of(nbytes, ops, BF16_FLOP_PER_S),
+            path)
         del x, w, v, b, p, dy
         torch.cuda.empty_cache()
 
@@ -1074,6 +1122,8 @@ def train(dev, mods, smi, cfg, tcfg, batch, seq, steps, tag="train",
         f"[{tag}] step {s:3d} loss {loss:.4f} {1e3 * dt:.1f} ms"
         + step_note(s)))
     wall = time.perf_counter() - t0
+    if dev.type == "cuda":
+        require_tc(mods, tag)
     losses = report.losses
     tokens = batch * seq
     steady = report.step_times[1:] or report.step_times
@@ -1109,15 +1159,22 @@ def train(dev, mods, smi, cfg, tcfg, batch, seq, steps, tag="train",
     return tr, losses
 
 
+def shape_launches(launches, *key):
+    """Launches counted under ``key`` (a form and (K, N), or (K, N)),
+    summed over the routes."""
+    return sum(n for k, n in launches.items()
+               if k[:-3] + k[-2:] == key)
+
+
 def train_launches(mods):
     """The launch counters of the training kernels, by JSON row key."""
     lf, lb, lu, sa = mods["lf"], mods["lb"], mods["lu"], mods["sa"]
     out = {}
     for (K, N) in TRAIN_SHAPES:
         out[("lowrank_forward[p]", (TRAIN_M, K, N))] = \
-            lf.LAUNCHES.get(("p", K, N), 0)
-        out[("lowrank_backward", (TRAIN_M, K, N))] = lb.LAUNCHES.get((K, N),
-                                                                   0)
+            shape_launches(lf.LAUNCHES, "p", K, N)
+        out[("lowrank_backward", (TRAIN_M, K, N))] = \
+            shape_launches(lb.LAUNCHES, K, N)
     for shape in MERGE_SHAPES:
         out[("lowrank_merge", shape)] = lu.LAUNCHES.get(
             ("lowrank_merge", shape), 0)
@@ -1220,7 +1277,7 @@ def method_runs(dev, mods, smi, configs):
                 ("lowrank_project", shape), 0) for shape in MERGE_SHAPES}
         elif tcfg.optimizer == "lowrank_lr":
             new = {("lowrank_forward[shared]", (TRAIN_M, K, N)):
-                   lf.LAUNCHES.get(("shared", K, N), 0)
+                   shape_launches(lf.LAUNCHES, "shared", K, N)
                    for K, N in TRAIN_SHAPES}
             for kernel in ("subspace_adam", "lowrank_merge"):
                 also.update({(kernel, shape): n for shape, n in
@@ -1234,7 +1291,7 @@ def method_runs(dev, mods, smi, configs):
             raise SystemExit(f"{tag} missed a kernel at a shape: {got}")
         counts.update(new)
         profile_train(tr, steps=2 if cadence == "refreshes" else 1,
-                      tag=f"profile {tag}", top=8)
+                      tag=f"profile {tag}", match=("tc::",), top=8)
         del tr
         torch.cuda.empty_cache()
     return counts
@@ -1269,6 +1326,10 @@ def profile_train(tr, steps=2, tag="profile-train", match=(), top=12):
             log(f"[{tag}] {e.key[:60]}: {e.count // steps} calls/step, "
                 f"{e.self_device_time_total / e.count / 1e3:.4f} ms device "
                 f"time per call")
+    fin = [e for e in rows if "finish" in e.key]
+    log(f"[{tag}] the forward's finish epilogue: " + (", ".join(
+        f"{e.self_device_time_total / 1e3 / steps:.2f} ms/step" for e in fin)
+        or "no rows"))
 
 
 # Phase 7's runs: (label, TrainConfig fields, relative per-step loss gap
@@ -1399,6 +1460,15 @@ def main():
         for line in rep["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    for name in ("lowrank_forward", "lowrank_backward"):
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(built[name]["path"])], capture_output=True,
+                              text=True, check=True).stdout
+        n = sum("HGMMA" in line for line in sass.splitlines())
+        log(f"[build] lib{name}: {n} HGMMA (wgmma) instructions in its SASS")
+        if n == 0:
+            raise SystemExit(f"lib{name} holds no tensor-core instruction")
 
     mods = dict(lf=lf, lb=lb, lu=lu, sa=sa, sc=sc, ref=ref,
                 dispatch=dispatch, lm=lm, configs=configs, serve=serve_mod,
@@ -1420,7 +1490,7 @@ def main():
     tr, _ = train(dev, mods, smi, cfg, tcfg, TRAIN_BATCH, TRAIN_SEQ,
                   steps=14)
     train_counts = train_launches(mods)
-    profile_train(tr, match=("adam_kernel",))
+    profile_train(tr, match=("adam_kernel", "tc::"))
     fp32_bytes = state_bytes(tr)
     del tr
     torch.cuda.empty_cache()
@@ -1436,8 +1506,10 @@ def main():
             kernels.append({
                 "name": f"lowrank_forward[{row['form']} B] K={row['K']} "
                         f"N={row['N']} ({model}{row['leaves']})",
-                "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-                "launches": cnt.get((row["form"], row["K"], row["N"]), 0),
+                "route": "cuda", "path": row["path"], "source": SOURCE,
+                "replaces": REPLACES,
+                "launches": shape_launches(cnt, row["form"], row["K"],
+                                           row["N"]),
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
@@ -1447,7 +1519,8 @@ def main():
             "name": f"ssd_intra_chunk [fp32, B/C head stride 0] "
                     f"{list(row['shape'])} (mamba2-780m, "
                     f"{row['tokens']}-token prompt)",
-            "route": "cuda", "source": SSD_SOURCE, "replaces": SSD_REPLACES,
+            "route": "cuda", "path": "simt", "source": SSD_SOURCE,
+            "replaces": SSD_REPLACES,
             "launches": ssd_counts.get(("ssd_intra_chunk", row["shape"]), 0),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -1456,7 +1529,8 @@ def main():
         kernels.append({
             "name": f"{row['kernel']} {list(row['shape'])} "
                     f"({row['leaves']})",
-            "route": "cuda", "source": TRAIN_SOURCES[row["kernel"]],
+            "route": "cuda", "path": row["path"],
+            "source": TRAIN_SOURCES[row["kernel"]],
             "replaces": TRAIN_REPLACES[row["kernel"]],
             "launches": train_counts[(row["kernel"], row["shape"])],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
@@ -1476,7 +1550,8 @@ def main():
         by_key[key] = {
             "name": f"{row['kernel']} [{row['form']}] {list(row['shape'])} "
                     f"({row['leaves']})",
-            "route": "cuda", "source": TRAIN_SOURCES[row["kernel"]],
+            "route": "cuda", "path": "simt",
+            "source": TRAIN_SOURCES[row["kernel"]],
             "replaces": TRAIN_REPLACES[row["kernel"]],
             "launches": state_counts.get(key, 0),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
@@ -1487,7 +1562,8 @@ def main():
         kernels.append({
             "name": f"lowrank_project [fp32 G, bf16 V] "
                     f"{list(row['shape'])} ({row['leaves']})",
-            "route": "cuda", "source": TRAIN_SOURCES["lowrank_project"],
+            "route": "cuda", "path": "simt",
+            "source": TRAIN_SOURCES["lowrank_project"],
             "replaces": TRAIN_REPLACES["lowrank_project"],
             "launches": train_counts[("lowrank_project", row["shape"])],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],

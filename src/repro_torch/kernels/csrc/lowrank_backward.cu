@@ -5,32 +5,49 @@
 //     dB = dyᵀ p                 (N, r) fp32,  p = x V saved by the forward
 //
 // dy (M, N), W (K, N), V (K, r), B (N, r) and p (M, r) share one dtype,
-// fp32 or bf16; every product accumulates in fp32.
+// fp32 or bf16; every product accumulates in fp32, and q = dy B keeps
+// fp32 precision for the Vᵀ product, as the TPU kernel keeps it.
 //
 // The TPU kernel makes one pass over dy tiles on a sequential grid: dx
 // keeps a full-K fp32 (bm, K) accumulator in VMEM across the j sweep, and
 // dB accumulates across the i sweep into one whole-array VMEM output.
 // GPU blocks run in no order and nothing carries between them, so the
-// port splits the work into four launches on the caller's stream:
+// port splits the work into passes on the caller's stream:
 //
-//   1. q = dy B                   (M, r) fp32, one tile pass over N
+//   1. q = dy B                   (M, r), one pass over N
 //   2. dx = dy Wᵀ + q Vᵀ          K tiled; the rank-r term is a second
 //                                 reduction segment of the same tile, so
 //                                 dx is written once, in dy's dtype
-//   3. dB_part[s] = dy[Ms]ᵀ p[Ms] split over M
+//   3. dB_part[s] = dy[Ms]ᵀ p[Ms] split over M, so that the (N, r) output
+//                                 fills the card
 //   4. dB = sum_s dB_part[s]      fixed order, no float atomics, so the
 //                                 result does not depend on scheduling
 //
-// W is read transposed through a strided view (no transposed copy).
-// What bounds it: at the training shapes (M = 16384) the operations, at
-// the bf16 tensor-core peak; this first version runs fp32 FMAs on SIMT
-// units (gemm_tile.cuh), far from that bound.  Tensor cores are later
-// work.
+// Two routes, chosen by the Python wrapper.  What bounds the work at the
+// training shapes (M = 16384) is the operations, at the bf16 tensor-core
+// peak.
+//
+// * tensor cores (lowrank_backward_tc_launch; bf16, every row length a
+//   multiple of 8 so TMA can address it): each pass is the wgmma
+//   mainloop of wgmma_gemm.cuh.  q is stored as q_hi = bf16(q) and
+//   q_lo = bf16(q - q_hi), 16 significant bits, and pass 2 reduces over
+//   three segments, dy Wᵀ + q_hi Vᵀ + q_lo Vᵀ.  Every operand is read in
+//   the layout the caller holds it: Wᵀ and Vᵀ K-major, B and p N-major,
+//   dyᵀ M-major (wgmma's transpose bits), so there are no transposed
+//   copies.  dB's partials are written only when the (N, r) output
+//   alone has fewer tiles than the card has SMs.  The SIMT route this
+//   replaces ran 16-39x slower than cuBLAS: fp32 FMAs on operands
+//   converted on their way into shared memory, synchronous loads, no
+//   tensor cores.
+// * SIMT (lowrank_backward_launch; fp32 and row lengths TMA cannot
+//   address): the same four passes on gemm_tile.cuh's tiled fp32 FMAs,
+//   reading Wᵀ and dyᵀ through strided views; q in fp32.
 //
 // Plain C interface, loaded with ctypes; the Python wrapper
 // (repro_torch/kernels/lowrank_backward.py) allocates outputs and scratch.
 
 #include "gemm_tile.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -94,7 +111,7 @@ int launch_all(const void* dy_, const void* w_, const void* v_,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (dy, w, v, b, p and dx).  db (N, r) is
+// The SIMT route.  dtype: 0 = float32, 1 = bfloat16 (dy, w, v, b, p and dx).  db (N, r) is
 // fp32; q (M, r) and db_part (s_db, N, r) are fp32 scratch.  Returns
 // cudaGetLastError() of the launches (0 = all queued).
 extern "C" int lowrank_backward_launch(int dtype, const void* dy,
@@ -111,4 +128,40 @@ extern "C" int lowrank_backward_launch(int dtype, const void* dy,
     return launch_all<__nv_bfloat16>(dy, w, v, b, p, dx, db, q, db_part,
                                      s_db, M, K, N, r, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core route: bf16, K, N and r multiples of 8 and 16-byte-
+// aligned pointers (the wrapper checks).  q_hi, q_lo (M, r) are bf16
+// scratch; db_part (s_db, N, r) fp32 scratch, unused (may be null) when
+// s_db = 1.  Returns 0 when every launch was queued, a CUDA error, or a
+// negated CUresult of the tensor-map encoding.
+extern "C" int lowrank_backward_tc_launch(const void* dy, const void* w,
+                                          const void* v, const void* b,
+                                          const void* p, void* dx,
+                                          float* db, void* q_hi, void* q_lo,
+                                          float* db_part, int s_db, int M,
+                                          int K, int N, int r,
+                                          void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // 1. q = dy B: A = dy (M, N), B = b (N, r) N-major
+  const tc::Segment sq{{dy, M, N, false}, {b, N, r, true}, N};
+  int err = tc::gemm(&sq, 1, M, r, 1, tc::EPI_HILO, q_hi, q_lo, st);
+  if (err != 0) return err;
+  // 2. dx = dy Wᵀ + q_hi Vᵀ + q_lo Vᵀ: Wᵀ from W (K, N) and Vᵀ from
+  // V (K, r), both K-major
+  const tc::Segment sx[3] = {{{dy, M, N, false}, {w, K, N, false}, N},
+                             {{q_hi, M, r, false}, {v, K, r, false}, r},
+                             {{q_lo, M, r, false}, {v, K, r, false}, r}};
+  err = tc::gemm(sx, 3, M, K, 1, tc::EPI_BF16, dx, nullptr, st);
+  if (err != 0) return err;
+  // 3. dB = dyᵀ p over s_db ranges of M: dyᵀ M-major, p N-major
+  const tc::Segment sb{{dy, M, N, true}, {p, M, r, true}, M};
+  err = tc::gemm(&sb, 1, N, r, s_db, tc::EPI_F32,
+                 s_db == 1 ? static_cast<void*>(db) : db_part, nullptr, st);
+  if (err != 0 || s_db == 1) return err;
+  // 4. fixed-order reduce of the partials
+  const int64_t count = (int64_t)N * r;
+  lrk::reduce_splits<<<(unsigned)lrk::ceil_div(count, 256), 256, 0, st>>>(
+      db_part, db, count, s_db);
+  return (int)cudaGetLastError();
 }

@@ -6,39 +6,62 @@
 // in two call forms: a shared B (prefill through LRPack, and the training
 // forward) and one B per batch row (decode through BatchLRPack: flattened
 // row m uses B[m / seq]).  x, W, V, B and y share one dtype, fp32 or
-// bf16; every product accumulates in fp32 and p = x V is kept in fp32 for
-// the B^T product, as the TPU kernel keeps it in VMEM.  The training form
-// (the TPU kernel's return_p) also writes p in x's dtype, the only
-// activation the backward keeps, from the same reduce that builds the
-// fp32 p (step 2 below).
+// bf16; every product accumulates in fp32 and p = x V is kept to fp32
+// precision for the B^T product, as the TPU kernel keeps it in VMEM.  The
+// training form (the TPU kernel's return_p) also writes p in x's dtype,
+// the only activation the backward keeps.
 //
 // The TPU kernel builds p only while its sequential grid sweeps the
 // j == 0 column slab and reuses the VMEM scratch for later slabs.  GPU
 // blocks run in no order, and recomputing p in every output tile would
-// cost M*K*N*r/bn extra MACs (double the work at r = bn = 128).  So the
-// port runs four launches on the caller's stream:
+// cost M*K*N*r/bn extra MACs (double the work at r = bn = 128), so p is
+// a pass of its own.  Two routes, chosen by the Python wrapper:
 //
-//   1. gemm_partial: p_part[s] = x[:, Ks] V[Ks, :]  (split K, fp32)
-//   2. sum_splits:   p = sum_s p_part[s]            (fixed order; with
-//                    return_p also p_out = p cast to x's dtype)
-//   3. gemm_partial: y_part[s] = x[:, Ks] W[Ks, :]  (split K, fp32)
-//   4. finish:       y = sum_s y_part[s] + p B[row]^T, cast to x's dtype
+// * tensor cores (lowrank_forward_tc_launch; shared B in bf16, every row
+//   length a multiple of 8 so TMA can address it), two launches of the
+//   wgmma mainloop of wgmma_gemm.cuh:
 //
-// Splitting K keeps enough blocks in flight when M is a decode batch of
-// a few rows; the partial sums are reduced in a fixed order, so results
-// do not depend on scheduling (no float atomics).
+//     1. p pass: p = x V, stored as p_hi = bf16(p) (exactly the return_p
+//        output) and p_lo = bf16(p - p_hi): 16 significant bits, so the
+//        rank-r term keeps the fp32 p of the reference to about 2^-17;
+//     2. y pass: y = x W + p_hi B^T + p_lo B^T, three reduction segments
+//        into one fp32 accumulator, cast to bf16 once.
 //
-// What bounds it: at decode (M <= 16) the weights' bytes, so the bound
-// is bytes / 3.35 TB/s; at prefill (M = 128) the MACs.  This first
-// version is a plain shared-memory tiled SIMT GEMM with fp32 FMAs: no
-// tensor cores, no TMA, no wgmma.  Those are later work.
+//   What bounds it: at the training shapes (M = 16384) the operations at
+//   the bf16 tensor-core peak; at serving (M <= 128) the weights' bytes.
+//   The SIMT route lost 34-56x to cuBLAS here: fp32 FMAs on operands
+//   converted on their way into shared memory, synchronous loads, and a
+//   per-output warp epilogue (finish) that wrote and re-read an fp32
+//   (s, M, N) scratch.  This route keeps bf16 operands, streams them with
+//   TMA into a swizzled ring that wgmma reads directly, and adds the
+//   rank-r term inside the same tile, so y is written once and nothing
+//   of size M x N is ever re-read.
+//
+// * SIMT (lowrank_forward_launch; fp32, a row length that TMA cannot
+//   address, and the per-row-B decode form), shared-memory tiled fp32
+//   FMAs:
+//
+//     1. gemm_partial: p_part[s] = x[:, Ks] V[Ks, :]  (split K, fp32)
+//     2. sum_splits:   p = sum_s p_part[s]            (fixed order; with
+//                      return_p also p_out = p cast to x's dtype)
+//     shared B:
+//     3. lrk::gemm_kernel: y = x W + p B^T, the rank-r term a second
+//                      reduction segment of z == 0; split over K into
+//                      fp32 partials when the output alone cannot fill
+//                      the card, then a fixed-order sum_splits cast
+//     per-row B (decode, bound by the weights' bytes at M <= 16):
+//     3. gemm_partial: y_part[s] = x[:, Ks] W[Ks, :]  (split K, fp32)
+//     4. finish:       y = sum_s y_part[s] + p B[row]^T, cast to x's dtype
+//
+//   Splitting K keeps enough blocks in flight when M is a decode batch
+//   of a few rows; partial sums are reduced in a fixed order, so results
+//   do not depend on scheduling (no float atomics).
 //
 // Plain C interface, loaded with ctypes; scratch and outputs are
 // allocated by the Python wrapper (repro_torch/kernels/lowrank_forward.py).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gemm_tile.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -120,8 +143,8 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// out[i] = sum_s part[s * count + i], s in order; cast[i] = out[i] in T
-// when cast is given
+// out[i] = sum_s part[s * count + i], s in order, when out is given;
+// cast[i] = the same sum in T when cast is given
 template <typename T>
 __global__ void sum_splits(const float* __restrict__ part,
                            float* __restrict__ out, T* __restrict__ cast,
@@ -130,7 +153,7 @@ __global__ void sum_splits(const float* __restrict__ part,
   if (i >= count) return;
   float s = 0.f;
   for (int j = 0; j < S; ++j) s += part[(int64_t)j * count + i];
-  out[i] = s;
+  if (out != nullptr) out[i] = s;
   if (cast != nullptr) store(cast + i, s);
 }
 
@@ -188,6 +211,31 @@ int launch_all(const void* x, const void* w, const void* v, const void* b,
       p_part, p, static_cast<T*>(p_out), p_count, s_p);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
+  if (b_stride == 0 && seq == M) {
+    // shared B: the rank-r term is a second reduction segment of the x W
+    // tile (the first split's), so y needs no finish pass
+    lrk::Gemm<T, T, float, T, float, T> g{};
+    g.a = lrk::View<T>{static_cast<const T*>(x), K, 1, 0};
+    g.b = lrk::View<T>{static_cast<const T*>(w), N, 1, 0};
+    g.a2 = lrk::View<float>{p, r, 1, 0};
+    g.b2 = lrk::View<T>{static_cast<const T*>(b), 1, r, 0};  // B^T(c, n)
+    g.k2 = r;
+    g.rows = M;
+    g.cols = N;
+    g.k = K;
+    g.splits = s_y;
+    if (s_y == 1)
+      g.out = static_cast<T*>(y);
+    else
+      g.part = y_part;
+    const int e = lrk::launch_gemm(g, 1, st);
+    if (e != 0 || s_y == 1) return e;
+    const int64_t total = (int64_t)M * N;
+    sum_splits<T><<<(unsigned)ceil_div(total, 256), 256, 0, st>>>(
+        y_part, nullptr, static_cast<T*>(y), total, s_y);
+    return (int)cudaGetLastError();
+  }
+
   const int kc_y = (int)(ceil_div(ceil_div(K, s_y), BK) * BK);
   const dim3 grid_y((unsigned)ceil_div(N, BN), (unsigned)ceil_div(M, BM),
                     (unsigned)s_y);
@@ -206,11 +254,12 @@ int launch_all(const void* x, const void* w, const void* v, const void* b,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  seq: rows per adapter (M for a
-// shared B); b_stride: elements between adapters (0 for a shared B).
-// p_out (M, r) in x's dtype receives p, or is null (serving).
-// p_part (s_p, M, r), p (M, r) and y_part (s_y, M, N) are fp32 scratch.
-// Returns cudaGetLastError() of the launches (0 = all queued).
+// The SIMT route.  dtype: 0 = float32, 1 = bfloat16.  seq: rows per
+// adapter (M for a shared B); b_stride: elements between adapters (0 for
+// a shared B).  p_out (M, r) in x's dtype receives p, or is null
+// (serving).  p_part (s_p, M, r), p (M, r) and y_part (s_y, M, N) are
+// fp32 scratch; y_part is unused (may be null) for a shared B with
+// s_y = 1.  Returns cudaGetLastError() of the launches (0 = all queued).
 extern "C" int lowrank_forward_launch(int dtype, const void* x,
                                       const void* w, const void* v,
                                       const void* b, void* y, void* p_out,
@@ -228,4 +277,27 @@ extern "C" int lowrank_forward_launch(int dtype, const void* x,
                                      y_part, s_y, M, K, N, r, seq,
                                      (int64_t)b_stride, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core route: shared B, bf16, K, N and r multiples of 8 and
+// 16-byte-aligned pointers (the wrapper checks).  p_hi (M, r) receives
+// bf16(p) -- the return_p output -- and p_lo (M, r) bf16(p - p_hi).
+// Returns 0 when both launches were queued, a CUDA error, or a negated
+// CUresult of the tensor-map encoding.
+extern "C" int lowrank_forward_tc_launch(const void* x, const void* w,
+                                         const void* v, const void* b,
+                                         void* y, void* p_hi, void* p_lo,
+                                         int M, int K, int N, int r,
+                                         void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // p = x V: A = x (M, K), B = V (K, r) N-major
+  const tc::Segment sp{{x, M, K, false}, {v, K, r, true}, K};
+  int err = tc::gemm(&sp, 1, M, r, 1, tc::EPI_HILO, p_hi, p_lo, st);
+  if (err != 0) return err;
+  // y = x W + p_hi B^T + p_lo B^T: W (K, N) N-major, B^T from B (N, r)
+  // K-major
+  const tc::Segment sy[3] = {{{x, M, K, false}, {w, K, N, true}, K},
+                             {{p_hi, M, r, false}, {b, N, r, false}, r},
+                             {{p_lo, M, r, false}, {b, N, r, false}, r}};
+  return tc::gemm(sy, 3, M, N, 1, tc::EPI_BF16, y, nullptr, st);
 }

@@ -3,9 +3,13 @@ the card: wrapper of the hand-written CUDA kernel
 ``csrc/lowrank_backward.cu``.
 
 Replaces the Pallas TPU kernel ``repro/kernels/lowrank_backward.py::
-lowrank_backward``.  The route is the tensor's device alone: a CPU
-tensor takes the plain version in :mod:`.ref`; a CUDA tensor launches
-the kernel or raises.  ``LAUNCHES`` counts launches per ``(K, N)``.
+lowrank_backward``.  The tensor's device chooses between kernel and
+plain version: a CPU tensor takes the plain version in :mod:`.ref`; a
+CUDA tensor launches a kernel or raises.  On the card
+:func:`~.lowrank_forward.tc_route` chooses the tensor-core route
+(``"tc"``: bf16, row lengths multiples of 8, aligned pointers) or the
+SIMT one (``"simt"``); neither gives way to the other.  ``LAUNCHES``
+counts launches per ``(route, K, N)``.
 """
 from __future__ import annotations
 
@@ -16,14 +20,17 @@ import functools
 import torch
 
 from . import _build, ref
-from .lowrank_forward import DTYPE_CODE, MIN_K_PER_SPLIT, SMS, TILE, _route
+from .lowrank_forward import (DTYPE_CODE, MIN_K_PER_SPLIT, SMS, TILE,
+                              _route, tc_route)
 
-# (K, N) -> launches on CUDA tensors
+# (route, K, N) -> launches on CUDA tensors; route "tc" | "simt"
 LAUNCHES: collections.Counter = collections.Counter()
+TC_TILE, TC_BK = 128, 64      # output tile and stage depth of the tc route
 
 
-def launches() -> int:
-    return sum(LAUNCHES.values())
+def launches(route: str | None = None) -> int:
+    return sum(n for (rt, _, _), n in LAUNCHES.items()
+               if route in (None, rt))
 
 
 def reset_launches() -> None:
@@ -37,12 +44,51 @@ def db_splits(M: int, N: int, r: int) -> int:
     return max(1, min(-(-4 * SMS // tiles), -(-M // MIN_K_PER_SPLIT)))
 
 
+def tc_db_splits(M: int, N: int, r: int) -> int:
+    """How many M ranges the tensor-core ``dB = dyᵀ p`` pass splits into:
+    enough for one block per SM over the (N, r) tiles, each range at
+    least ``MIN_K_PER_SPLIT`` rows deep and a multiple of ``TC_BK``; no
+    range is empty."""
+    tiles = -(-N // TC_TILE) * -(-r // TC_TILE)
+    s = max(1, min(-(-SMS // tiles), -(-M // MIN_K_PER_SPLIT)))
+    chunk = -(-(-(-M // s)) // TC_BK) * TC_BK
+    return -(-M // chunk)
+
+
+def scratch_plan(route: str, M: int, N: int, r: int) -> dict:
+    """``{name: (shape, dtype)}`` of the scratch one launch allocates:
+    q = dy B as a bf16 (hi, lo) pair on the tensor-core route (fp32 on
+    the SIMT one), and dB's fp32 split partials where there are
+    several."""
+    f32 = torch.float32
+    if route == "tc":
+        s = tc_db_splits(M, N, r)
+        plan = {"q_hi": ((M, r), torch.bfloat16),
+                "q_lo": ((M, r), torch.bfloat16)}
+        if s > 1:
+            plan["db_part"] = ((s, N, r), f32)
+        return plan
+    return {"q": ((M, r), f32),
+            "db_part": ((db_splits(M, N, r), N, r), f32)}
+
+
 @functools.cache
 def _kernel():
+    """The SIMT route's C entry point, built and loaded on first use."""
     fn = _build.load("lowrank_backward").lowrank_backward_launch
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci,
                    ci, ci, ci, ci, vp]
+    fn.restype = ci
+    return fn
+
+
+@functools.cache
+def _tc_kernel():
+    """The tensor-core route's C entry point."""
+    fn = _build.load("lowrank_backward").lowrank_backward_tc_launch
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp] * 10 + [ci] * 5 + [vp]
     fn.restype = ci
     return fn
 
@@ -93,19 +139,32 @@ def lowrank_backward(dy: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
     f32 = dict(dtype=torch.float32, device=dev)
     if M == 0:
         return dx, torch.zeros((N, r), **f32)
-    s = db_splits(M, N, r)
+    route = tc_route(dy.dtype, K, N, r,
+                     (t.data_ptr() for t in (dy, w, v, b, p)))
+    buf = {name: torch.empty(shape, dtype=dt, device=dev) for name,
+           (shape, dt) in scratch_plan(route, M, N, r).items()}
     db = torch.empty((N, r), **f32)
-    q = torch.empty((M, r), **f32)
-    db_part = torch.empty((s, N, r), **f32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _kernel()(DTYPE_CODE[dy.dtype], dy.data_ptr(), w.data_ptr(),
-                       v.data_ptr(), b.data_ptr(), p.data_ptr(),
-                       dx.data_ptr(), db.data_ptr(), q.data_ptr(),
-                       db_part.data_ptr(), s, M, K, N, r, stream)
+        if route == "tc":
+            part = buf.get("db_part")
+            rc = _tc_kernel()(dy.data_ptr(), w.data_ptr(), v.data_ptr(),
+                              b.data_ptr(), p.data_ptr(), dx.data_ptr(),
+                              db.data_ptr(), buf["q_hi"].data_ptr(),
+                              buf["q_lo"].data_ptr(),
+                              None if part is None else part.data_ptr(),
+                              tc_db_splits(M, N, r), M, K, N, r, stream)
+        else:
+            rc = _kernel()(DTYPE_CODE[dy.dtype], dy.data_ptr(),
+                           w.data_ptr(), v.data_ptr(), b.data_ptr(),
+                           p.data_ptr(), dx.data_ptr(), db.data_ptr(),
+                           buf["q"].data_ptr(), buf["db_part"].data_ptr(),
+                           db_splits(M, N, r), M, K, N, r, stream)
     if rc != 0:
         raise RuntimeError(
-            f"lowrank_backward kernel launch failed with CUDA error {rc} "
-            f"(dy {tuple(dy.shape)}, w {tuple(w.shape)}, r={r})")
-    LAUNCHES[(K, N)] += 1
+            f"lowrank_backward kernel ({route} route) launch failed with "
+            f"error {rc} (a CUDA error, or a negated CUresult of the "
+            f"tensor-map encoding; dy {tuple(dy.shape)}, w "
+            f"{tuple(w.shape)}, r={r})")
+    LAUNCHES[(route, K, N)] += 1
     return dx, db

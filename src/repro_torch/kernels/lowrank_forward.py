@@ -13,12 +13,18 @@ source:
 * :func:`lowrank_batch_forward` — one ``B`` per batch row,
   ``b (batch, N, r)`` (decode, ``BatchLRPack``).
 
-The route is chosen by the tensor's device alone: a CPU tensor takes the
-plain version in :mod:`.ref`; a CUDA tensor launches the kernel or
-raises.  There is no fallback.  ``LAUNCHES`` counts the kernel's
-launches per ``(form, K, N)`` — form ``"shared"``, ``"p"`` (return_p) or
+The tensor's device chooses between kernel and plain version: a CPU
+tensor takes the plain version in :mod:`.ref`; a CUDA tensor launches a
+kernel or raises.  There is no fallback.  On the card, :func:`tc_route`
+chooses between the kernel source's two routes by dtype and alignment
+alone: ``"tc"`` (TMA and ``wgmma`` on the tensor cores, for the
+shared-B forms in bf16 with every row length a multiple of 8 and
+16-byte-aligned pointers) or ``"simt"`` (fp32 FMAs: fp32, rows TMA
+cannot address, and the per-row-B form).  Neither gives way to the
+other: a failed build or launch raises.  ``LAUNCHES`` counts launches
+per ``(form, route, K, N)`` — form ``"shared"``, ``"p"`` (return_p) or
 ``"batched"`` — so a run can show that its main path went through the
-kernel.
+kernel, and by which route.
 """
 from __future__ import annotations
 
@@ -30,19 +36,21 @@ import torch
 
 from . import _build, ref
 
-# (form, K, N) -> launches on CUDA tensors; "shared" | "p" | "batched"
+# (form, route, K, N) -> launches on CUDA tensors; form "shared" | "p" |
+# "batched", route "tc" | "simt"
 LAUNCHES: collections.Counter = collections.Counter()
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-TILE = 64                 # BM = BN in the kernel
+TILE = 64                 # BM = BN of the SIMT kernels
 SMS = 132                 # H100 SXM streaming multiprocessors
 MIN_K_PER_SPLIT = 256
+TC_ALIGN = 8              # bf16 elements in the 16 bytes TMA aligns to
 
 
-def launches(form: str | None = None) -> int:
-    """Launches counted so far, of one form or of all."""
-    return sum(n for (f, _, _), n in LAUNCHES.items()
-               if form is None or f == form)
+def launches(form: str | None = None, route: str | None = None) -> int:
+    """Launches counted so far, of one form and route or of all."""
+    return sum(n for (f, rt, _, _), n in LAUNCHES.items()
+               if form in (None, f) and route in (None, rt))
 
 
 def reset_launches() -> None:
@@ -57,13 +65,52 @@ def splits(M: int, N: int, K: int) -> int:
     return max(1, min(-(-4 * SMS // tiles), -(-K // MIN_K_PER_SPLIT)))
 
 
+def tc_route(dtype: torch.dtype, K: int, N: int, r: int,
+             ptrs=()) -> str:
+    """``"tc"`` where the tensor-core route can take a shared-B launch —
+    bf16, every row length (K, N, r) a multiple of 8 and every pointer
+    16-byte aligned, as TMA addresses them — else ``"simt"``."""
+    if dtype != torch.bfloat16 or any(d % TC_ALIGN for d in (K, N, r)):
+        return "simt"
+    return "simt" if any(int(p) % 16 for p in ptrs) else "tc"
+
+
+def scratch_plan(form: str, route: str, M: int, K: int, N: int,
+                 r: int) -> dict:
+    """``{name: (shape, dtype)}`` of the scratch one launch allocates.
+    The tensor-core route keeps p as a bf16 (hi, lo) pair — hi is the
+    ``"p"`` form's output itself — and never an (s, M, N) fp32 buffer;
+    the SIMT route sums split-K partials in fp32."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    if route == "tc":
+        plan = {"p_lo": ((M, r), bf16)}
+        if form == "shared":
+            plan["p_hi"] = ((M, r), bf16)
+        return plan
+    s_p, s_y = splits(M, r, K), splits(M, N, K)
+    plan = {"p_part": ((s_p, M, r), f32), "p": ((M, r), f32)}
+    if form == "batched" or s_y > 1:
+        plan["y_part"] = ((s_y, M, N), f32)
+    return plan
+
+
 @functools.cache
 def _kernel():
-    """The C entry point, built and loaded on first use."""
+    """The SIMT route's C entry point, built and loaded on first use."""
     fn = _build.load("lowrank_forward").lowrank_forward_launch
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, ci, vp, vp, ci,
                    ci, ci, ci, ci, ci, ctypes.c_longlong, vp]
+    fn.restype = ci
+    return fn
+
+
+@functools.cache
+def _tc_kernel():
+    """The tensor-core route's C entry point."""
+    fn = _build.load("lowrank_forward").lowrank_forward_tc_launch
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp] * 7 + [ci] * 4 + [vp]
     fn.restype = ci
     return fn
 
@@ -99,29 +146,41 @@ def _launch(form: str, x2, w, v, b, seq: int, b_stride: int):
     """Queue the kernel; returns y, or (y, p) for the ``"p"`` form."""
     M, K = x2.shape
     N, r = w.shape[1], v.shape[1]
-    y = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
-    p_out = torch.empty((M, r), dtype=x2.dtype, device=x2.device) \
+    dev = x2.device
+    y = torch.empty((M, N), dtype=x2.dtype, device=dev)
+    p_out = torch.empty((M, r), dtype=x2.dtype, device=dev) \
         if form == "p" else None
     if M == 0:
         return y if p_out is None else (y, p_out)
-    s_p, s_y = splits(M, r, K), splits(M, N, K)
-    f32 = dict(dtype=torch.float32, device=x2.device)
-    p_part = torch.empty((s_p, M, r), **f32)
-    p = torch.empty((M, r), **f32)
-    y_part = torch.empty((s_y, M, N), **f32)
-    with torch.cuda.device(x2.device):
-        stream = torch.cuda.current_stream(x2.device).cuda_stream
-        rc = _kernel()(DTYPE_CODE[x2.dtype], x2.data_ptr(), w.data_ptr(),
-                       v.data_ptr(), b.data_ptr(), y.data_ptr(),
-                       None if p_out is None else p_out.data_ptr(),
-                       p_part.data_ptr(), s_p, p.data_ptr(),
-                       y_part.data_ptr(), s_y, M, K, N, r, seq, b_stride,
-                       stream)
+    route = "simt" if form == "batched" else tc_route(
+        x2.dtype, K, N, r, (t.data_ptr() for t in (x2, w, v, b)))
+    buf = {name: torch.empty(shape, dtype=dt, device=dev) for name,
+           (shape, dt) in scratch_plan(form, route, M, K, N, r).items()}
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if route == "tc":
+            p_hi = buf["p_hi"] if p_out is None else p_out
+            rc = _tc_kernel()(x2.data_ptr(), w.data_ptr(), v.data_ptr(),
+                              b.data_ptr(), y.data_ptr(), p_hi.data_ptr(),
+                              buf["p_lo"].data_ptr(), M, K, N, r, stream)
+        else:
+            y_part = buf.get("y_part")
+            rc = _kernel()(DTYPE_CODE[x2.dtype], x2.data_ptr(),
+                           w.data_ptr(), v.data_ptr(), b.data_ptr(),
+                           y.data_ptr(),
+                           None if p_out is None else p_out.data_ptr(),
+                           buf["p_part"].data_ptr(), splits(M, r, K),
+                           buf["p"].data_ptr(),
+                           None if y_part is None else y_part.data_ptr(),
+                           splits(M, N, K), M, K, N, r, seq, b_stride,
+                           stream)
     if rc != 0:
         raise RuntimeError(
-            f"lowrank_forward kernel launch failed with CUDA error {rc} "
-            f"(x {tuple(x2.shape)}, w {tuple(w.shape)}, r={r})")
-    LAUNCHES[(form, K, N)] += 1
+            f"lowrank_forward kernel ({route} route) launch failed with "
+            f"error {rc} (a CUDA error, or a negated CUresult of the "
+            f"tensor-map encoding; x {tuple(x2.shape)}, w "
+            f"{tuple(w.shape)}, r={r})")
+    LAUNCHES[(form, route, K, N)] += 1
     return y if p_out is None else (y, p_out)
 
 
@@ -138,7 +197,8 @@ def lowrank_forward(x: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
                     b: torch.Tensor, return_p: bool = False):
     """y = x W + (x V) Bᵀ.  x (M,K), w (K,N), v (K,r), b (N,r); y in
     x's dtype.  ``return_p=True`` returns ``(y, p)`` with ``p = x V``
-    (M, r) in x's dtype; y is built from the fp32 p either way."""
+    (M, r) in x's dtype; y is built from p at fp32 precision either
+    way."""
     if not _route(x):
         return ref.lowrank_forward(x, w, v, b, return_p=return_p)
     if x.ndim != 2:

@@ -17,6 +17,9 @@ reference; the same bit patterns).
 ``p = x V`` stays fp32 for the forward's ``Bᵀ`` product, as in the TPU
 kernel (``repro/kernels/lowrank_forward.py``); the reference's XLA route
 rounds ``p`` to x's dtype first, so the two agree exactly only in fp32.
+The kernels' tensor-core route carries that fp32 ``p`` (and the
+backward's ``q``) into bf16 operands as a (hi, lo) pair
+(:func:`split_hi_lo`).
 """
 from __future__ import annotations
 
@@ -31,6 +34,19 @@ def sr_bf16(x: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     u = x.float().contiguous().view(torch.int32)
     u = (u + bits.to(torch.int32)) & -0x10000       # & 0xFFFF0000
     return u.view(torch.float32).to(torch.bfloat16)
+
+
+def split_hi_lo(p: torch.Tensor):
+    """fp32 ``p`` as two bf16 tensors, ``hi = bf16(p)`` and
+    ``lo = bf16(p − hi)``, both rounded to nearest: ``hi + lo`` keeps 16
+    significant bits, within 2⁻¹⁶·|p| of ``p``.  How the tensor-core
+    route of the forward and backward kernels feeds the fp32 rank-r
+    activations (``p = x V``, ``q = dy B``) to bf16 ``wgmma`` segments;
+    :func:`lowrank_forward` and :func:`lowrank_backward` keep them in
+    fp32."""
+    pf = p.float()
+    hi = pf.to(torch.bfloat16)
+    return hi, (pf - hi.float()).to(torch.bfloat16)
 
 
 def _requant(x: torch.Tensor):

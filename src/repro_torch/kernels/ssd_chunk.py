@@ -125,7 +125,7 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, da: torch.Tensor,
             t.requires_grad for t in (x, dt, da, b, c)):
         raise NotImplementedError(
             "ssd_intra_chunk: the CUDA kernel has no backward; SSM training "
-            "through it is not ported yet (ROADMAP.md Queue 1 item 12)")
+            "through it is not ported yet (ROADMAP.md Queue 1 item 5)")
     BC, Q, H, P = x.shape
     N = b.shape[-1]
     y = torch.empty_like(x)

@@ -53,7 +53,7 @@ def _require_ported(cfg, families=("dense", "ssm")) -> None:
             f"{cfg.name}: the {cfg.family!r} family is not ported to "
             f"repro_torch for this entry point (serving runs the dense and "
             f"SSM families, training the dense one); see ROADMAP.md "
-            f"Queue 1 item 12")
+            f"Queue 1 item 5")
 
 
 # ---------------------------------------------------------------------------

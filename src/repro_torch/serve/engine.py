@@ -235,6 +235,14 @@ class Engine:
                 f"request {req.rid!r}: prompt+max_new "
                 f"{len(req.prompt) + req.max_new} exceeds "
                 f"max_len={self.ecfg.max_len}")
+        n = len(req.prompt)
+        if self.cfg.family in ("ssm", "hybrid") and n and \
+                n % min(self.cfg.ssd_chunk, n):
+            # the chunked scan takes whole chunks (models/ssm.py); refused
+            # here, before admission holds pages, not padded
+            raise ValueError(
+                f"request {req.rid!r}: a {n}-token prompt is no multiple "
+                f"of the SSD chunk {self.cfg.ssd_chunk}")
         if self.adapters is not None:
             if req.tenant is None:
                 raise ValueError(

@@ -6,7 +6,7 @@ inner step (at ``step > 0 and step % lazy_k == 0``), the loss is fetched
 once per step (the loop's one host sync, as the reference's
 ``float(metrics["loss"])``), and the step times are recorded.
 Checkpoints, the health guard, chaos hooks and the straggler watchdog
-wait for the resilience slice (ROADMAP.md Queue 1 item 9).
+wait for the resilience slice (ROADMAP.md Queue 1 item 4).
 
 The trainer runs on ``cuda`` unless the caller names another device.
 Parameters come from ``lm.init_params`` with ``tcfg.seed``, or from the

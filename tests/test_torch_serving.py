@@ -287,6 +287,47 @@ def test_submit_validation():
         Request("a", _prompt(3, 1), 0)
 
 
+def test_mamba2_prompt_off_the_chunk_is_refused_at_submit():
+    """A deliberate departure: the reference's engine accepts a prompt
+    whose length is no multiple of ``min(ssd_chunk, len)`` and its
+    prefill then fails (``src/repro/models/ssm.py``); the port refuses
+    it at ``submit``, before it holds a page, and serves the rest."""
+    ecfg = _ecfg(page_size=4, max_len=48, max_out=8)
+    assert MAMBA.cfg.ssd_chunk == 32
+    bad, good = _prompt(40, 30), _prompt(32, 31)
+    jeng = JEngine(MAMBA.jparams, MAMBA.jcfg,
+                   engine_cfg=JEngineConfig(**ecfg))
+    jeng.submit(JRequest("bad", bad, 4))
+    with pytest.raises(Exception):
+        jeng.run()
+    eng = _engine(m=MAMBA, **ecfg)
+    with pytest.raises(ValueError, match="SSD chunk"):
+        eng.submit(Request("bad", bad, 4))
+    assert not eng._queue and eng.pool.outstanding == 0
+    eng.submit(Request("good", good, 4))
+    out = eng.run()
+    assert list(out) == ["good"] and len(out["good"]) == 4
+    assert eng.reasons == {"good": "completed"}
+    assert eng.pool.outstanding == 0
+
+
+@pytest.mark.xfail(strict=True, raises=ValueError,
+                   reason="open fault: a preempted SSM sequence re-enters "
+                          "with prompt + generated tokens, off the chunk")
+def test_mamba2_preempted_sequence_is_readmitted():
+    # both 32-token prompts fit at admission (8 pages each); the first
+    # decode step needs a ninth page for each, the pool has one, and the
+    # older sequence is preempted with 33 tokens to prefill again
+    eng = _engine(m=MAMBA, page_size=4, num_pages=17, max_len=48,
+                  max_out=8)
+    for rid, seed in (("a", 32), ("b", 33)):
+        eng.submit(Request(rid, _prompt(32, seed), 6))
+    out = eng.run()
+    assert sorted(out) == ["a", "b"]
+    assert all(len(v) == 6 for v in out.values())
+    assert eng.pool.outstanding == 0
+
+
 def test_adapter_store_refusals_leave_it_unchanged():
     _, ts = _stores(1)
     rng = np.random.default_rng(20)

@@ -365,7 +365,7 @@ def test_ssd_kernel_bf16_matches_plain_on_card(cuda):
 def test_ssd_kernel_refuses_a_gradient_on_card(cuda):
     ops = [_t(a).to(cuda) for a in _chunk_operands(1, 16, 2, 8, 8, seed=2)]
     ops[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         sc.ssd_intra_chunk(*ops)
     with torch.no_grad():
         sc.ssd_intra_chunk(*ops)

@@ -346,6 +346,14 @@ def _scale(want):
 DTYPE_TOL = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
 
 
+def _route(dtype, K, N, r):
+    """The route a launch must take: the tensor cores for bf16 with every
+    row length a multiple of 8 (the last two RAGGED shapes), SIMT for
+    fp32 and the rest."""
+    aligned = all(d % 8 == 0 for d in (K, N, r))
+    return "tc" if dtype == torch.bfloat16 and aligned else "simt"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,rtol", DTYPE_TOL)
 @pytest.mark.parametrize("M,K,N,r", RAGGED)
@@ -360,6 +368,7 @@ def test_forward_p_kernel_matches_plain_on_card(cuda, dtype, rtol, M, K, N,
     assert _max_err(y, want_y) <= rtol * _scale(want_y)
     assert _max_err(p, want_p) <= rtol * _scale(want_p)
     assert lf.launches("p") == 1 and lf.launches() == 1
+    assert lf.launches("p", _route(dtype, K, N, r)) == 1
 
 
 @pytest.mark.cuda
@@ -377,7 +386,7 @@ def test_backward_kernel_matches_plain_on_card(cuda, dtype, rtol, M, K, N,
     assert _max_err(dx, want_dx) <= rtol * _scale(want_dx)
     # dB is fp32 from dtype inputs on both sides: only the sum order differs
     assert _max_err(db, want_db) <= 1e-4 * _scale(want_db)
-    assert lb.launches() == 1
+    assert lb.launches() == 1 and lb.launches(_route(dtype, K, N, r)) == 1
 
 
 @pytest.mark.cuda
