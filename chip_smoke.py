@@ -8,13 +8,16 @@
    libraries: none is a failure.
 2. Holds both forms of the low-rank forward kernel (shared B at prefill,
    M = 128, or 1 for the unembedding; one B per row at decode, batch 4 x
-   seq 1) against their plain PyTorch version at the five (K, N) shapes
-   of qwen2-7b, and at mamba2-780m's three (shared B at M = 512, or 1
-   for the unembedding), in bf16, and times kernel, plain version and a
-   cuBLAS yardstick.  Holds the SSD intra-chunk kernel against its plain
-   version at mamba2-780m's four prefill shapes (prompts of 100, 128,
-   256 and 512 tokens), fp32, with dt and A drawn by the mixer's laws,
-   and times both.
+   seq 1, read by tenant index from a store of 4 tenants with rows
+   [0, 2, 2, 1]) against their plain PyTorch version at the five (K, N)
+   shapes of qwen2-7b, and at mamba2-780m's three (shared B at M = 512,
+   or 1 for the unembedding), in bf16, and times kernel, plain version
+   and a cuBLAS yardstick (the per-row-B form's three with the stream
+   held while the host queues the calls, which leaves the host's time
+   out, beside the eager time per call).  Holds the SSD intra-chunk
+   kernel against its plain version at mamba2-780m's four prefill
+   shapes (prompts of 100, 128, 256 and 512 tokens), fp32, with dt and
+   A drawn by the mixer's laws, and times both.
 3. Holds the training kernels against their plain versions at the
    llama-100m shapes, and times them the same way: the forward with its
    ``p`` residual and the backward at M = 16384 (batch 64 x seq 256) for
@@ -29,10 +32,13 @@
 4. Serves qwen2-7b at full width and depth (28 layers) in bf16 with 4
    tenants: 8 requests of 128 prompt tokens and 32 new tokens through
    the continuous-batching engine, and checks that the main path
-   launched the forward kernel in both forms; profiles two decode steps.
+   launched the forward kernel in both forms; profiles two decode steps,
+   which must show no SIMT ``gemm_partial`` or ``finish`` row and no
+   ``index_select`` of the adapters' B.
 5. Checks lazy adapter serving against merged weights on a 2-layer
    full-width cut in fp32, and that a paged decode step makes no host
-   sync.  Then the same two phases for mamba2-780m (48 layers, bf16, 4
+   sync, in fp32 and in bf16 (every bf16 launch on the tensor cores).
+   Then the same two phases for mamba2-780m (48 layers, bf16, 4
    tenants, 8 requests of 100, 128, 256 and 512 prompt tokens, two of
    each, and 32 new tokens), which also checks that every prefill
    launched the SSD kernel once per layer, prints prefill time by prompt
@@ -73,10 +79,10 @@
 
 Each ``[kernel]`` row and JSON entry names the route its launch took,
 ``"tc"`` (TMA + ``wgmma``) or ``"simt"`` (JSON ``"path"``).  After every
-bf16 serving and training run the launch counters must show no
-shared-B, ``return_p`` or backward launch on the SIMT route; the
-training profiles print the forward's ``finish`` rows (the per-row-B
-form's epilogue, which no training step should run).
+bf16 serving and training run the launch counters must show no forward
+(any form) or backward launch on the SIMT route; the training profiles
+print the forward's ``finish`` rows (the SIMT per-row-B epilogue, which
+no bf16 step should run).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the one before that the
@@ -97,7 +103,12 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
 REPLACES = "src/repro/kernels/lowrank_forward.py:72"
+# the per-row-B form: the reference's vmap of that kernel
+BATCH_REPLACES = "src/repro/kernels/dispatch.py:450"
 SOURCE = "src/repro_torch/kernels/csrc/lowrank_forward.cu"
+# the per-row-B rows: a store of DEC_TENANTS adapters, batch rows reading
+# DEC_ROWS (a repeated tenant and one never read)
+DEC_TENANTS, DEC_ROWS = 4, (0, 2, 2, 1)
 # (K, N) the low-rank forward sees in qwen2-7b -> (leaves, rows at
 # prefill): a 128-token prefill runs the projections at M = 128 and the
 # unembedding on the last position only
@@ -126,6 +137,31 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(fn, calls=20, hold_s=0.05):
+    """Device ms per call of ``calls`` calls run back to back: the stream
+    is held by a sleep kernel while the host queues them, so the host's
+    time per call (longer than a decode-sized kernel's) is left out, as
+    it is once a decode step runs as a CUDA graph.  Fails if the host
+    took longer to queue the calls than the stream was held."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # at most 2 GHz on an H100: the stream is held at least hold_s
+    torch.cuda._sleep(int(hold_s * 2e9))
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    queued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    if queued > hold_s / 2:
+        raise SystemExit(f"queued_ms: the host took {queued:.4f} s to queue "
+                         f"{calls} calls, the stream was held {hold_s} s")
+    return start.elapsed_time(end) / calls
+
+
 def launch_path(mod):
     """The route ("tc" or "simt") of the launches a wrapper module counted
     since its counters were reset: one, or the check fails."""
@@ -138,11 +174,11 @@ def launch_path(mod):
 
 def require_tc(mods, tag):
     """Fail when a launch that a bf16 main path must run on the tensor
-    cores (the shared-B and return_p forward, the backward) took the SIMT
+    cores (the forward in every form, the backward) took the SIMT
     route."""
     lf, lb = mods["lf"], mods["lb"]
     slow = {("lowrank_forward",) + k: n for k, n in lf.LAUNCHES.items()
-            if k[0] != "batched" and k[1] == "simt"}
+            if k[1] == "simt"}
     slow.update({("lowrank_backward",) + k: n
                  for k, n in lb.LAUNCHES.items() if k[0] == "simt"})
     log(f"[{tag}] launches by route: forward tc={lf.launches(route='tc')} "
@@ -174,23 +210,25 @@ def compare_kernels(lf, ref, dev, shapes=SHAPES):
         v = torch.randn((K, RANK), generator=gen, device=dev) / K ** 0.5
         for form, M, batch in (("shared", prefill_rows, None),
                                ("batched", 4, 4)):
+            extra = ()
             if batch is None:
                 x = torch.randn((M, K), generator=gen, device=dev)
                 b = 0.02 * torch.randn((N, RANK), generator=gen, device=dev)
             else:
                 x = torch.randn((batch, 1, K), generator=gen, device=dev)
-                b = 0.02 * torch.randn((batch, N, RANK), generator=gen,
+                b = 0.02 * torch.randn((DEC_TENANTS, N, RANK), generator=gen,
                                        device=dev)
+                extra = (torch.tensor(DEC_ROWS, device=dev),)
             x, wb, vb, b = (t.bfloat16() for t in (x, w, v, b))
             kern = lf.lowrank_forward if batch is None \
                 else lf.lowrank_batch_forward
             plain = ref.lowrank_forward if batch is None \
                 else ref.lowrank_batch_forward
             lf.reset_launches()
-            y = kern(x, wb, vb, b)
+            y = kern(x, wb, vb, b, *extra)
             torch.cuda.synchronize()
             path = launch_path(lf)
-            want = plain(x, wb, vb, b)
+            want = plain(x, wb, vb, b, *extra)
             err = (y.float() - want.float()).abs()
             scale = want.float().abs().max().item()
             ok = bool((err <= RTOL * scale + RTOL * want.float().abs())
@@ -200,25 +238,36 @@ def compare_kernels(lf, ref, dev, shapes=SHAPES):
                     f"kernel disagrees with its plain version: {form} "
                     f"K={K} N={N} max_abs_err={err.max().item():.4g}")
 
-            def library():
-                return torch.matmul(x, wb) + torch.matmul(
-                    torch.matmul(x, vb), b.mT)
-
-            ms = time_ms(lambda: kern(x, wb, vb, b))
-            plain_ms = time_ms(lambda: plain(x, wb, vb, b), iters=5)
-            library_ms = time_ms(library)
+            if batch is None:
+                def library():
+                    return torch.matmul(x, wb) + torch.matmul(
+                        torch.matmul(x, vb), b.mT)
+                timer, host_ms = time_ms, None
+            else:
+                def library():
+                    return torch.matmul(x, wb) + torch.matmul(
+                        torch.matmul(x, vb), b[extra[0]].mT)
+                timer = queued_ms
+                host_ms = time_ms(lambda: kern(x, wb, vb, b, *extra),
+                                  iters=50)
+            ms = timer(lambda: kern(x, wb, vb, b, *extra))
+            plain_ms = timer(lambda: plain(x, wb, vb, b, *extra))
+            library_ms = timer(library)
             rows_m = M if batch is None else batch
+            # the per-row-B form reads each distinct tenant's B once
             bms, by = bound(rows_m, K, N, RANK, 1 if batch is None
-                            else batch, 2)
+                            else len(set(DEC_ROWS)), 2)
             rows.append(dict(form=form, K=K, N=N, M=rows_m, leaves=leaves,
                              path=path, max_abs_err=err.max().item(), ms=ms,
                              plain_ms=plain_ms, library_ms=library_ms,
-                             bound_ms=bms, bound_by=by))
+                             bound_ms=bms, bound_by=by, host_ms=host_ms))
             log(f"[kernel] {form:7s} M={rows_m:3d} K={K:5d} N={N:6d} "
                 f"({leaves}) route={path} max_abs_err={err.max().item():.4g} "
                 f"(tol {RTOL}*(max|y|+|y|), max|y|={scale:.3g}) "
                 f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                f"library_ms={library_ms:.4f} bound_ms={bms:.4f} ({by})")
+                f"library_ms={library_ms:.4f} bound_ms={bms:.4f} ({by})"
+                + ("" if host_ms is None else
+                   f" [queued; eager {host_ms:.4f} ms/call]"))
             del x, b, y, want
         del w, v, wb, vb
     torch.cuda.empty_cache()
@@ -409,16 +458,32 @@ def profile_decode(eng, cfg, serve_mod, rng, steps=2, tag="serve"):
             tenant=f"tenant{i}"))
     eng.step()                      # admissions (prefills) + one decode
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     eng.run()
-    log_profile("profile" if tag == "serve" else f"profile {tag}",
-                "decode steps", prof, wall, steps)
+    ptag = "profile" if tag == "serve" else f"profile {tag}"
+    log_profile(ptag, "decode steps", prof, wall, steps)
+    rows, _ = device_rows(prof)
+    simt = [e.key for e in rows
+            if "gemm_partial" in e.key or "finish" in e.key]
+    # a gather of the adapters' B: an index_select of a >= 3-D stack
+    gathers = [e for e in prof.key_averages(group_by_input_shape=True)
+               if e.key == "aten::index_select" and e.input_shapes
+               and len(e.input_shapes[0]) >= 3]
+    dec = sum(e.self_device_time_total for e in rows
+              if "skinny_kernel" in e.key) / 1e3 / steps
+    log(f"[{ptag}] the per-row-B forward's kernels {dec:.2f} ms/step; "
+        f"SIMT rows {simt or 'none'}; index_select of a B stack "
+        f"{[e.input_shapes for e in gathers] or 'none'}")
+    if simt or gathers or dec <= 0:
+        raise SystemExit(f"{tag}: the bf16 decode step ran the SIMT "
+                         f"per-row-B path or gathered B: {simt}, "
+                         f"{[e.input_shapes for e in gathers]}")
 
 
 def paged_from_prefill(lm, cfg, st, S, page, dev):
@@ -495,6 +560,47 @@ def lazy_equals_merged(dev, mods, arch="qwen2-7b", S=24):
             raise SystemExit(f"lazy serving disagrees with merged weights "
                              f"({name}: {err} > {tol * scale})")
     del params, store, merged, lazy_pre, lazy_dec
+    torch.cuda.empty_cache()
+
+
+def bf16_decode_without_sync(dev, mods, arch="qwen2-7b"):
+    """Phase 5c: a bf16 paged decode step of a 2-layer full-width cut,
+    batch 4 over a store of 4 tenants read in place, under
+    ``set_sync_debug_mode("error")`` (any host sync raises), with every
+    forward launch on the tensor cores."""
+    lf, lm, configs, serve_mod = (mods["lf"], mods["lm"], mods["configs"],
+                                  mods["serve"])
+    cfg = configs.get_config(arch).replace(num_layers=2)
+    params = lm.init_params(cfg, seed=3, device=dev)
+    store = make_store(cfg, configs.TrainConfig(rank=RANK), DEC_TENANTS,
+                       dev, serve_mod.AdapterStore)
+    tenants = torch.tensor(DEC_ROWS, device=dev)
+    packed = serve_mod.batched_pack_tree(params, store.layout, store.b_full,
+                                         store.projs, tenants)
+    page = 16
+    ps = lm.alloc_paged_state(cfg, 4, 8, page, 2 * page, device=dev)
+    ps = ps._replace(
+        page_table=torch.arange(8, dtype=torch.int32,
+                                device=dev).reshape(4, 2),
+        lengths=torch.tensor([3, 9, 17, 30], dtype=torch.int32, device=dev))
+    tok = torch.randint(0, cfg.vocab_size, (4, 1), device=dev)
+    lf.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lg, _ = lm.decode_step_paged(packed, tok, cfg, ps)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    tag = f"bf16 decode {arch.split('-')[0]}"
+    finite = bool(torch.isfinite(lg[..., :cfg.vocab_size]).all().item())
+    log(f"[{tag}] 2 layers, batch 4 over {DEC_TENANTS} tenants: no host "
+        f"sync; launches {dict(lf.LAUNCHES)}; logits finite {finite}")
+    if not finite or lf.launches("batched", "tc") == 0:
+        raise SystemExit(f"{tag}: non-finite logits or no tensor-core "
+                         f"per-row-B launch")
+    require_tc(mods, tag)
+    del params, store, packed
     torch.cuda.empty_cache()
 
 
@@ -1481,8 +1587,10 @@ def main():
     project_rows = compare_project_kernel(mods, dev)
     counts, _ = serve(dev, mods, smi)
     lazy_equals_merged(dev, mods)
+    bf16_decode_without_sync(dev, mods)
     mamba_counts, ssd_counts = serve(dev, mods, smi, "mamba2-780m")
     lazy_equals_merged(dev, mods, "mamba2-780m", S=256)
+    bf16_decode_without_sync(dev, mods, "mamba2-780m")
     serve_equals_plain(dev, mods)
 
     cfg, tcfg = train_config(configs, lazy_k=4, lr=3e-3, warmup_steps=2,
@@ -1507,13 +1615,16 @@ def main():
                 "name": f"lowrank_forward[{row['form']} B] K={row['K']} "
                         f"N={row['N']} ({model}{row['leaves']})",
                 "route": "cuda", "path": row["path"], "source": SOURCE,
-                "replaces": REPLACES,
+                "replaces": REPLACES if row["form"] == "shared"
+                else BATCH_REPLACES,
                 "launches": shape_launches(cnt, row["form"], row["K"],
                                            row["N"]),
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"]})
+                "library_ms": row["library_ms"],
+                **({} if row["host_ms"] is None else
+                   {"timing": "queued", "eager_ms": row["host_ms"]})})
     for row in ssd_rows:
         kernels.append({
             "name": f"ssd_intra_chunk [fp32, B/C head stride 0] "

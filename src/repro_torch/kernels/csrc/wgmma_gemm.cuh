@@ -1,5 +1,8 @@
 // A tensor-core GEMM mainloop for Hopper (sm_90a), shared by the
-// bf16 routes of lowrank_forward.cu and lowrank_backward.cu.
+// bf16 routes of lowrank_forward.cu and lowrank_backward.cu.  Its
+// device pieces (mbarriers, TMA loads, descriptors, the wgmma
+// instantiations at n = 8, 16, 64 and 128) also build the per-row-B
+// decode kernel of lowrank_forward.cu.
 //
 // One block computes a 128 x BN output tile (BN = 128, or 64 where the
 // grid would otherwise hold fewer blocks than the card has SMs) with 288
@@ -216,10 +219,39 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
+// the skinny widths of the decode forward's swap-AB tile (n = the 8 or
+// 16 decode rows)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n8(float (&d)[4], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n16(float (&d)[8], uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
 template <int BN, int TA, int TB>
 __device__ __forceinline__ void mma(float (&d)[BN / 2], uint64_t da,
                                     uint64_t db) {
-  if constexpr (BN == 64)
+  if constexpr (BN == 8)
+    wgmma_n8<TA, TB>(d, da, db);
+  else if constexpr (BN == 16)
+    wgmma_n16<TA, TB>(d, da, db);
+  else if constexpr (BN == 64)
     wgmma_n64<TA, TB>(d, da, db);
   else
     wgmma_n128<TA, TB>(d, da, db);

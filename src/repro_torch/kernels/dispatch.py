@@ -52,14 +52,18 @@ def lowrank_forward(x: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
 
 
 def lowrank_batch_forward(x: torch.Tensor, w: torch.Tensor,
-                          v: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """y[i] = x[i] W + (x[i] V) B[i]ᵀ — one call, one adapter per row.
+                          v: torch.Tensor, b: torch.Tensor,
+                          rows: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """y[i] = x[i] W + (x[i] V) B[t]ᵀ — one call, one adapter per row.
 
     The multi-tenant serving op: ``x (batch, seq, k)`` against a shared
-    base ``w (k, n)`` and projection ``v (k, r)`` and a per-row stack
-    ``b (batch, n, r)``.  ``W + V Bᵀ`` is never formed.
+    base ``w (k, n)`` and projection ``v (k, r)``, and either a per-row
+    stack ``b (batch, n, r)`` (t = i) or, with ``rows (batch,)``, the
+    adapter store's ``(T, n, r)`` stack read by tenant index
+    (t = rows[i]; nothing is gathered).  ``W + V Bᵀ`` is never formed.
     """
-    return _lf.lowrank_batch_forward(x.contiguous(), w, v, b)
+    return _lf.lowrank_batch_forward(x.contiguous(), w, v, b, rows)
 
 
 def lowrank_backward(dy: torch.Tensor, w: torch.Tensor, v: torch.Tensor,

@@ -92,8 +92,13 @@ def lowrank_forward(x: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
 
 
 def lowrank_batch_forward(x: torch.Tensor, w: torch.Tensor,
-                          v: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """y[i] = x[i] W + (x[i] V) B[i]ᵀ.  x (batch,S,K), b (batch,N,r)."""
+                          v: torch.Tensor, b: torch.Tensor,
+                          rows: torch.Tensor | None = None) -> torch.Tensor:
+    """y[i] = x[i] W + (x[i] V) B[t]ᵀ.  x (batch,S,K); b (batch,N,r) and
+    t = i, or with ``rows`` (batch,) a (T,N,r) stack and t = rows[i]
+    (gathered first, then the same arithmetic)."""
+    if rows is not None:
+        b = b.index_select(0, rows)
     xf = x.float()
     p = xf @ v.float()                                   # (batch, S, r)
     return (xf @ w.float() + p @ b.float().transpose(-1, -2)).to(x.dtype)

@@ -44,12 +44,23 @@ class LRPack:
 class BatchLRPack(LRPack):
     """A shared weight packed with one adapter per batch row.
 
-    ``w``: lead + (k, n_out); ``v``: lead + (k, r);
-    ``b``: lead + (batch, n_out, r) — row ``i`` of the batch is answered
-    with adapter ``b[..., i, :, :]``.
+    ``w``: lead + (k, n_out); ``v``: lead + (k, r).  Without ``rows``,
+    ``b`` is lead + (batch, n_out, r) and row ``i`` of the batch is
+    answered with adapter ``b[..., i, :, :]``.  With ``rows`` (a
+    ``(batch,)`` int64 tensor), ``b`` is lead + (T, n_out, r) — the
+    adapter store's stack as it is — and row ``i`` is answered with
+    ``b[..., rows[i], :, :]``.  Indexing takes the same leading slice of
+    ``w``, ``b`` and ``v``; ``rows`` is the same for every slice.
     """
 
-    __slots__ = ()
+    __slots__ = ("rows",)
+
+    def __init__(self, w, b, v, rows=None):
+        super().__init__(w, b, v)
+        self.rows = rows
+
+    def __getitem__(self, i):
+        return type(self)(self.w[i], self.b[i], self.v[i], self.rows)
 
 
 class LowRankMatmul(torch.autograd.Function):
@@ -86,7 +97,7 @@ def lowrank_matmul(x, w, b, v):
 def linear(x: torch.Tensor, p, bias: Optional[torch.Tensor] = None):
     """Apply a (possibly packed) linear map."""
     if isinstance(p, BatchLRPack):
-        y = dispatch.lowrank_batch_forward(x, p.w, p.v, p.b)
+        y = dispatch.lowrank_batch_forward(x, p.w, p.v, p.b, p.rows)
     elif isinstance(p, LRPack):
         y = lowrank_matmul(x, p.w, p.b, p.v)
     else:

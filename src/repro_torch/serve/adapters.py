@@ -3,10 +3,11 @@
 Counterpart of ``repro.serve.adapters``.  Each same-shape group of
 low-rank leaves (:func:`repro_torch.optim.subspace.build_layout`) keeps
 its tenants' ``B`` stacked as ``(G,) + lead + (T, n, r)`` — tenant axis
-at -3 — so one ``index_select`` per group turns "which tenant does each
-decode slot serve" into the per-row :class:`BatchLRPack` adapters of one
-batched forward.  ``W + V Bᵀ`` is never materialised; unloaded tenant
-rows are zero, which serves the base weights exactly.
+at -3 — and a decode batch reads it in place: each per-row
+:class:`BatchLRPack` of one batched forward holds a view of the stack and
+the ``(batch,)`` tenant index of the decode slots, so no step copies a
+``B``.  ``W + V Bᵀ`` is never materialised; unloaded tenant rows are
+zero, which serves the base weights exactly.
 
 Adapters arrive as arrays (numpy, as the JAX package hands them over, or
 tensors) through :meth:`AdapterStore.add_tenant`.  Installs are
@@ -177,13 +178,14 @@ class AdapterStore:
 def batched_pack_tree(params, layout, b_fulls, projs, slot_tenants):
     """Per-row :class:`BatchLRPack` tree for one decode batch.
 
-    ``slot_tenants``: (batch,) int64 tensor, tenant index per decode
-    slot.  One gather per group along the tenant axis.
+    ``slot_tenants``: (batch,) int64 tensor on the store's device, tenant
+    index per decode slot.  Each pack holds a view of its group's stack
+    ``b_fulls[g]`` and the index; nothing is gathered or copied.
     """
     flat = tree_flatten_with_path(params)
     out = [leaf for _, leaf in flat]
     for g, spec in enumerate(layout.groups):
-        bsel = b_fulls[g].index_select(b_fulls[g].ndim - 3, slot_tenants)
         for j, i in enumerate(spec.leaf_idx):
-            out[i] = BatchLRPack(out[i], bsel[j], projs[g][j])
+            out[i] = BatchLRPack(out[i], b_fulls[g][j], projs[g][j],
+                                 rows=slot_tenants)
     return tree_unflatten([p for p, _ in flat], out)

@@ -19,8 +19,12 @@ steps.  The per-step loop is:
 
 The dense family pages its KV cache; the SSM family (Mamba2) keeps one
 fixed-size recurrent state per slot, which prefill writes into the
-request's slot (page chains are still kept, as in the reference, for
-admission and backpressure).
+request's slot.  A pure-SSM sequence holds no page chain: nothing of it
+lives in the page pool, so pool pressure never preempts it, and its
+admission is bounded by ``max_batch`` and ``max_len`` alone.  (The
+reference keeps page chains for SSM sequences too, and a preempted one
+re-enters with a prompt off the SSD chunk and fails; a deliberate
+departure.)
 
 A per-row logit health check (non-finite / collapsed) quarantines only
 the offending rows: a faulted row's length does not advance, so its
@@ -126,6 +130,8 @@ class Engine:
         self.ecfg = engine_cfg or EngineConfig()
         ec = self.ecfg
         self.num_pages = ec.resolved_num_pages()
+        # pure-SSM sequences keep their state per slot, not in pages
+        self._paged = cfg.family != "ssm"
         self.max_pages = -(-ec.max_len // ec.page_size)
         self.pool = PagePool(self.num_pages, ec.page_size)
         self.state = alloc_paged_state(cfg, ec.max_batch, self.num_pages,
@@ -384,7 +390,7 @@ class Engine:
             if slot is None:
                 return
             s_total = len(req.prompt)
-            need = self.pool.pages_for(s_total)
+            need = self.pool.pages_for(s_total) if self._paged else 0
             pages = self.pool.alloc(need)
             if pages is None:
                 if not self._active_slots() and \
@@ -424,6 +430,8 @@ class Engine:
             }
 
     def _ensure_pages(self) -> None:
+        if not self._paged:
+            return      # no page chain grows, so nothing is preempted
         for slot in sorted(self._active_slots(),
                            key=lambda s: self._slots[s]["seq"]):
             meta = self._slots[slot]

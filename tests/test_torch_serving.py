@@ -311,21 +311,33 @@ def test_mamba2_prompt_off_the_chunk_is_refused_at_submit():
     assert eng.pool.outstanding == 0
 
 
-@pytest.mark.xfail(strict=True, raises=ValueError,
-                   reason="open fault: a preempted SSM sequence re-enters "
-                          "with prompt + generated tokens, off the chunk")
 def test_mamba2_preempted_sequence_is_readmitted():
-    # both 32-token prompts fit at admission (8 pages each); the first
-    # decode step needs a ninth page for each, the pool has one, and the
-    # older sequence is preempted with 33 tokens to prefill again
-    eng = _engine(m=MAMBA, page_size=4, num_pages=17, max_len=48,
-                  max_out=8)
-    for rid, seed in (("a", 32), ("b", 33)):
-        eng.submit(Request(rid, _prompt(32, seed), 6))
+    # two 32-token prompts in a pool of 17 pages of 4: each needs a ninth
+    # page at its first decode step, and a paged sequence would be
+    # preempted and re-enter with 33 tokens, off the chunk of 32.  A
+    # pure-SSM sequence holds no page chain, so neither is preempted and
+    # each generates what it generates alone.  A deliberate departure:
+    # the reference's engine fails this case with an AssertionError.
+    ecfg = _ecfg(page_size=4, num_pages=17, max_len=48, max_out=8)
+    reqs = [("a", _prompt(32, 32)), ("b", _prompt(32, 33))]
+    eng = _engine(m=MAMBA, **ecfg)
+    for rid, prompt in reqs:
+        eng.submit(Request(rid, prompt, 6))
     out = eng.run()
     assert sorted(out) == ["a", "b"]
-    assert all(len(v) == 6 for v in out.values())
+    assert all(eng.reasons[rid] == "completed" for rid, _ in reqs)
+    for rid, prompt in reqs:
+        solo = _engine(m=MAMBA, **ecfg)
+        solo.submit(Request(rid, prompt, 6))
+        np.testing.assert_array_equal(out[rid], solo.run()[rid])
+        assert len(out[rid]) == 6
     assert eng.pool.outstanding == 0
+    jeng = JEngine(MAMBA.jparams, MAMBA.jcfg,
+                   engine_cfg=JEngineConfig(**ecfg))
+    for rid, prompt in reqs:
+        jeng.submit(JRequest(rid, prompt, 6))
+    with pytest.raises(AssertionError):
+        jeng.run()
 
 
 def test_adapter_store_refusals_leave_it_unchanged():
