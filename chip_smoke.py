@@ -4,8 +4,8 @@
 
 1. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together), and counts the tensor-core
-   (``HGMMA``) instructions in the SASS of the forward's and backward's
-   libraries: none is a failure.
+   (``HGMMA``) instructions in the SASS of the forward's, the backward's,
+   the merge's and the projection's libraries: none is a failure.
 2. Holds both forms of the low-rank forward kernel (shared B at prefill,
    M = 128, or 1 for the unembedding; one B per row at decode, batch 4 x
    seq 1, read by tenant index from a store of 4 tenants with rows
@@ -22,13 +22,16 @@
    llama-100m shapes, and times them the same way: the forward with its
    ``p`` residual and the backward at M = 16384 (batch 64 x seq 256) for
    the four (K, N) of the model, the merge at its four group shapes
-   (bf16 W and V, fp32 B), subspace-Adam at the four group B shapes; and
+   (bf16 W and V, fp32 B: the tensor-core route), subspace-Adam at the four group B shapes; and
    the compressed-state kernels at the same shapes: subspace-Lion (fp32
    state), the int8-moment Adam and Lion (bf16 b with rounding bits, and
    fp32 b without) and the stochastically rounded merge (bf16 W, V, B);
    the forward in its shared-B form (no ``p``) at M = 16384, as the
    forward-only ``lowrank_lr`` runs it; and GaLore's projection
-   ``Gᵀ V`` at the four group shapes (fp32 G, bf16 V).
+   ``Gᵀ V`` at the four group shapes (fp32 G, bf16 V: the tensor-core
+   route; its bound the larger of G's, V's and the output's bytes and
+   the two bf16 products of G's hi and lo parts at the tensor-core
+   peak).
 4. Serves qwen2-7b at full width and depth (28 layers) in bf16 with 4
    tenants: 8 requests of 128 prompt tokens and 32 new tokens through
    the continuous-batching engine, and checks that the main path
@@ -80,7 +83,9 @@
 Each ``[kernel]`` row and JSON entry names the route its launch took,
 ``"tc"`` (TMA + ``wgmma``) or ``"simt"`` (JSON ``"path"``).  After every
 bf16 serving and training run the launch counters must show no forward
-(any form) or backward launch on the SIMT route; the training profiles
+(any form), backward, plain merge or projection launch on the SIMT
+route (the stochastically rounded merge of 6b and 6c runs on SIMT and
+is reported so); the training profiles
 print the forward's ``finish`` rows (the SIMT per-row-B epilogue, which
 no bf16 step should run).
 
@@ -162,21 +167,24 @@ def queued_ms(fn, calls=20, hold_s=0.05):
     return start.elapsed_time(end) / calls
 
 
-def launch_path(mod):
+def launch_path(mod, at=-3):
     """The route ("tc" or "simt") of the launches a wrapper module counted
-    since its counters were reset: one, or the check fails."""
-    paths = {k[-3] for k in mod.LAUNCHES}
+    since its counters were reset (the route at place ``at`` of each
+    counter's key): one, or the check fails."""
+    paths = {k[at] for k in mod.LAUNCHES}
     if len(paths) != 1:
         raise SystemExit(f"expected launches by one route, counted "
                          f"{dict(mod.LAUNCHES)}")
     return paths.pop()
 
 
-def require_tc(mods, tag):
+def require_tc(mods, tag, updates=False):
     """Fail when a launch that a bf16 main path must run on the tensor
-    cores (the forward in every form, the backward) took the SIMT
-    route."""
-    lf, lb = mods["lf"], mods["lb"]
+    cores (the forward in every form, the backward; with ``updates``, a
+    training run's plain merge and GaLore's projection) took the SIMT
+    route; the stochastically rounded merge runs on SIMT and is reported
+    so."""
+    lf, lb, lu = mods["lf"], mods["lb"], mods.get("lu") if updates else None
     slow = {("lowrank_forward",) + k: n for k, n in lf.LAUNCHES.items()
             if k[1] == "simt"}
     slow.update({("lowrank_backward",) + k: n
@@ -185,6 +193,14 @@ def require_tc(mods, tag):
         f"simt={lf.launches(route='simt')} (batched "
         f"{lf.launches('batched')}), backward tc={lb.launches('tc')} "
         f"simt={lb.launches('simt')}")
+    if lu is not None and lu.launches():
+        slow.update({k: n for k, n in lu.LAUNCHES.items()
+                     if k[0] != "lowrank_merge_sr" and k[1] == "simt"})
+        log(f"[{tag}] update launches by route: " + ", ".join(
+            f"{kernel} tc={lu.launches(kernel, 'tc')} "
+            f"simt={lu.launches(kernel, 'simt')}"
+            for kernel in ("lowrank_merge", "lowrank_merge_sr",
+                           "lowrank_project") if lu.launches(kernel)))
     if slow:
         raise SystemExit(f"{tag}: bf16 launches took the SIMT route: {slow}")
 
@@ -845,16 +861,18 @@ def compare_train_kernels(mods, dev):
     rows = []
 
     def row(kernel, shape, leaves, err, tol, ms, plain_ms, library_ms,
-            bound, path="simt"):
+            bound, path="simt", eager_ms=None):
         bms, by = bound
         rows.append(dict(kernel=kernel, shape=shape, leaves=leaves,
                          path=path, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, library_ms=library_ms,
-                         bound_ms=bms, bound_by=by))
+                         bound_ms=bms, bound_by=by, eager_ms=eager_ms))
         log(f"[kernel] {kernel:18s} {str(shape):22s} ({leaves}) "
             f"route={path} max_abs_err={err:.4g} (tol {tol}) ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-            f"bound_ms={bms:.4f} ({by})")
+            f"bound_ms={bms:.4f} ({by})" + (
+                "" if eager_ms is None else
+                f" [queued; eager {eager_ms:.4f} ms/call]"))
 
     def randn(*shape, scale=1.0):
         return scale * torch.randn(shape, generator=gen, device=dev)
@@ -932,8 +950,10 @@ def compare_train_kernels(mods, dev):
         w = randn(*shape, scale=K ** -0.5).to(bf)
         v = randn(*lead, K, r, scale=r ** -0.5).to(bf)
         b = randn(*lead, N, r, scale=0.02)
+        lu.reset_launches()
         got = lu.lowrank_merge(w, v, b)
         torch.cuda.synchronize()
+        path = launch_path(lu, at=1)
         want = ref.lowrank_merge(w, v, b)
         err = _agree(f"merge {shape}", got, want, RTOL, RTOL)
         items = w.numel() // (K * N)
@@ -941,11 +961,14 @@ def compare_train_kernels(mods, dev):
         ops = 2 * K * N * r * items
         w3, v3 = w.reshape(-1, K, N), v.reshape(-1, K, r)
         b3t = b.reshape(-1, N, r).to(bf).transpose(1, 2)
+        # device time: the stream is held while the host queues the calls
+        # (the wrapper's host time per call is near the kernel's)
         row("lowrank_merge", shape, leaves, err, f"{RTOL}*(max|W'|+|W'|)",
-            time_auto(lambda: lu.lowrank_merge(w, v, b, out=got)),
-            time_auto(lambda: ref.lowrank_merge(w, v, b)),
-            time_auto(lambda: torch.baddbmm(w3, v3, b3t)),
-            bound_of(nbytes, ops, BF16_FLOP_PER_S))
+            queued_ms(lambda: lu.lowrank_merge(w, v, b, out=got)),
+            queued_ms(lambda: ref.lowrank_merge(w, v, b)),
+            queued_ms(lambda: torch.baddbmm(w3, v3, b3t)),
+            bound_of(nbytes, ops, BF16_FLOP_PER_S), path,
+            time_ms(lambda: lu.lowrank_merge(w, v, b, out=got), iters=50))
         del w, v, b, got, want, w3, v3, b3t
         torch.cuda.empty_cache()
 
@@ -1100,8 +1123,11 @@ def compare_state_kernels(mods, dev):
         v = randn(*lead, K, RANK, scale=RANK ** -0.5).to(bf)
         b = randn(*lead, N, RANK, scale=0.02).to(bf)
         bits = bits_like(w)
+        lu.reset_launches()
         got = lu.lowrank_merge(w, v, b, bits=bits)
         torch.cuda.synchronize()
+        if launch_path(lu, at=1) != "simt":
+            raise SystemExit("the stochastically rounded merge left SIMT")
         # exact: any round of the sum (stochastic, nearest, truncating)
         # lands within one bf16 step of it, so only equality tells the
         # stochastic round from the others
@@ -1118,12 +1144,48 @@ def compare_state_kernels(mods, dev):
     return rows
 
 
+def project_splits_ms(lu, g, v, out, most):
+    """ms per tensor-core projection launch with K cut into 1 .. ``most``
+    ranges, the plan's choice among them: how its one-wave rule is
+    checked.  Each launch is held to the first."""
+    lead, (K, N), r = g.shape[:-2], g.shape[-2:], v.shape[-1]
+    items = math.prod(lead)
+    tiles = lu.project_tiles(items, N, r)
+    stream = torch.cuda.current_stream().cuda_stream
+    out_ms, first = {}, None
+    for s in range(1, most + 1):
+        part = torch.empty(max(1, s * tiles * lu.PROJECT_TILE ** 2),
+                           device=g.device)
+        counters = torch.zeros(tiles, dtype=torch.int32, device=g.device)
+
+        def launch():
+            rc = lu._project_tc_kernel()(
+                lu.DTYPE_CODE[g.dtype], g.data_ptr(), v.data_ptr(),
+                out.data_ptr(), part.data_ptr(), counters.data_ptr(), s,
+                items, K, N, r, stream)
+            if rc != 0:
+                raise SystemExit(f"lowrank_project tc launch, {s} ranges: "
+                                 f"error {rc}")
+        launch()
+        torch.cuda.synchronize()
+        if first is None:
+            first = out.clone()
+        _agree(f"project {tuple(g.shape)} in {s} ranges", out, first, 1e-4)
+        out_ms[s] = queued_ms(launch)
+    return out_ms
+
+
 def compare_project_kernel(mods, dev):
     """Phase 3, GaLore: the projection ``Gᵀ V`` at the four llama-100m
     group shapes, in the form the path runs it (the clipped fp32
-    gradient, the basis stored in bf16), within 1e-4 of max|out| (fp32
-    sums of the same products in another order).  library_ms times
-    ``torch.matmul(g.mT, v.float())`` (cuBLAS, TF32 off)."""
+    gradient, the basis stored in bf16), within 1e-4 of max|out| (the
+    tensor-core route carries G as a bf16 hi, lo pair: 16 of its bits,
+    and fp32 sums in another order).  The bound is the larger of the
+    bytes (G, V, the output) and the two bf16 products, G's hi and lo
+    parts against V, at the tensor-core peak.  library_ms times
+    ``torch.matmul(g.mT, v.float())`` (cuBLAS, TF32 off).  Kernel, plain
+    version and library are timed on the device alone (the stream held
+    while the host queues the calls), the wrapper's eager time beside."""
     ref, lu = mods["ref"], mods["lu"]
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
@@ -1133,25 +1195,36 @@ def compare_project_kernel(mods, dev):
         g = 1e-3 * torch.randn(shape, generator=gen, device=dev)
         v = (K ** -0.5 * torch.randn(lead + (K, RANK), generator=gen,
                                      device=dev)).bfloat16()
+        lu.reset_launches()
         got = lu.lowrank_project(g, v)
         torch.cuda.synchronize()
+        path = launch_path(lu, at=1)
         err = _agree(f"project {shape}", got, ref.lowrank_project(g, v),
                      1e-4)
         n_bytes = 4 * g.numel() + 2 * v.numel() + 4 * got.numel()
-        ops = 2 * K * N * RANK * math.prod(lead)
-        bms, by = bound_of(n_bytes, ops, FP32_FLOP_PER_S)
+        ops = 2 * 2 * K * N * RANK * math.prod(lead)
+        bms, by = bound_of(n_bytes, ops, BF16_FLOP_PER_S)
         r = dict(kernel="lowrank_project", shape=shape, leaves=leaves,
-                 max_abs_err=err,
-                 ms=time_auto(lambda: lu.lowrank_project(g, v)),
-                 plain_ms=time_auto(lambda: ref.lowrank_project(g, v)),
-                 library_ms=time_auto(lambda: torch.matmul(g.mT,
+                 path=path, max_abs_err=err,
+                 ms=queued_ms(lambda: lu.lowrank_project(g, v)),
+                 plain_ms=queued_ms(lambda: ref.lowrank_project(g, v)),
+                 library_ms=queued_ms(lambda: torch.matmul(g.mT,
                                                            v.float())),
-                 bound_ms=bms, bound_by=by)
+                 bound_ms=bms, bound_by=by,
+                 eager_ms=time_ms(lambda: lu.lowrank_project(g, v),
+                                  iters=50))
+        s_plan = lu.project_plan(math.prod(lead), K, N, RANK)
+        if s_plan > 1:
+            r["splits_ms"] = project_splits_ms(lu, g, v, got, s_plan + 1)
+            log(f"[kernel] lowrank_project {shape}: ms by K ranges "
+                f"{r['splits_ms']} (the plan takes {s_plan})")
         rows.append(r)
         log(f"[kernel] {'lowrank_project':18s} {str(shape):22s} ({leaves}) "
-            f"max_abs_err={err:.4g} (tol 1e-4*max|out|) ms={r['ms']:.4f} "
+            f"route={path} max_abs_err={err:.4g} (tol 1e-4*max|out|) "
+            f"ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} "
-            f"library_ms={r['library_ms']:.4f} bound_ms={bms:.4f} ({by})")
+            f"library_ms={r['library_ms']:.4f} bound_ms={bms:.4f} ({by}) "
+            f"[queued; eager {r['eager_ms']:.4f} ms/call]")
         del g, v, got
         torch.cuda.empty_cache()
     return rows
@@ -1229,7 +1302,7 @@ def train(dev, mods, smi, cfg, tcfg, batch, seq, steps, tag="train",
         + step_note(s)))
     wall = time.perf_counter() - t0
     if dev.type == "cuda":
-        require_tc(mods, tag)
+        require_tc(mods, tag, updates=True)
     losses = report.losses
     tokens = batch * seq
     steady = report.step_times[1:] or report.step_times
@@ -1272,6 +1345,13 @@ def shape_launches(launches, *key):
                if k[:-3] + k[-2:] == key)
 
 
+def update_launches(lu, kernel, shape):
+    """Launches of a merge or projection kernel at one shape, summed over
+    the routes."""
+    return sum(n for (k, _, s), n in lu.LAUNCHES.items()
+               if k == kernel and s == shape)
+
+
 def train_launches(mods):
     """The launch counters of the training kernels, by JSON row key."""
     lf, lb, lu, sa = mods["lf"], mods["lb"], mods["lu"], mods["sa"]
@@ -1282,8 +1362,8 @@ def train_launches(mods):
         out[("lowrank_backward", (TRAIN_M, K, N))] = \
             shape_launches(lb.LAUNCHES, K, N)
     for shape in MERGE_SHAPES:
-        out[("lowrank_merge", shape)] = lu.LAUNCHES.get(
-            ("lowrank_merge", shape), 0)
+        out[("lowrank_merge", shape)] = update_launches(lu, "lowrank_merge",
+                                                        shape)
         bshape = shape[:-2] + (shape[-1], RANK)
         out[("subspace_adam", bshape)] = sa.LAUNCHES.get(
             ("subspace_adam", bshape), 0)
@@ -1317,7 +1397,7 @@ def state_launches(mods, kernel):
     for shape in MERGE_SHAPES:
         bshape = shape[:-2] + (shape[-1], RANK)
         if kernel.startswith("lowrank_merge"):
-            out[shape] = lu.LAUNCHES.get((kernel, shape), 0)
+            out[shape] = update_launches(lu, kernel, shape)
         elif kernel.endswith("_q8"):
             out[bshape] = sa.LAUNCHES.get(
                 (kernel, (math.prod(bshape) // QROW, QROW)), 0)
@@ -1379,8 +1459,9 @@ def method_runs(dev, mods, smi, configs):
                       steps, tag=tag, cadence=cadence, falling=falling)
         new, also = {}, {}       # this path's new rows; earlier rows
         if tcfg.optimizer == "galore":
-            new = {("lowrank_project", shape): lu.LAUNCHES.get(
-                ("lowrank_project", shape), 0) for shape in MERGE_SHAPES}
+            new = {("lowrank_project", shape):
+                   update_launches(lu, "lowrank_project", shape)
+                   for shape in MERGE_SHAPES}
         elif tcfg.optimizer == "lowrank_lr":
             new = {("lowrank_forward[shared]", (TRAIN_M, K, N)):
                    shape_launches(lf.LAUNCHES, "shared", K, N)
@@ -1567,7 +1648,8 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
     cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
-    for name in ("lowrank_forward", "lowrank_backward"):
+    for name in ("lowrank_forward", "lowrank_backward", "lowrank_merge",
+                 "lowrank_project"):
         sass = subprocess.run([str(cuobjdump), "-sass",
                                str(built[name]["path"])], capture_output=True,
                               text=True, check=True).stdout
@@ -1646,7 +1728,9 @@ def main():
             "launches": train_counts[(row["kernel"], row["shape"])],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            **({} if row["eager_ms"] is None else
+               {"timing": "queued", "eager_ms": row["eager_ms"]})})
     # compressed state: one row per kernel and group shape, in the form the
     # training runs launch (the q8 updates on a bf16 b with rounding
     # bits); the q8 updates' fp32-b form, which no run launches, rides in
@@ -1673,13 +1757,16 @@ def main():
         kernels.append({
             "name": f"lowrank_project [fp32 G, bf16 V] "
                     f"{list(row['shape'])} ({row['leaves']})",
-            "route": "cuda", "path": "simt",
+            "route": "cuda", "path": row["path"],
             "source": TRAIN_SOURCES["lowrank_project"],
             "replaces": TRAIN_REPLACES["lowrank_project"],
             "launches": train_counts[("lowrank_project", row["shape"])],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "timing": "queued", "eager_ms": row["eager_ms"],
+            **({"splits_ms": row["splits_ms"]} if "splits_ms" in row
+               else {})})
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     if missing:
         raise SystemExit(f"kernels never launched on the main path: "

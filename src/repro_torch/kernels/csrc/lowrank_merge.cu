@@ -13,22 +13,61 @@
 // over `batch` leading items (a group's (G, L) dims folded) in one launch.
 // The dtypes are mixed on the training path: W is the stored parameter
 // (bf16 for the paper's models), V is stored in the compute dtype and B is
-// the fp32 master.  Each operand therefore has its own dtype, fp32 or
-// bf16 (eight instantiations); the rank-r product accumulates in fp32 and
-// the sum is rounded once, into W's dtype.
+// the fp32 master.  The rank-r product accumulates in fp32 and the sum is
+// rounded once, into W's dtype.
 //
 // The TPU kernel tiles (bk, bn) output blocks with the whole rank
-// resident in VMEM and vmaps over the leading dims.  Here one block owns
-// a 64 x 64 tile of one batch item (gemm_tile.cuh, blockIdx.z = item);
-// W is the addend of the tile's epilogue and may be the output itself
-// (in-place merge: each element is read and written by the same thread).
-// What bounds it: bytes (W read and written, r = 128 gives 2r FLOP per
-// W element, below the card's ~295 FLOP/byte bf16 balance point).
+// resident in VMEM and vmaps over the leading dims.  What bounds the work
+// on this card is bytes: W is read and written (77% of them at the
+// llama-100m shapes), and r = 128 gives 2r FLOP per W element, far below
+// the ~295 FLOP per byte where the tensor cores would bind.  Two routes,
+// chosen by the Python wrapper:
+//
+// * tensor cores (lowrank_merge_tc_launch; bf16 W and V, fp32 or bf16 B,
+//   K, N and r multiples of 8 so TMA can address every row, no bits):
+//   a tile is one item's 128 x 64 block of W' (two warpgroups of 64 rows,
+//   wgmma m64n64k16).  V's 128 x r rows are A (K-major, read as stored,
+//   by TMA); B's 64 x r rows are B (K-major), read from global memory by
+//   the threads and written into the 128-byte-swizzled stage that wgmma
+//   reads: an fp32 B as hi = bf16(B) and lo = bf16(B - hi), two reduction
+//   segments V B_hiᵀ + V B_loᵀ into one fp32 accumulator (V is exact in
+//   bf16, so the product keeps 16 bits of B), a bf16 B as one.  The split
+//   happens here, not in a pre-pass that would write and read B twice
+//   more.  The epilogue adds the W tile (TMA-loaded into shared memory)
+//   in fp32, rounds once to bf16 (round to nearest even), writes the tile
+//   back over W's copy and stores it with one TMA store.  The maps are 3-D
+//   (column, row, item), so the ragged edges of an item (K = 1712 = 13 x
+//   128 + 48) zero-fill and clip at that item.
+//   Each tile is a chain of latencies (B from L2, V's TMA, the product, W,
+//   the store) around little work, so the kernel keeps several tiles in
+//   flight on every SM: 96 KB of shared memory lets two persistent blocks
+//   share an SM, and each block requests the next tile's V and B as soon
+//   as this tile's products are done and its W into a second buffer, so
+//   that they arrive during this tile's epilogue and store.  Where K has
+//   few 128-row tiles, the grid strides over tiles in groups of 8 column
+//   tiles with the k tiles of a group in turn: the tiles in flight
+//   together are neighbours, so W moves in runs of 1 KB per row and the
+//   V and B a tile reads sit in L2, however wide N is (16.5 MB of fp32 B
+//   at the unembedding).  Where K has 8 tiles or more (llama-100m's
+//   w_down, K = 1712), each block walks contiguous column strips, k tiles
+//   fastest, and splits a B tile once for its whole strip.  These choices
+//   were taken against one block per tile and against each other on an
+//   H100, at llama-100m's group shapes.  In place (out = w) is safe: each
+//   tile reads its own W region before it writes it, and no other tile
+//   touches it.
+// * SIMT (lowrank_merge_launch; fp32 W or V, the stochastically rounded
+//   merge, rows TMA cannot address): one block owns a 64 x 64 tile of one
+//   batch item (gemm_tile.cuh, blockIdx.z = item) on fp32 FMAs; W is the
+//   addend of the tile's epilogue and may be the output itself (each
+//   element is read and written by the same thread).
 //
 // Plain C interface, loaded with ctypes; the Python wrapper
 // (repro_torch/kernels/lowrank_update.py) allocates the output.
 
+#include <algorithm>
+
 #include "gemm_tile.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -82,6 +121,307 @@ int pick_v(int tv, int tb, const void* w, const void* v, const void* b,
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// Tensor-core route
+// ---------------------------------------------------------------------------
+
+// (an unnamed namespace: prepare()'s static must not be one object across
+// the libraries that are loaded together)
+namespace {
+namespace mtc {
+
+constexpr int BM = 128;                  // rows of W per block (K)
+constexpr int BN = 64;                   // columns of W per block (N)
+constexpr int RK = 128;                  // rank depth per round: two stages
+constexpr int THREADS = 256;             // two warpgroups
+constexpr uint32_t V_STAGE = BM * 128;   // 128 rows x 64 ranks of V: 16 KB
+constexpr uint32_t B_STAGE = BN * 128;   // 64 rows x 64 ranks of B: 8 KB
+constexpr uint32_t W_BYTES = BM * BN * 2;  // a W tile: 16 KB
+constexpr int B_UNITS = BN * 2 * 8 / THREADS;  // 8-value units per thread
+constexpr int BLOCKS_PER_SM = 2;
+constexpr int GROUP = 8;                 // column tiles per group (coords)
+constexpr int STRIP_K_TILES = 8;         // k tiles from which strips pay
+// align slack, V, B hi and lo, two W buffers, three mbarriers
+constexpr size_t SMEM = 1024 + 2 * V_STAGE + 4 * B_STAGE + 2 * W_BYTES + 32;
+
+struct Args {
+  CUtensorMap w, v, out;   // 3-D (column, row, item); boxes of 64 x 128
+  const void* b;           // `items` (N, r) matrices, fp32 or bf16
+  int N, r, tiles_n, tiles_k;
+};
+
+// B's rows [n0, n0 + BN) and rank columns [c0, c0 + 64 stages) of one
+// item, loaded into registers (an fp32 B as 8 values per unit, a bf16 B
+// as one 16-byte vector); rows past N and ranks past r as zeros
+struct BRegs {
+  float4 x[B_UNITS][2];
+  uint4 raw[B_UNITS];
+};
+
+template <bool F32B>
+__device__ __forceinline__ void load_b(const Args& g, int item, int n0,
+                                       int c0, int stages, BRegs& br) {
+  const int per_row = 8 * stages;
+#pragma unroll
+  for (int i = 0; i < B_UNITS; ++i) {
+    const int u = threadIdx.x + i * THREADS;
+    const int n = u / per_row, k = c0 + 8 * (u % per_row);
+    const bool in = n < BN && n0 + n < g.N && k < g.r;
+    const size_t at = ((size_t)item * g.N + n0 + n) * g.r + k;
+    if constexpr (F32B) {
+      const float4* src =
+          reinterpret_cast<const float4*>(static_cast<const float*>(g.b) + at);
+      br.x[i][0] = in ? __ldg(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+      br.x[i][1] = in ? __ldg(src + 1) : make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      br.raw[i] = in ? __ldg(reinterpret_cast<const uint4*>(
+                           static_cast<const __nv_bfloat16*>(g.b) + at))
+                     : make_uint4(0, 0, 0, 0);
+    }
+  }
+}
+
+// the loaded B into the swizzled K-major stages at hi (and, for an fp32
+// B, lo: split_hi_lo8)
+template <bool F32B>
+__device__ __forceinline__ void store_b(int stages, const BRegs& br,
+                                        uint8_t* hi, uint8_t* lo) {
+  const int per_row = 8 * stages;
+#pragma unroll
+  for (int i = 0; i < B_UNITS; ++i) {
+    const int u = threadIdx.x + i * THREADS;
+    const int n = u / per_row, q = u % per_row;
+    if (n >= BN) continue;
+    const uint32_t off = (q / 8) * B_STAGE + tc::swz128(n, q % 8);
+    if constexpr (F32B) {
+      uint4 h, l;
+      tc::split_hi_lo8(br.x[i][0], br.x[i][1], h, l);
+      *reinterpret_cast<uint4*>(hi + off) = h;
+      *reinterpret_cast<uint4*>(lo + off) = l;
+    } else {
+      *reinterpret_cast<uint4*>(hi + off) = br.raw[i];
+    }
+  }
+}
+
+// Persistent and software-pipelined: the blocks (two per SM) walk their
+// tiles one rank round (up to 128 deep) at a time.  As soon as a round's
+// products are done, the next round's V (TMA) and B (into registers) are
+// requested, and, after a tile's last round, the next tile's W into the
+// other of two W buffers; all of them are in flight during this tile's
+// epilogue and store.  Two tile orders (STRIP, chosen by the launch from
+// the number of k tiles): with few k tiles, the grid strides over tiles
+// in groups of GROUP column tiles, so the tiles in flight together are
+// neighbours (W's rows read and written in runs of GROUP x 128 bytes, V
+// and B from L2); with many, each block walks contiguous column strips
+// and splits each B tile once for the whole strip.
+template <bool F32B, bool STRIP>
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
+    merge_tc_kernel(const __grid_constant__ Args g, int total) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const uint32_t sv = (raw + 1023u) & ~1023u;
+  const uint32_t shi = sv + 2 * V_STAGE, slo = shi + 2 * B_STAGE;
+  const uint32_t sw0 = slo + 2 * B_STAGE;          // W buffers 0 and 1
+  const uint32_t bar_v = sw0 + 2 * W_BYTES, bar_w0 = bar_v + 8;
+  uint8_t* gen = smem_raw + (sv - raw);
+  uint8_t* hi = gen + (shi - sv);
+  uint8_t* lo = gen + (slo - sv);
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int lane = tid % 32, warp = (tid % 128) / 32;
+  const int rounds = (g.r + RK - 1) / RK;
+  // tile t's place: STRIP, k tiles fastest; else in groups of GROUP
+  // column tiles, the k tiles of a group in turn, its column tiles
+  // fastest, so a tile's V and B tiles are read again within the group's
+  // sweep, from L2, however wide N is
+  auto coords = [&](int t, int& n0, int& k0, int& item) {
+    const int per_item = g.tiles_k * g.tiles_n;
+    if constexpr (STRIP) {
+      k0 = (t % g.tiles_k) * BM;
+      n0 = (t / g.tiles_k % g.tiles_n) * BN;
+      item = t / per_item;
+      return;
+    }
+    item = t / per_item;
+    t %= per_item;
+    const int first = t / (GROUP * g.tiles_k) * GROUP;
+    const int width = min(GROUP, g.tiles_n - first);
+    t -= first * g.tiles_k;
+    k0 = (t / width) * BM;
+    n0 = (first + t % width) * BN;
+  };
+  // STRIP: each block takes a contiguous run of tiles, k tiles fastest,
+  // so consecutive tiles share their B tile (a column strip), which stays
+  // split in shared memory down the strip
+  const int t_begin = STRIP ? (int)((int64_t)blockIdx.x * total / gridDim.x)
+                            : (int)blockIdx.x;
+  const int t_end = STRIP ? (int)((int64_t)(blockIdx.x + 1) * total /
+                                  gridDim.x)
+                          : total;
+  const int t_step = STRIP ? 1 : (int)gridDim.x;
+  auto stages_of = [&](int q) { return min(2, (g.r - q * RK + 63) / 64); };
+  // round q of tile t: its V by TMA (thread 0), its B into registers
+  BRegs br;
+  auto request = [&](int t, int q, bool with_b) {
+    int n0, k0, item;
+    coords(t, n0, k0, item);
+    const int c0 = q * RK, stages = stages_of(q);
+    if (tid == 0) {
+      tc::mbar_expect_tx(bar_v, stages * V_STAGE);
+      for (int s = 0; s < stages; ++s)
+        tc::tma_load3(sv + s * V_STAGE, &g.v, bar_v, c0 + 64 * s, k0, item);
+    }
+    if (with_b) load_b<F32B>(g, item, n0, c0, stages, br);
+  };
+
+  if (tid == 0) {
+    tc::mbar_init(bar_v, 1);
+    tc::mbar_init(bar_w0, 1);
+    tc::mbar_init(bar_w0 + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    if (t_begin < t_end) {
+      int n0, k0, item;
+      coords(t_begin, n0, k0, item);
+      tc::mbar_expect_tx(bar_w0, W_BYTES);
+      tc::tma_load3(sw0, &g.w, bar_w0, n0, k0, item);
+    }
+  }
+  __syncthreads();
+  if (t_begin < t_end) request(t_begin, 0, true);
+
+  uint32_t vphase = 0;
+  bool b_loaded = true;     // the registers hold B for the next round
+  int i = 0;
+  for (int t = t_begin; t < t_end; t += t_step, ++i) {
+    int n0, k0, item;
+    coords(t, n0, k0, item);
+    const int buf = i & 1;
+    const int next = t + t_step;
+    float d[BN / 2];
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) d[j] = 0.f;
+    tc::fence_regs(d);
+    for (int q = 0; q < rounds; ++q) {
+      const int stages = stages_of(q);
+      if (b_loaded) store_b<F32B>(stages, br, hi, lo);
+      tc::fence_proxy_async();
+      __syncthreads();
+      tc::mbar_wait(bar_v, vphase);
+      vphase ^= 1;
+      tc::wg_fence();
+      for (int s = 0; s < stages; ++s) {
+        const uint32_t a = sv + s * V_STAGE + wg * tc::BOX;
+        tc::mma_stage<BN, 0, 0>(d, a, shi + s * B_STAGE);
+        if constexpr (F32B) tc::mma_stage<BN, 0, 0>(d, a, slo + s * B_STAGE);
+      }
+      tc::wg_commit();
+      tc::wg_wait<0>();
+      tc::fence_regs(d);
+      __syncthreads();   // V and the B stages are free
+      if (q + 1 < rounds) {
+        request(t, q + 1, true);
+        b_loaded = true;
+      } else if (next < t_end) {
+        // a strip's next tile keeps the split B of this one
+        b_loaded = !(STRIP && rounds == 1 &&
+                     next / g.tiles_k == t / g.tiles_k);
+        request(next, 0, b_loaded);
+      }
+    }
+    // the next tile's W into the other buffer, once the store that read it
+    // (the tile before this one) is done reading
+    if (tid == 0 && next < t_end) {
+      tc::tma_store_wait_read();
+      int n1, k1, item1;
+      coords(next, n1, k1, item1);
+      tc::mbar_expect_tx(bar_w0 + 8 * (buf ^ 1), W_BYTES);
+      tc::tma_load3(sw0 + (buf ^ 1) * W_BYTES, &g.w, bar_w0 + 8 * (buf ^ 1),
+                    n1, k1, item1);
+    }
+    // W' = W + acc, rounded once, over W's tile; then one TMA store
+    const uint32_t sw = sw0 + buf * W_BYTES;
+    tc::mbar_wait(bar_w0 + 8 * buf, (i >> 1) & 1);
+    uint8_t* wt = gen + (sw - sv);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 64 * wg + 16 * warp + lane / 4 + 8 * h;
+        __nv_bfloat162* at = reinterpret_cast<__nv_bfloat162*>(
+            wt + tc::swz128(row, j) + 4 * (lane % 4));
+        const float2 wf = __bfloat1622float2(*at);
+        *at = __floats2bfloat162_rn(wf.x + d[4 * j + 2 * h],
+                                    wf.y + d[4 * j + 2 * h + 1]);
+      }
+    tc::fence_proxy_async();
+    __syncthreads();
+    if (tid == 0) {
+      tc::tma_store3(&g.out, sw, n0, k0, item);
+      tc::tma_store_commit();
+    }
+  }
+  if (tid == 0) tc::tma_store_wait_read();
+}
+
+template <bool F32B>
+int prepare() {
+  constexpr int kMaxDevices = 64;
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < kMaxDevices && done[dev]) return 0;
+  err = cudaFuncSetAttribute(merge_tc_kernel<F32B, false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)SMEM);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(merge_tc_kernel<F32B, true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)SMEM);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < kMaxDevices) done[dev] = true;
+  return 0;
+}
+
+template <bool F32B>
+int launch(const void* w, const void* v, const void* b, void* out,
+           int64_t items, int K, int N, int r, cudaStream_t st) {
+  int err = prepare<F32B>();
+  if (err != 0) return err;
+  Args g;
+  memset(&g, 0, sizeof(g));
+  const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  err = tc::make_map3(&g.w, w, bf, 2, items, K, N, 64, BM, sw);
+  if (err == 0) err = tc::make_map3(&g.out, out, bf, 2, items, K, N, 64, BM, sw);
+  if (err == 0) err = tc::make_map3(&g.v, v, bf, 2, items, K, r, 64, BM, sw);
+  if (err != 0) return err;
+  g.b = b;
+  g.N = N;
+  g.r = r;
+  g.tiles_n = (int)tc::ceil_div(N, BN);
+  g.tiles_k = (int)tc::ceil_div(K, BM);
+  const int64_t blocks = items * g.tiles_n * g.tiles_k;
+  if (blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  err = (int)cudaGetDevice(&dev);
+  if (err == 0)
+    err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev);
+  if (err != 0) return err;
+  const int64_t grid = std::min(blocks, (int64_t)BLOCKS_PER_SM * sms);
+  if (g.tiles_k >= STRIP_K_TILES)
+    merge_tc_kernel<F32B, true><<<(unsigned)grid, THREADS, SMEM, st>>>(
+        g, (int)blocks);
+  else
+    merge_tc_kernel<F32B, false><<<(unsigned)grid, THREADS, SMEM, st>>>(
+        g, (int)blocks);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace mtc
+}  // namespace
+
 // dtype codes: 0 = float32, 1 = bfloat16, one per operand (W and the
 // output share tw).  w, v, b hold `batch` contiguous (K, N), (K, r),
 // (N, r) items; out may equal w.  `bits` is nullptr for the plain merge;
@@ -99,5 +439,22 @@ extern "C" int lowrank_merge_launch(int tw, int tv, int tb, const void* w,
   if (tw == 1)
     return pick_v<__nv_bfloat16>(tv, tb, w, v, b, out, bits, batch, K, N, r,
                                  st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core route: bf16 w, v and out; tb = 0 (fp32 B, carried as a
+// bf16 hi, lo pair) or 1 (bf16 B).  w, v, b and out hold `batch`
+// contiguous (K, N), (K, r), (N, r) and (K, N) items, out may equal w;
+// K, N and r are multiples of 8 and every pointer is 16-byte aligned.
+// Returns 0 (queued), a CUDA error, or a negated CUresult of the
+// tensor-map encoding.
+extern "C" int lowrank_merge_tc_launch(int tb, const void* w, const void* v,
+                                       const void* b, void* out,
+                                       long long batch, int K, int N, int r,
+                                       void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K % 8 || N % 8 || r % 8 || r < 8) return (int)cudaErrorInvalidValue;
+  if (tb == 0) return mtc::launch<true>(w, v, b, out, batch, K, N, r, st);
+  if (tb == 1) return mtc::launch<false>(w, v, b, out, batch, K, N, r, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,10 @@
 // A tensor-core GEMM mainloop for Hopper (sm_90a), shared by the
 // bf16 routes of lowrank_forward.cu and lowrank_backward.cu.  Its
-// device pieces (mbarriers, TMA loads, descriptors, the wgmma
+// device pieces (mbarriers, TMA loads and stores over 2-D and 3-D maps,
+// descriptors, the in-kernel fp32 -> bf16 (hi, lo) split, the wgmma
 // instantiations at n = 8, 16, 64 and 128) also build the per-row-B
-// decode kernel of lowrank_forward.cu.
+// decode kernel of lowrank_forward.cu and the item-batched kernels of
+// lowrank_merge.cu and lowrank_project.cu.
 //
 // One block computes a 128 x BN output tile (BN = 128, or 64 where the
 // grid would otherwise hold fewer blocks than the card has SMs) with 288
@@ -132,6 +134,74 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// box at (c0 = column, c1 = row, c2 = item) of a 3-D `map` (make_map3)
+__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// shared memory at `src` to the box at (c0, c1, c2) of a 3-D `map`; the
+// parts of the box outside the tensor are not written
+__device__ __forceinline__ void tma_store3(const CUtensorMap* map,
+                                           uint32_t src, int c0, int c1,
+                                           int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// the issuing thread's bulk stores since the last commit, as one group
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// wait until the issuing thread's committed bulk stores have read their
+// shared memory (it may then be reused, or the block exit)
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// this thread's generic stores to shared memory made visible to the async
+// proxy (wgmma operands, TMA stores); a barrier must follow
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// named barrier `id` (1-15; 0 is __syncthreads) over `count` threads
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// element (row, 16-byte chunk) of a 128-byte-swizzled tile of 128-byte rows
+// (what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B into 1024-byte-aligned
+// shared memory): the chunk index XOR the row's place in its 8-row group
+__device__ __forceinline__ uint32_t swz128(int row, int chunk) {
+  return (uint32_t)row * 128u + ((uint32_t)(chunk ^ (row & 7)) << 4);
+}
+
+// fp32 x[0..7] as bf16 hi = bf16(x) and lo = bf16(x - hi), both rounded to
+// nearest, eight values to a 16-byte vector each
+__device__ __forceinline__ void split_hi_lo8(const float4& a, const float4& b,
+                                             uint4& hi, uint4& lo) {
+  const float x[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&hi);
+  __nv_bfloat162* l = reinterpret_cast<__nv_bfloat162*>(&lo);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    h[i] = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
+    const float2 hf = __bfloat1622float2(h[i]);
+    l[i] = __floats2bfloat162_rn(x[2 * i] - hf.x, x[2 * i + 1] - hf.y);
+  }
 }
 
 // wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
@@ -480,6 +550,30 @@ inline int make_map(CUtensorMap* map, const Operand& o, int box_rows) {
                         const_cast<void*>(o.ptr), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -(int)r;
+}
+
+// `items` contiguous row-major (rows, cols) matrices of `esize`-byte
+// elements as a 3-D map (column, row, item) with boxes of box_cols x
+// box_rows x 1: a box that runs past an item's last row or column is
+// zero-filled there (loads) or clipped (stores), never read from or
+// written into the next item.  Returns 0, or the driver's CUresult negated.
+inline int make_map3(CUtensorMap* map, const void* ptr,
+                     CUtensorMapDataType type, int esize, int64_t items,
+                     int64_t rows, int64_t cols, int box_cols, int box_rows,
+                     CUtensorMapSwizzle swizzle) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return -(int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)items};
+  const cuuint64_t strides[2] = {(cuuint64_t)(cols * esize),
+                                 (cuuint64_t)(rows * cols * esize)};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, type, 3, const_cast<void*>(ptr), dims, strides,
+                        box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -(int)r;

@@ -22,9 +22,23 @@ fp32 or bf16 (GaLore's path meets an fp32 gradient and a bf16 basis),
 and returns ``Gᵀ V`` (..,N,r) in fp32; a long K is split into ranges
 summed in a fixed order.
 
-``LAUNCHES`` counts launches per ``(kernel, shape)``: kernel
+Each kernel source has two routes on the card, chosen per launch by
+dtype and alignment alone (:func:`merge_route`, :func:`project_route`):
+``"tc"`` (TMA and ``wgmma`` on the tensor cores: bf16 W and V with an
+fp32 or bf16 B for the merge, a bf16 V with an fp32 or bf16 G for the
+projection, every row length a multiple of 8 and every pointer 16-byte
+aligned; an fp32 B or G is carried into the bf16 products as a (hi, lo)
+pair, :func:`ref.split_hi_lo`) or ``"simt"`` (fp32 FMAs: fp32 W or V,
+the stochastically rounded merge, rows TMA cannot address).  Neither
+gives way to the other: a failed launch raises.
+
+``LAUNCHES`` counts launches per ``(kernel, route, shape)``: kernel
 ``"lowrank_merge"`` or ``"lowrank_merge_sr"`` (the rounded form) with
-the shape of w, or ``"lowrank_project"`` with the shape of g.
+the shape of w, or ``"lowrank_project"`` with the shape of g.  A
+projection whose K is split keeps one int counter per output tile in
+the per-device buffer of the decode forward (``lowrank_forward``), which
+every launch leaves zeroed, so launches on one device are ordered on one
+stream.
 """
 from __future__ import annotations
 
@@ -37,16 +51,23 @@ from typing import Optional
 import torch
 
 from . import _build, ref
-from .lowrank_forward import DTYPE_CODE, MIN_K_PER_SPLIT, SMS, TILE, _route
+from .lowrank_forward import (DTYPE_CODE, MIN_K_PER_SPLIT, SMS, TILE,
+                              _counters, _route, tc_route)
 
-# (kernel, shape of w or g) -> launches on CUDA tensors
+# (kernel, route, shape of w or g) -> launches on CUDA tensors; route
+# "tc" | "simt"
 LAUNCHES: collections.Counter = collections.Counter()
 
+# the tensor-core projection: 128 output rows x 128 rank columns per
+# block, 64-deep stages, a K range at least 4 stages deep
+PROJECT_TILE, PROJECT_BK, PROJECT_MIN_STAGES = 128, 64, 4
 
-def launches(kernel: Optional[str] = None) -> int:
-    """Launches counted so far, of one kernel or of all."""
-    return sum(n for (k, _), n in LAUNCHES.items()
-               if kernel is None or k == kernel)
+
+def launches(kernel: Optional[str] = None,
+             route: Optional[str] = None) -> int:
+    """Launches counted so far, of one kernel and route or of all."""
+    return sum(n for (k, rt, _), n in LAUNCHES.items()
+               if kernel in (None, k) and route in (None, rt))
 
 
 def reset_launches() -> None:
@@ -56,12 +77,72 @@ def reset_launches() -> None:
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 
 
+def merge_route(w_dtype: torch.dtype, v_dtype: torch.dtype,
+                b_dtype: torch.dtype, K: int, N: int, r: int,
+                bits: bool = False, ptrs=()) -> str:
+    """``"tc"`` where the tensor-core merge takes a launch — bf16 W and
+    V, an fp32 or bf16 B, no rounding ``bits``, K, N and r multiples of
+    8 and every pointer 16-byte aligned — else ``"simt"``."""
+    if bits or w_dtype != torch.bfloat16 or b_dtype not in (
+            torch.float32, torch.bfloat16):
+        return "simt"
+    return tc_route(v_dtype, K, N, r, ptrs)
+
+
+def project_route(g_dtype: torch.dtype, v_dtype: torch.dtype, K: int,
+                  N: int, r: int, ptrs=()) -> str:
+    """``"tc"`` where the tensor-core projection takes a launch — a bf16
+    V, an fp32 or bf16 G, K, N and r multiples of 8 and every pointer
+    16-byte aligned — else ``"simt"``."""
+    if g_dtype not in (torch.float32, torch.bfloat16):
+        return "simt"
+    return tc_route(v_dtype, K, N, r, ptrs)
+
+
+def project_tiles(items: int, N: int, r: int) -> int:
+    """Output tiles of a tensor-core projection launch."""
+    return items * -(-N // PROJECT_TILE) * -(-r // PROJECT_TILE)
+
+
+def project_plan(items: int, K: int, N: int, r: int) -> int:
+    """How many K ranges a tensor-core projection launch splits into.  A
+    block holds 210 KB of shared memory, so the card runs one per SM: as
+    many ranges as keep the blocks (tiles x ranges) within one wave of
+    ``SMS``, each at least ``PROJECT_MIN_STAGES`` 64-deep stages.  A
+    second wave costs more than it fills (``chip_smoke.py`` times
+    llama-100m's w_down group, 60 tiles over K = 1712, at 1, 2 and 3
+    ranges)."""
+    stages = -(-K // PROJECT_BK)
+    return max(1, min(SMS // project_tiles(items, N, r),
+                      stages // PROJECT_MIN_STAGES))
+
+
+def project_ranges(K: int, splits: int) -> list:
+    """The ``[begin, end)`` K ranges of a tensor-core projection launch,
+    as the kernel cuts them: range z holds stages ``[z S / splits, (z +
+    1) S / splits)`` of the S = ceil(K / 64), so every range starts on a
+    stage, holds whole stages (the last ends at K) and none is empty."""
+    stages = -(-K // PROJECT_BK)
+    return [(z * stages // splits * PROJECT_BK,
+             min(K, (z + 1) * stages // splits * PROJECT_BK))
+            for z in range(splits)]
+
+
 @functools.cache
 def _kernel():
     fn = _build.load("lowrank_merge").lowrank_merge_launch
     # tw, tv, tb, w, v, b, bits, out, batch, K, N, r, stream
     fn.argtypes = [_CI] * 3 + [_VP] * 5 + [ctypes.c_longlong] + [_CI] * 3 \
         + [_VP]
+    fn.restype = _CI
+    return fn
+
+
+@functools.cache
+def _tc_kernel():
+    fn = _build.load("lowrank_merge").lowrank_merge_tc_launch
+    # tb, w, v, b, out, batch, K, N, r, stream
+    fn.argtypes = [_CI] + [_VP] * 4 + [ctypes.c_longlong] + [_CI] * 3 + [_VP]
     fn.restype = _CI
     return fn
 
@@ -122,18 +203,28 @@ def lowrank_merge(w: torch.Tensor, v: torch.Tensor, b: torch.Tensor,
     r = v.shape[-1]
     if w.numel() == 0 or r == 0:
         return out.copy_(w)     # sr_bf16 keeps a bf16 value as it is
+    items = w.numel() // (K * N)
+    route = merge_route(w.dtype, v.dtype, b.dtype, K, N, r,
+                        bits is not None,
+                        (t.data_ptr() for t in (w, v, b, out)))
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream
-        rc = _kernel()(DTYPE_CODE[w.dtype], DTYPE_CODE[v.dtype],
-                       DTYPE_CODE[b.dtype], w.data_ptr(), v.data_ptr(),
-                       b.data_ptr(), None if bits is None else
-                       bits.data_ptr(), out.data_ptr(), w.numel() // (K * N),
-                       K, N, r, stream)
+        if route == "tc":
+            rc = _tc_kernel()(DTYPE_CODE[b.dtype], w.data_ptr(),
+                              v.data_ptr(), b.data_ptr(), out.data_ptr(),
+                              items, K, N, r, stream)
+        else:
+            rc = _kernel()(DTYPE_CODE[w.dtype], DTYPE_CODE[v.dtype],
+                           DTYPE_CODE[b.dtype], w.data_ptr(), v.data_ptr(),
+                           b.data_ptr(), None if bits is None else
+                           bits.data_ptr(), out.data_ptr(), items, K, N, r,
+                           stream)
     if rc != 0:
         raise RuntimeError(
-            f"{name} kernel launch failed with CUDA error {rc} "
-            f"(w {tuple(w.shape)}, r={r})")
-    LAUNCHES[(name, tuple(w.shape))] += 1
+            f"{name} kernel ({route} route) launch failed with error {rc} "
+            f"(a CUDA error, or a negated CUresult of the tensor-map "
+            f"encoding; w {tuple(w.shape)}, r={r})")
+    LAUNCHES[(name, route, tuple(w.shape))] += 1
     return out
 
 
@@ -141,17 +232,27 @@ def lowrank_merge(w: torch.Tensor, v: torch.Tensor, b: torch.Tensor,
 # G_B = Gᵀ V (GaLore's projection)
 # ---------------------------------------------------------------------------
 
-MAX_GRID_Z = 65535          # the grid's z extent: items x K ranges
+MAX_GRID_Z = 65535          # the SIMT grid's z extent: items x K ranges
 
 
 def project_splits(items: int, K: int, N: int, r: int) -> int:
-    """How many K ranges the projection splits into: about four blocks
+    """How many K ranges the SIMT projection splits into: about four blocks
     per SM over all ``items``, each range at least ``MIN_K_PER_SPLIT``
     deep, and ``items`` x ranges within the grid's z extent."""
     tiles = items * -(-N // TILE) * -(-r // TILE)
     s = min(-(-4 * SMS // tiles), -(-K // MIN_K_PER_SPLIT),
             MAX_GRID_Z // items)
     return max(1, s)
+
+
+@functools.cache
+def _project_tc_kernel():
+    fn = _build.load("lowrank_project").lowrank_project_tc_launch
+    # tg, g, v, out, part, counters, splits, batch, K, N, r, stream
+    fn.argtypes = [_CI] + [_VP] * 5 + [_CI, ctypes.c_longlong] \
+        + [_CI] * 3 + [_VP]
+    fn.restype = _CI
+    return fn
 
 
 @functools.cache
@@ -195,20 +296,38 @@ def lowrank_project(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     items = math.prod(lead)
     if out.numel() == 0 or K == 0:
         return out.zero_()
-    if items > MAX_GRID_Z:
-        raise ValueError(f"lowrank_project: {items} leading items, the "
-                         f"kernel takes at most {MAX_GRID_Z}")
-    s = project_splits(items, K, N, r)
-    part = torch.empty((items * s, N, r) if s > 1 else (0,),
-                       dtype=torch.float32, device=g.device)
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream(g.device).cuda_stream
-        rc = _project_kernel()(DTYPE_CODE[g.dtype], DTYPE_CODE[v.dtype],
-                               g.data_ptr(), v.data_ptr(), out.data_ptr(),
-                               part.data_ptr(), s, items, K, N, r, stream)
+    route = project_route(g.dtype, v.dtype, K, N, r,
+                          (t.data_ptr() for t in (g, v, out)))
+    dev = g.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if route == "tc":
+            s = project_plan(items, K, N, r)
+            tiles = project_tiles(items, N, r)
+            part = torch.empty(s * tiles * PROJECT_TILE ** 2 if s > 1 else 0,
+                               dtype=torch.float32, device=dev)
+            counters = _counters(dev, tiles) if s > 1 else None
+            rc = _project_tc_kernel()(
+                DTYPE_CODE[g.dtype], g.data_ptr(), v.data_ptr(),
+                out.data_ptr(), part.data_ptr() if s > 1 else None,
+                None if counters is None else counters.data_ptr(), s, items,
+                K, N, r, stream)
+        else:
+            if items > MAX_GRID_Z:
+                raise ValueError(f"lowrank_project: {items} leading items, "
+                                 f"the SIMT kernel takes at most "
+                                 f"{MAX_GRID_Z}")
+            s = project_splits(items, K, N, r)
+            part = torch.empty((items * s, N, r) if s > 1 else (0,),
+                               dtype=torch.float32, device=dev)
+            rc = _project_kernel()(DTYPE_CODE[g.dtype], DTYPE_CODE[v.dtype],
+                                   g.data_ptr(), v.data_ptr(),
+                                   out.data_ptr(), part.data_ptr(), s, items,
+                                   K, N, r, stream)
     if rc != 0:
         raise RuntimeError(
-            f"lowrank_project kernel launch failed with CUDA error {rc} "
-            f"(g {tuple(g.shape)}, r={r})")
-    LAUNCHES[("lowrank_project", tuple(g.shape))] += 1
+            f"lowrank_project kernel ({route} route) launch failed with "
+            f"error {rc} (a CUDA error, or a negated CUresult of the "
+            f"tensor-map encoding; g {tuple(g.shape)}, r={r})")
+    LAUNCHES[("lowrank_project", route, tuple(g.shape))] += 1
     return out

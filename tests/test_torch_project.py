@@ -173,7 +173,11 @@ def test_project_kernel_matches_plain_on_card(cuda, dtypes, lead, K, N, r):
     # fp32 sums of the same (exactly cast) products in another order
     err = (got - want).abs().max().item()
     assert err <= 1e-5 * want.abs().max().item()
-    assert lu.LAUNCHES == {("lowrank_project", tuple(g.shape)): 1}
+    # the tensor cores take a bf16 V with row lengths that are multiples
+    # of 8 (an fp32 G as a bf16 hi, lo pair); SIMT takes the rest
+    route = "tc" if v.dtype == torch.bfloat16 and not any(
+        d % 8 for d in (K, N, r)) else "simt"
+    assert lu.LAUNCHES == {("lowrank_project", route, tuple(g.shape)): 1}
 
 
 @pytest.mark.cuda
