@@ -4,8 +4,9 @@
 
 1. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together), and counts the tensor-core
-   (``HGMMA``) instructions in the SASS of the forward's, the backward's,
-   the merge's and the projection's libraries: none is a failure.
+   instructions in the SASS: ``HGMMA`` (wgmma) in the forward's, the
+   backward's, the merge's and the projection's libraries, ``HMMA``
+   (mma.sync) in the SSD kernel's; none is a failure.
 2. Holds both forms of the low-rank forward kernel (shared B at prefill,
    M = 128, or 1 for the unembedding; one B per row at decode, batch 4 x
    seq 1, read by tenant index from a store of 4 tenants with rows
@@ -17,12 +18,14 @@
    out, beside the eager time per call).  Holds the SSD intra-chunk
    kernel against its plain version at mamba2-780m's four prefill
    shapes (prompts of 100, 128, 256 and 512 tokens), fp32, with dt and
-   A drawn by the mixer's laws, and times both.
+   A drawn by the mixer's laws, logs the launch split its plan chose,
+   and times both the same way.
 3. Holds the training kernels against their plain versions at the
    llama-100m shapes, and times them the same way: the forward with its
    ``p`` residual and the backward at M = 16384 (batch 64 x seq 256) for
    the four (K, N) of the model, the merge at its four group shapes
-   (bf16 W and V, fp32 B: the tensor-core route), subspace-Adam at the four group B shapes; and
+   (bf16 W and V, fp32 B: the tensor-core route), subspace-Adam at the
+   four group B shapes (against fused ``torch.optim.AdamW``); and
    the compressed-state kernels at the same shapes: subspace-Lion (fp32
    state), the int8-moment Adam and Lion (bf16 b with rounding bits, and
    fp32 b without) and the stochastically rounded merge (bf16 W, V, B);
@@ -45,7 +48,8 @@
    tenants, 8 requests of 100, 128, 256 and 512 prompt tokens, two of
    each, and 32 new tokens), which also checks that every prefill
    launched the SSD kernel once per layer, prints prefill time by prompt
-   length and the peak memory, and profiles a 512-token prefill; its
+   length and the peak memory, and profiles a 512-token prefill (with
+   the SSD kernel's device time); its
    lazy == merged check prefills 256 tokens (two chunks).  Then a
    2-layer full-width fp32 cut of mamba2-780m serves two tenants
    (prefill of 256 tokens each, 4 decode steps at batch 2) through the
@@ -81,7 +85,16 @@
    sides) in fp32.
 
 Each ``[kernel]`` row and JSON entry names the route its launch took,
-``"tc"`` (TMA + ``wgmma``) or ``"simt"`` (JSON ``"path"``).  After every
+``"tc"`` (the tensor cores: TMA + ``wgmma``, or ``mma.sync`` for the SSD
+kernel) or ``"simt"`` (JSON ``"path"``).  Rows whose kernel takes about
+as long as the wrapper's host time (the decode-shaped forward, the
+merges, the projection, the optimizer updates, the SSD kernel) are
+timed on the device alone: the stream is held while the host queues the
+calls (JSON ``"timing": "queued"``, the eager time per call beside as
+``"eager_ms"``).  The optimizer updates and the stochastically rounded
+merge are also timed with the L2 cache flushed before each call, each
+call by its own events: their smaller shapes fit in L2, and in training
+their state was last read a step before.  After every
 bf16 serving and training run the launch counters must show no forward
 (any form), backward, plain merge or projection launch on the SIMT
 route (the stochastically rounded merge of 6b and 6c runs on SIMT and
@@ -142,29 +155,73 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def queued_ms(fn, calls=20, hold_s=0.05):
+_L2_FLUSH = {}
+
+
+def _l2_flush():
+    """A buffer of twice the card's L2 cache: reading it evicts what the
+    calls before left there."""
+    dev = torch.cuda.current_device()
+    if dev not in _L2_FLUSH:
+        props = torch.cuda.get_device_properties(dev)
+        l2 = getattr(props, "L2_cache_size", 0) or 50 << 20  # H100: 50 MB
+        _L2_FLUSH[dev] = torch.zeros(2 * l2 // 4, device=dev)
+    return _L2_FLUSH[dev]
+
+
+def queued_ms(fn, calls=20, hold_s=0.05, cold=False):
     """Device ms per call of ``calls`` calls run back to back: the stream
     is held by a sleep kernel while the host queues them, so the host's
     time per call (longer than a decode-sized kernel's) is left out, as
-    it is once a decode step runs as a CUDA graph.  Fails if the host
-    took longer to queue the calls than the stream was held."""
-    fn()
-    torch.cuda.synchronize()
+    it is once a decode step runs as a CUDA graph.  ``cold``: each call
+    instead gets a hold of its own (``hold_s / 5``), during which the
+    host queues an L2 flush (a read of twice the cache) and the call
+    between its own pair of events, so that the call's inputs come from
+    HBM even where they would fit in L2; the device drains before the
+    next call, and a call the host queued too slowly is run again (at
+    most twice).  Fails if the host took longer to queue than the
+    stream was held."""
+    if not cold:
+        fn()
+        ms, queued = _held_ms(fn, calls, hold_s)
+    else:
+        flush = _l2_flush()
+        flush.sum()         # its kernel loaded before the host is timed
+        fn()
+        hold_s, ms, worst = hold_s / 5, 0.0, 0.0
+        for _ in range(calls):
+            for _ in range(3):
+                one, queued = _held_ms(fn, 1, hold_s, before=flush.sum)
+                if queued <= hold_s / 2:
+                    break
+            ms, worst = ms + one / calls, max(worst, queued)
+        queued = worst
+    if queued > hold_s / 2:
+        raise SystemExit(f"queued_ms: the host took {queued:.4f} s to queue "
+                         f"{1 if cold else calls} calls, the stream was "
+                         f"held {hold_s} s")
+    return ms
+
+
+def _held_ms(fn, calls, hold_s, before=None):
+    """(device ms per call, host seconds to queue them) of ``calls``
+    calls of ``fn`` queued while a sleep kernel holds the stream for
+    ``hold_s``, ``before`` queued ahead of them, untimed."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
     # at most 2 GHz on an H100: the stream is held at least hold_s
     torch.cuda._sleep(int(hold_s * 2e9))
     t0 = time.perf_counter()
+    if before is not None:
+        before()
     start.record()
     for _ in range(calls):
         fn()
     end.record()
     queued = time.perf_counter() - t0
     torch.cuda.synchronize()
-    if queued > hold_s / 2:
-        raise SystemExit(f"queued_ms: the host took {queued:.4f} s to queue "
-                         f"{calls} calls, the stream was held {hold_s} s")
-    return start.elapsed_time(end) / calls
+    return start.elapsed_time(end) / calls, queued
 
 
 def launch_path(mod, at=-3):
@@ -460,6 +517,18 @@ def profile_prefill(params, store, cfg, lm, n, tag, rng):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     log_profile(f"profile {tag}", f"prefill of {n} tokens", prof, wall, 1)
+    if cfg.family == "ssm":
+        rows, _ = device_rows(prof)
+        # the chunk grid starts while the Gram grid runs: the sum of the
+        # two counts their overlap twice
+        ms, n = {}, {}
+        for grid in ("gram", "chunk"):
+            ssd = [e for e in rows if f"ssd_{grid}_kernel" in e.key]
+            ms[grid] = sum(e.self_device_time_total for e in ssd) / 1e3
+            n[grid] = sum(e.count for e in ssd)
+        log(f"[profile {tag}] ssd_intra_chunk: {ms['gram'] + ms['chunk']:.2f} "
+            f"device ms (Gram grids {ms['gram']:.2f} in {n['gram']}, chunk "
+            f"grids {ms['chunk']:.2f} in {n['chunk']}; they overlap)")
 
 
 def profile_decode(eng, cfg, serve_mod, rng, steps=2, tag="serve"):
@@ -705,13 +774,15 @@ SSD_REPLACES = "src/repro/kernels/ssd_chunk.py:63"
 # (BC, Q, H, P, N) of mamba2-780m's prefills -> prompt tokens
 SSD_SHAPES = {(1, 100, 48, 64, 128): 100, (1, 128, 48, 64, 128): 128,
               (2, 128, 48, 64, 128): 256, (4, 128, 48, 64, 128): 512}
-# relative to max|y| and max|state|.  Measured 0 at all four shapes on an
-# H100 80GB HBM3 (700 W): the kernel sums in the order of cuBLAS's
-# unsplit FFMA GEMM and of torch's outer-dim scan, and both call the same
-# expf.  The limit covers another cuBLAS kernel or scan order, under which
+# relative to max|y| and max|state|.  The SIMT kernel this one replaced
+# measured 0 at all four shapes on an H100 80GB HBM3 (700 W): it summed in
+# the order of cuBLAS's unsplit FFMA GEMM and of torch's outer-dim scan.  The
+# tensor-core kernel sums in another order (3xTF32 products, fp64 scan);
+# the limit covers that and torch's fp32 scan on the card, under which
 # clog (up to 317 in magnitude here, one fp32 step 3e-5) moves each decay
 # factor by up to about 3e-5.
 SSD_TOL = 1e-4
+TF32_FLOP_PER_S = 495e12        # dense TF32 tensor-core peak
 # mamba2-780m's projections (K, N) -> (leaves, prefill rows): the
 # projections at the longest prompt, the unembedding at one position
 MAMBA_SHAPES = {(1536, 6448): ("in_proj", 512),
@@ -725,8 +796,15 @@ def compare_ssd_kernel(mods, dev):
     group broadcast over the heads (head stride 0, as the path passes
     them) and dt, A drawn by the mixer's laws: dt = softplus(z +
     dt_bias), z ~ N(0, 1), dt_bias the inverse softplus of exp(U[log
-    1e-3, log 0.1]), A = -U[1, 16].  No single PyTorch call computes
-    this function: library_ms is null."""
+    1e-3, log 0.1]), A = -U[1, 16].  Kernel and plain version are timed
+    on the device alone (the stream held while the host queues the
+    calls), the wrapper's eager time beside.  The bound is the larger of
+    the bytes and the 3xTF32 products (three TF32 products per
+    multiply-add, the Gram once per B/C group) at the TF32 peak; the fp32
+    SIMT bound beside it in the log.  The chunk's inputs stay in L2 across
+    the calls, as in the path, where the causal conv has just written
+    them.  No single PyTorch call computes this function: library_ms is
+    null."""
     ref, sc = mods["ref"], mods["sc"]
     gen = torch.Generator(device=dev)
     gen.manual_seed(8)
@@ -745,6 +823,12 @@ def compare_ssd_kernel(mods, dev):
         x = torch.randn((BC, Q, H, P), generator=gen, device=dev)
         b, c = (torch.randn((BC, Q, 1, N), generator=gen, device=dev)
                 .expand(-1, -1, H, -1) for _ in range(2))
+        plan = sc.ssd_plan(BC, Q, H, N, P, True)
+        log(f"[kernel] ssd_intra_chunk {list(shape)}: plan {plan.groups} "
+            f"Gram group, {plan.pairs} strip pairs x {plan.gram_cols} "
+            f"column blocks, {plan.parts} parts a head: {plan.gram_ctas} "
+            f"Gram CTAs, then {plan.chunk_ctas} chunk CTAs (a programmatic "
+            f"dependent launch) on 132 SMs")
         y, st = sc.ssd_intra_chunk(x, dt, da, b, c)
         torch.cuda.synchronize()
         want_y, want_st = ref.ssd_intra_chunk(x, dt, da, b, c)
@@ -756,24 +840,30 @@ def compare_ssd_kernel(mods, dev):
                   / want_st.abs().max().item())
         clog = torch.cumsum(da, dim=1)
         overflow = (clog[:, :1] - clog[:, -1:]).max().item()
-        ops = BC * H * (Q * (Q + 1) * (N + P) + 2 * Q * N * P)
         # b and c count once per B/C group: a head broadcast (stride 0)
-        # is one group read by every head
+        # is one group read by every head, and its Gram is computed once
         groups = 1 if b.stride(2) == 0 else H
+        ops = BC * (groups * Q * (Q + 1) * N
+                    + H * (Q * (Q + 1) * P + 2 * Q * N * P))
         nbytes = 4 * (2 * BC * Q * H * P + 2 * BC * Q * H
                       + 2 * BC * Q * groups * N + BC * H * N * P)
-        bms, by = bound_of(nbytes, ops, FP32_FLOP_PER_S)
+        bms, by = bound_of(nbytes, 3 * ops, TF32_FLOP_PER_S)
+        fp32_bms, fp32_by = bound_of(nbytes, ops, FP32_FLOP_PER_S)
         r = dict(shape=shape, tokens=tokens, max_abs_err=err,
-                 ms=time_auto(lambda: sc.ssd_intra_chunk(x, dt, da, b, c)),
-                 plain_ms=time_auto(lambda: ref.ssd_intra_chunk(x, dt, da,
+                 ms=queued_ms(lambda: sc.ssd_intra_chunk(x, dt, da, b, c)),
+                 plain_ms=queued_ms(lambda: ref.ssd_intra_chunk(x, dt, da,
                                                                 b, c)),
-                 library_ms=None, bound_ms=bms, bound_by=by)
+                 library_ms=None, bound_ms=bms, bound_by=by,
+                 eager_ms=time_ms(lambda: sc.ssd_intra_chunk(x, dt, da, b,
+                                                             c), iters=50))
         rows.append(r)
         log(f"[kernel] ssd_intra_chunk {list(shape)} ({tokens}-token "
-            f"prompt) max_abs_err={err:.4g} (max rel {rel:.3g}, tol "
-            f"{SSD_TOL}*max; the largest masked clog_i - clog_j "
+            f"prompt) route=tc max_abs_err={err:.4g} (max rel {rel:.3g}, "
+            f"tol {SSD_TOL}*max; the largest masked clog_i - clog_j "
             f"{overflow:.1f}) ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-            f"library_ms=null bound_ms={bms:.4f} ({by})")
+            f"library_ms=null bound_ms={bms:.4f} ({by}; fp32 SIMT "
+            f"{fp32_bms:.4f}, {fp32_by}) [queued; eager "
+            f"{r['eager_ms']:.4f} ms/call]")
         del x, dt, da, b, c, y, st, want_y, want_st
     torch.cuda.empty_cache()
     return rows
@@ -861,7 +951,7 @@ def compare_train_kernels(mods, dev):
     rows = []
 
     def row(kernel, shape, leaves, err, tol, ms, plain_ms, library_ms,
-            bound, path="simt", eager_ms=None):
+            bound, path="simt", eager_ms=None, cold=False):
         bms, by = bound
         rows.append(dict(kernel=kernel, shape=shape, leaves=leaves,
                          path=path, max_abs_err=err, ms=ms,
@@ -872,7 +962,8 @@ def compare_train_kernels(mods, dev):
             f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
             f"bound_ms={bms:.4f} ({by})" + (
                 "" if eager_ms is None else
-                f" [queued; eager {eager_ms:.4f} ms/call]"))
+                f" [queued{', L2 flushed' if cold else ''}; eager "
+                f"{eager_ms:.4f} ms/call]"))
 
     def randn(*shape, scale=1.0):
         return scale * torch.randn(shape, generator=gen, device=dev)
@@ -992,12 +1083,20 @@ def compare_train_kernels(mods, dev):
                                                       ADAM["beta2"]),
                                 eps=ADAM["eps"], weight_decay=ADAM["wd"],
                                 fused=True)
+        # device time: the stream is held while the host queues the calls
+        # (an eager call's host time is near the kernel's), the L2 flushed
+        # before each (w_down's 27.5 MB would stay there; in training the
+        # state was last read a step before)
         row("subspace_adam", bshape, leaves, err, "1e-6*max|x|",
-            time_auto(lambda: sa.subspace_adam(b, g, m, v, scalars,
-                                               **ADAM)),
-            time_auto(lambda: ref.subspace_adam(b, g, m, v, lr=lr, bc1=bc1,
-                                                bc2=bc2, **ADAM)),
-            time_auto(opt.step), bound_of(28 * n, 15 * n, FP32_FLOP_PER_S))
+            queued_ms(lambda: sa.subspace_adam(b, g, m, v, scalars, **ADAM),
+                      cold=True),
+            queued_ms(lambda: ref.subspace_adam(b, g, m, v, lr=lr, bc1=bc1,
+                                                bc2=bc2, **ADAM), cold=True),
+            queued_ms(opt.step, cold=True),
+            bound_of(28 * n, 15 * n, FP32_FLOP_PER_S),
+            eager_ms=time_ms(lambda: sa.subspace_adam(b, g, m, v, scalars,
+                                                      **ADAM), iters=50),
+            cold=True)
         del b, g, m, v, got, want, pb, opt
     torch.cuda.empty_cache()
     return rows
@@ -1043,17 +1142,24 @@ def compare_state_kernels(mods, dev):
                                  f"expected)")
         return err
 
-    def row(kernel, form, shape, leaves, err, tol, ms, plain_ms, n_bytes,
+    def row(kernel, form, shape, leaves, err, tol, kern, plain, n_bytes,
             ops, peak):
+        """Kernel and plain version timed on the device alone (the stream
+        held while the host queues the calls, the L2 flushed before each:
+        the smaller shapes' operands would stay there, and in training the
+        state was last read a step before), the eager time beside."""
         bms, by = bound_of(n_bytes, ops, peak)
+        ms = queued_ms(kern, cold=True)
+        plain_ms = queued_ms(plain, cold=True)
+        eager_ms = time_ms(kern, iters=50)
         rows.append(dict(kernel=kernel, form=form, shape=shape,
                          leaves=leaves, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, library_ms=None, bound_ms=bms,
-                         bound_by=by))
+                         bound_by=by, eager_ms=eager_ms))
         log(f"[kernel] {kernel:18s} {form:13s} {str(shape):22s} ({leaves}) "
             f"max_abs_err={err:.4g} (tol {tol}) ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms=null bound_ms={bms:.4f} "
-            f"({by})")
+            f"({by}) [queued, L2 flushed; eager {eager_ms:.4f} ms/call]")
 
     step = torch.tensor(5, dtype=torch.int32, device=dev)
     sc3 = dispatch.adam_scalars(3e-3, step, ADAM["beta1"], ADAM["beta2"],
@@ -1071,9 +1177,8 @@ def compare_state_kernels(mods, dev):
         err = exact(f"lion {bshape}", got,
                     ref.subspace_lion(b, g, m, lr=sc1[0], **LION))
         row("subspace_lion", "fp32 state", bshape, leaves, err, "exact",
-            time_auto(lambda: sa.subspace_lion(b, g, m, sc1, **LION)),
-            time_auto(lambda: ref.subspace_lion(b, g, m, lr=sc1[0],
-                                                **LION)),
+            lambda: sa.subspace_lion(b, g, m, sc1, **LION),
+            lambda: ref.subspace_lion(b, g, m, lr=sc1[0], **LION),
             nbytes(b, g, m, *got), 8 * n, FP32_FLOP_PER_S)
         # int8 moments, (R, 128) rows
         R = n // QROW
@@ -1110,8 +1215,7 @@ def compare_state_kernels(mods, dev):
                 got = kern()
                 torch.cuda.synchronize()
                 err = exact(f"{kernel} {form} {bshape}", got, plain())
-                row(kernel, form, bshape, leaves, err, "exact",
-                    time_auto(kern), time_auto(plain),
+                row(kernel, form, bshape, leaves, err, "exact", kern, plain,
                     nbytes(*ins, *extra, *got), ops, FP32_FLOP_PER_S)
             del got
         del b, g, m, mq, vq, g2, mq2, vq2
@@ -1135,8 +1239,8 @@ def compare_state_kernels(mods, dev):
                     (ref.lowrank_merge_sr(w, v, b, bits),))
         items = w.numel() // (K * N)
         row("lowrank_merge_sr", "bf16 W, V, B", shape, leaves, err, "exact",
-            time_auto(lambda: lu.lowrank_merge(w, v, b, out=got, bits=bits)),
-            time_auto(lambda: ref.lowrank_merge_sr(w, v, b, bits)),
+            lambda: lu.lowrank_merge(w, v, b, out=got, bits=bits),
+            lambda: ref.lowrank_merge_sr(w, v, b, bits),
             nbytes(w, v, b, bits, got), 2 * K * N * RANK * items,
             BF16_FLOP_PER_S)
         del w, v, b, bits, got
@@ -1657,6 +1761,14 @@ def main():
         log(f"[build] lib{name}: {n} HGMMA (wgmma) instructions in its SASS")
         if n == 0:
             raise SystemExit(f"lib{name} holds no tensor-core instruction")
+    # the SSD kernel runs mma.sync (TF32), which is HMMA in the SASS
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(built["ssd_chunk"]["path"])],
+                          capture_output=True, text=True, check=True).stdout
+    n = sum("HMMA" in line for line in sass.splitlines())
+    log(f"[build] libssd_chunk: {n} HMMA (mma.sync) instructions in its SASS")
+    if n == 0:
+        raise SystemExit("libssd_chunk holds no tensor-core instruction")
 
     mods = dict(lf=lf, lb=lb, lu=lu, sa=sa, sc=sc, ref=ref,
                 dispatch=dispatch, lm=lm, configs=configs, serve=serve_mod,
@@ -1712,12 +1824,13 @@ def main():
             "name": f"ssd_intra_chunk [fp32, B/C head stride 0] "
                     f"{list(row['shape'])} (mamba2-780m, "
                     f"{row['tokens']}-token prompt)",
-            "route": "cuda", "path": "simt", "source": SSD_SOURCE,
+            "route": "cuda", "path": "tc", "source": SSD_SOURCE,
             "replaces": SSD_REPLACES,
             "launches": ssd_counts.get(("ssd_intra_chunk", row["shape"]), 0),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "timing": "queued", "eager_ms": row["eager_ms"]})
     for row in train_rows:
         kernels.append({
             "name": f"{row['kernel']} {list(row['shape'])} "
@@ -1740,7 +1853,8 @@ def main():
         key = (row["kernel"], row["shape"])
         if row["form"] == "fp32 b":
             by_key[key]["fp32_b"] = {k: row[k] for k in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "eager_ms")}
             continue
         by_key[key] = {
             "name": f"{row['kernel']} [{row['form']}] {list(row['shape'])} "
@@ -1751,7 +1865,8 @@ def main():
             "launches": state_counts.get(key, 0),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "timing": "queued", "eager_ms": row["eager_ms"]}
     kernels.extend(by_key.values())
     for row in project_rows:
         kernels.append({

@@ -12,45 +12,145 @@
 // are read through strides (bc, q, head; n contiguous), so a head stride
 // of 0 reads one B/C group for every head without a broadcast copy.
 //
-// The TPU kernel builds a (head-block, Q, Q) score cube in VMEM and runs
-// the two contractions on the MXU.  Here one block of 256 threads owns one
-// (bc, h) and keeps its whole chunk in shared memory: B (Q x N, rows
-// padded by one float so that a warp reading 32 rows of one column hits 32
-// banks) and x (Q x P), fp32, with the cumsum of da and dt (thread 0 sums
-// in token order).  Scores are built 32 rows of i at a time, each thread a
-// 4 x 4 register tile (rows by warp, columns by lane), and only over the
-// column blocks that reach the diagonal: the causal half.  A pair j > i is
-// never passed to expf: at mamba2's dt*A (A down to -16) clog_i - clog_j
-// reaches hundreds over 128 tokens, expf gives inf, and inf * 0 is NaN.
-// The row tile's y takes its masked scores from shared memory; then the
-// block sums the (N, P) end state.  Everything accumulates in fp32.
+// What bounds it: at mamba2-780m's prefill shapes (Q = 128, H = 48, P =
+// 64, N = 128, one B/C group) a chunk moves about 4.9 MB (x in, y and the
+// state out, fp32) for about 150 M multiply-adds, 31 operations per byte:
+// below the 3xTF32 tensor-core balance point (495 / 3 TFLOP/s against
+// 3.35 TB/s, 49), so bytes by the roofline; fp32 FMAs (67 TFLOP/s, 20)
+// would make it operations.  On the card what a CTA copies into shared
+// memory (x of a head is read by four CTAs, B and G tiles by many), and
+// how long its phases wait on those copies, cost more than its products.
+// So the design keeps each CTA's copies small, fills the card from one
+// chunk on, overlaps the waits, and runs every product on the tensor
+// cores:
 //
-// What bounds it: at the serving shapes (Q = 128, N = 128, P = 64) about
-// 5.3 M fp32 operations over the causal half and 102 KB moved per (bc, h)
-// (b and c read once per group and shared by the 48 heads), 52 operations
-// per byte against the fp32 SIMT balance point of 20: operations by the
-// roofline.  In this first
-// version the per-block loads and the shared-memory loops set its time
-// (one block per SM at 133 KB of shared memory).  Tensor cores and a
-// head block per CTA are later work.
+// * Two grids, launched back to back.  A Gram CTA computes a 32 x 32
+//   tile of G = C Bᵀ for one B/C group (its strip pair's rows, causal
+//   column blocks only) and stores it to a scratch G in global memory:
+//   one Gram per group, whatever the number of heads that read it (48 at
+//   mamba2-780m).  A chunk CTA (bc, head, part r) computes the rows n of
+//   state tile r (32 rows of n) and the y rows of strip pair r (16-row
+//   strips s and strips-1-s: each part holds about the same share of the
+//   causal half).  At BC = 1 that is 16 Gram and 192 chunk CTAs, three a
+//   SM (about 73 KB of shared memory each).  The split is the Python
+//   wrapper's (ssd_plan); the launcher refuses a split other than its own.
+// * The chunk grid is a programmatic dependent launch: every Gram CTA
+//   lets it start as soon as it runs (griddepcontrol.launch_dependents),
+//   and only the y half of a chunk CTA waits for the whole Gram grid
+//   (griddepcontrol.wait) before it reads G.  Its copies of x and B and
+//   its state tile overlap the Gram grid; stream order does the rest, so
+//   the kernel keeps no counter between launches.
+// * A chunk CTA runs two halves of four warps at once.  The y half copies
+//   x of its head (all tokens) stage by stage and the state half the 32
+//   columns of B of its tile; the state half computes the state as the
+//   stages land (a named barrier per stage of x).  The y half then copies
+//   its two strips of G, turns them into the masked scores in shared
+//   memory, and computes y.
+// * The tensor cores at fp32 accuracy: mma.sync m16n8k8 TF32 with the
+//   3xTF32 split (hi = v rounded to tf32, lo = v - hi; hi.hi in one sum,
+//   hi.lo + lo.hi in another) for the Gram (over n), y (over j) and the
+//   state (over j).  A bf16 input is exact in TF32 (lo = 0), so its Gram
+//   takes one product and y and the state, whose A operand carries the
+//   fp32 decay, two.  mma.sync and not wgmma: TF32 wgmma takes only
+//   K-major operands, and y and the state read x (the state also B) with
+//   the reduction on the row axis.
+// * The decay in place: the y half turns its strips of G into the masked
+//   scores G_ij exp(clog_i - clog_j) dt_j (0 for j > i) once, then its
+//   products read them.  A pair j > i never reaches the exponential: at
+//   mamba2's dt*A (A down to -16) clog_i - clog_j reaches hundreds over
+//   128 tokens, exp gives inf, and inf * 0 is NaN.  The exponential is
+//   __expf (ex2.approx of the exact difference times log2 e): within
+//   about 1e-6 relative for the differences that weigh (|d| < 20).
+// * 16-byte cp.async copies (4-byte ones where a row is not 16-byte
+//   aligned; plain loads for bf16) into padded shared memory.  Row
+//   strides keep every fragment read free of bank conflicts.  cumsum(da)
+//   is a warp-shuffle scan in fp64 (four tokens a lane, then the lanes'
+//   totals), rounded once.
+// * Ragged Q, N and P (any of 1..128) are zero-filled in shared memory
+//   and masked on store.
 //
 // Plain C interface, loaded with ctypes; the Python wrapper
-// (repro_torch/kernels/ssd_chunk.py) allocates y and the state.
+// (repro_torch/kernels/ssd_chunk.py) allocates y, the state and the
+// scratch G.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;                  // score rows per tile
-constexpr int kRows = kTile / kWarps;      // rows per warp in a tile
+constexpr int kHalf = kThreads / 2;  // a chunk CTA's state and y halves
+constexpr int kStrip = 16;         // y rows per strip: one m16 tile
+constexpr int kTileN = 32;         // state rows n per chunk CTA
+constexpr int kGramCols = 32;      // G columns per Gram CTA
+constexpr int kStage = 32;         // tokens (columns of n) per copy stage
 constexpr int kMaxQ = 128, kMaxN = 128, kMaxP = 128;
-constexpr int kJB = kMaxQ / 32;            // column blocks of 32
-constexpr int kPB = kMaxP / 32;            // p blocks of 32
-constexpr int kNB = kMaxN / kWarps;        // state rows per warp
+// Row strides (floats): 8 mod 32 where a fragment is read as 8-byte
+// column pairs of rows by lane group (C, B and G by rows), 4 mod 32 where
+// rows 2t, 2t+1 go by lane in group and columns by lane group (x, the
+// state's B).  Every fragment read is then free of bank conflicts.
+constexpr int kBtStride = kTileN + 4;
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr int round_up(int a, int m) {
+  return cdiv(a, m) * m;
+}
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
+
+// The launch geometry and the shared-memory carve-up (offsets in floats),
+// computed on the host and passed to the kernel.
+struct Geo {
+  int Q, N, P, H, groups;  // groups: 1 (b, c of head stride 0) or H
+  int Qp, Q8, P8;          // tokens padded to strips, to 8; head dim to 8
+  int GS, XS, NS;          // row strides of G, x, and C/B in a Gram CTA
+  int strips, pairs, ntiles, parts, gcols;
+  long long n_gram, n_chunk;
+  int m_bt, m_gs, m_w, m_clog, m_dt, m_yclog, m_ydt, m_floats;  // chunk
+                                                             // CTA: x at 0
+  int g_b, g_floats;                            // Gram CTA (C at 0)
+
+  __host__ __device__ Geo(long long BC, int Q_, int N_, int P_, int H_,
+                          int groups_)
+      : Q(Q_), N(N_), P(P_), H(H_), groups(groups_) {
+    Qp = round_up(Q, kStrip);
+    Q8 = round_up(Q, 8);
+    P8 = round_up(P, 8);
+    GS = round_up(Q, 32) + 8;
+    XS = round_up(P, 32) + 4;
+    NS = round_up(N, 32) + 8;
+    strips = cdiv(Q, kStrip);
+    pairs = cdiv(strips, 2);
+    ntiles = cdiv(N, kTileN);
+    parts = imax(pairs, ntiles);
+    gcols = cdiv(Q8, kGramCols);
+    n_gram = BC * groups * pairs * gcols;
+    n_chunk = BC * H * parts;
+    m_bt = Qp * XS;
+    m_gs = m_bt + Qp * kBtStride;
+    m_w = m_gs + 2 * kStrip * GS;
+    m_clog = m_w + Qp;
+    m_dt = m_clog + Qp;
+    m_yclog = m_dt + Qp;
+    m_ydt = m_yclog + Qp;
+    m_floats = m_ydt + Qp;
+    g_b = 2 * kStrip * NS;
+    g_floats = g_b + kGramCols * NS;
+  }
+};
+
+template <typename T>
+struct Args {
+  const T *x, *dt, *da, *b, *c;
+  T* y;
+  float* state;
+  float* gram;       // (BC, groups, Q, Q) scratch
+  long long b_sbc, b_sq, b_sh, c_sbc, c_sq, c_sh;
+  bool vec_x, vec_bc, vec_g;  // 16-byte copies of x, b and c, G rows
+};
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -61,177 +161,566 @@ __device__ __forceinline__ void store(__nv_bfloat16* dst, float v) {
   *dst = __float2bfloat16(v);
 }
 
-__host__ __device__ inline int round_up(int a, int m) {
-  return (a + m - 1) / m * m;
+// ---- asynchronous copies -------------------------------------------------
+
+__device__ __forceinline__ void cp16(float* dst, const void* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp4(float* dst, const void* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+// wait until at most `pending` (0..3) of this thread's groups are in flight
+__device__ __forceinline__ void cp_wait_at_most(int pending) {
+  if (pending <= 0) cp_wait<0>();
+  else if (pending == 1) cp_wait<1>();
+  else if (pending == 2) cp_wait<2>();
+  else cp_wait<3>();
 }
 
-// B (Qp x (Np+1)), x (Qp x Pp), a C row tile (kTile x Np), the masked
-// scores of that tile (kTile x Qp), then clog, dt and the state weights.
-__host__ __device__ inline size_t smem_floats(int Qp, int Pp, int Np) {
-  return (size_t)Qp * (Np + 1) + (size_t)Qp * Pp + (size_t)kTile * Np +
-         (size_t)kTile * Qp + 3 * (size_t)Qp;
+// rows x cols floats into dst (row stride ds) from src (row r at src + r *
+// rs), zero where r >= vrows or the column >= vcols, by threads tid of
+// nthr.  fp32 goes by cp.async (16-byte pieces when `vec`: cols, vcols
+// and the rows' starts are then multiples of 4 floats); bf16 by loads
+// converted to fp32.  A piece that is not copied reads nothing (src-size
+// 0) from `src`.
+template <typename T>
+__device__ __forceinline__ void copy_rows(float* dst, int ds, const T* src,
+                                          long long rs, int rows, int cols,
+                                          int vrows, int vcols, bool vec,
+                                          int tid = threadIdx.x,
+                                          int nthr = kThreads) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (vec) {
+      const int pieces = cols / 4;
+      for (int e = tid; e < rows * pieces; e += nthr) {
+        const int r = e / pieces, q = 4 * (e - r * pieces);
+        const bool ok = r < vrows && q < vcols;
+        cp16(dst + r * ds + q, ok ? src + r * rs + q : src, ok);
+      }
+      return;
+    }
+    for (int e = tid; e < rows * cols; e += nthr) {
+      const int r = e / cols, q = e - r * cols;
+      const bool ok = r < vrows && q < vcols;
+      cp4(dst + r * ds + q, ok ? src + r * rs + q : src, ok);
+    }
+  } else {
+    for (int e = tid; e < rows * cols; e += nthr) {
+      const int r = e / cols, q = e - r * cols;
+      dst[r * ds + q] =
+          (r < vrows && q < vcols) ? to_f(src[r * rs + q]) : 0.f;
+    }
+  }
+}
+
+// named barriers: `id` 1..15 over `n` threads (0 is __syncthreads)
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// ---- 3xTF32 mma.sync -----------------------------------------------------
+
+// hi = v rounded to tf32 (10 mantissa bits, to nearest, ties away: as
+// cvt.rna.tf32.f32, in two integer operations); lo = v - hi, exact in
+// fp32, whose low 13 bits the MMA ignores.  A value already exact in tf32
+// (a bf16 input) passes as it is.
+__device__ __forceinline__ uint32_t tf32(float v) {
+  return __float_as_uint(v);
+}
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A 16 x 8 A operand and an 8 x 8 B operand as tf32 (hi, lo) pairs; with
+// kALo / kBLo false that operand is exact in tf32 (bf16 inputs) and its lo
+// is not kept.
+template <bool kALo, bool kBLo>
+struct Frag {
+  uint32_t ah[4], al[4], bh[2], bl[2];
+  __device__ __forceinline__ void set_a(int k, float v) {
+    if constexpr (kALo) split(v, ah[k], al[k]);
+    else ah[k] = tf32(v);
+  }
+  __device__ __forceinline__ void set_b(int k, float v) {
+    if constexpr (kBLo) split(v, bh[k], bl[k]);
+    else bh[k] = tf32(v);
+  }
+  // d + c += a b: hi . hi into d, the cross terms into c (two chains)
+  __device__ __forceinline__ void mma3(float (&d)[4], float (&c)[4]) const {
+    if constexpr (kALo) mma(c, al, bh);
+    if constexpr (kBLo) mma(c, ah, bl);
+    mma(d, ah, bh);
+  }
+};
+
+// Fragments with the k index paired: every product reads the 8 k of its
+// step in the order (0, 2, 4, 6 | 1, 3, 5, 7), so that a lane's two k of
+// a row (2t and 2t + 1; g = lane / 4, t = lane % 4) are adjacent and
+// come in one 8-byte load.  A and B use the same order, so the sum is
+// the same.
+//
+// A operand at rows (g, g+8), columns (2t, 2t+1) of a row-major matrix
+// with row stride s
+template <class F>
+__device__ __forceinline__ void load_a(F& f, const float* m, int s, int g,
+                                       int t) {
+  const float2 r0 = *reinterpret_cast<const float2*>(m + g * s + 2 * t);
+  const float2 r1 =
+      *reinterpret_cast<const float2*>(m + (g + 8) * s + 2 * t);
+  f.set_a(0, r0.x);
+  f.set_a(1, r1.x);
+  f.set_a(2, r0.y);
+  f.set_a(3, r1.y);
+}
+// B operand (k x n) read from a matrix stored k by row: rows 2t and
+// 2t + 1, column g
+template <class F>
+__device__ __forceinline__ void load_b_krow(F& f, const float* m, int s,
+                                            int g, int t) {
+  f.set_b(0, m[2 * t * s + g]);
+  f.set_b(1, m[(2 * t + 1) * s + g]);
+}
+// B operand read from a matrix stored n by row: row g, columns (2t, 2t+1)
+template <class F>
+__device__ __forceinline__ void load_b_nrow(F& f, const float* m, int s,
+                                            int g, int t) {
+  const float2 r = *reinterpret_cast<const float2*>(m + g * s + 2 * t);
+  f.set_b(0, r.x);
+  f.set_b(1, r.y);
+}
+
+// In-place inclusive cumsum of v[0..Q), Q <= 128, by one warp: each lane
+// sums its four tokens in order, then the lanes' totals are scanned with
+// shuffles and each lane adds the total before it.  The sums run in fp64
+// and each prefix is rounded once: the correctly rounded cumsum, as
+// torch.cumsum gives it on the CPU, whose accumulator is a double.
+__device__ __forceinline__ void warp_cumsum(float* v, int Q, int lane) {
+  double s[4], run = 0.0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int j = 4 * lane + k;
+    run += j < Q ? (double)v[j] : 0.0;
+    s[k] = run;
+  }
+  double incl = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const double o = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += o;
+  }
+  double before = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) before = 0.0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int j = 4 * lane + k;
+    if (j < Q) v[j] = (float)(before + s[k]);
+  }
+}
+
+// dt and da of head h at token j ((token j, head h) at (bc Q + j) H + h),
+// zero past Q.  Fetched into registers before a thread queues its
+// copies, so that these small strided loads do not wait behind them.
+struct Decay {
+  float dt, da;
+};
+template <typename T>
+__device__ __forceinline__ Decay fetch_decay(const Args<T>& a, const Geo& g,
+                                             long long bc, int h, int j) {
+  const bool in = j < g.Q;
+  const long long at = (bc * g.Q + j) * g.H + h;
+  return {in ? to_f(a.dt[at]) : 0.f, in ? to_f(a.da[at]) : 0.f};
+}
+// into dts and clog (Qp each; token j = this thread's index tid among the
+// nthr >= Qp threads of named barrier bar), then clog = cumsum(da) by the
+// group's first warp; ends with the barrier
+__device__ __forceinline__ void scan_decay(const Decay& d, const Geo& g,
+                                           float* clog, float* dts, int tid,
+                                           int bar, int nthr) {
+  if (tid < g.Qp) {
+    dts[tid] = d.dt;
+    clog[tid] = d.da;
+  }
+  bar_sync(bar, nthr);
+  if (tid < 32) warp_cumsum(clog, g.Q, tid);
+  bar_sync(bar, nthr);
+}
+
+// Programmatic dependent launch: the Gram grid lets the chunk grid start
+// (launch_dependents); a chunk thread waits until the Gram grid has ended
+// and its stores are visible (wait; at once when the chunk grid was not
+// launched as a dependent).
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+__device__ __forceinline__ void wait_for_gram() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// The strips of pair r: s0 = r and, when it exists, s1 = strips-1-r
+// (slot 0 and slot 1), with each slot's causal columns (0 for no slot 1).
+struct Pair {
+  int s0, s1, kc0, kc1;
+  bool two;
+  __device__ __forceinline__ Pair(const Geo& g, int r) {
+    s0 = r;
+    s1 = g.strips - 1 - r;
+    two = s1 > s0;
+    if (!two) s1 = s0;
+    kc0 = imin(kStrip * (s0 + 1), g.Q8);
+    kc1 = two ? imin(kStrip * (s1 + 1), g.Q8) : 0;
+  }
+  __device__ __forceinline__ int kc_max() const { return two ? kc1 : kc0; }
+};
+
+// G rows of pair r's strips, columns [j0, j0 + 32) within each strip's
+// causal columns, for group grp: C_i . B_j over n, to the scratch G.
+template <typename T>
+__device__ void gram_cta(const Args<T>& a, const Geo& g, float* sm,
+                         long long bc, int grp, int r, int cb) {
+  constexpr bool kExact = !std::is_same<T, float>::value;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const Pair pr(g, r);
+  const int j0 = kGramCols * cb;
+  if (j0 >= pr.kc_max()) return;  // no causal column here
+  float* cs = sm;
+  float* bs = sm + g.g_b;
+  // group grp is head grp's B and C (head stride 0 when groups == 1)
+  const T* cb0 = a.c + bc * a.c_sbc + (long long)grp * a.c_sh;
+  const T* bb0 = a.b + bc * a.b_sbc + (long long)grp * a.b_sh;
+  const int nst = cdiv(g.N, kStage);
+  for (int s = 0; s < nst; ++s) {
+    const int n0 = kStage * s;
+    copy_rows(cs + n0, g.NS, cb0 + kStrip * pr.s0 * a.c_sq + n0, a.c_sq,
+              kStrip, kStage, g.Q - kStrip * pr.s0, g.N - n0, a.vec_bc);
+    if (pr.two)
+      copy_rows(cs + kStrip * g.NS + n0, g.NS,
+                cb0 + kStrip * pr.s1 * a.c_sq + n0, a.c_sq, kStrip, kStage,
+                g.Q - kStrip * pr.s1, g.N - n0, a.vec_bc);
+    copy_rows(bs + n0, g.NS, bb0 + j0 * a.b_sq + n0, a.b_sq, kGramCols,
+              kStage, g.Q - j0, g.N - n0, a.vec_bc);
+    cp_commit();
+  }
+  // tiles: slot warp / 4, columns j0 + 8 (warp % 4)
+  const int sl = warp >> 2, jt = j0 + 8 * (warp & 3);
+  const bool live = jt < (sl ? pr.kc1 : pr.kc0);
+  float acc[4] = {}, cor[4] = {};
+  for (int s = 0; s < nst; ++s) {
+    cp_wait_at_most(nst - 1 - s);
+    __syncthreads();
+    if (!live) continue;
+#pragma unroll
+    for (int kk = 0; kk < kStage; kk += 8) {
+      const int k = kStage * s + kk;
+      Frag<!kExact, !kExact> f;
+      load_a(f, cs + sl * kStrip * g.NS + k, g.NS, gq, tq);
+      load_b_nrow(f, bs + (jt - j0) * g.NS + k, g.NS, gq, tq);
+      f.mma3(acc, cor);
+    }
+  }
+  if (live) {
+    float* gm = a.gram + (bc * g.groups + grp) * g.Q * (long long)g.Q;
+    const int i0 = kStrip * (sl ? pr.s1 : pr.s0) + gq;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int i = i0 + 8 * hr;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = jt + 2 * tq + e;
+        if (i < g.Q && j < g.Q)
+          gm[(long long)i * g.Q + j] = acc[2 * hr + e] + cor[2 * hr + e];
+      }
+    }
+  }
+}
+
+// 16 rows of the scratch G (strip s, columns [0, kc), zero past Q) into
+// shared memory at row stride GS, by the kHalf threads of a y half.  G
+// was written by the Gram grid, which may have ended after this grid
+// started: 16-byte cp.async.cg reads L2, and the 4-byte path
+// ld.global.cg.
+__device__ __forceinline__ void copy_g(float* dst, const Geo& g,
+                                       const float* gm, int s, int kc,
+                                       bool vec, int tid) {
+  const float* src = gm + (long long)kStrip * s * g.Q;
+  const int vrows = g.Q - kStrip * s;
+  if (vec) {
+    copy_rows(dst, g.GS, src, g.Q, kStrip, kc, vrows, g.Q, true, tid,
+              kHalf);
+    return;
+  }
+  for (int e = tid; e < kStrip * kc; e += kHalf) {
+    const int r = e / kc, q = e - r * kc;
+    dst[r * g.GS + q] =
+        (r < vrows && q < g.Q) ? __ldcg(src + (long long)r * g.Q + q) : 0.f;
+  }
+}
+
+// Part r of head h, in two halves of 128 threads that run at once: the
+// state half (warps 0-3) copies the B columns of state tile r and
+// computes those rows of the end state; the y half (warps 4-7) copies x
+// of the head, stage by stage (the state half takes each stage at the
+// named barrier kBarX0 + stage), then the pair's strips of G once the
+// Gram grid has ended, turns them into the masked scores and
+// computes the y rows of pair r.  A part with no y rows copies x in its
+// state half; one with no state rows, in its y half alone.
+constexpr int kBarState = 1, kBarY = 2, kBarX0 = 3;  // kBarX0 .. + 3
+
+template <typename T>
+__device__ void state_half(const Args<T>& a, const Geo& g, float* sm,
+                           long long bc, int h, int r, bool has_y) {
+  constexpr bool kExact = !std::is_same<T, float>::value;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  float* xs = sm;
+  float* bt = sm + g.m_bt;
+  float* w = sm + g.m_w;
+  float* clog = sm + g.m_clog;
+  float* dts = sm + g.m_dt;
+  const long long xrow = (long long)g.H * g.P;  // x's token stride
+  const T* x0 = a.x + (bc * g.Q * g.H + h) * g.P;
+  const int n0 = kTileN * r;
+  const T* bb = a.b + bc * a.b_sbc + (long long)h * a.b_sh + n0;
+  const Decay dec = fetch_decay(a, g, bc, h, tid);
+  const int nst = cdiv(g.Qp, kStage);
+  for (int s = 0; s < nst; ++s) {
+    const int j0 = kStage * s, n = imin(kStage, g.Qp - j0);
+    copy_rows(bt + j0 * kBtStride, kBtStride, bb + j0 * a.b_sq, a.b_sq, n,
+              kTileN, g.Q - j0, g.N - n0, a.vec_bc, tid, kHalf);
+    if (!has_y)
+      copy_rows(xs + j0 * g.XS, g.XS, x0 + j0 * xrow, xrow, n, g.P8,
+                g.Q - j0, g.P, a.vec_x, tid, kHalf);
+    cp_commit();
+  }
+  scan_decay(dec, g, clog, dts, tid, kBarState, kHalf);
+  const float clast = clog[g.Q - 1];
+  if (tid < g.Qp)
+    w[tid] = tid < g.Q ? __expf(clast - clog[tid]) * dts[tid] : 0.f;
+  // tiles (16 rows of n, 8 columns of p): rows 16 (warp % 2), p tiles
+  // warp / 2 + 2u (+ 8 on a second pass where P > 64)
+  const int m0 = kStrip * (warp & 1);
+  const bool live = n0 + m0 < g.N;
+  for (int pass = 0; pass < cdiv(g.P8, 64); ++pass) {
+    float acc[4][4] = {}, cor[4][4] = {};
+    for (int s = 0; s < nst; ++s) {
+      if (pass == 0) {  // stage s landed (and w, on s = 0)
+        cp_wait_at_most(nst - 1 - s);
+        if (has_y)
+          bar_sync(kBarX0 + s, kThreads);  // with the y half's x
+        else
+          bar_sync(kBarState, kHalf);
+      }
+      if (!live) continue;
+      const int kend = imin(kStage * (s + 1), g.Qp);
+#pragma unroll 2
+      for (int kk = kStage * s; kk < kend; kk += 8) {
+        Frag<true, !kExact> f;  // k paired as load_b_krow reads x
+        const float2 wk = *reinterpret_cast<const float2*>(w + kk + 2 * tq);
+        const float* r0 = bt + (kk + 2 * tq) * kBtStride + m0 + gq;
+        const float* r1 = r0 + kBtStride;
+        f.set_a(0, r0[0] * wk.x);
+        f.set_a(1, r0[8] * wk.x);
+        f.set_a(2, r1[0] * wk.y);
+        f.set_a(3, r1[8] * wk.y);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int p0 = 8 * ((warp >> 1) + 2 * u + 8 * pass);
+          if (p0 < g.P8) {
+            load_b_krow(f, xs + kk * g.XS + p0, g.XS, gq, tq);
+            f.mma3(acc[u], cor[u]);
+          }
+        }
+      }
+    }
+    if (!live) continue;
+    float* sh = a.state + ((bc * g.H + h) * g.N + n0 + m0) * g.P;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int p = 8 * ((warp >> 1) + 2 * u + 8 * pass) + 2 * tq;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int n = gq + 8 * hr;
+        if (n0 + m0 + n < g.N) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (p + e < g.P)
+              sh[n * g.P + p + e] = acc[u][2 * hr + e] + cor[u][2 * hr + e];
+        }
+      }
+    }
+  }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    ssd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
-               const T* __restrict__ da, const T* __restrict__ b,
-               const T* __restrict__ c, T* __restrict__ y,
-               float* __restrict__ state, int Q, int H, int P, int N,
-               long long b_sbc, long long b_sq, long long b_sh,
-               long long c_sbc, long long c_sq, long long c_sh) {
-  extern __shared__ float smem[];
-  const int bc = blockIdx.x, h = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int Qp = round_up(Q, 32), Pp = round_up(P, 32),
-            Np = round_up(N, kWarps);
-  const int bstride = Np + 1, pb = Pp / 32, nb = Np / kWarps;
-  float* Bs = smem;
-  float* Xs = Bs + (size_t)Qp * bstride;
-  float* Cs = Xs + (size_t)Qp * Pp;
-  float* As = Cs + (size_t)kTile * Np;
-  float* clog = As + (size_t)kTile * Qp;
-  float* dts = clog + Qp;
-  float* ws = dts + Qp;
+__device__ void y_half(const Args<T>& a, const Geo& g, float* sm,
+                       long long bc, int h, int r, bool has_s) {
+  constexpr bool kExact = !std::is_same<T, float>::value;
+  const int tid = threadIdx.x - kHalf, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const Pair pr(g, r);
+  float* xs = sm;
+  float* gs = sm + g.m_gs;
+  float* clog = sm + g.m_yclog;
+  float* dts = sm + g.m_ydt;
+  const int grp = g.groups == 1 ? 0 : h;
+  const long long xrow = (long long)g.H * g.P;  // x's token stride
+  const T* x0 = a.x + (bc * g.Q * g.H + h) * g.P;
+  const Decay dec = fetch_decay(a, g, bc, h, tid);
+  // x: every token for the state half, else up to the pair's last strip
+  const int rows = has_s ? g.Qp : kStrip * (pr.s1 + 1);
+  const int nst = cdiv(rows, kStage);
+  for (int s = 0; s < nst; ++s) {
+    const int j0 = kStage * s;
+    copy_rows(xs + j0 * g.XS, g.XS, x0 + j0 * xrow, xrow,
+              imin(kStage, rows - j0), g.P8, g.Q - j0, g.P, a.vec_x, tid,
+              kHalf);
+    cp_commit();
+  }
+  scan_decay(dec, g, clog, dts, tid, kBarY, kHalf);
+  for (int s = 0; s < nst; ++s) {
+    cp_wait_at_most(nst - 1 - s);
+    if (has_s) bar_arrive(kBarX0 + s, kThreads);
+  }
+  wait_for_gram();
+  const float* gm = a.gram + (bc * g.groups + grp) * g.Q * (long long)g.Q;
+  copy_g(gs, g, gm, pr.s0, pr.kc0, a.vec_g, tid);
+  if (pr.two) copy_g(gs + kStrip * g.GS, g, gm, pr.s1, pr.kc1, a.vec_g, tid);
+  cp_commit();
+  cp_wait<0>();
+  bar_sync(kBarY, kHalf);  // G, and every y thread's x
+  // masked, decayed scores in place: rows warp + 4m (m < 4 slot 0);
+  // column j = lane + 32q
+  float cj[kMaxQ / 32], dj[kMaxQ / 32];
+#pragma unroll
+  for (int q = 0; q < kMaxQ / 32; ++q) {
+    const int j = lane + 32 * q;
+    cj[q] = j < g.Qp ? clog[j] : 0.f;
+    dj[q] = j < g.Qp ? dts[j] : 0.f;
+  }
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    const int row = warp + 4 * m;
+    const int i = kStrip * (m < 4 ? pr.s0 : pr.s1) + row % kStrip;
+    const int kc = m < 4 ? pr.kc0 : pr.kc1;
+    const float ci = clog[i];
+#pragma unroll
+    for (int q = 0; q < kMaxQ / 32; ++q) {
+      const int j = lane + 32 * q;
+      if (j < kc) {
+        float v = 0.f;
+        if (j <= i && i < g.Q)  // a masked pair never reaches the exp
+          v = gs[row * g.GS + j] * __expf(ci - cj[q]) * dj[q];
+        gs[row * g.GS + j] = v;
+      }
+    }
+  }
+  bar_sync(kBarY, kHalf);
+  // y tiles (slot, 8 columns of p): p tiles warp + 4u (+ 8 on a second
+  // pass where P > 64); the two slots' k steps interleaved, the hi.hi and
+  // cross products in separate sums
+  const int kmax = imax(pr.kc0, pr.kc1);
+  for (int pass = 0; pass < cdiv(g.P8, 64); ++pass) {
+    float yacc[2][2][4] = {}, ycor[2][2][4] = {};
+#pragma unroll 2
+    for (int k8 = 0; k8 < kmax; k8 += 8) {
+#pragma unroll
+      for (int sl = 0; sl < 2; ++sl) {
+        if (k8 < (sl ? pr.kc1 : pr.kc0)) {
+          Frag<true, !kExact> f;
+          load_a(f, gs + sl * kStrip * g.GS + k8, g.GS, gq, tq);
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int p0 = 8 * (warp + 4 * u + 8 * pass);
+            if (p0 < g.P8) {
+              load_b_krow(f, xs + k8 * g.XS + p0, g.XS, gq, tq);
+              f.mma3(yacc[sl][u], ycor[sl][u]);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int sl = 0; sl < 2; ++sl) {
+      if (sl == 1 && !pr.two) break;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int p = 8 * (warp + 4 * u + 8 * pass) + 2 * tq;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int i = kStrip * (sl ? pr.s1 : pr.s0) + gq + 8 * hr;
+          if (i < g.Q) {
+            T* dst = a.y + ((bc * g.Q + i) * g.H + h) * g.P + p;
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (p + e < g.P)
+                store(dst + e, yacc[sl][u][2 * hr + e] +
+                                   ycor[sl][u][2 * hr + e]);
+          }
+        }
+      }
+    }
+  }
+}
 
-  const long long row0 = (long long)bc * Q;  // first (bc, token) row
-  for (int j = tid; j < Qp; j += kThreads) {
-    const bool in = j < Q;
-    const long long at = (row0 + j) * H + h;
-    dts[j] = in ? to_f(dt[at]) : 0.f;
-    clog[j] = in ? to_f(da[at]) : 0.f;
+template <typename T>
+__device__ void chunk_cta(const Args<T>& a, const Geo& g, float* sm,
+                          long long bc, int h, int r) {
+  const bool has_y = r < g.pairs, has_s = r < g.ntiles;
+  if (threadIdx.x < kHalf) {
+    if (has_s) state_half<T>(a, g, sm, bc, h, r, has_y);
+  } else if (has_y) {
+    y_half<T>(a, g, sm, bc, h, r, has_s);
   }
-  for (int e = tid; e < Qp * Pp; e += kThreads) {
-    const int j = e / Pp, p = e - j * Pp;
-    Xs[e] = (j < Q && p < P) ? to_f(x[((row0 + j) * H + h) * P + p]) : 0.f;
-  }
-  const T* bh = b + bc * b_sbc + h * b_sh;
-  for (int e = tid; e < Qp * Np; e += kThreads) {
-    const int j = e / Np, n = e - j * Np;
-    Bs[j * bstride + n] = (j < Q && n < N) ? to_f(bh[j * b_sq + n]) : 0.f;
-  }
-  __syncthreads();
-  if (tid == 0) {  // inclusive cumsum, in token order
-    float s = 0.f;
-    for (int j = 0; j < Q; ++j) {
-      s += clog[j];
-      clog[j] = s;
-    }
-  }
-  __syncthreads();
-  const float clast = clog[Q - 1];
-  for (int j = tid; j < Qp; j += kThreads)
-    ws[j] = j < Q ? expf(clast - clog[j]) * dts[j] : 0.f;
+}
 
-  const T* ch = c + bc * c_sbc + h * c_sh;
-  for (int t = 0; t < Qp / kTile; ++t) {
-    const int i0 = t * kTile;
-    for (int e = tid; e < kTile * Np; e += kThreads) {
-      const int r = e / Np, n = e - r * Np, i = i0 + r;
-      Cs[e] = (i < Q && n < N) ? to_f(ch[i * c_sq + n]) : 0.f;
-    }
-    __syncthreads();
-    // scores of rows i0 + warp + kWarps*m against columns 32k + lane, over
-    // the column blocks k <= t that reach the diagonal
-    float acc[kRows][kJB];
-#pragma unroll
-    for (int m = 0; m < kRows; ++m)
-#pragma unroll
-      for (int k = 0; k < kJB; ++k) acc[m][k] = 0.f;
-    for (int n = 0; n < N; ++n) {
-      float cv[kRows];
-#pragma unroll
-      for (int m = 0; m < kRows; ++m) cv[m] = Cs[(warp + kWarps * m) * Np + n];
-#pragma unroll
-      for (int k = 0; k < kJB; ++k) {
-        if (k <= t) {
-          const float bv = Bs[(32 * k + lane) * bstride + n];
-#pragma unroll
-          for (int m = 0; m < kRows; ++m)
-            acc[m][k] = fmaf(cv[m], bv, acc[m][k]);
-        }
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < kRows; ++m) {
-      const int r = warp + kWarps * m, i = i0 + r;
-#pragma unroll
-      for (int k = 0; k < kJB; ++k) {
-        if (k <= t) {
-          const int j = 32 * k + lane;
-          float a = 0.f;
-          if (j <= i && i < Q)  // a masked pair never reaches expf
-            a = acc[m][k] * expf(clog[i] - clog[j]) * dts[j];
-          As[r * Qp + j] = a;
-        }
-      }
-    }
-    __syncthreads();
-    // y of this tile's rows: sum over j <= i of the masked scores times x
-    const int jend = min(i0 + kTile, Q);
-    float out[kRows][kPB];
-#pragma unroll
-    for (int m = 0; m < kRows; ++m)
-#pragma unroll
-      for (int q = 0; q < kPB; ++q) out[m][q] = 0.f;
-    for (int j = 0; j < jend; ++j) {
-      float xv[kPB];
-#pragma unroll
-      for (int q = 0; q < kPB; ++q)
-        xv[q] = q < pb ? Xs[j * Pp + 32 * q + lane] : 0.f;
-#pragma unroll
-      for (int m = 0; m < kRows; ++m) {
-        const float a = As[(warp + kWarps * m) * Qp + j];
-#pragma unroll
-        for (int q = 0; q < kPB; ++q) out[m][q] = fmaf(a, xv[q], out[m][q]);
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < kRows; ++m) {
-      const int i = i0 + warp + kWarps * m;
-#pragma unroll
-      for (int q = 0; q < kPB; ++q) {
-        const int p = 32 * q + lane;
-        if (i < Q && q < pb && p < P)
-          store(&y[((row0 + i) * H + h) * P + p], out[m][q]);
-      }
-    }
-    __syncthreads();  // Cs and As are rewritten by the next tile
-  }
+// Gram tile (bc, group, pair, column block) of a 1-D grid, the column
+// block fastest; it lets the chunk grid start at once
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 3)
+    ssd_gram_kernel(const Args<T> a, const Geo g) {
+  launch_dependents();
+  extern __shared__ __align__(16) float smem[];
+  long long t = blockIdx.x;
+  const int cb = (int)(t % g.gcols);
+  t /= g.gcols;
+  const int r = (int)(t % g.pairs);
+  t /= g.pairs;
+  gram_cta<T>(a, g, smem, t / g.groups, (int)(t % g.groups), r, cb);
+}
 
-  // the chunk's local end state, rows n = warp + kWarps*m, two p blocks
-  // at a time
-  float* sh = state + ((long long)bc * H + h) * N * P;
-  for (int q0 = 0; q0 < pb; q0 += 2) {
-    const bool two = q0 + 1 < pb;
-    float st[kNB][2];
-#pragma unroll
-    for (int m = 0; m < kNB; ++m) st[m][0] = st[m][1] = 0.f;
-    for (int j = 0; j < Q; ++j) {
-      const float w = ws[j];
-      const float x0 = w * Xs[j * Pp + 32 * q0 + lane];
-      const float x1 = two ? w * Xs[j * Pp + 32 * (q0 + 1) + lane] : 0.f;
-#pragma unroll
-      for (int m = 0; m < kNB; ++m) {
-        if (m < nb) {
-          const float bv = Bs[j * bstride + warp + kWarps * m];
-          st[m][0] = fmaf(bv, x0, st[m][0]);
-          st[m][1] = fmaf(bv, x1, st[m][1]);
-        }
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < kNB; ++m) {
-      const int n = warp + kWarps * m;
-      if (m < nb && n < N) {
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int p = 32 * (q0 + u) + lane;
-          if (q0 + u < pb && p < P) sh[(long long)n * P + p] = st[m][u];
-        }
-      }
-    }
-  }
+// chunk part (bc, head, part) of a 1-D grid, the part fastest
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 3)
+    ssd_chunk_kernel(const Args<T> a, const Geo g) {
+  extern __shared__ __align__(16) float smem[];
+  long long t = blockIdx.x;
+  const int r = (int)(t % g.parts);
+  t /= g.parts;
+  chunk_cta<T>(a, g, smem, t / g.H, (int)(t % g.H), r);
 }
 
 constexpr int kMaxDevices = 64;
@@ -245,31 +734,57 @@ cudaError_t allow_shared_memory() {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < kMaxDevices && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(
-      ssd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)(smem_floats(kMaxQ, kMaxP, kMaxN) * sizeof(float)));
+  const Geo most(1, kMaxQ, kMaxN, kMaxP, 1, 1);
+  err = cudaFuncSetAttribute(ssd_gram_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             most.g_floats * (int)sizeof(float));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_chunk_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               most.m_floats * (int)sizeof(float));
   if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
   return err;
 }
 
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 template <typename T>
-int launch(const void* x, const void* dt, const void* da, const void* b,
-           const void* c, void* y, float* state, long long BC, int Q, int H,
-           int P, int N, long long b_sbc, long long b_sq, long long b_sh,
-           long long c_sbc, long long c_sq, long long c_sh,
-           cudaStream_t st) {
-  const size_t bytes =
-      smem_floats(round_up(Q, 32), round_up(P, 32), round_up(N, kWarps)) *
-      sizeof(float);
+int launch(const Geo& g, const void* x, const void* dt, const void* da,
+           const void* b, const void* c, void* y, float* state, float* gram,
+           long long b_sbc, long long b_sq, long long b_sh, long long c_sbc,
+           long long c_sq, long long c_sh, cudaStream_t st) {
+  if (g.n_gram > 0x7fffffffLL || g.n_chunk > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  const bool strides4 = b_sbc % 4 == 0 && b_sq % 4 == 0 && b_sh % 4 == 0 &&
+                        c_sbc % 4 == 0 && c_sq % 4 == 0 && c_sh % 4 == 0;
+  const Args<T> a{static_cast<const T*>(x), static_cast<const T*>(dt),
+                  static_cast<const T*>(da), static_cast<const T*>(b),
+                  static_cast<const T*>(c), static_cast<T*>(y), state, gram,
+                  b_sbc, b_sq, b_sh, c_sbc, c_sq, c_sh,
+                  kF32 && g.P % 4 == 0 && aligned16(x),
+                  kF32 && g.N % 4 == 0 && strides4 && aligned16(b) &&
+                      aligned16(c),
+                  g.Q % 4 == 0 && aligned16(gram)};
   cudaError_t err = allow_shared_memory<T>();
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)BC, (unsigned)H);
-  ssd_kernel<T><<<grid, kThreads, bytes, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dt),
-      static_cast<const T*>(da), static_cast<const T*>(b),
-      static_cast<const T*>(c), static_cast<T*>(y), state, Q, H, P, N, b_sbc,
-      b_sq, b_sh, c_sbc, c_sq, c_sh);
-  return (int)cudaGetLastError();
+  ssd_gram_kernel<T><<<(unsigned)g.n_gram, kThreads,
+                       g.g_floats * sizeof(float), st>>>(a, g);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute dependent[1];
+  dependent[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  dependent[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)g.n_chunk);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = g.m_floats * sizeof(float);
+  cfg.stream = st;
+  cfg.attrs = dependent;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, ssd_chunk_kernel<T>, a, g);
 }
 
 }  // namespace
@@ -277,21 +792,30 @@ int launch(const void* x, const void* dt, const void* da, const void* b,
 // dtype codes: 0 = float32, 1 = bfloat16 (x, dt, da, b, c and y).  x, dt,
 // da are contiguous; b and c are read at bc * s_bc + q * s_q + h * s_h + n
 // (element strides).  y (BC,Q,H,P) in the dtype, state (BC,H,N,P) fp32.
-// 1 <= Q, N, P <= 128.  Returns cudaGetLastError() (0 = queued).
+// 1 <= Q, N, P <= 128.  groups, pairs, parts, gram_cols: the caller's
+// split (ssd_plan), refused unless it is this launcher's: one Gram group
+// when b and c both have head stride 0, else H.  gram: BC * groups * Q * Q
+// floats of scratch.  Two launches on `stream`, the second a programmatic
+// dependent of the first.  Returns the first CUDA error (0 = queued).
 extern "C" int ssd_intra_chunk_launch(
     int dtype, const void* x, const void* dt, const void* da, const void* b,
-    const void* c, void* y, float* state, long long BC, int Q, int H, int P,
-    int N, long long b_sbc, long long b_sq, long long b_sh, long long c_sbc,
+    const void* c, void* y, float* state, float* gram, long long BC, int Q,
+    int H, int P, int N, int groups, int pairs, int parts, int gram_cols,
+    long long b_sbc, long long b_sq, long long b_sh, long long c_sbc,
     long long c_sq, long long c_sh, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (BC < 1 || BC > 0x7fffffffLL || H < 1 || H > 65535 || Q < 1 ||
       Q > kMaxQ || N < 1 || N > kMaxN || P < 1 || P > kMaxP)
     return (int)cudaErrorInvalidValue;
+  const Geo g(BC, Q, N, P, H, b_sh == 0 && c_sh == 0 ? 1 : H);
+  if (groups != g.groups || pairs != g.pairs || parts != g.parts ||
+      gram_cols != g.gcols)
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch<float>(x, dt, da, b, c, y, state, BC, Q, H, P, N, b_sbc,
-                         b_sq, b_sh, c_sbc, c_sq, c_sh, st);
+    return launch<float>(g, x, dt, da, b, c, y, state, gram, b_sbc, b_sq,
+                         b_sh, c_sbc, c_sq, c_sh, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, dt, da, b, c, y, state, BC, Q, H, P, N,
-                                 b_sbc, b_sq, b_sh, c_sbc, c_sq, c_sh, st);
+    return launch<__nv_bfloat16>(g, x, dt, da, b, c, y, state, gram, b_sbc,
+                                 b_sq, b_sh, c_sbc, c_sq, c_sh, st);
   return (int)cudaErrorInvalidValue;
 }

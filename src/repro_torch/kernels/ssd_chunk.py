@@ -18,14 +18,24 @@ kernel or raises.
 The kernel has no backward (nor has the TPU kernel): CUDA inputs that
 require a gradient raise ``NotImplementedError``.
 
+The kernel splits the work by a fixed rule of the shapes and of b's and
+c's head stride, :func:`ssd_plan`, which the wrapper passes to the C
+launcher; the launcher refuses a split other than its own.  A grid of
+Gram CTAs computes G = C Bᵀ once per B/C group into a scratch tensor,
+then a grid of chunk CTAs (bc, head, part) each take a tile of the end
+state and a pair of 16-row strips of y from it.  :func:`ssd_cta` says
+what each CTA computes, as the kernels decode their block index.
+
 ``LAUNCHES`` counts launches per ``("ssd_intra_chunk", (BC, Q, H, P,
-N))``.
+N))``: one per call, which queues both grids.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
 import functools
+
 import torch
 
 from . import _build, ref
@@ -33,7 +43,85 @@ from .lowrank_forward import DTYPE_CODE, _route
 
 # ("ssd_intra_chunk", (BC, Q, H, P, N)) -> launches on CUDA tensors
 LAUNCHES: collections.Counter = collections.Counter()
-MAX_Q = MAX_N = MAX_P = 128         # the kernel's register tiles
+MAX_Q = MAX_N = MAX_P = 128         # the kernel's shared-memory tiles
+STRIP = 16          # y rows per strip (one m16 MMA tile)
+STATE_TILE = 32     # state rows n per chunk CTA
+GRAM_COLS = 32      # G columns per Gram CTA
+
+
+@dataclasses.dataclass(frozen=True)
+class SSDPlan:
+    """How one launch cuts the work: a grid of ``gram_ctas`` Gram tiles
+    ``(bc, group, pair, column block)``, then one of ``chunk_ctas`` chunk
+    parts ``(bc, head, part)``, each index's last field fastest."""
+    groups: int         # Gram matrices per chunk (1: one shared B/C group)
+    pairs: int          # y strip pairs
+    n_tiles: int        # state tiles of STATE_TILE rows of n
+    parts: int          # chunk CTAs per (bc, head): max(pairs, n_tiles)
+    gram_cols: int      # Gram column blocks per pair
+    gram_ctas: int
+    chunk_ctas: int
+
+    @property
+    def ctas(self) -> int:
+        return self.gram_ctas + self.chunk_ctas
+
+
+def ssd_plan(BC: int, Q: int, H: int, N: int, P: int,
+             shared: bool) -> SSDPlan:
+    """The split of a launch.  ``shared``: b and c have head stride 0, so
+    every head reads one B/C group and the chunk has one Gram matrix
+    (else one a head).
+
+    Gram CTAs compute G = C Bᵀ once per group in 32 x 32 tiles: the rows
+    of a strip pair (16-row strips s and strips-1-s), one block of 32
+    columns (a block past the pair's causal columns does nothing).  A
+    chunk CTA (bc, head, part r) computes state rows [32r, 32r + 32) and
+    the y rows of pair r from G: each part holds about the same share of
+    the causal half.  At mamba2-780m's prefill (H 48, N 128, one group)
+    a single chunk makes 16 Gram and 192 chunk CTAs, three per SM: the
+    card is full from BC = 1.  P does not change the split."""
+    strips = -(-Q // STRIP)
+    pairs = -(-strips // 2)
+    n_tiles = -(-N // STATE_TILE)
+    parts = max(pairs, n_tiles)
+    gram_cols = -(-Q // GRAM_COLS)
+    groups = 1 if shared else H
+    return SSDPlan(groups, pairs, n_tiles, parts, gram_cols,
+                   BC * groups * pairs * gram_cols, BC * H * parts)
+
+
+def _pair(Q: int, r: int):
+    """Strips of pair r and each one's causal columns (as the kernel's
+    Pair): [(strip, columns), ...]."""
+    strips = -(-Q // STRIP)
+    q8 = -(-Q // 8) * 8
+    pair = [r] + ([strips - 1 - r] if strips - 1 - r > r else [])
+    return [(s, min(STRIP * (s + 1), q8)) for s in pair]
+
+
+def ssd_cta(plan: SSDPlan, Q: int, H: int, N: int, cta: int):
+    """What CTA ``cta`` computes, counting the Gram grid's blocks first
+    and then the chunk grid's, as the kernels decode their block index:
+    ``("gram", bc, group, cells)`` (the (i, j) of G it stores, i, j < Q)
+    or ``("chunk", bc, head, y_rows, n_rows)`` (those rows of y and of the
+    end state, every column p)."""
+    if cta < plan.gram_ctas:
+        cb, rest = cta % plan.gram_cols, cta // plan.gram_cols
+        r, rest = rest % plan.pairs, rest // plan.pairs
+        j0 = GRAM_COLS * cb
+        cells = tuple((i, j) for s, kc in _pair(Q, r)
+                      for i in range(STRIP * s, min(STRIP * (s + 1), Q))
+                      for j in range(j0, min(j0 + GRAM_COLS, kc, Q)))
+        return ("gram", rest // plan.groups, rest % plan.groups, cells)
+    cta -= plan.gram_ctas
+    r, rest = cta % plan.parts, cta // plan.parts
+    y_rows = () if r >= plan.pairs else tuple(
+        i for s, _ in _pair(Q, r)
+        for i in range(STRIP * s, min(STRIP * (s + 1), Q)))
+    n0 = STATE_TILE * r
+    return ("chunk", rest // H, rest % H, y_rows,
+            tuple(range(n0, min(n0 + STATE_TILE, N))))
 
 
 def launches() -> int:
@@ -51,9 +139,9 @@ _VP, _CI, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 @functools.cache
 def _kernel():
     fn = _build.load("ssd_chunk").ssd_intra_chunk_launch
-    # dtype, x, dt, da, b, c, y, state, BC, Q, H, P, N, b strides (3),
-    # c strides (3), stream
-    fn.argtypes = [_CI] + [_VP] * 7 + [_LL] + [_CI] * 4 + [_LL] * 6 + [_VP]
+    # dtype, x, dt, da, b, c, y, state, gram, BC, Q, H, P, N, groups,
+    # pairs, parts, gram_cols, b strides (3), c strides (3), stream
+    fn.argtypes = [_CI] + [_VP] * 8 + [_LL] + [_CI] * 8 + [_LL] * 6 + [_VP]
     fn.restype = _CI
     return fn
 
@@ -128,19 +216,34 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, da: torch.Tensor,
             "through it is not ported yet (ROADMAP.md Queue 1 item 5)")
     BC, Q, H, P = x.shape
     N = b.shape[-1]
+    if BC == 0 or H == 0:
+        return torch.empty_like(x), torch.empty(
+            (BC, H, N, P), dtype=torch.float32, device=x.device)
+    plan = ssd_plan(BC, Q, H, N, P, b_strides[2] == 0 and c_strides[2] == 0)
+    out = _launch(x, dt, da, b, c, plan, b_strides, c_strides)
+    LAUNCHES[("ssd_intra_chunk", (BC, Q, H, P, N))] += 1
+    return out
+
+
+def _launch(x, dt, da, b, c, plan, b_strides, c_strides):
+    """The kernel's two launches split by ``plan``, on CUDA tensors that
+    passed ``_check``; counts nothing.  Raises if the launcher refuses
+    the split (any other than :func:`ssd_plan`'s for these strides)."""
+    BC, Q, H, P = x.shape
+    N = b.shape[-1]
     y = torch.empty_like(x)
     state = torch.empty((BC, H, N, P), dtype=torch.float32, device=x.device)
-    if BC == 0 or H == 0:
-        return y, state
+    gram = torch.empty(BC * plan.groups * Q * Q, dtype=torch.float32,
+                       device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _kernel()(DTYPE_CODE[x.dtype], x.data_ptr(), dt.data_ptr(),
                        da.data_ptr(), b.data_ptr(), c.data_ptr(),
-                       y.data_ptr(), state.data_ptr(), BC, Q, H, P, N,
-                       *b_strides, *c_strides, stream)
+                       y.data_ptr(), state.data_ptr(), gram.data_ptr(), BC,
+                       Q, H, P, N, plan.groups, plan.pairs, plan.parts,
+                       plan.gram_cols, *b_strides, *c_strides, stream)
     if rc != 0:
         raise RuntimeError(
             f"ssd_intra_chunk kernel launch failed with CUDA error {rc} "
-            f"(x {tuple(x.shape)}, N={N})")
-    LAUNCHES[("ssd_intra_chunk", (BC, Q, H, P, N))] += 1
+            f"(x {tuple(x.shape)}, N={N}, {plan.groups} Gram groups)")
     return y, state

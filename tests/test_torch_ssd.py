@@ -10,6 +10,15 @@
   against their JAX counterparts, and ``mamba2_mixer`` over an
   ``LRPack`` in prefill (with and without its state) and in decode.
 * The wrapper's refusals, which both routes make.
+* The kernel's launch split (``ssd_plan``, ``ssd_cta``): a full card at
+  mamba2-780m's prefill shapes, every output element owned by exactly
+  one chunk CTA, every causal entry of G by exactly one Gram CTA (one
+  Gram per shared B/C group, not one per head).
+* The kernel's arithmetic emulated on the CPU: the 3xTF32 split of its
+  three contractions (hi rounded to 10 mantissa bits, ties away, lo = a
+  - hi cut to 10 bits as the MMA reads it; lo*hi + hi*lo + hi*hi summed
+  in fp64) and its fp64 warp-shuffle scan for ``cumsum(da)``, against
+  the plain version at the four prefill shapes.
 
 Every comparison is fp32 against fp32 with sums in another order: the
 max abs error within ``REL`` = 1e-5 of the output's largest magnitude
@@ -19,10 +28,13 @@ max abs error within ``REL`` = 1e-5 of the output's largest magnitude
 carries the two cumsums' last-bit differences (measured: 2.2e-5).
 
 The ``cuda``-marked tests hold the CUDA kernel to its plain version on
-the card and check that a CUDA input that requires a gradient raises;
-they skip here with a reason and import no JAX.  Run them on a card with
+the card (ragged and path shapes, the plan's split for both b/c layouts
+and the launcher's refusal of any other, repeated launches, a decay far
+past expf's overflow, bf16) and check that a CUDA input that requires a gradient raises; they
+skip here with a reason and import no JAX.  Run them on a card with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_ssd.py``.
 """
+import dataclasses
 from types import SimpleNamespace
 
 import numpy as np
@@ -39,6 +51,11 @@ from repro_torch.models.linear import LRPack  # noqa: E402
 
 REL = 1e-5
 REL_STRONG = 1e-4
+SSD_TOL = 1e-4      # chip_smoke.py's [kernel] limit, ·max|y| and ·max|state|
+# (BC, Q, H, P, N) of mamba2-780m's prefills (prompts of 100, 128, 256
+# and 512 tokens)
+PATH_SHAPES = [(1, 100, 48, 64, 128), (1, 128, 48, 64, 128),
+               (2, 128, 48, 64, 128), (4, 128, 48, 64, 128)]
 
 
 @pytest.fixture(scope="module")
@@ -294,6 +311,170 @@ def test_mamba2_mixer_decode_matches_jax(jref):
 
 
 # ---------------------------------------------------------------------------
+# The kernel's launch split and arithmetic, on the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("shape", PATH_SHAPES)
+def test_ssd_plan_fills_the_card_at_the_path_shapes(shape, shared):
+    BC, Q, H, P, N = shape
+    plan = sc.ssd_plan(BC, Q, H, N, P, shared)
+    assert plan.chunk_ctas >= 132 and plan.ctas >= 132   # the H100's SMs
+    assert plan.groups == (1 if shared else H)
+
+
+# the path shapes, the ragged card shapes and edge cases
+PLAN_SHAPES = PATH_SHAPES + [(1, 1, 1, 1, 1), (3, 20, 5, 16, 8),
+                             (2, 45, 3, 70, 33), (1, 128, 2, 128, 128),
+                             (2, 17, 9, 8, 100), (1, 113, 7, 4, 31)]
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_ssd_plan_covers_every_output_once(shape, shared):
+    """Every (bc, head, row) of y and every (bc, head, n) of the state
+    belongs to exactly one chunk CTA (each covers every column p); every
+    causal (i, j <= i) entry of each group's G, and none above a strip's
+    causal columns, to exactly one Gram CTA: one Gram per B/C group, not
+    one per head, when b and c are shared."""
+    BC, Q, H, P, N = shape
+    plan = sc.ssd_plan(BC, Q, H, N, P, shared)
+    y_own = np.zeros((BC, H, Q), np.int64)
+    s_own = np.zeros((BC, H, N), np.int64)
+    g_own = np.zeros((BC, plan.groups, Q, Q), np.int64)
+    for cta in range(plan.ctas):
+        role = sc.ssd_cta(plan, Q, H, N, cta)
+        if role[0] == "gram":
+            _, bc, grp, cells = role
+            assert cta < plan.gram_ctas
+            for i, j in cells:
+                g_own[bc, grp, i, j] += 1
+        else:
+            _, bc, h, y_rows, n_rows = role
+            assert cta >= plan.gram_ctas
+            assert len(y_rows) <= 2 * sc.STRIP
+            assert len(n_rows) <= sc.STATE_TILE
+            y_own[bc, h, list(y_rows)] += 1
+            s_own[bc, h, list(n_rows)] += 1
+    assert (y_own == 1).all() and (s_own == 1).all()
+    assert g_own.max() == 1
+    causal = np.tril(np.ones((Q, Q), np.int64))
+    assert ((g_own * causal) == causal).all()     # every j <= i once
+    # at most the diagonal strip's 16-row block above the diagonal
+    assert (g_own * (1 - causal)).sum() <= BC * plan.groups * Q * 8
+    assert plan.groups == (1 if shared else H)
+
+
+def _tf32(a):
+    """fp32 rounded to 10 mantissa bits, to nearest with ties away from
+    zero (``cvt.rna.tf32.f32``)."""
+    i = a.float().contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1fff).view(torch.float32)
+
+
+def _trunc_tf32(a):
+    """fp32 cut to 10 mantissa bits (toward zero): what the MMA reads of
+    an fp32 operand."""
+    i = a.float().contiguous().view(torch.int32)
+    return (i & ~0x1fff).view(torch.float32)
+
+
+def _mm3(a, b, eq):
+    """The 3xTF32 product: hi = tf32(a) rounded, lo = a - hi as the MMA
+    reads it (cut to tf32), b likewise; lo*hi + hi*lo + hi*hi summed
+    exactly (fp64), rounded to fp32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _trunc_tf32(a - ah), _trunc_tf32(b - bh)
+
+    def f(u, v):
+        return torch.einsum(eq, u.double(), v.double())
+    return (f(al, bh) + f(ah, bl) + f(ah, bh)).float()
+
+
+def _warp_cumsum(da):
+    """cumsum over dim 1 (Q <= 128) in the kernel's order and precision:
+    each of 32 lanes sums its four tokens in turn, the lanes' totals are
+    scanned by shuffles (Hillis-Steele), a lane adds the total before it;
+    all in fp64, each prefix rounded once to fp32."""
+    BC, Q, H = da.shape
+    v = torch.zeros((BC, 128, H), dtype=torch.float64)
+    v[:, :Q] = da
+    v = v.reshape(BC, 32, 4, H)
+    s = torch.cumsum(v, dim=2)          # a lane's four tokens in order
+    incl, off = s[:, :, 3], 1
+    while off < 32:
+        nxt = incl.clone()
+        nxt[:, off:] = incl[:, off:] + incl[:, :-off]
+        incl, off = nxt, 2 * off
+    out = s.clone()
+    out[:, 1:] = incl[:, :-1, None] + s[:, 1:]
+    return out.reshape(BC, 128, H)[:, :Q].float()
+
+
+def _ssd_emulated(x, dt, da, b1, c1):
+    """The kernel's arithmetic for one B/C group (b1, c1 (BC, Q, N)):
+    the cumsum in its order, the Gram, y and the state as 3xTF32
+    products, the decay in fp32."""
+    Q = x.shape[1]
+    clog = _warp_cumsum(da)
+    gram = _mm3(c1, b1, "bin,bjn->bij")[..., None]
+    mask = torch.ones((Q, Q), dtype=torch.bool).tril()
+    decay = torch.where(mask[:, :, None],
+                        torch.exp(clog[:, :, None] - clog[:, None]), 0.0)
+    y = _mm3(gram * decay * dt[:, None], x, "bijh,bjhp->bihp")
+    w = torch.exp(clog[:, -1:] - clog) * dt
+    state = _mm3(b1[:, :, None] * w[..., None], x, "bjhn,bjhp->bhnp")
+    return y, state
+
+
+def _mixer_draw(shape, seed):
+    """x, dt, da, one B/C group (b1, c1) by the mixer's laws, as
+    chip_smoke.py draws them: dt = softplus(z + dt_bias), dt_bias the
+    inverse softplus of exp(U[log 1e-3, log 0.1]), A = -U[1, 16]."""
+    BC, Q, H, P, N = shape
+    rng = np.random.default_rng(seed)
+    dt0 = np.exp(rng.uniform(np.log(1e-3), np.log(0.1), H))
+    dt = np.logaddexp(rng.standard_normal((BC, Q, H))
+                      + dt0 + np.log(-np.expm1(-dt0)), 0.0)
+    da = dt * -rng.uniform(1.0, 16.0, H)
+    x = rng.standard_normal((BC, Q, H, P))
+    b1, c1 = (rng.standard_normal((BC, Q, N)) for _ in range(2))
+    return tuple(_t(a.astype(np.float32)) for a in (x, dt, da, b1, c1))
+
+
+@pytest.mark.parametrize("shape", PATH_SHAPES)
+def test_3xtf32_split_keeps_fp32_accuracy(shape):
+    """The kernel's arithmetic against the plain version: max err /
+    max|out| measured on the CPU at most 5.4e-7 (y) and 2.1e-7 (state),
+    within REL, the fp32 sums' own limit, and a 185th of SSD_TOL.  The
+    fp64 scan gives torch.cumsum's fp32 values here (the CPU's
+    accumulator is a double), so all of that is the split's."""
+    H = shape[2]
+    x, dt, da, b1, c1 = _mixer_draw(shape, seed=shape[0] + shape[1])
+    clog = torch.cumsum(da, dim=1)
+    assert (clog[:, :1] - clog[:, -1:]).max() > 88.7  # masked pairs overflow
+    assert torch.equal(_warp_cumsum(da), clog)
+    want = ref.ssd_intra_chunk(x, dt, da, *(
+        t[:, :, None].expand(-1, -1, H, -1) for t in (b1, c1)))
+    for got, w in zip(_ssd_emulated(x, dt, da, b1, c1), want):
+        _close(got, w, REL)
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    one = 1.0 + 2.0 ** -10                        # a tf32 value
+    half = 2.0 ** -11                             # half a tf32 step at 1
+    a = torch.tensor([1.0, one, 1.0 + half, -(1.0 + half),
+                      1.0 + half - 2.0 ** -23, 3.0 ** 0.5])
+    got = _tf32(a)
+    assert got[:5].tolist() == [1.0, one, one, -one, 1.0]
+    assert abs(got[5].item() - 3.0 ** 0.5) <= 2.0 ** -11 * 3.0 ** 0.5
+    assert (_tf32(got) == got).all()
+    cut = _trunc_tf32(a)
+    assert cut[:5].tolist() == [1.0, one, 1.0, -1.0, 1.0]
+    assert (_trunc_tf32(got) == got).all()
+
+
+# ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
 
@@ -344,6 +525,58 @@ def test_ssd_kernel_matches_plain_on_card(cuda, shape, broadcast):
         err = (got - want).abs().max().item()
         assert err <= REL_STRONG * want.abs().max().item()
     assert sc.LAUNCHES == {("ssd_intra_chunk", shape): 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("broadcast", [False, True])
+@pytest.mark.parametrize("shape", PATH_SHAPES)
+def test_ssd_kernel_every_split_on_card(cuda, shape, broadcast):
+    """The plan's split for each b/c layout against the plain version,
+    launched twice (no launch leaves state for the next); the launcher
+    refuses any other split: the other layout's, or a wrong count of
+    strip pairs, parts or Gram column blocks."""
+    BC, Q, H, P, N = shape
+    x, dt, da, b, c = (_t(a).to(cuda) for a in _chunk_operands(
+        BC, Q, H, P, N, seed=Q + BC, strong=True))
+    if broadcast:
+        b, c = (t[:, :, :1].contiguous().expand(-1, -1, H, -1)
+                for t in (b, c))
+    strides = [(t.stride(0), t.stride(1), t.stride(2)) for t in (b, c)]
+    wy, ws = ref.ssd_intra_chunk(x, dt, da, b, c)
+    plan = sc.ssd_plan(BC, Q, H, N, P, broadcast)
+    assert plan.groups == (1 if broadcast else H)
+    for _ in range(2):
+        y, st = sc._launch(x, dt, da, b, c, plan, *strides)
+        torch.cuda.synchronize()
+        for got, want in ((y, wy), (st, ws)):
+            assert torch.isfinite(got).all()
+            assert (got - want).abs().max().item() <= \
+                REL_STRONG * want.abs().max().item()
+    for wrong in (sc.ssd_plan(BC, Q, H, N, P, not broadcast),
+                  dataclasses.replace(plan, pairs=plan.pairs + 1),
+                  dataclasses.replace(plan, parts=plan.parts - 1),
+                  dataclasses.replace(plan, gram_cols=plan.gram_cols + 1)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            sc._launch(x, dt, da, b, c, wrong, *strides)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_strong_decay_stays_finite_on_card(cuda):
+    """clog_i - clog_j of masked pairs far past expf's overflow (88.7):
+    no inf * 0 reaches the outputs."""
+    BC, Q, H, P, N = 2, 128, 48, 64, 128
+    x, dt, da, b, c = (_t(a).to(cuda) for a in _chunk_operands(
+        BC, Q, H, P, N, seed=11, strong=True))
+    clog = torch.cumsum(da, dim=1)
+    assert (clog[:, :1] - clog[:, -1:]).max().item() > 4 * 88.7
+    b, c = (t[:, :, :1].contiguous().expand(-1, -1, H, -1) for t in (b, c))
+    y, st = sc.ssd_intra_chunk(x, dt, da, b, c)
+    torch.cuda.synchronize()
+    wy, ws = ref.ssd_intra_chunk(x, dt, da, b, c)
+    for got, want in ((y, wy), (st, ws)):
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= \
+            REL_STRONG * want.abs().max().item()
 
 
 @pytest.mark.cuda
