@@ -315,17 +315,16 @@ def compare_kernels(lf, ref, dev, shapes=SHAPES):
                 def library():
                     return torch.matmul(x, wb) + torch.matmul(
                         torch.matmul(x, vb), b.mT)
-                timer, host_ms = time_ms, None
             else:
                 def library():
                     return torch.matmul(x, wb) + torch.matmul(
                         torch.matmul(x, vb), b[extra[0]].mT)
-                timer = queued_ms
-                host_ms = time_ms(lambda: kern(x, wb, vb, b, *extra),
-                                  iters=50)
-            ms = timer(lambda: kern(x, wb, vb, b, *extra))
-            plain_ms = timer(lambda: plain(x, wb, vb, b, *extra))
-            library_ms = timer(library)
+            # both forms on the device alone (the stream held while the
+            # host queues the calls), the eager time per call beside
+            host_ms = time_ms(lambda: kern(x, wb, vb, b, *extra), iters=50)
+            ms = queued_ms(lambda: kern(x, wb, vb, b, *extra))
+            plain_ms = queued_ms(lambda: plain(x, wb, vb, b, *extra))
+            library_ms = queued_ms(library)
             rows_m = M if batch is None else batch
             # the per-row-B form reads each distinct tenant's B once
             bms, by = bound(rows_m, K, N, RANK, 1 if batch is None
@@ -338,9 +337,8 @@ def compare_kernels(lf, ref, dev, shapes=SHAPES):
                 f"({leaves}) route={path} max_abs_err={err.max().item():.4g} "
                 f"(tol {RTOL}*(max|y|+|y|), max|y|={scale:.3g}) "
                 f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                f"library_ms={library_ms:.4f} bound_ms={bms:.4f} ({by})"
-                + ("" if host_ms is None else
-                   f" [queued; eager {host_ms:.4f} ms/call]"))
+                f"library_ms={library_ms:.4f} bound_ms={bms:.4f} ({by}) "
+                f"[queued; eager {host_ms:.4f} ms/call]")
             del x, b, y, want
         del w, v, wb, vb
     torch.cuda.empty_cache()
@@ -1143,7 +1141,7 @@ def compare_state_kernels(mods, dev):
         return err
 
     def row(kernel, form, shape, leaves, err, tol, kern, plain, n_bytes,
-            ops, peak):
+            ops, peak, note=""):
         """Kernel and plain version timed on the device alone (the stream
         held while the host queues the calls, the L2 flushed before each:
         the smaller shapes' operands would stay there, and in training the
@@ -1159,7 +1157,8 @@ def compare_state_kernels(mods, dev):
         log(f"[kernel] {kernel:18s} {form:13s} {str(shape):22s} ({leaves}) "
             f"max_abs_err={err:.4g} (tol {tol}) ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms=null bound_ms={bms:.4f} "
-            f"({by}) [queued, L2 flushed; eager {eager_ms:.4f} ms/call]")
+            f"({by}){note} [queued, L2 flushed; eager {eager_ms:.4f} "
+            f"ms/call]")
 
     step = torch.tensor(5, dtype=torch.int32, device=dev)
     sc3 = dispatch.adam_scalars(3e-3, step, ADAM["beta1"], ADAM["beta2"],
@@ -1238,11 +1237,14 @@ def compare_state_kernels(mods, dev):
         err = exact(f"merge_sr {shape}", (got,),
                     (ref.lowrank_merge_sr(w, v, b, bits),))
         items = w.numel() // (K * N)
+        flop = 2 * K * N * RANK * items
+        # the kernel runs on the fp32 FMA pipes (exactness): its floor
+        fma_ms = flop / FP32_FLOP_PER_S * 1e3
         row("lowrank_merge_sr", "bf16 W, V, B", shape, leaves, err, "exact",
             lambda: lu.lowrank_merge(w, v, b, out=got, bits=bits),
             lambda: ref.lowrank_merge_sr(w, v, b, bits),
-            nbytes(w, v, b, bits, got), 2 * K * N * RANK * items,
-            BF16_FLOP_PER_S)
+            nbytes(w, v, b, bits, got), flop, BF16_FLOP_PER_S,
+            note=f" fp32_fma_floor_ms={fma_ms:.4f}")
         del w, v, b, bits, got
         torch.cuda.empty_cache()
     return rows

@@ -17,11 +17,9 @@
 // where the second product (rank-r, k2 = r) and the addend C are
 // optional.  With one split the tile is cast and stored in the output
 // dtype (the output may alias C: each element is read and written by the
-// same thread), stochastically rounded to bf16 first when `bits` is given
-// (add the (rows, cols) noise values in [0, 2^16) to the fp32 pattern,
-// keep its top 16 bits: the merge into bf16 masters); with several, fp32
-// partials go to `part` and a fixed-order reduce (sum_splits) follows, so
-// results never depend on scheduling (no float atomics).
+// same thread); with several, fp32 partials go to `part` and a
+// fixed-order reduce (sum_splits) follows, so results never depend on
+// scheduling (no float atomics).
 
 #pragma once
 
@@ -66,8 +64,6 @@ struct Gemm {
   int64_t c_batch;
   TO* out;          // row-major (rows, cols) output when part == nullptr
   int64_t out_batch;
-  const uint32_t* bits;  // row-major (rows, cols) SR noise, or nullptr
-  int64_t bits_batch;
   float* part;      // fp32 partials (batch * splits, rows, cols) or nullptr
   int rows, cols, k, k_chunk, splits;
 };
@@ -173,10 +169,6 @@ __global__ void __launch_bounds__(THREADS)
       const int64_t at = (int64_t)gm * g.cols + gn;
       float v = acc[i][j];
       if (g.c != nullptr && z == 0) v += to_f(g.c[t * g.c_batch + at]);
-      if (g.bits != nullptr)
-        v = __uint_as_float(
-            (__float_as_uint(v) + g.bits[t * g.bits_batch + at]) &
-            0xFFFF0000u);
       if (g.part != nullptr)
         g.part[(int64_t)blockIdx.z * g.rows * g.cols + at] = v;
       else

@@ -20,8 +20,8 @@
 // resident in VMEM and vmaps over the leading dims.  What bounds the work
 // on this card is bytes: W is read and written (77% of them at the
 // llama-100m shapes), and r = 128 gives 2r FLOP per W element, far below
-// the ~295 FLOP per byte where the tensor cores would bind.  Two routes,
-// chosen by the Python wrapper:
+// the ~295 FLOP per byte where the tensor cores would bind.  Three
+// kernels, chosen by the Python wrapper:
 //
 // * tensor cores (lowrank_merge_tc_launch; bf16 W and V, fp32 or bf16 B,
 //   K, N and r multiples of 8 so TMA can address every row, no bits):
@@ -55,17 +55,21 @@
 //   H100, at llama-100m's group shapes.  In place (out = w) is safe: each
 //   tile reads its own W region before it writes it, and no other tile
 //   touches it.
-// * SIMT (lowrank_merge_launch; fp32 W or V, the stochastically rounded
-//   merge, rows TMA cannot address): one block owns a 64 x 64 tile of one
-//   batch item (gemm_tile.cuh, blockIdx.z = item) on fp32 FMAs; W is the
-//   addend of the tile's epilogue and may be the output itself (each
-//   element is read and written by the same thread).
+// * the stochastically rounded merge (lowrank_merge_sr_launch; bf16 W,
+//   fp32 or bf16 V and B, any K, N, r): fp32 FMAs, exact against the
+//   plain version.  See the msr namespace below.
+// * SIMT (lowrank_merge_launch; the plain merge of an fp32 W or V, rows
+//   TMA cannot address): one block owns a 64 x 64 tile of one batch item
+//   (gemm_tile.cuh, blockIdx.z = item) on fp32 FMAs; W is the addend of
+//   the tile's epilogue and may be the output itself (each element is
+//   read and written by the same thread).
 //
 // Plain C interface, loaded with ctypes; the Python wrapper
 // (repro_torch/kernels/lowrank_update.py) allocates the output.
 
 #include <algorithm>
 
+#include "device_fit.cuh"
 #include "gemm_tile.cuh"
 #include "wgmma_gemm.cuh"
 
@@ -76,8 +80,7 @@ using lrk::View;
 
 template <typename TW, typename TV, typename TB>
 int merge(const void* w, const void* v, const void* b, void* out,
-          const uint32_t* bits, int64_t batch, int K, int N, int r,
-          cudaStream_t st) {
+          int64_t batch, int K, int N, int r, cudaStream_t st) {
   Gemm<TV, TB, float, float, TW, TW> g{};
   g.a = View<TV>{static_cast<const TV*>(v), r, 1, (int64_t)K * r};
   // Bᵀ(c, n) = b[n * r + c]
@@ -86,8 +89,6 @@ int merge(const void* w, const void* v, const void* b, void* out,
   g.c_batch = (int64_t)K * N;
   g.out = static_cast<TW*>(out);
   g.out_batch = (int64_t)K * N;
-  g.bits = bits;
-  g.bits_batch = (int64_t)K * N;
   g.rows = K;
   g.cols = N;
   g.k = r;
@@ -97,25 +98,19 @@ int merge(const void* w, const void* v, const void* b, void* out,
 
 template <typename TW, typename TV>
 int pick_b(int tb, const void* w, const void* v, const void* b, void* out,
-           const uint32_t* bits, int64_t batch, int K, int N, int r,
-           cudaStream_t st) {
-  if (tb == 0)
-    return merge<TW, TV, float>(w, v, b, out, bits, batch, K, N, r, st);
+           int64_t batch, int K, int N, int r, cudaStream_t st) {
+  if (tb == 0) return merge<TW, TV, float>(w, v, b, out, batch, K, N, r, st);
   if (tb == 1)
-    return merge<TW, TV, __nv_bfloat16>(w, v, b, out, bits, batch, K, N, r,
-                                        st);
+    return merge<TW, TV, __nv_bfloat16>(w, v, b, out, batch, K, N, r, st);
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename TW>
 int pick_v(int tv, int tb, const void* w, const void* v, const void* b,
-           void* out, const uint32_t* bits, int64_t batch, int K, int N,
-           int r, cudaStream_t st) {
-  if (tv == 0)
-    return pick_b<TW, float>(tb, w, v, b, out, bits, batch, K, N, r, st);
+           void* out, int64_t batch, int K, int N, int r, cudaStream_t st) {
+  if (tv == 0) return pick_b<TW, float>(tb, w, v, b, out, batch, K, N, r, st);
   if (tv == 1)
-    return pick_b<TW, __nv_bfloat16>(tb, w, v, b, out, bits, batch, K, N, r,
-                                     st);
+    return pick_b<TW, __nv_bfloat16>(tb, w, v, b, out, batch, K, N, r, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -422,23 +417,283 @@ int launch(const void* w, const void* v, const void* b, void* out,
 }  // namespace mtc
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// The stochastically rounded merge
+// ---------------------------------------------------------------------------
+//
+// out = sr_bf16(fp32(W) + V Bᵀ, bits), exact against the plain version
+// (ref.lowrank_merge_sr: an fp32 product, then an fp32 add of W, then
+// the round).  Exactness is the contract, not a choice: every round of
+// the sum (stochastic, nearest, truncating) lands on one of the two bf16
+// neighbours of it, so only equality with the plain version shows that
+// the stochastic one ran (chip_smoke.py and the cuda tests check it).
+// So each element is the chain the plain version computes:
+//
+//     acc = 0;  for c = 0 .. r-1:  acc = fmaf(V[m][c], B[n][c], acc)
+//     x = acc + fp32(W[m][n])      (__fadd_rn: never contracted into the
+//                                   last FMA)
+//     out = top 16 bits of (bits(x) + bits[m][n])
+//
+// with no split of r, no tree or paired sum, no tensor cores (wgmma's
+// fp32 accumulation is not a chain of IEEE FMAs).  The same order holds
+// for fp32 V or B, and for the ragged rank of the last round: the loop
+// stops at r, it adds no zero products.
+//
+// What bounds it: at r = 128, 2 r FLOP per W element on the fp32 FMA
+// pipes (67 TFLOP/s) take 1.45-1.5x the time of its bytes (W read and
+// written, 2 B each, and 4 B of bits, 75% of them).  So the design feeds
+// the FMA pipes first:
+//
+// * a block owns one item's 128 x 128 tile of W at a time; 256 threads,
+//   each 8 rows x 8 columns (64 accumulators), two blocks an SM
+//   (__launch_bounds__(256, 2), 72 KB of shared memory each);
+// * V's 128 rows and B's 128 rows are staged 64 ranks a round into
+//   shared memory rank-major and widened to fp32 (s[c][row], a 4-float
+//   gap after every 32 rows), so that one rank step is, per thread, two
+//   16-byte reads of its 8 V values and two of its 8 B values, then 64
+//   FMAs: no conversion in the loop, the V reads broadcast within a
+//   quarter-warp (its 8 lanes share their rows) and the B reads of a
+//   quarter-warp's 8 lanes fall in 32 distinct banks (the gap).  TMA
+//   would land the operands as stored (row-major, bf16), so the threads
+//   stage them: every 16-byte load of a round first, then the stores;
+// * the epilogue gives each thread 8 contiguous columns of each of its
+//   rows: one 16-byte W read, two 16-byte bits reads and one 16-byte
+//   store per 8 elements (scalar at a ragged right edge or an unaligned
+//   pointer);
+// * the blocks are persistent (as many as the card holds at once) and
+//   walk the tiles k-fastest, so the tiles in flight together share
+//   their B tile (the unembedding's 8.3 MB B is read once from HBM) and
+//   an item's V stays in L2.  One block's staging and epilogue run under
+//   the other block's products on its SM where the two fall out of step.
+//
+// Measured on an H100 (chip_smoke.py's [kernel] rows; the design notes in
+// PERF.md): the products alone run at about 0.65 of the FMA peak (cuBLAS's
+// sgemm of V Bᵀ alone is slower), staging and epilogue add what the other
+// block does not hide.  A warp-specialized form (one block an SM,
+// producer warps staging V and B and copying W and bits by cp.async)
+// was slower: its 8 consumer warps ran the products further from the
+// peak.
+//
+// In place (out = w) is safe: a thread reads each W element it writes,
+// before writing it, and no other thread touches it.
+namespace {
+namespace msr {
+
+constexpr int TILE = 128;        // rows (K) and columns (N) of W per block
+constexpr int RC = 64;           // ranks staged per round
+constexpr int THREADS = 256;     // 16 x 16 threads of 8 x 8 outputs
+constexpr int LD = TILE + 16;    // a staged rank: 128 values, 4 gaps of 4
+constexpr size_t SMEM = 2 * RC * LD * sizeof(float);  // V and B: 73,728 B
+
+__device__ __forceinline__ int skew(int i) { return i + 4 * (i >> 5); }
+
+__device__ __forceinline__ void widen16(const uint4& u, float (&x)[4]) {
+  x[0] = __uint_as_float(u.x);
+  x[1] = __uint_as_float(u.y);
+  x[2] = __uint_as_float(u.z);
+  x[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void widen16(const uint4& u, float (&x)[8]) {
+  const uint32_t wd[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    x[2 * k] = __uint_as_float(wd[k] << 16);
+    x[2 * k + 1] = __uint_as_float(wd[k] & 0xFFFF0000u);
+  }
+}
+
+// rows [row0, row0 + TILE) and ranks [c0, c0 + RC) of a row-major
+// (rows, r) operand into s[c][skew(row)] as fp32; zeros outside it.  A
+// warp's 32 lanes take 32 consecutive rows of one 16-byte unit column, so
+// the stores of one rank fall in distinct banks.  Every load first.
+template <typename T>
+__device__ __forceinline__ void stage(const T* __restrict__ p, int rows,
+                                      int r, int row0, int c0, bool vec,
+                                      float* __restrict__ s) {
+  constexpr int E = 16 / sizeof(T);
+  constexpr int UNITS = TILE * RC / E / THREADS;
+  uint4 u[UNITS];
+#pragma unroll
+  for (int k = 0; k < UNITS; ++k) {
+    const int q = threadIdx.x + k * THREADS;
+    const int gr = row0 + q % TILE, gc = c0 + (q / TILE) * E;
+    const T* src = p + (size_t)gr * r + gc;
+    if (vec && gr < rows && gc < r) {
+      u[k] = *reinterpret_cast<const uint4*>(src);
+    } else {
+      alignas(16) T x[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        x[e] = (gr < rows && gc + e < r) ? src[e] : T(0.f);
+      u[k] = *reinterpret_cast<const uint4*>(x);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < UNITS; ++k) {
+    const int q = threadIdx.x + k * THREADS;
+    const int row = q % TILE, c = (q / TILE) * E;
+    float x[E];
+    widen16(u[k], x);
+#pragma unroll
+    for (int e = 0; e < E; ++e) s[(c + e) * LD + skew(row)] = x[e];
+  }
+}
+
+// the bf16 bits of sr_bf16(acc + W) (w16: W's bf16 bits)
+__device__ __forceinline__ uint32_t sr16(float acc, uint32_t w16,
+                                         uint32_t bits) {
+  const float x = __fadd_rn(acc, __uint_as_float(w16 << 16));
+  return (__float_as_uint(x) + bits) >> 16;
+}
+
+template <typename TV, typename TB>
+__global__ void __launch_bounds__(THREADS, 2)
+    merge_sr_kernel(const __nv_bfloat16* w, const TV* v, const TB* b,
+                    const uint32_t* bits, __nv_bfloat16* out, int K, int N,
+                    int r, int tiles_k, int tiles_n, int64_t total,
+                    bool vec_v, bool vec_b, bool vec_n) {
+  extern __shared__ float4 smem4[];
+  float* sv = reinterpret_cast<float*>(smem4);
+  float* sb = sv + RC * LD;
+  const int64_t per_item = (int64_t)tiles_k * tiles_n;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // a warp is 4 x 8 threads: a quarter-warp shares its 8 rows
+  const int tm = (warp / 2) * 4 + lane / 8, tn = (warp % 2) * 8 + lane % 8;
+  const float* pa = sv + skew(8 * tm);
+  const float* pb = sb + skew(8 * tn);
+
+  for (int64_t t = blockIdx.x; t < total; t += gridDim.x) {
+    const int64_t item = t / per_item;
+    const int in = (int)(t % per_item);
+    const int m0 = (in % tiles_k) * TILE, n0 = (in / tiles_k) * TILE;
+    const TV* vi = v + item * K * r;
+    const TB* bi = b + item * N * r;
+
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int c0 = 0; c0 < r; c0 += RC) {
+      __syncthreads();             // the last round's reads are done
+      stage(vi, K, r, m0, c0, vec_v, sv);
+      stage(bi, N, r, n0, c0, vec_b, sb);
+      __syncthreads();
+      const int cnt = min(RC, r - c0);
+#pragma unroll 4
+      for (int c = 0; c < cnt; ++c) {
+        const float4 a0 = *reinterpret_cast<const float4*>(pa + c * LD);
+        const float4 a1 = *reinterpret_cast<const float4*>(pa + c * LD + 4);
+        const float4 b0 = *reinterpret_cast<const float4*>(pb + c * LD);
+        const float4 b1 = *reinterpret_cast<const float4*>(pb + c * LD + 4);
+        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+    }
+
+    const int gn = n0 + 8 * tn;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int gm = m0 + 8 * tm + i;
+      if (gm >= K) break;
+      const size_t at = ((size_t)item * K + gm) * N + gn;
+      if (vec_n && gn + 8 <= N) {
+        const uint4 wq = *reinterpret_cast<const uint4*>(w + at);
+        const uint4 q0 = *reinterpret_cast<const uint4*>(bits + at);
+        const uint4 q1 = *reinterpret_cast<const uint4*>(bits + at + 4);
+        const uint32_t wd[4] = {wq.x, wq.y, wq.z, wq.w};
+        const uint32_t bt[8] = {q0.x, q0.y, q0.z, q0.w,
+                                q1.x, q1.y, q1.z, q1.w};
+        uint32_t o[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          o[k] = sr16(acc[i][2 * k], wd[k] & 0xFFFFu, bt[2 * k]) |
+                 (sr16(acc[i][2 * k + 1], wd[k] >> 16, bt[2 * k + 1]) << 16);
+        *reinterpret_cast<uint4*>(out + at) =
+            make_uint4(o[0], o[1], o[2], o[3]);
+      } else {
+        const uint16_t* w16 = reinterpret_cast<const uint16_t*>(w);
+        uint16_t* o16 = reinterpret_cast<uint16_t*>(out);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (gn + j < N)
+            o16[at + j] =
+                (uint16_t)sr16(acc[i][j], w16[at + j], bits[at + j]);
+      }
+    }
+  }
+}
+
+template <typename TV, typename TB>
+int launch(const void* w, const void* v, const void* b, const uint32_t* bits,
+           void* out, int64_t items, int K, int N, int r, cudaStream_t st) {
+  static devfit::ResidentBlocks resident;
+  int fit = 0;
+  const cudaError_t err =
+      resident.get(merge_sr_kernel<TV, TB>, THREADS, SMEM, &fit);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles_k = (int)lrk::ceil_div(K, TILE);
+  const int tiles_n = (int)lrk::ceil_div(N, TILE);
+  const int64_t total = items * tiles_k * tiles_n;
+  auto aligned = [](const void* p) { return ((uintptr_t)p & 15u) == 0; };
+  const bool vec_v = aligned(v) && r % (16 / (int)sizeof(TV)) == 0;
+  const bool vec_b = aligned(b) && r % (16 / (int)sizeof(TB)) == 0;
+  const bool vec_n = aligned(w) && aligned(bits) && aligned(out) &&
+                     N % 8 == 0;
+  const int64_t grid = std::min<int64_t>(total, fit);
+  merge_sr_kernel<TV, TB><<<(unsigned)grid, THREADS, SMEM, st>>>(
+      static_cast<const __nv_bfloat16*>(w), static_cast<const TV*>(v),
+      static_cast<const TB*>(b), bits, static_cast<__nv_bfloat16*>(out), K,
+      N, r, tiles_k, tiles_n, total, vec_v, vec_b, vec_n);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace msr
+}  // namespace
+
 // dtype codes: 0 = float32, 1 = bfloat16, one per operand (W and the
 // output share tw).  w, v, b hold `batch` contiguous (K, N), (K, r),
-// (N, r) items; out may equal w.  `bits` is nullptr for the plain merge;
-// given, it holds `batch` contiguous (K, N) items of values in [0, 2^16)
-// and the merge is the stochastically rounded one, which needs a bf16 W.
-// Returns cudaGetLastError() (0 = queued).
+// (N, r) items; out may equal w.  The plain merge of an fp32 W, or of a
+// bf16 W with operands the tensor-core route does not take.  Returns
+// cudaGetLastError() (0 = queued).
 extern "C" int lowrank_merge_launch(int tw, int tv, int tb, const void* w,
-                                    const void* v, const void* b,
-                                    const uint32_t* bits, void* out,
+                                    const void* v, const void* b, void* out,
                                     long long batch, int K, int N, int r,
                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (tw == 0 && bits == nullptr)
-    return pick_v<float>(tv, tb, w, v, b, out, nullptr, batch, K, N, r, st);
+  if (tw == 0)
+    return pick_v<float>(tv, tb, w, v, b, out, batch, K, N, r, st);
   if (tw == 1)
-    return pick_v<__nv_bfloat16>(tv, tb, w, v, b, out, bits, batch, K, N, r,
-                                 st);
+    return pick_v<__nv_bfloat16>(tv, tb, w, v, b, out, batch, K, N, r, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The stochastically rounded merge: bf16 w and out, tv and tb 0 (fp32)
+// or 1 (bf16).  w, v, b, bits and out hold `batch` contiguous (K, N),
+// (K, r), (N, r), (K, N) and (K, N) items; bits in [0, 2^16); out may
+// equal w.  Returns cudaGetLastError() (0 = queued).
+extern "C" int lowrank_merge_sr_launch(int tv, int tb, const void* w,
+                                       const void* v, const void* b,
+                                       const uint32_t* bits, void* out,
+                                       long long batch, int K, int N, int r,
+                                       void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tv == 0 && tb == 0)
+    return msr::launch<float, float>(w, v, b, bits, out, batch, K, N, r, st);
+  if (tv == 0 && tb == 1)
+    return msr::launch<float, __nv_bfloat16>(w, v, b, bits, out, batch, K, N,
+                                             r, st);
+  if (tv == 1 && tb == 0)
+    return msr::launch<__nv_bfloat16, float>(w, v, b, bits, out, batch, K, N,
+                                             r, st);
+  if (tv == 1 && tb == 1)
+    return msr::launch<__nv_bfloat16, __nv_bfloat16>(w, v, b, bits, out,
+                                                     batch, K, N, r, st);
   return (int)cudaErrorInvalidValue;
 }
 

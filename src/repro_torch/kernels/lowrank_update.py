@@ -131,8 +131,18 @@ def project_ranges(K: int, splits: int) -> list:
 @functools.cache
 def _kernel():
     fn = _build.load("lowrank_merge").lowrank_merge_launch
-    # tw, tv, tb, w, v, b, bits, out, batch, K, N, r, stream
-    fn.argtypes = [_CI] * 3 + [_VP] * 5 + [ctypes.c_longlong] + [_CI] * 3 \
+    # tw, tv, tb, w, v, b, out, batch, K, N, r, stream
+    fn.argtypes = [_CI] * 3 + [_VP] * 4 + [ctypes.c_longlong] + [_CI] * 3 \
+        + [_VP]
+    fn.restype = _CI
+    return fn
+
+
+@functools.cache
+def _sr_kernel():
+    fn = _build.load("lowrank_merge").lowrank_merge_sr_launch
+    # tv, tb, w, v, b, bits, out, batch, K, N, r, stream
+    fn.argtypes = [_CI] * 2 + [_VP] * 5 + [ctypes.c_longlong] + [_CI] * 3 \
         + [_VP]
     fn.restype = _CI
     return fn
@@ -213,11 +223,15 @@ def lowrank_merge(w: torch.Tensor, v: torch.Tensor, b: torch.Tensor,
             rc = _tc_kernel()(DTYPE_CODE[b.dtype], w.data_ptr(),
                               v.data_ptr(), b.data_ptr(), out.data_ptr(),
                               items, K, N, r, stream)
+        elif bits is not None:
+            rc = _sr_kernel()(DTYPE_CODE[v.dtype], DTYPE_CODE[b.dtype],
+                              w.data_ptr(), v.data_ptr(), b.data_ptr(),
+                              bits.data_ptr(), out.data_ptr(), items, K, N,
+                              r, stream)
         else:
             rc = _kernel()(DTYPE_CODE[w.dtype], DTYPE_CODE[v.dtype],
                            DTYPE_CODE[b.dtype], w.data_ptr(), v.data_ptr(),
-                           b.data_ptr(), None if bits is None else
-                           bits.data_ptr(), out.data_ptr(), items, K, N, r,
+                           b.data_ptr(), out.data_ptr(), items, K, N, r,
                            stream)
     if rc != 0:
         raise RuntimeError(

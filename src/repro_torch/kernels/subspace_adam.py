@@ -183,6 +183,15 @@ def _check_q8(name, b, g, bits, moments) -> None:
     if b.ndim != 2 or b.shape[1] != QROW:
         raise ValueError(f"{name}: the CUDA kernel takes (R, {QROW}) rows, "
                          f"got b {tuple(b.shape)}")
+    # each lane reads 8 contiguous elements: 16-byte vectors (8-byte for
+    # the int8 payloads)
+    wide = dict(b=b, g=g, bits=bits, **{f"{k}q": q for k, (q, _) in
+                                          moments.items()})
+    for t_name, t in wide.items():
+        if t is not None and t.data_ptr() % (8 if t.dtype == torch.int8
+                                             else 16):
+            raise ValueError(f"{name}: {t_name} is not aligned for the "
+                             f"kernel's vector accesses")
     R = b.shape[0]
     _check_shapes(name, b.shape, g=g, bits=bits,
                   **{k: q for k, (q, _) in moments.items()})

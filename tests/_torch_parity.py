@@ -1,0 +1,159 @@
+"""Helpers of the port's training parity tests (not a test module).
+
+The port's plain path in float64, the yardstick that tells a fault of
+the port from an fp32 sum that the port and the JAX package take in
+other orders:
+
+* :func:`float64_plain_path`: inside, ``.float()`` widens to float64,
+  the packed views are float64 and the stochastic round is
+  :func:`sr_bf16_f64`;
+* :func:`widened`: a ``(params, state)`` of the port with every fp32
+  tensor and int8 scale in float64;
+* :func:`assert_float64`: after a run, every float tensor it left is
+  float64 (bf16 only where a master is stored in bf16), so a path that
+  widens some other way than ``.float()`` fails here instead of leaving
+  fp32 inside the yardstick.
+
+The criteria for state that went through a bf16 or int8 round, where
+an fp32 difference in the last bits moves a round only at an edge:
+:func:`bf16_steps_close` and :func:`quant_close`.
+"""
+import contextlib
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ref as kref
+from repro_torch.optim import quant
+from repro_torch.train import steps
+
+
+def sr_bf16_f64(x, bits):
+    """``ref.sr_bf16``'s law taken of the exact value: ``x`` rounds away
+    from zero to the next bf16 iff ``bits >= 2**16 · (1 − frac)``, where
+    ``frac`` is the part of a bf16 step that truncation drops."""
+    x = x.double()
+    mant, exp = torch.frexp(x.abs())
+    step = torch.ldexp(torch.ones_like(x), exp - 8)
+    low = torch.floor(x.abs() / step) * step
+    up = bits.double() >= 65536.0 * (1.0 - (x.abs() - low) / step)
+    return (torch.where(up, low + step, low) * torch.sign(x)).to(
+        torch.bfloat16)
+
+
+@contextlib.contextmanager
+def float64_plain_path():
+    """Inside, the port's plain path computes in float64.  Stored bf16
+    masters and int8 payloads keep their types; :func:`widened` makes the
+    rest of a state float64."""
+    saved = torch.Tensor.float, steps.pack_dtype, kref.sr_bf16
+    torch.Tensor.float = lambda t: t.double()
+    steps.pack_dtype = lambda *a: torch.float64
+    kref.sr_bf16 = sr_bf16_f64
+    try:
+        yield
+    finally:
+        torch.Tensor.float, steps.pack_dtype, kref.sr_bf16 = saved
+
+
+def widened(params, state, master_dtype=None):
+    """``(params, state)`` with every fp32 tensor and int8 scale in
+    float64; with ``master_dtype="float32"`` the bf16 B masters widen too
+    and the layout stops rounding them (the exact step before its round)."""
+    kinds = (torch.float32,) if master_dtype is None else (
+        torch.float32, torch.bfloat16)
+
+    def dbl(x):
+        if isinstance(x, quant.QuantizedTensor):
+            return dataclasses.replace(x, scale=x.scale.double())
+        return x.double() if x.dtype == torch.float32 else x
+
+    def dbl_b(x):
+        return x.double() if x.dtype in kinds else x
+    layout = state.layout if master_dtype is None else \
+        state.layout._replace(master_dtype=master_dtype)
+    params = dataclasses.replace(params, dense=tuple(map(dbl, params.dense)),
+                                 groups=tuple(map(dbl, params.groups)))
+    state = dataclasses.replace(
+        state, layout=layout,
+        dense=tuple(d._replace(m=dbl(d.m), v=dbl(d.v)) for d in state.dense),
+        groups=tuple(g._replace(proj=dbl(g.proj), b=dbl_b(g.b), m=dbl(g.m),
+                                v=dbl(g.v)) for g in state.groups))
+    return params, state
+
+
+def assert_float64(params, state):
+    """Every float tensor of a float64 run's ``(params, state)`` is
+    float64, but for the stored bf16 masters: the grouped weights, and
+    ``B`` where the layout keeps it in bf16."""
+    def check(x, may_bf16=False):
+        t = x.scale if isinstance(x, quant.QuantizedTensor) else x
+        if not t.is_floating_point():
+            return
+        allowed = (torch.float64, torch.bfloat16) if may_bf16 else \
+            (torch.float64,)
+        assert t.dtype in allowed, t.dtype
+
+    b_bf16 = state.layout.master_dtype == "bfloat16"
+    for w in params.dense:
+        check(w)
+    for w in params.groups:
+        check(w, may_bf16=True)
+    for d in state.dense:
+        check(d.m)
+        check(d.v)
+    for g in state.groups:
+        check(g.proj)
+        check(g.b, may_bf16=b_bf16)
+        check(g.m)
+        check(g.v)
+
+
+def _f64(x):
+    if torch.is_tensor(x):
+        return x.detach().double().numpy()
+    return np.asarray(x).astype(np.float64)
+
+
+def bf16_step(mag):
+    """The bf16 step (ulp) at magnitude ``mag``."""
+    mag = np.maximum(mag, 2.0 ** -126)
+    return 2.0 ** (np.floor(np.log2(mag)) - 7)
+
+
+def bf16_steps_close(got, want, before=None, atol=0.0):
+    """Every element within one bf16 step (or ``atol``), at most 1% off.
+    With ``before`` (B before an inner step) the step is counted at the
+    largest magnitude that entered the sum ``b + update``: where the
+    update cancels ``b``, the result is far smaller than either, and the
+    fp32 difference its round inherits is one of theirs."""
+    got, want = _f64(got), _f64(want)
+    assert got.shape == want.shape
+    mag = np.maximum(np.abs(got), np.abs(want))
+    if before is not None:
+        b0 = _f64(before)
+        mag = np.maximum.reduce([mag, np.abs(b0), np.abs(got - b0),
+                                 np.abs(want - b0)])
+    off = got != want
+    assert (np.abs(got - want) <= np.maximum(bf16_step(mag), atol)).all(), \
+        np.abs(got - want).max()
+    assert off.mean() <= 0.01, off.mean()
+
+
+def quant_close(got, want, bf16_grad=False):
+    """A port int8 moment against the reference's: the scales within 1e-4
+    of the largest, the payloads within one step, at most 1% off.  With
+    ``bf16_grad`` (B's gradient rounded to bf16, as under bf16 masters) a
+    scale may also move by one bf16 step of its own size, ``2**-7`` of
+    it: a last-bit difference of the fp32 gradient moves its bf16 round,
+    and so a block's absmax, by one step."""
+    assert isinstance(got, quant.QuantizedTensor)
+    assert (got.block, got.codec) == (want.block, want.codec)
+    scale, ref_scale = _f64(got.scale), _f64(want.scale)
+    tol = 1e-4 * max(np.abs(ref_scale).max(), 1e-30)
+    if bf16_grad:
+        tol = np.maximum(tol, 2.0 ** -7 * np.abs(ref_scale))
+    assert (np.abs(scale - ref_scale) <= tol).all()
+    dq = got.q.numpy().astype(np.int32) - np.asarray(want.q).astype(np.int32)
+    assert np.abs(dq).max() <= 1 and (dq != 0).mean() <= 0.01

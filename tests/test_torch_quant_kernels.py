@@ -474,7 +474,8 @@ def _same(got, want):
 @pytest.mark.parametrize("b_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("sr", [False, True])
-@pytest.mark.parametrize("shape", [(1, 32256, 128), RAGGED, (3, 5)])
+@pytest.mark.parametrize("shape", [(1, 32256, 128), (4, 12, 640, 128),
+                                   (17, 128), RAGGED, (3, 5)])
 def test_q8_kernels_match_plain_on_card(cuda, algo, b_dtype, g_dtype, sr,
                                         shape):
     """Exact: the kernel rounds every operation as the plain version's
@@ -509,6 +510,54 @@ def test_q8_kernels_match_plain_on_card(cuda, algo, b_dtype, g_dtype, sr,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["adam", "lion"])
+@pytest.mark.parametrize("b_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 17, 33, 1000])
+def test_q8_kernels_write_over_their_inputs_on_card(cuda, algo, b_dtype,
+                                                    rows):
+    """Outputs that alias the inputs (the C entry given b, the payloads
+    and the scales as its outputs): each half-warp reads its whole row
+    before it writes any of it, so the result is the plain version's at
+    row counts that leave half-warps and blocks idle."""
+    b, g, mq, vq, bits = _card_state((rows, 128), cuda, 24)
+    b = b.to(b_dtype)
+    mq2, ms, vq2, vs = mq.q.clone(), mq.scale.clone(), vq.q.clone(), \
+        vq.scale.clone()
+    bits = bits if b_dtype == torch.bfloat16 else None
+    code = sa.DTYPE_CODE
+    if algo == "adam":
+        sc = dispatch.adam_scalars(3e-3, torch.tensor(5, device=cuda), 0.9,
+                                   0.999, cuda)
+        lr, bc1, bc2 = sc
+        want = ref.subspace_adam_q8(b, g, mq2, ms[:, None], vq2, vs[:, None],
+                                    lr=lr, bc1=bc1, bc2=bc2, bits=bits,
+                                    **ADAM)
+        ins = (b, g, mq2, ms, vq2, vs)
+        rc = sa._kernel("subspace_q8", "subspace_adam_q8_launch")(
+            code[b.dtype], code[g.dtype], *(t.data_ptr() for t in ins),
+            sa._ptr(bits), b.data_ptr(), mq2.data_ptr(), ms.data_ptr(),
+            vq2.data_ptr(), vs.data_ptr(), sc.data_ptr(), rows, 0.9, 0.1,
+            0.999, 1 - 0.999, ADAM["eps"], ADAM["wd"],
+            torch.cuda.current_stream().cuda_stream)
+        got = (b, mq2, ms, vq2, vs)
+    else:
+        sc = dispatch.lion_scalars(3e-4, cuda)
+        want = ref.subspace_lion_q8(b, g, mq2, ms[:, None], lr=sc[0],
+                                    bits=bits, **LION)
+        rc = sa._kernel("subspace_q8", "subspace_lion_q8_launch")(
+            code[b.dtype], code[g.dtype], b.data_ptr(), g.data_ptr(),
+            mq2.data_ptr(), ms.data_ptr(), sa._ptr(bits), b.data_ptr(),
+            mq2.data_ptr(), ms.data_ptr(), sc.data_ptr(), rows, 0.9, 0.1,
+            0.99, 1 - 0.99, LION["wd"],
+            torch.cuda.current_stream().cuda_stream)
+        got = (b, mq2, ms)
+    assert rc == 0
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        _same(x, y.reshape(x.shape))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(4, 12, 640, 128), RAGGED, (3, 5)])
@@ -532,16 +581,28 @@ def test_lion_and_bf16_master_adam_kernels_match_plain_on_card(
     assert sa.launches("subspace_lion") == sa.launches("subspace_adam") == 1
 
 
+# (leading dims, K, N, r): ragged edges and ranks that are no multiple of
+# a staged round (8, 16, 72), several items, then the four llama-100m
+# group shapes the training path merges
+SR_SHAPES = [((3, 2), 37, 70, 8), ((2,), 1712, 64, 16),
+             ((5,), 130, 200, 72), ((1,), 640, 1712, 128),
+             ((4, 12), 640, 640, 128), ((2, 12), 640, 1712, 128),
+             ((1, 12), 1712, 640, 128), ((1,), 640, 32256, 128)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtypes", [(torch.bfloat16, torch.float32),
                                     (torch.bfloat16, torch.bfloat16),
                                     (torch.float32, torch.float32)])
-@pytest.mark.parametrize("lead,K,N,r", [((3, 2), 37, 70, 8),
-                                        ((2,), 1712, 64, 16),
-                                        ((1,), 640, 1712, 128)])
-def test_merge_sr_kernel_matches_plain_on_card(cuda, dtypes, lead, K, N, r):
+@pytest.mark.parametrize("lead,K,N,r", SR_SHAPES)
+@pytest.mark.parametrize("noise", ["uniform", "zeros", "ones"])
+def test_merge_sr_kernel_matches_plain_on_card(cuda, dtypes, lead, K, N, r,
+                                               noise):
     """Equal: a bound of one bf16 step would pass a merge that rounds
-    to nearest or truncates instead."""
+    to nearest or truncates instead.  Noise all 0 truncates and all
+    0xFFFF rounds every inexact sum up, the two edges of the law; in
+    place equals out of place, and a second launch repeats the first
+    bit for bit."""
     lu.reset_launches()
     gen = torch.Generator(device=cuda).manual_seed(22)
     w = torch.randn(lead + (K, N), generator=gen, device=cuda).bfloat16()
@@ -549,16 +610,20 @@ def test_merge_sr_kernel_matches_plain_on_card(cuda, dtypes, lead, K, N, r):
          / K ** 0.5).to(dtypes[0])
     b = (0.1 * torch.randn(lead + (N, r), generator=gen, device=cuda)
          ).to(dtypes[1])
-    bits = torch.randint(0, 1 << 16, w.shape, generator=gen, device=cuda,
-                         dtype=torch.int32)
+    bits = {"uniform": torch.randint(0, 1 << 16, w.shape, generator=gen,
+                                     device=cuda, dtype=torch.int32),
+            "zeros": torch.zeros(w.shape, dtype=torch.int32, device=cuda),
+            "ones": torch.full(w.shape, 0xFFFF, dtype=torch.int32,
+                               device=cuda)}[noise]
     want = ref.lowrank_merge_sr(w, v, b, bits)
     got = lu.lowrank_merge(w, v, b, bits=bits)
+    again = lu.lowrank_merge(w, v, b, bits=bits)
     inplace = w.clone()
     lu.lowrank_merge(inplace, v, b, out=inplace, bits=bits)
     torch.cuda.synchronize()
     _same(got, want)
-    assert torch.equal(inplace, got)
-    assert lu.launches("lowrank_merge_sr") == 2 and lu.launches() == 2
+    assert torch.equal(again, got) and torch.equal(inplace, got)
+    assert lu.launches("lowrank_merge_sr", "simt") == 3 and lu.launches() == 3
 
 
 @pytest.mark.cuda
@@ -579,6 +644,9 @@ def test_compressed_state_kernels_refuse_what_they_do_not_take(cuda):
                             **LION)
     with pytest.raises(ValueError, match=r"\(1,\) float32"):
         sa.subspace_lion_q8(b, g, mq.q, mq.scale, sc3, **LION)
+    shifted = torch.empty(b.numel() + 1, device=cuda)[1:].view(b.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        sa.subspace_lion_q8(shifted.copy_(b), g, mq.q, mq.scale, sc1, **LION)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         sa.subspace_lion(b.half(), g, b, sc1, **LION)
     with pytest.raises(ValueError, match="contiguous"):
