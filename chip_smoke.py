@@ -19,14 +19,23 @@
    kernel against its plain version at mamba2-780m's four prefill
    shapes (prompts of 100, 128, 256 and 512 tokens), fp32, with dt and
    A drawn by the mixer's laws, logs the launch split its plan chose,
-   and times both the same way.
+   and times both the same way.  Each forward row logs its launch plan
+   (per pass of the mainloop: tile width, splits of K, cluster size,
+   units, persistent or not; or the per-row-B kernel's), and a shared-B
+   row of at most ``SKINNY_ROWS`` rows, which takes the per-row-B kernel,
+   also the mainloop's time.  Then, at shapes whose passes split K
+   (qwen2-7b w_down at 128 rows, both forms; llama-100m's backward),
+   three launches queued back to back give bit-identical outputs and
+   leave the tile counters zero.
 3. Holds the training kernels against their plain versions at the
    llama-100m shapes, and times them the same way: the forward with its
    ``p`` residual and the backward at M = 16384 (batch 64 x seq 256) for
-   the four (K, N) of the model, the merge at its four group shapes
-   (bf16 W and V, fp32 B: the tensor-core route), subspace-Adam at the
-   four group B shapes (against fused ``torch.optim.AdamW``); and
-   the compressed-state kernels at the same shapes: subspace-Lion (fp32
+   the four (K, N) of the model (timed eager, and also with the stream
+   held while the host queues them, kernel and cuBLAS yardstick alike),
+   the merge at its four group shapes (bf16 W and V, fp32 B: the
+   tensor-core route), subspace-Adam at the four group B shapes (against
+   fused ``torch.optim.AdamW``); and the compressed-state kernels at the
+   same shapes: subspace-Lion (fp32
    state), the int8-moment Adam and Lion (bf16 b with rounding bits, and
    fp32 b without) and the stochastically rounded merge (bf16 W, V, B);
    the forward in its shared-B form (no ``p``) at M = 16384, as the
@@ -38,9 +47,10 @@
 4. Serves qwen2-7b at full width and depth (28 layers) in bf16 with 4
    tenants: 8 requests of 128 prompt tokens and 32 new tokens through
    the continuous-batching engine, and checks that the main path
-   launched the forward kernel in both forms; profiles two decode steps,
-   which must show no SIMT ``gemm_partial`` or ``finish`` row and no
-   ``index_select`` of the adapters' B.
+   launched the forward kernel in both forms; profiles one 128-token
+   prefill (device ms) and two decode steps, which must show no SIMT
+   ``gemm_partial`` or ``finish`` row and no ``index_select`` of the
+   adapters' B.
 5. Checks lazy adapter serving against merged weights on a 2-layer
    full-width cut in fp32, and that a paged decode step makes no host
    sync, in fp32 and in bf16 (every bf16 launch on the tensor cores).
@@ -272,6 +282,92 @@ def bound(M, K, N, r, n_b, itemsize):
                                        else "operations")
 
 
+def plan_of(lf, kind, M, K, N, r=RANK, seq=1, lb=None):
+    """The launch plan of a ``[kernel]`` row, as the wrappers compute it
+    from the shapes: for each pass of the mainloop its tile width, splits
+    of K, units and whether the grid is persistent (more units than the
+    SMs, each block walking several); for the per-row-B kernel (and a
+    shared-B launch of at most ``lf.SKINNY_ROWS`` rows) its rows per
+    tile, splits and rank slots."""
+    def one(rows, cols, plan):
+        bn, s, cluster = plan
+        units = -(-rows // 128) * -(-cols // bn) * s
+        return {"bn": bn, "splits": s, "cluster": cluster, "units": units,
+                "persistent": units > lf.SMS}
+    if kind == "backward":
+        q, dx, db = lb.tc_plan(M, K, N, r)
+        return {"route": "gemm", "q": one(M, r, q), "dx": one(M, K, dx),
+                "dB": one(N, r, db)}
+    plan = lf.tc_plan("shared" if kind == "batched" else kind, M, K, N, r)
+    if kind == "batched" or plan["route"] == "skinny":
+        bn, s_p, s_y, slots = lf.dec_plan(M, K, N, r,
+                                          seq if kind == "batched" else M)
+        return {"route": "skinny", "rows_per_tile": bn, "p_splits": s_p,
+                "y_splits": s_y, "rank_slots": slots}
+    return {"route": "gemm", "p": one(M, r, plan["p"]),
+            "y": one(M, N, plan["y"])}
+
+
+def gemm_route_ms(lf, fn):
+    """``queued_ms`` of a shared-B call of at most ``lf.SKINNY_ROWS`` rows
+    run on the mainloop instead of the per-row-B kernel (the threshold
+    set to 0 for the call): the planner's other choice, timed beside."""
+    rows = lf.SKINNY_ROWS
+    lf.SKINNY_ROWS = 0
+    try:
+        return queued_ms(fn)
+    finally:
+        lf.SKINNY_ROWS = rows
+
+
+def split_determinism(mods, dev, repeats=3):
+    """Phase 2b: at shapes whose passes split K — qwen2-7b w_down at a
+    128-token prefill (both forward forms), llama-100m (wq, wk, wv, wo)
+    at M = 16384 (the backward's dB) — ``repeats`` launches queued back
+    to back behind a held stream give bit-identical outputs, and leave
+    the tile counters zero."""
+    lf, lb = mods["lf"], mods["lb"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(
+            torch.bfloat16)
+    cases = []
+    M, K, N = 128, 18944, 3584
+    x, w = randn(M, K), randn(K, N, scale=K ** -0.5)
+    v, b = randn(K, RANK, scale=K ** -0.5), randn(N, RANK, scale=0.02)
+    plan = plan_of(lf, "p", M, K, N)
+    cases.append((f"forward (M={M}, K={K}, N={N}) {plan}",
+                  plan["p"]["splits"] > 1 and plan["y"]["splits"] > 1,
+                  lambda: (lf.lowrank_forward(x, w, v, b),
+                           *lf.lowrank_forward(x, w, v, b, return_p=True))))
+    Mt, Kt, Nt = TRAIN_M, 640, 640
+    dy, wt = randn(Mt, Nt, scale=1e-2), randn(Kt, Nt, scale=Kt ** -0.5)
+    vt, bt = randn(Kt, RANK, scale=RANK ** -0.5), randn(Nt, RANK, scale=0.02)
+    pt = randn(Mt, RANK)
+    plan = plan_of(lf, "backward", Mt, Kt, Nt, lb=lb)
+    cases.append((f"backward (M={Mt}, K={Kt}, N={Nt}) {plan}",
+                  plan["dB"]["splits"] > 1,
+                  lambda: lb.lowrank_backward(dy, wt, vt, bt, pt)))
+    for name, splits, fn in cases:
+        if not splits:
+            raise SystemExit(f"[determinism] {name}: no pass splits K")
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(0.02 * 2e9))
+        outs = [fn() for _ in range(repeats)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, c) for o in outs[1:]
+                   for a, c in zip(outs[0], o))
+        buf = lf._COUNTERS.get(x.device.index)
+        zero = buf is not None and int(buf.abs().sum().item()) == 0
+        log(f"[determinism] {name}: {repeats} queued launches bit-identical "
+            f"{same}, tile counters left zero {zero}")
+        if not (same and zero):
+            raise SystemExit(f"[determinism] {name} failed")
+
+
 def compare_kernels(lf, ref, dev, shapes=SHAPES):
     """Phase 2: kernel vs plain version and yardstick, both forms, at the
     (K, N) -> (leaves, prefill rows) of ``shapes``."""
@@ -326,19 +422,27 @@ def compare_kernels(lf, ref, dev, shapes=SHAPES):
             plain_ms = queued_ms(lambda: plain(x, wb, vb, b, *extra))
             library_ms = queued_ms(library)
             rows_m = M if batch is None else batch
+            plan = plan_of(lf, form, rows_m, K, N)
+            # a shared-B row the per-row-B kernel takes: the mainloop's
+            # time beside it
+            other_ms = gemm_route_ms(lf, lambda: kern(x, wb, vb, b)) \
+                if form == "shared" and plan["route"] == "skinny" else None
             # the per-row-B form reads each distinct tenant's B once
             bms, by = bound(rows_m, K, N, RANK, 1 if batch is None
                             else len(set(DEC_ROWS)), 2)
             rows.append(dict(form=form, K=K, N=N, M=rows_m, leaves=leaves,
                              path=path, max_abs_err=err.max().item(), ms=ms,
                              plain_ms=plain_ms, library_ms=library_ms,
-                             bound_ms=bms, bound_by=by, host_ms=host_ms))
+                             bound_ms=bms, bound_by=by, host_ms=host_ms,
+                             plan=plan, gemm_route_ms=other_ms))
             log(f"[kernel] {form:7s} M={rows_m:3d} K={K:5d} N={N:6d} "
                 f"({leaves}) route={path} max_abs_err={err.max().item():.4g} "
                 f"(tol {RTOL}*(max|y|+|y|), max|y|={scale:.3g}) "
                 f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
                 f"library_ms={library_ms:.4f} bound_ms={bms:.4f} ({by}) "
-                f"[queued; eager {host_ms:.4f} ms/call]")
+                f"[queued; eager {host_ms:.4f} ms/call] plan={plan}" + (
+                    "" if other_ms is None else
+                    f" mainloop_route_ms={other_ms:.4f}"))
             del x, b, y, want
         del w, v, wb, vb
     torch.cuda.empty_cache()
@@ -466,8 +570,7 @@ def serve(dev, mods, smi, arch="qwen2-7b"):
         f"{lf.launches('batched') / len(decode_s):.0f}, per prefill "
         f"{lf.launches('shared') / len(prefill_s):.0f}")
     log(f"[{tag}] first tokens req0: {out['req0'][:8].tolist()}")
-    if cfg.family == "ssm":
-        profile_prefill(params, store, cfg, lm, max(prompts), tag, rng)
+    profile_prefill(params, store, cfg, lm, max(prompts), tag, rng)
     profile_decode(eng, cfg, serve_mod, rng, tag=tag)
     del eng, store, params
     gc.collect()
@@ -949,19 +1052,24 @@ def compare_train_kernels(mods, dev):
     rows = []
 
     def row(kernel, shape, leaves, err, tol, ms, plain_ms, library_ms,
-            bound, path="simt", eager_ms=None, cold=False):
+            bound, path="simt", eager_ms=None, cold=False, plan=None,
+            queued=None):
         bms, by = bound
         rows.append(dict(kernel=kernel, shape=shape, leaves=leaves,
                          path=path, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, library_ms=library_ms,
-                         bound_ms=bms, bound_by=by, eager_ms=eager_ms))
+                         bound_ms=bms, bound_by=by, eager_ms=eager_ms,
+                         plan=plan, queued=queued))
         log(f"[kernel] {kernel:18s} {str(shape):22s} ({leaves}) "
             f"route={path} max_abs_err={err:.4g} (tol {tol}) ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
             f"bound_ms={bms:.4f} ({by})" + (
                 "" if eager_ms is None else
                 f" [queued{', L2 flushed' if cold else ''}; eager "
-                f"{eager_ms:.4f} ms/call]"))
+                f"{eager_ms:.4f} ms/call]") + (
+                "" if queued is None else
+                f" [queued: kernel {queued[0]:.4f} library {queued[1]:.4f}]")
+            + ("" if plan is None else f" plan={plan}"))
 
     def randn(*shape, scale=1.0):
         return scale * torch.randn(shape, generator=gen, device=dev)
@@ -993,7 +1101,10 @@ def compare_train_kernels(mods, dev):
             time_auto(lambda: ref.lowrank_forward(x, w, v, b,
                                                   return_p=True)),
             time_auto(lib_fwd), bound_of(nbytes, ops, BF16_FLOP_PER_S),
-            path)
+            path, plan=plan_of(lf, "p", M, K, N),
+            queued=(queued_ms(lambda: lf.lowrank_forward(x, w, v, b,
+                                                         return_p=True)),
+                    queued_ms(lib_fwd)))
         # forward, shared B and no p: the forward-only lowrank_lr's form
         lf.reset_launches()
         y = lf.lowrank_forward(x, w, v, b)
@@ -1007,7 +1118,10 @@ def compare_train_kernels(mods, dev):
             time_auto(lambda: lf.lowrank_forward(x, w, v, b)),
             time_auto(lambda: ref.lowrank_forward(x, w, v, b)),
             time_auto(lambda: x @ w + (x @ v) @ b.T),
-            bound_of(nbytes - 2 * M * r, ops, BF16_FLOP_PER_S), path)
+            bound_of(nbytes - 2 * M * r, ops, BF16_FLOP_PER_S), path,
+            plan=plan_of(lf, "shared", M, K, N),
+            queued=(queued_ms(lambda: lf.lowrank_forward(x, w, v, b)),
+                    queued_ms(lambda: x @ w + (x @ v) @ b.T)))
         # backward
         dy = randn(M, N, scale=1e-2).to(bf)
         lb.reset_launches()
@@ -1030,7 +1144,9 @@ def compare_train_kernels(mods, dev):
             time_auto(lambda: lb.lowrank_backward(dy, w, v, b, p)),
             time_auto(lambda: ref.lowrank_backward(dy, w, v, b, p)),
             time_auto(lib_bwd), bound_of(nbytes, ops, BF16_FLOP_PER_S),
-            path)
+            path, plan=plan_of(lf, "backward", M, K, N, lb=lb),
+            queued=(queued_ms(lambda: lb.lowrank_backward(dy, w, v, b, p)),
+                    queued_ms(lib_bwd)))
         del x, w, v, b, p, dy
         torch.cuda.empty_cache()
 
@@ -1718,10 +1834,51 @@ def train_equals_plain(dev, mods, configs, label="fp32", fields=(),
                          f"plain route ({label}): {worst} > {tol}")
 
 
+def gemm_rows(src):
+    """``python3 chip_smoke.py --gemm-rows SRC``: the forward (both forms)
+    and the backward of the package under ``SRC`` (a checkout's ``src``)
+    at the llama-100m training shapes, timed eager (``time_auto``) and
+    queued, one JSON line a row and nothing else, so that two trees can
+    be timed in turns on one card in one call."""
+    sys.path.insert(0, str(Path(src).resolve()))
+    from repro_torch.kernels import lowrank_backward as lb
+    from repro_torch.kernels import lowrank_forward as lf
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(
+            torch.bfloat16)
+    M, r = TRAIN_M, RANK
+    for (K, N), leaves in TRAIN_SHAPES.items():
+        x, w = randn(M, K), randn(K, N, scale=K ** -0.5)
+        v, b = randn(K, r, scale=r ** -0.5), randn(N, r, scale=0.02)
+        dy = randn(M, N, scale=1e-2)
+        _, p = lf.lowrank_forward(x, w, v, b, return_p=True)
+        for kernel, fn in (
+                ("lowrank_forward[p]",
+                 lambda: lf.lowrank_forward(x, w, v, b, return_p=True)),
+                ("lowrank_forward[shared]",
+                 lambda: lf.lowrank_forward(x, w, v, b)),
+                ("lowrank_backward",
+                 lambda: lb.lowrank_backward(dy, w, v, b, p))):
+            row = {"src": src, "kernel": kernel, "shape": [M, K, N],
+                   "leaves": leaves, "ms": time_auto(fn),
+                   "queued_ms": queued_ms(fn)}
+            print(json.dumps(row), flush=True)
+        del x, w, v, b, dy, p
+        torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         sys.exit(2)
+    if sys.argv[1:2] == ["--gemm-rows"]:
+        gemm_rows(sys.argv[2])
+        return
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch import configs
     from repro_torch.kernels import _build, dispatch, ref
@@ -1777,6 +1934,7 @@ def main():
                 counters=(lf, lb, lu, sa))
     rows = compare_kernels(lf, ref, dev)
     mamba_rows = compare_kernels(lf, ref, dev, MAMBA_SHAPES)
+    split_determinism(mods, dev)
     ssd_rows = compare_ssd_kernel(mods, dev)
     train_rows = compare_train_kernels(mods, dev)
     state_rows = compare_state_kernels(mods, dev)
@@ -1818,7 +1976,9 @@ def main():
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"],
+                "library_ms": row["library_ms"], "plan": row["plan"],
+                **({} if row["gemm_route_ms"] is None else
+                   {"mainloop_route_ms": row["gemm_route_ms"]}),
                 **({} if row["host_ms"] is None else
                    {"timing": "queued", "eager_ms": row["host_ms"]})})
     for row in ssd_rows:
@@ -1844,6 +2004,10 @@ def main():
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            **({} if row["plan"] is None else {"plan": row["plan"]}),
+            **({} if row["queued"] is None else
+               {"queued_ms": row["queued"][0],
+                "library_queued_ms": row["queued"][1]}),
             **({} if row["eager_ms"] is None else
                {"timing": "queued", "eager_ms": row["eager_ms"]})})
     # compressed state: one row per kernel and group shape, in the form the

@@ -28,17 +28,22 @@
 // peak.
 //
 // * tensor cores (lowrank_backward_tc_launch; bf16, every row length a
-//   multiple of 8 so TMA can address it): each pass is the wgmma
-//   mainloop of wgmma_gemm.cuh.  q is stored as q_hi = bf16(q) and
-//   q_lo = bf16(q - q_hi), 16 significant bits, and pass 2 reduces over
-//   three segments, dy Wᵀ + q_hi Vᵀ + q_lo Vᵀ.  Every operand is read in
-//   the layout the caller holds it: Wᵀ and Vᵀ K-major, B and p N-major,
-//   dyᵀ M-major (wgmma's transpose bits), so there are no transposed
-//   copies.  dB's partials are written only when the (N, r) output
-//   alone has fewer tiles than the card has SMs.  The SIMT route this
-//   replaces ran 16-39x slower than cuBLAS: fp32 FMAs on operands
-//   converted on their way into shared memory, synchronous loads, no
-//   tensor cores.
+//   multiple of 8 so TMA can address it): three launches of the
+//   persistent wgmma mainloop of wgmma_gemm.cuh.  q is stored as q_hi =
+//   bf16(q) and q_lo = bf16(q - q_hi), 16 significant bits, and pass 2
+//   reduces over three segments, dy Wᵀ + q_hi Vᵀ + q_lo Vᵀ, a
+//   programmatic dependent launch whose dy Wᵀ mainloop runs while the q
+//   pass finishes.  Every operand is read in the layout the caller holds
+//   it: Wᵀ and Vᵀ K-major, B and p N-major, dyᵀ M-major (wgmma's
+//   transpose bits), so there are no transposed copies.  Each pass's plan
+//   (lowrank_backward.py::tc_plan) sets its tile width, pairs the dx
+//   pass's blocks to share Wᵀ's stages at the training shapes, and splits
+//   the reduction where the output tiles cannot fill the card (dB's
+//   (N, r) over M; q and dx at a few rows over N); the tile's last split
+//   sums the fp32 partials in split order in the kernel, so passes 3 and
+//   4 above are one launch.  The SIMT route this replaces ran 16-39x
+//   slower than cuBLAS: fp32 FMAs on operands converted on their way
+//   into shared memory, synchronous loads, no tensor cores.
 // * SIMT (lowrank_backward_launch; fp32 and row lengths TMA cannot
 //   address): the same four passes on gemm_tile.cuh's tiled fp32 FMAs,
 //   reading Wᵀ and dyᵀ through strided views; q in fp32.
@@ -132,36 +137,46 @@ extern "C" int lowrank_backward_launch(int dtype, const void* dy,
 
 // The tensor-core route: bf16, K, N and r multiples of 8 and 16-byte-
 // aligned pointers (the wrapper checks).  q_hi, q_lo (M, r) are bf16
-// scratch; db_part (s_db, N, r) fp32 scratch, unused (may be null) when
-// s_db = 1.  Returns 0 when every launch was queued, a CUDA error, or a
-// negated CUresult of the tensor-map encoding.
+// scratch.  plan: tile width, splits of K and cluster size of the q, dx
+// and dB passes (bn_q, s_q, cl_q, bn_x, ..., cl_b;
+// lowrank_backward.py::tc_plan, every split non-empty); part_q, part_x,
+// part_b: their fp32 partials (tiles x splits, 128 x bn), unused (may be
+// null) where a pass does not split; counters: one zeroed int per tile
+// of the three passes in that order, left zero.  The dx pass may start
+// before the q pass ends (programmatic dependent launch).  Returns 0
+// when every launch was queued, a CUDA error, or a negated CUresult of
+// the tensor-map encoding.
 extern "C" int lowrank_backward_tc_launch(const void* dy, const void* w,
                                           const void* v, const void* b,
                                           const void* p, void* dx,
                                           float* db, void* q_hi, void* q_lo,
-                                          float* db_part, int s_db, int M,
-                                          int K, int N, int r,
-                                          void* stream) {
+                                          float* part_q, float* part_x,
+                                          float* part_b, int* counters,
+                                          const int* plan, int M, int K,
+                                          int N, int r, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  for (int i = 0; i < 3; ++i)
+    if (plan[3 * i] != 64 && plan[3 * i] != 128 && plan[3 * i] != 256)
+      return (int)cudaErrorInvalidValue;
+  int* cx = counters + tc::ceil_div(M, tc::BM) * tc::ceil_div(r, plan[0]);
+  int* cb = cx + tc::ceil_div(M, tc::BM) * tc::ceil_div(K, plan[3]);
   // 1. q = dy B: A = dy (M, N), B = b (N, r) N-major
   const tc::Segment sq{{dy, M, N, false}, {b, N, r, true}, N};
-  int err = tc::gemm(&sq, 1, M, r, 1, tc::EPI_HILO, q_hi, q_lo, st);
+  const tc::Pass pq{plan[0], plan[1], part_q, counters, tc::MAX_SEGS,
+                    plan[2]};
+  int err = tc::gemm(&sq, 1, M, r, pq, tc::EPI_HILO, q_hi, q_lo, st);
   if (err != 0) return err;
   // 2. dx = dy Wᵀ + q_hi Vᵀ + q_lo Vᵀ: Wᵀ from W (K, N) and Vᵀ from
-  // V (K, r), both K-major
+  // V (K, r), both K-major; only the rank segments wait for q
   const tc::Segment sx[3] = {{{dy, M, N, false}, {w, K, N, false}, N},
                              {{q_hi, M, r, false}, {v, K, r, false}, r},
                              {{q_lo, M, r, false}, {v, K, r, false}, r}};
-  err = tc::gemm(sx, 3, M, K, 1, tc::EPI_BF16, dx, nullptr, st);
+  const tc::Pass px{plan[3], plan[4], part_x, cx, 1, plan[5]};
+  err = tc::gemm(sx, 3, M, K, px, tc::EPI_BF16, dx, nullptr, st);
   if (err != 0) return err;
-  // 3. dB = dyᵀ p over s_db ranges of M: dyᵀ M-major, p N-major
+  // 3. dB = dyᵀ p, M split: dyᵀ M-major, p N-major; the fixed-order sum
+  // of the splits in the kernel
   const tc::Segment sb{{dy, M, N, true}, {p, M, r, true}, M};
-  err = tc::gemm(&sb, 1, N, r, s_db, tc::EPI_F32,
-                 s_db == 1 ? static_cast<void*>(db) : db_part, nullptr, st);
-  if (err != 0 || s_db == 1) return err;
-  // 4. fixed-order reduce of the partials
-  const int64_t count = (int64_t)N * r;
-  lrk::reduce_splits<<<(unsigned)lrk::ceil_div(count, 256), 256, 0, st>>>(
-      db_part, db, count, s_db);
-  return (int)cudaGetLastError();
+  const tc::Pass pb{plan[6], plan[7], part_b, cb, tc::MAX_SEGS, plan[8]};
+  return tc::gemm(&sb, 1, N, r, pb, tc::EPI_F32, db, nullptr, st);
 }

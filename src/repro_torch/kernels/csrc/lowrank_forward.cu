@@ -21,19 +21,32 @@
 //
 // * tensor cores, shared B (lowrank_forward_tc_launch; bf16, every row
 //   length a multiple of 8 so TMA can address it), two launches of the
-//   wgmma mainloop of wgmma_gemm.cuh:
+//   persistent wgmma mainloop of wgmma_gemm.cuh:
 //
 //     1. p pass: p = x V, stored as p_hi = bf16(p) (exactly the return_p
 //        output) and p_lo = bf16(p - p_hi): 16 significant bits, so the
 //        rank-r term keeps the fp32 p of the reference to about 2^-17;
 //     2. y pass: y = x W + p_hi B^T + p_lo B^T, three reduction segments
-//        into one fp32 accumulator, cast to bf16 once.
+//        into one fp32 accumulator, cast to bf16 once.  A programmatic
+//        dependent launch: its x W mainloop runs while the p pass
+//        finishes, and its producer waits for p only before the rank
+//        segments.
 //
 //   What bounds it: at the training shapes (M = 16384) the operations at
 //   the bf16 tensor-core peak; at prefill (M <= 512) the weights' bytes.
 //   The route keeps bf16 operands, streams them with TMA into a swizzled
 //   ring that wgmma reads directly, and adds the rank-r term inside the
 //   same tile, so y is written once and nothing of size M x N is re-read.
+//   Each pass's plan (lowrank_forward.py::gemm_plan, from the shapes
+//   alone) sets the tile width (64, 128 or 256 columns), pairs blocks
+//   that share W's stages by multicast where the operations bound the
+//   pass (the training shapes), and splits K where the output tiles alone
+//   cannot fill the card (a prefill's one row of tiles): each split
+//   writes an fp32 partial, and the last to arrive at the tile's counter
+//   sums them in split order and stores the tile, so results do not
+//   depend on scheduling.  A shared-B launch of
+//   at most 16 rows (the unembedding at prefill) takes the per-row-B
+//   kernel below with one B instead: W read once by the swap-AB tile.
 //
 // * tensor cores, per-row B (lowrank_batch_forward_tc_launch; bf16,
 //   aligned as above): decode, M = batch x seq of usually 1-16 rows.
@@ -786,24 +799,38 @@ extern "C" int lowrank_forward_launch(int dtype, const void* x,
 // The tensor-core route: shared B, bf16, K, N and r multiples of 8 and
 // 16-byte-aligned pointers (the wrapper checks).  p_hi (M, r) receives
 // bf16(p) -- the return_p output -- and p_lo (M, r) bf16(p - p_hi).
-// Returns 0 when both launches were queued, a CUDA error, or a negated
-// CUresult of the tensor-map encoding.
+// plan: each pass's tile width, splits of K and cluster size (bn_p, s_p,
+// cl_p, bn_y, s_y, cl_y; lowrank_forward.py::tc_plan, every split
+// non-empty); part_p, part_y: their fp32 partials (tiles x splits, 128 x
+// bn), unused (may be null) where the pass does not split; counters: one
+// zeroed int per tile of both passes (the p pass's first), left zero.
+// The y pass may start before the p pass ends (programmatic dependent
+// launch).  Returns 0 when both launches were queued, a CUDA error, or a
+// negated CUresult of the tensor-map encoding.
 extern "C" int lowrank_forward_tc_launch(const void* x, const void* w,
                                          const void* v, const void* b,
                                          void* y, void* p_hi, void* p_lo,
+                                         float* part_p, float* part_y,
+                                         int* counters, const int* plan,
                                          int M, int K, int N, int r,
                                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (plan[0] != 64 && plan[0] != 128 && plan[0] != 256)
+    return (int)cudaErrorInvalidValue;
   // p = x V: A = x (M, K), B = V (K, r) N-major
   const tc::Segment sp{{x, M, K, false}, {v, K, r, true}, K};
-  int err = tc::gemm(&sp, 1, M, r, 1, tc::EPI_HILO, p_hi, p_lo, st);
+  const tc::Pass pp{plan[0], plan[1], part_p, counters, tc::MAX_SEGS,
+                    plan[2]};
+  int err = tc::gemm(&sp, 1, M, r, pp, tc::EPI_HILO, p_hi, p_lo, st);
   if (err != 0) return err;
   // y = x W + p_hi B^T + p_lo B^T: W (K, N) N-major, B^T from B (N, r)
-  // K-major
+  // K-major; only the rank segments wait for p
   const tc::Segment sy[3] = {{{x, M, K, false}, {w, K, N, true}, K},
                              {{p_hi, M, r, false}, {b, N, r, false}, r},
                              {{p_lo, M, r, false}, {b, N, r, false}, r}};
-  return tc::gemm(sy, 3, M, N, 1, tc::EPI_BF16, y, nullptr, st);
+  int* cy = counters + tc::ceil_div(M, tc::BM) * tc::ceil_div(r, plan[0]);
+  const tc::Pass py{plan[3], plan[4], part_y, cy, 1, plan[5]};
+  return tc::gemm(sy, 3, M, N, py, tc::EPI_BF16, y, nullptr, st);
 }
 
 // The per-row-B tensor-core route: bf16, K, N and r multiples of 8 and

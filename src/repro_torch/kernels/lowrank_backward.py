@@ -21,11 +21,11 @@ import torch
 
 from . import _build, ref
 from .lowrank_forward import (DTYPE_CODE, MIN_K_PER_SPLIT, SMS, TILE,
-                              _route, tc_route)
+                              _counters, _route, gemm_plan, gemm_scratch,
+                              tc_route)
 
 # (route, K, N) -> launches on CUDA tensors; route "tc" | "simt"
 LAUNCHES: collections.Counter = collections.Counter()
-TC_TILE, TC_BK = 128, 64      # output tile and stage depth of the tc route
 
 
 def launches(route: str | None = None) -> int:
@@ -44,29 +44,30 @@ def db_splits(M: int, N: int, r: int) -> int:
     return max(1, min(-(-4 * SMS // tiles), -(-M // MIN_K_PER_SPLIT)))
 
 
-def tc_db_splits(M: int, N: int, r: int) -> int:
-    """How many M ranges the tensor-core ``dB = dyᵀ p`` pass splits into:
-    enough for one block per SM over the (N, r) tiles, each range at
-    least ``MIN_K_PER_SPLIT`` rows deep and a multiple of ``TC_BK``; no
-    range is empty."""
-    tiles = -(-N // TC_TILE) * -(-r // TC_TILE)
-    s = max(1, min(-(-SMS // tiles), -(-M // MIN_K_PER_SPLIT)))
-    chunk = -(-(-(-M // s)) // TC_BK) * TC_BK
-    return -(-M // chunk)
+def tc_plan(M: int, K: int, N: int, r: int) -> tuple:
+    """``(plan of the q pass, of the dx pass, of the dB pass)`` of one
+    tensor-core launch, each ``(bn, splits, cluster)`` from
+    :func:`~.lowrank_forward.gemm_plan` over its output and depth: q (M,
+    r) over N, dx (M, K) over N, dB (N, r) over M."""
+    return gemm_plan(M, r, N), gemm_plan(M, K, N, 2 * r), gemm_plan(N, r, M)
 
 
-def scratch_plan(route: str, M: int, N: int, r: int) -> dict:
+def scratch_plan(route: str, M: int, N: int, r: int, K: int) -> dict:
     """``{name: (shape, dtype)}`` of the scratch one launch allocates:
     q = dy B as a bf16 (hi, lo) pair on the tensor-core route (fp32 on
-    the SIMT one), and dB's fp32 split partials where there are
-    several."""
+    the SIMT one); on the tensor-core route each pass's fp32 partials
+    where it splits (``part_q``, ``part_x``, ``part_b``: a 128 × bn
+    partial per unit), on the SIMT one dB's split partials."""
     f32 = torch.float32
     if route == "tc":
-        s = tc_db_splits(M, N, r)
         plan = {"q_hi": ((M, r), torch.bfloat16),
                 "q_lo": ((M, r), torch.bfloat16)}
-        if s > 1:
-            plan["db_part"] = ((s, N, r), f32)
+        outs = ((M, r), (M, K), (N, r))
+        for name, (rows, cols), pl in zip(
+                ("part_q", "part_x", "part_b"), outs, tc_plan(M, K, N, r)):
+            n, _ = gemm_scratch(rows, cols, *pl[:2])
+            if n:
+                plan[name] = ((n,), f32)
         return plan
     return {"q": ((M, r), f32),
             "db_part": ((db_splits(M, N, r), N, r), f32)}
@@ -88,7 +89,7 @@ def _tc_kernel():
     """The tensor-core route's C entry point."""
     fn = _build.load("lowrank_backward").lowrank_backward_tc_launch
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 10 + [ci] * 5 + [vp]
+    fn.argtypes = [vp] * 14 + [ci] * 4 + [vp]
     fn.restype = ci
     return fn
 
@@ -142,18 +143,25 @@ def lowrank_backward(dy: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
     route = tc_route(dy.dtype, K, N, r,
                      (t.data_ptr() for t in (dy, w, v, b, p)))
     buf = {name: torch.empty(shape, dtype=dt, device=dev) for name,
-           (shape, dt) in scratch_plan(route, M, N, r).items()}
+           (shape, dt) in scratch_plan(route, M, N, r, K).items()}
     db = torch.empty((N, r), **f32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if route == "tc":
-            part = buf.get("db_part")
+            plan = tc_plan(M, K, N, r)
+            tiles = sum(gemm_scratch(rows, cols, *pl[:2])[1]
+                        for (rows, cols), pl
+                        in zip(((M, r), (M, K), (N, r)), plan))
+            ints = (ctypes.c_int * 9)(*(i for pl in plan for i in pl))
+            ptr = {name: None if name not in buf else buf[name].data_ptr()
+                   for name in ("part_q", "part_x", "part_b")}
             rc = _tc_kernel()(dy.data_ptr(), w.data_ptr(), v.data_ptr(),
                               b.data_ptr(), p.data_ptr(), dx.data_ptr(),
                               db.data_ptr(), buf["q_hi"].data_ptr(),
-                              buf["q_lo"].data_ptr(),
-                              None if part is None else part.data_ptr(),
-                              tc_db_splits(M, N, r), M, K, N, r, stream)
+                              buf["q_lo"].data_ptr(), ptr["part_q"],
+                              ptr["part_x"], ptr["part_b"],
+                              _counters(dev, tiles).data_ptr(), ints, M, K,
+                              N, r, stream)
         else:
             rc = _kernel()(DTYPE_CODE[dy.dtype], dy.data_ptr(),
                            w.data_ptr(), v.data_ptr(), b.data_ptr(),

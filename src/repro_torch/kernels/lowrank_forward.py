@@ -27,11 +27,12 @@ Neither gives way to the other: a failed build or launch raises.
 ``"shared"``, ``"p"`` (return_p) or ``"batched"`` — so a run can show
 that its main path went through the kernel, and by which route.
 
-The per-row-B ``"tc"`` launch reads nothing back on the host (not
-``rows``, not a length), so a decode step can be captured in a CUDA
-graph; it keeps one int counter per output tile in a per-device buffer
-that every launch leaves zeroed, so launches on one device are ordered
-on one stream.
+The ``"tc"`` launches read nothing back on the host (not ``rows``, not
+a length), so a decode step can be captured in a CUDA graph.  Where a
+pass splits its reduction they keep one int counter per output tile in
+a per-device buffer that every launch leaves zeroed, so launches on one
+device are ordered on one stream.  The shared-B and ``return_p`` plans
+(:func:`gemm_plan`, :func:`tc_plan`) are pure functions of the shapes.
 """
 from __future__ import annotations
 
@@ -56,6 +57,25 @@ TC_ALIGN = 8              # bf16 elements in the 16 bytes TMA aligns to
 # the per-row-B tensor-core kernel: 128 output columns per block, 64-deep
 # stages, two blocks resident per SM, a split at least 8 stages deep
 DEC_TILE, DEC_BK, DEC_BLOCKS, DEC_MIN_STAGES = 128, 64, 2 * SMS, 8
+# the shared-B mainloop (csrc/wgmma_gemm.cuh): 128-row tiles 64, 128 or
+# 256 wide, 64-deep stages, one block resident per SM, a split at least 8
+# stages deep, tiles walked in groups of 8 rows
+GEMM_BM, GEMM_BK, GEMM_MIN_STAGES, GEMM_GROUP = 128, 64, 8, 8
+# the plan's cost model (gemm_plan), in units of one 128-wide stage on one
+# SM, fitted to the H100's times at the path's shapes: a stage's
+# tensor-core time by tile width at the operations bound (per operation,
+# against the 128-wide tile), alone and with two blocks sharing B; a
+# tile's epilogue per 128 columns; an fp32 partial written, and one read
+# back by the tile's last split; the SMs that stream the weights at the
+# card's memory rate, and the output tile's intensity (rows x cols /
+# (rows + cols)) from which a pass is bound by operations
+OPS_STAGE = {64: 1.2, 128: 1.0, 256: 0.8}
+OPS_STAGE_PAIRED = {128: 0.85, 256: 0.7}
+EPILOGUE, PART_WRITE, PART_READ = 2.0, 2.5, 2.5
+BYTES_SMS, OPS_INTENSITY = 48, 512
+# shared-B launches of at most this many rows take the per-row-B kernel
+# with one B (W read once by a swap-AB tile)
+SKINNY_ROWS = 16
 
 _COUNTERS: dict = {}      # device index -> zeroed int32 tile counters
 
@@ -109,6 +129,97 @@ def dec_plan(M: int, K: int, N: int, r: int, seq: int = 1) -> tuple:
     return bn, dec_splits(-(-r // DEC_TILE) * tiles_m, K), s_y, slots
 
 
+@functools.lru_cache(maxsize=4096)
+def gemm_plan(M: int, N: int, K: int, rank_k: int = 0) -> tuple:
+    """``(bn, splits, cluster)`` of one pass of the shared-B mainloop
+    over an (M, N) output, a depth K and rank segments of ``rank_k`` in
+    all: the tile width (64, 128 or 256), how many depth ranges segment 0
+    splits into, each at least ``GEMM_MIN_STAGES`` stages and none
+    empty, and how many blocks, one tile above the other, share each
+    stage of B (2: each loads half and multicasts it to both; for a pass
+    bound by operations whose tile rows pair up, and with rank segments:
+    the y and dx passes, whose bf16 epilogue that kernel is built
+    for).  The grid holds one block per SM, so a pass takes ``ceil(units
+    / SMS)`` rounds; a unit costs its stages (a wide stage its bytes,
+    ``bn / 128``, where the pass is bound by bytes — an output of few
+    rows or columns — and its operations, ``OPS_STAGE``, where it is
+    bound by operations) and, split, its fp32 partial.  The plan
+    minimises the larger of the rounds' cost and the whole pass over the
+    SMs it can keep busy (``BYTES_SMS`` where it streams bytes), plus
+    the last split's reading the partials back."""
+    kst, rst = max(1, -(-K // GEMM_BK)), -(-rank_k // GEMM_BK)
+    w = min(1.0, M * N / (M + N) / OPS_INTENSITY)
+    busy = max(BYTES_SMS, SMS * w)
+    best = None
+    for bn, ops in OPS_STAGE.items():
+        tiles = -(-M // GEMM_BM) * -(-N // bn)
+        pair = rank_k > 0 and w >= 1.0 and bn in OPS_STAGE_PAIRED \
+            and -(-M // GEMM_BM) % 2 == 0
+        part = bn / 128
+        cost = part * (1 - w + w * (OPS_STAGE_PAIRED[bn] if pair else ops))
+        for s in range(1, max(1, kst // GEMM_MIN_STAGES) + 1):
+            chunk = -(-kst // s)
+            if -(-kst // chunk) != s:
+                continue
+            write = PART_WRITE * part if s > 1 else 0.0
+            unit = (chunk + rst) * cost + write + w * EPILOGUE * part
+            total = tiles * ((kst + rst) * cost + s * write)
+            key = (max(-(-tiles * s // SMS) * unit, total / busy)
+                   + (s - 1) * PART_READ * part, abs(bn - 128), s)
+            if best is None or key < best[0]:
+                best = (key, bn, s, 2 if pair else 1)
+    return best[1:]
+
+
+def gemm_units(M: int, N: int, K: int, bn: int, splits: int,
+               cluster: int = 1, rank_ks=()) -> list:
+    """Every work unit of one pass in the order the kernel walks them
+    (``unit_of`` and ``seg_range`` in ``csrc/wgmma_gemm.cuh``), a
+    cluster's ``cluster`` blocks side by side: ``(tile, z, m0, n0,
+    (k_begin, k_end), rank)`` — split z of the tile at rows m0, columns
+    n0 takes segment 0's depth range and, in the last split only, the
+    rank segments of depths ``rank_ks`` (``rank`` True).  Tiles are
+    taken in groups of ``GEMM_GROUP`` rows (of clusters), column by
+    column."""
+    tiles_m, tiles_n = -(-M // GEMM_BM), -(-N // bn)
+    chunk = -(-(-(-max(K, 1) // splits)) // GEMM_BK) * GEMM_BK
+    span = GEMM_GROUP * tiles_n
+    units = []
+    for pu in range(tiles_m // cluster * tiles_n * splits):
+        ptile, z = divmod(pu, splits)
+        group, inner = divmod(ptile, span)
+        rows = min(GEMM_GROUP, tiles_m // cluster - group * GEMM_GROUP)
+        for rank in range(cluster):
+            m0 = (cluster * (group * GEMM_GROUP + inner % rows) + rank) \
+                * GEMM_BM
+            kb = z * chunk
+            units.append((ptile * cluster + rank, z, m0, (inner // rows) * bn,
+                          (kb, min(K, kb + chunk)),
+                          bool(rank_ks) and z == splits - 1))
+    return units
+
+
+def gemm_scratch(M: int, N: int, bn: int, splits: int) -> tuple:
+    """``(fp32 partial elements, tile counters)`` of one pass: a 128 ×
+    bn partial per unit and a counter per tile where the pass splits."""
+    tiles = -(-M // GEMM_BM) * -(-N // bn)
+    return (tiles * splits * GEMM_BM * bn, tiles) if splits > 1 \
+        else (0, tiles)
+
+
+def tc_plan(form: str, M: int, K: int, N: int, r: int) -> dict:
+    """How the tensor-core route runs a shared-B or ``"p"`` launch:
+    ``{"route": "skinny"}`` for a shared-B launch of at most
+    ``SKINNY_ROWS`` rows (the per-row-B kernel with one B: p and y
+    passes as :func:`dec_plan` says), else ``{"route": "gemm", "p":
+    plan, "y": plan}``, each :func:`gemm_plan`'s ``(bn, splits,
+    cluster)`` of the mainloop's p or y pass."""
+    if form == "shared" and M <= SKINNY_ROWS:
+        return {"route": "skinny"}
+    return {"route": "gemm", "p": gemm_plan(M, r, K),
+            "y": gemm_plan(M, N, K, 2 * r)}
+
+
 def tc_route(dtype: torch.dtype, K: int, N: int, r: int,
              ptrs=()) -> str:
     """``"tc"`` where the tensor-core route can take a launch of any form
@@ -124,13 +235,18 @@ def scratch_plan(form: str, route: str, M: int, K: int, N: int,
                  r: int, seq: int = 1) -> dict:
     """``{name: (shape, dtype)}`` of the scratch one launch allocates.
     The shared-B tensor-core route keeps p as a bf16 (hi, lo) pair — hi
-    is the ``"p"`` form's output itself — and never an (s, M, N) fp32
-    buffer.  The per-row-B one keeps p in fp32 and the fp32 partials of
-    each pass that splits K, all in one buffer: at decode (M ≤ 16) an
-    ``(s + slots, M, N)`` buffer (the splits' and the rank slots'
-    partials) only where the output tiles alone cannot fill the card.
+    is the ``"p"`` form's output itself — and, for each pass that splits
+    K (:func:`gemm_plan`), a 128 × bn fp32 partial per unit
+    (``part_p``, ``part_y``).  The per-row-B one (and a shared-B launch
+    of at most ``SKINNY_ROWS`` rows, which runs on it) keeps p in fp32
+    and the fp32 partials of each pass that splits K, all in one buffer:
+    at decode (M ≤ 16) an ``(s + slots, M, N)`` buffer (the splits' and
+    the rank slots' partials) only where the output tiles alone cannot
+    fill the card.
     The SIMT route sums split-K partials in fp32."""
     bf16, f32 = torch.bfloat16, torch.float32
+    if route == "tc" and form == "shared" and M <= SKINNY_ROWS:
+        form, seq = "batched", M
     if route == "tc" and form == "batched":
         _, s_p, s_y, slots = dec_plan(M, K, N, r, seq)
         plan = {"p": ((M, r), f32)}
@@ -143,6 +259,10 @@ def scratch_plan(form: str, route: str, M: int, K: int, N: int,
         plan = {"p_lo": ((M, r), bf16)}
         if form == "shared":
             plan["p_hi"] = ((M, r), bf16)
+        for name, cols, rank_k in (("part_p", r, 0), ("part_y", N, 2 * r)):
+            n, _ = gemm_scratch(M, cols, *gemm_plan(M, cols, K, rank_k)[:2])
+            if n:
+                plan[name] = ((n,), f32)
         return plan
     s_p, s_y = splits(M, r, K), splits(M, N, K)
     plan = {"p_part": ((s_p, M, r), f32), "p": ((M, r), f32)}
@@ -167,7 +287,7 @@ def _tc_kernel():
     """The tensor-core route's C entry point."""
     fn = _build.load("lowrank_forward").lowrank_forward_tc_launch
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 7 + [ci] * 4 + [vp]
+    fn.argtypes = [vp] * 11 + [ci] * 4 + [vp]
     fn.restype = ci
     return fn
 
@@ -236,13 +356,13 @@ def _launch(form: str, x2, w, v, b, seq: int, rows=None):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if route == "tc" and form == "batched":
             rc = _launch_dec(x2, w, v, b, y, plan, seq, rows, stream)
+        elif route == "tc" and tc_plan(form, M, K, N, r)["route"] == \
+                "skinny":
+            # one B for every row: the per-row-B kernel, adapter 0
+            rc = _launch_dec(x2, w, v, b.unsqueeze(0), y, plan, M, None,
+                             stream)
         elif route == "tc":
-            buf = {name: torch.empty(shape, dtype=dt, device=dev)
-                   for name, (shape, dt) in plan.items()}
-            p_hi = buf["p_hi"] if p_out is None else p_out
-            rc = _tc_kernel()(x2.data_ptr(), w.data_ptr(), v.data_ptr(),
-                              b.data_ptr(), y.data_ptr(), p_hi.data_ptr(),
-                              buf["p_lo"].data_ptr(), M, K, N, r, stream)
+            rc = _launch_tc(x2, w, v, b, y, p_out, plan, stream)
         else:
             buf = {name: torch.empty(shape, dtype=dt, device=dev)
                    for name, (shape, dt) in plan.items()}
@@ -267,6 +387,27 @@ def _launch(form: str, x2, w, v, b, seq: int, rows=None):
             f"{tuple(w.shape)}, r={r})")
     LAUNCHES[(form, route, K, N)] += 1
     return y if p_out is None else (y, p_out)
+
+
+def _launch_tc(x2, w, v, b, y, p_out, plan, stream) -> int:
+    """Queue the shared-B tensor-core route's two launches (p pass, y
+    pass) in one C call, as :func:`tc_plan` planned them."""
+    M, K = x2.shape
+    N, r = w.shape[1], v.shape[1]
+    plan_tc = tc_plan("p", M, K, N, r)
+    buf = {name: torch.empty(shape, dtype=dt, device=x2.device)
+           for name, (shape, dt) in plan.items()}
+    p_hi = buf["p_hi"] if p_out is None else p_out
+    tiles = gemm_scratch(M, r, *plan_tc["p"][:2])[1] + \
+        gemm_scratch(M, N, *plan_tc["y"][:2])[1]
+    part_p, part_y = buf.get("part_p"), buf.get("part_y")
+    ints = (ctypes.c_int * 6)(*plan_tc["p"], *plan_tc["y"])
+    return _tc_kernel()(
+        x2.data_ptr(), w.data_ptr(), v.data_ptr(), b.data_ptr(),
+        y.data_ptr(), p_hi.data_ptr(), buf["p_lo"].data_ptr(),
+        None if part_p is None else part_p.data_ptr(),
+        None if part_y is None else part_y.data_ptr(),
+        _counters(x2.device, tiles).data_ptr(), ints, M, K, N, r, stream)
 
 
 def _launch_dec(x2, w, v, b, y, plan, seq, rows, stream) -> int:

@@ -18,8 +18,9 @@ On the CPU (no card needed):
   about 1e-6 at K = 1712), ``dB`` within 1e-5 of max|dB| (both sides sum
   the same exact products in fp32).
 * The wrappers' scratch plans: the tensor-core forward allocates p's
-  bf16 (hi, lo) pair and no (s, M, N) fp32 buffer; the backward's ``dB``
-  splits leave no M range empty.
+  bf16 (hi, lo) pair and a 128 × bn fp32 partial per unit of each pass
+  that splits K (a shared-B launch of a few rows: the per-row-B
+  kernel's plan); the backward's ``dB`` splits leave no M range empty.
 
 The ``cuda``-marked tests hold the tensor-core route against the plain
 versions on the card at aligned edge shapes — M ∈ {1, 70, 200}, K ∈
@@ -179,12 +180,25 @@ def test_route_arithmetic_matches_jax_backward(jref, M, K, N, r):
 @pytest.mark.parametrize("form", ["shared", "p"])
 @pytest.mark.parametrize("M,K,N", [(8192, 640, 32256), (16384, 1712, 640),
                                    (1, 3584, 152064), (512, 1536, 6448)])
-def test_tc_forward_allocates_no_fp32_partials(form, M, K, N):
-    plan = lf.scratch_plan(form, "tc", M, K, N, RANK)
-    assert all(dt == torch.bfloat16 and shape == (M, RANK)
-               for shape, dt in plan.values())
-    # hi is the "p" form's output itself; the shared form keeps it aside
-    assert set(plan) == ({"p_hi", "p_lo"} if form == "shared" else {"p_lo"})
+def test_tc_forward_scratch_plan_holds_the_split_partials(form, M, K, N):
+    plan = lf.scratch_plan(form, "tc", M, K, N, RANK, M)
+    if lf.tc_plan(form, M, K, N, RANK)["route"] == "skinny":
+        # a shared-B launch of a few rows runs the per-row-B kernel
+        assert plan == lf.scratch_plan("batched", "tc", M, K, N, RANK, M)
+        return
+    # p as a bf16 (hi, lo) pair: hi is the "p" form's output itself
+    bf16 = {"p_hi", "p_lo"} if form == "shared" else {"p_lo"}
+    assert all(plan[name] == ((M, RANK), torch.bfloat16) for name in bf16)
+    # one 128 x bn fp32 partial per unit of each pass that splits K
+    want = set(bf16)
+    passes = lf.tc_plan(form, M, K, N, RANK)
+    for name, cols, (bn, s, _) in (("part_p", RANK, passes["p"]),
+                                ("part_y", N, passes["y"])):
+        if s > 1:
+            want.add(name)
+            assert plan[name] == ((-(-M // 128) * -(-cols // bn) * s
+                                   * 128 * bn,), torch.float32)
+    assert set(plan) == want
 
 
 def test_simt_forward_keeps_its_partials_where_it_splits():
@@ -204,13 +218,14 @@ def test_simt_forward_keeps_its_partials_where_it_splits():
                                    (256, 8, 8), (70, 6448, 128),
                                    (1000, 64, 8)])
 def test_tc_db_splits_cover_m_with_nonempty_ranges(M, N, r):
-    s = lb.tc_db_splits(M, N, r)
+    bn, s, _ = lb.tc_plan(M, 640, N, r)[2]
     chunk = -(-(-(-M // s)) // 64) * 64          # the kernel's rounding
     assert s >= 1 and (s - 1) * chunk < M <= s * chunk
-    plan = lb.scratch_plan("tc", M, N, r)
-    assert ("db_part" in plan) == (s > 1)
+    plan = lb.scratch_plan("tc", M, N, r, 640)
+    assert ("part_b" in plan) == (s > 1)
     if s > 1:
-        assert plan["db_part"] == ((s, N, r), torch.float32)
+        tiles = -(-N // 128) * -(-r // bn)
+        assert plan["part_b"] == ((tiles * s * 128 * bn,), torch.float32)
 
 
 # ---------------------------------------------------------------------------
