@@ -93,6 +93,24 @@
    rounding bits drawn on the CPU for both sides); then ``galore``,
    ``adamw`` and ``lowrank_lr`` (its noise drawn on the CPU for both
    sides) in fp32.
+8. The paper's samplers and the paths that use them: every sampler
+   (Gaussian, Stiefel, coordinate, ``dependent_diag``) batched at the
+   llama-100m group shapes, held to its laws on the card (``Vᵀ V``, one
+   nonzero per column, ``sum(pi) = r``, ``E[V Vᵀ] = c I`` by Monte Carlo)
+   with the coordinate and ``dependent_diag`` draws under
+   ``set_sync_debug_mode("error")``; then 6a again with each other
+   sampler (6h ``dependent_diag``, logging before each merge the pi it
+   water-fills and after it the lift weights drawn, and the energy EMA's
+   device time; 6i coordinate; 6j Gaussian); 6a at the paper's 512
+   sequences as 8 accumulated microbatches (its peak within 1 GiB of
+   6a's); and ``dependent_diag`` through the kernels against the plain
+   route, as phase 7, the energy buffers held too.
+9. Encoder fine-tuning (the paper's section 6.2.1): the forward and the
+   merge at encoder-small's shapes, fp32, r = 4 (the SIMT route),
+   against their plain versions; then encoder-small at its full size
+   fine-tuned 200 steps by ``lowrank_lr`` under three samplers and by
+   ``adamw``, with accuracy, ms/step and peaks (every ``lowrank_lr``
+   peak below ``adamw``'s).
 
 Each ``[kernel]`` row and JSON entry names the route its launch took,
 ``"tc"`` (the tensor cores: TMA + ``wgmma``, or ``mma.sync`` for the SSD
@@ -189,11 +207,14 @@ def queued_ms(fn, calls=20, hold_s=0.05, cold=False):
     between its own pair of events, so that the call's inputs come from
     HBM even where they would fit in L2; the device drains before the
     next call, and a call the host queued too slowly is run again (at
-    most twice).  Fails if the host took longer to queue than the
-    stream was held."""
+    most twice; the calls of a warm run likewise).  Fails if the host
+    took longer to queue than half the hold."""
     if not cold:
         fn()
-        ms, queued = _held_ms(fn, calls, hold_s)
+        for _ in range(3):      # a host that queued too slowly: again
+            ms, queued = _held_ms(fn, calls, hold_s)
+            if queued <= hold_s / 2:
+                break
     else:
         flush = _l2_flush()
         flush.sum()         # its kernel loaded before the host is timed
@@ -1483,19 +1504,21 @@ def opt_state_bytes(state) -> int:
 
 
 def train(dev, mods, smi, cfg, tcfg, batch, seq, steps, tag="train",
-          cadence="merges", falling=True):
+          cadence="merges", falling=True, hook=None):
     """Phase 6: the training path through the Trainer; returns the
     trainer and the per-step losses.  Every launch counter is zero when
     the run starts.  The run must show at least two of its ``cadence``
     (``"merges"``: outer merges, ``"refreshes"``: GaLore bases, None: no
-    check) and, when ``falling``, a falling loss."""
+    check) and, when ``falling``, a falling loss.  ``hook(tr, s)`` runs
+    after step ``s`` is logged (outside its time)."""
     from repro_torch.data.synthetic import StatelessLoader
     from repro_torch.train.trainer import Trainer
     log(f"[{tag}] {cfg.name} layers={cfg.num_layers} d_model={cfg.d_model} "
         f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} dtype={cfg.dtype} "
         f"rank={tcfg.rank} sampler={tcfg.sampler} batch={batch}x{seq} "
         f"lazy_k={tcfg.lazy_k} lr={tcfg.lr} optimizer={tcfg.optimizer} "
-        f"state_dtype={tcfg.state_dtype} master_dtype={tcfg.master_dtype}")
+        f"state_dtype={tcfg.state_dtype} master_dtype={tcfg.master_dtype} "
+        f"grad_accum={tcfg.grad_accum}")
     loader = StatelessLoader("lm", 0, device=dev, batch=batch, seq_len=seq,
                              vocab=cfg.vocab_size)
     tr = Trainer(cfg, tcfg, loader, device=dev)
@@ -1519,9 +1542,13 @@ def train(dev, mods, smi, cfg, tcfg, batch, seq, steps, tag="train",
     for mod in mods["counters"]:
         mod.reset_launches()
     t0 = time.perf_counter()
-    report = tr.run(steps, log=lambda s, loss, dt: log(
-        f"[{tag}] step {s:3d} loss {loss:.4f} {1e3 * dt:.1f} ms"
-        + step_note(s)))
+    def step_log(s, loss, dt):
+        log(f"[{tag}] step {s:3d} loss {loss:.4f} {1e3 * dt:.1f} ms"
+            + step_note(s))
+        if hook is not None:
+            hook(tr, s)
+
+    report = tr.run(steps, log=step_log)
     wall = time.perf_counter() - t0
     if dev.type == "cuda":
         require_tc(mods, tag, updates=True)
@@ -1834,6 +1861,566 @@ def train_equals_plain(dev, mods, configs, label="fp32", fields=(),
                          f"plain route ({label}): {worst} > {tol}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the paper's samplers, the instance-dependent draw in training,
+# gradient accumulation and encoder fine-tuning
+# ---------------------------------------------------------------------------
+
+# (rows, k) of the llama-100m groups' V draws at r = RANK: (wq,wk,wv,wo)
+# 4 members x 12 layers, (w_gate,w_up) 2 x 12, (w_down) 12, the unembedding
+SAMPLER_SHAPES = ((48, 640), (24, 640), (12, 1712), (1, 640))
+SAMPLER_DRAWS = 960         # Monte-Carlo draws per shape (at least)
+SAMPLER_Z = 7.0             # limits in standard deviations of the mean
+
+
+def _sampler_energy(gen, rows, k, dev):
+    """A non-uniform energy row per draw row: sqrt(e) spread 1..20 with
+    five directions at 200 (capped, pi = 1), so every other pi is at
+    least about 0.03 and each coordinate is drawn tens of times."""
+    u = torch.rand((rows, k), generator=gen, device=dev)
+    s = 1.0 + 19.0 * u ** 3
+    s[:, :5] = 200.0
+    return s ** 2
+
+
+def sampler_laws(dev, mods):
+    """Phase 8a: each sampler batched at the llama-100m group shapes on
+    the card.  Stiefel and coordinate: ``Vᵀ V = (k/r) I`` (fp32: Stiefel
+    within 1e-4 of k/r, coordinate 1e-6); coordinate and dependent_diag:
+    one nonzero per column, in distinct rows; dependent_diag on a
+    non-uniform energy: ``sum(pi) = r`` within 1e-5 r and each nonzero
+    ``sqrt(c / pi_i)``; every sampler: ``E[V Vᵀ] = c I`` over at least
+    ``SAMPLER_DRAWS`` draws (and 30 / min pi, so the rarest coordinate
+    is drawn about 30 times), each element within ``SAMPLER_Z`` standard
+    deviations of its mean (measured from the draws) plus 1e-5 c.  The
+    coordinate and dependent_diag draws (and a group resample through
+    the optimizer's warm-up) run under ``set_sync_debug_mode("error")``.
+    Logs ms per draw, queued."""
+    from repro_torch.core import samplers
+    from repro_torch.optim import subspace
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    r, c = RANK, 1.0
+    for rows, k in SAMPLER_SHAPES:
+        energy = _sampler_energy(gen, rows, k, dev)
+        pi = samplers.waterfill_inclusion_probs(energy, r)
+        for name in ("gaussian", "stiefel", "coordinate", "dependent_diag"):
+            kw = {"diag_energy": energy} if name == "dependent_diag" else {}
+
+            def draw():
+                return samplers.sample_v_batched(name, gen, rows, k, r, c=c,
+                                                 **kw)
+            if name in ("coordinate", "dependent_diag"):
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    v = draw()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            else:
+                v = draw()
+            notes = []
+            if name in ("stiefel", "coordinate"):
+                gram = v.mT @ v
+                err = (gram - (c * k / r) * torch.eye(r, device=dev)).abs() \
+                    .max().item() / (c * k / r)
+                lim = 1e-4 if name == "stiefel" else 1e-6
+                notes.append(f"|VᵀV − (ck/r)I| {err:.3g}·(ck/r) (≤ {lim})")
+                if not err <= lim:
+                    raise SystemExit(f"[samplers] {name} {rows}x{k}: VᵀV is "
+                                     f"not (ck/r) I: {err}")
+            if name in ("coordinate", "dependent_diag"):
+                nz = v != 0
+                ok = bool(((nz.sum(-2) == 1).all() & (nz.sum(-1) <= 1).all())
+                          .item())
+                notes.append(f"one nonzero per column in distinct rows: {ok}")
+                if not ok:
+                    raise SystemExit(f"[samplers] {name} {rows}x{k}: a "
+                                     f"column or row holds two nonzeros")
+            if name == "dependent_diag":
+                gap = (pi.sum(-1) - r).abs().max().item()
+                sel = (v != 0).int().argmax(-2)
+                lift = torch.sqrt(c / torch.gather(pi, -1, sel))
+                got = torch.gather(v, -2, sel[:, None, :])[:, 0]
+                werr = ((got - lift).abs() / lift).max().item()
+                capped = int((pi >= 1.0).sum(-1).min().item())
+                notes.append(f"|sum(pi) − r| {gap:.3g}, capped ≥ {capped} a "
+                             f"row, min pi {pi.min().item():.4f}, lift "
+                             f"weights within {werr:.2g} of sqrt(c/pi)")
+                if not (gap <= 1e-5 * r and werr <= 1e-6):
+                    raise SystemExit(f"[samplers] dependent_diag {rows}x{k}: "
+                                     f"sum(pi) off r by {gap} or lift "
+                                     f"weights off by {werr}")
+            # E[V Vᵀ] = c I by Monte Carlo, with draws enough that the
+            # rarest coordinate is drawn about 30 times (its mean then has
+            # a measured spread)
+            draws = max(SAMPLER_DRAWS, math.ceil(30 / pi.min().item()))
+            calls = -(-draws // rows)
+            s1 = torch.zeros((k, k), dtype=torch.float64, device=dev)
+            s2 = torch.zeros_like(s1)
+            for _ in range(calls):
+                p = (lambda vv: vv @ vv.mT)(draw())
+                s1 += p.sum(0).double()
+                s2 += (p * p).sum(0).double()
+            n = calls * rows
+            mean = s1 / n
+            sd = torch.sqrt(torch.clamp(s2 / n - mean * mean, min=0.0))
+            dev_ = (mean - c * torch.eye(k, dtype=torch.float64, device=dev))
+            z = (dev_.abs() / (sd / n ** 0.5 + 1e-30)).max().item()
+            bad = (dev_.abs() > SAMPLER_Z * sd / n ** 0.5 + 1e-5 * c) \
+                .sum().item()
+            # the QR's solver reads its status back to the host, so the
+            # Stiefel draw is timed eager; the others queued
+            ms = time_ms(draw, iters=10) if name == "stiefel" else \
+                queued_ms(draw, calls=10)
+            log(f"[samplers] {name:14s} {rows:2d} x ({k}, {r}): {ms:.4f} ms "
+                f"per draw ({'eager' if name == 'stiefel' else 'queued'}); "
+                f"E[VVᵀ] over {n} draws: max |mean − "
+                f"cI| {dev_.abs().max().item():.3g}, largest z {z:.2f}, "
+                f"{bad} of {k * k} elements beyond {SAMPLER_Z}σ; "
+                + "; ".join(notes))
+            if bad:
+                raise SystemExit(f"[samplers] {name} {rows}x{k}: E[VVᵀ] "
+                                 f"departs from cI at {bad} elements")
+            del s1, s2, mean, sd, dev_
+    # the optimizer's group resample (warm-up rows and the repeat across
+    # a member's layers) under the same sync check
+    spec = subspace.GroupSpec(shape=(12, 640, 640), rank=RANK,
+                              leaf_idx=(0, 1, 2, 3))
+    energy = _sampler_energy(gen, 4, 640, dev)
+    energy[0] = 0.0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        v = subspace._sample_proj_group("dependent_diag", gen, spec, 4, 1.0,
+                                        torch.bfloat16, dev, energy=energy)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    log(f"[samplers] subspace._sample_proj_group dependent_diag "
+        f"{tuple(v.shape)} bf16 (member 0 warming up): no host sync")
+
+
+def pi_stats(tr, tag):
+    """Per group, the pi the next resample water-fills (after the
+    per-member warm-up): capped directions t per member, min and max pi,
+    and whether every member's pi is non-uniform."""
+    from repro_torch.core import samplers
+    out = []
+    for spec, slot in zip(tr.opt_state.layout.groups, tr.opt_state.groups):
+        e = slot.energy
+        e = torch.where(e.sum(-1, keepdim=True) > 0, e, torch.ones_like(e))
+        pi = samplers.waterfill_inclusion_probs(e, spec.rank)
+        t = (pi >= 1.0).sum(-1)
+        spread = (pi.amax(-1) - pi.amin(-1)).min().item()
+        out.append(spread > 1e-6)
+        log(f"[{tag}] group {spec.shape} r={spec.rank}: capped t per member "
+            f"{t.tolist()}, min pi {pi.min().item():.3g}, max pi "
+            f"{pi.max().item():.4f}, energy sum {e.sum().item():.4g}")
+    return all(out)
+
+
+def lift_stats(tr, tag):
+    """Per group, the largest lift weight sqrt(c/pi) the resample drew: the
+    largest |V| entry."""
+    log(f"[{tag}] largest lift weight sqrt(c/pi) drawn per group: "
+        + ", ".join(f"{spec.shape}: {slot.proj.float().abs().max().item():.4g}"
+        for spec, slot in zip(tr.opt_state.layout.groups,
+                              tr.opt_state.groups)))
+
+
+def profile_energy(tr, tag, steps=2):
+    """Device ms per inner step of the energy EMA: the profiler's device
+    time under a range around each group's update."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.optim import subspace
+    orig = subspace._group_energy_update
+
+    def ranged(slot, g32):
+        with record_function("energy_ema"):
+            return orig(slot, g32)
+    subspace._group_energy_update = ranged
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tr.run(steps)
+            torch.cuda.synchronize()
+    finally:
+        subspace._group_energy_update = orig
+    # the host-side ranges: each one's device time is that of the kernels
+    # launched inside it (the trace also holds a device-side copy of each
+    # range, which would count them twice)
+    rows = [e for e in prof.events() if e.name == "energy_ema"
+            and e.device_type == torch.autograd.DeviceType.CPU]
+    dev_us = sum(e.device_time_total for e in rows)
+    calls = len(rows)
+    log(f"[{tag}] energy EMA: {dev_us / 1e3 / steps:.4f} device ms per "
+        f"inner step ({calls // steps} group updates per step, profiler)")
+    if not calls:
+        raise SystemExit(f"[{tag}] the energy EMA never ran")
+
+
+# the sampler runs: 6a's settings with another V law
+SAMPLER_RUNS = (("train 6h", "dependent_diag"), ("train 6i", "coordinate"),
+                ("train 6j", "gaussian"))
+
+
+def sampler_runs(dev, mods, smi, configs):
+    """Phase 8b: llama-100m ``lowrank_adam`` as 6a with each of the other
+    samplers; 6h (``dependent_diag``) logs before each merge the pi it
+    water-fills (failing unless every member's pi is non-uniform at the
+    first merge) and after it the lift weights drawn, then profiles the
+    energy EMA.  Returns the runs' launches by JSON row key."""
+    counts = {}
+    for tag, sampler in SAMPLER_RUNS:
+        cfg, tcfg = train_config(configs, lazy_k=4, lr=3e-3, warmup_steps=2,
+                                 total_steps=1000, sampler=sampler)
+        checks = []
+
+        def hook(tr, s):
+            if sampler != "dependent_diag":
+                return
+            if tr.outer_due():
+                checks.append(pi_stats(tr, tag))
+            elif s > 1 and (s - 1) % tcfg.lazy_k == 0:
+                lift_stats(tr, tag)
+        tr, _ = train(dev, mods, smi, cfg, tcfg, TRAIN_BATCH, TRAIN_SEQ,
+                      steps=14, tag=tag, hook=hook)
+        for key, n in train_launches(mods).items():
+            counts[key] = counts.get(key, 0) + n
+        if sampler == "dependent_diag":
+            if not (checks and checks[0]):
+                raise SystemExit(f"[{tag}] pi is uniform in a group at the "
+                                 f"first merge: the draw ignored the "
+                                 f"gradients")
+            profile_energy(tr, tag)
+        del tr
+        torch.cuda.empty_cache()
+    return counts
+
+
+def accum_run(dev, mods, smi, configs, peak_6a):
+    """Phase 8c: 6a at the paper's 512 sequences as 8 microbatches of 64 x
+    256; its peak must stay within 1 GiB of 6a's."""
+    cfg, tcfg = train_config(configs, lazy_k=4, lr=3e-3, warmup_steps=2,
+                             total_steps=1000, grad_accum=8)
+    tr, _ = train(dev, mods, smi, cfg, tcfg, 8 * TRAIN_BATCH, TRAIN_SEQ,
+                  steps=8, tag="train 6a accum", cadence=None)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[train 6a accum] peak {peak:.2f} GiB against 6a's {peak_6a:.2f} "
+        f"GiB at one eighth of the batch; {tr.opt_state.outer_step.item()} "
+        f"outer merge(s)")
+    if not abs(peak - peak_6a) <= 1.0:
+        raise SystemExit(f"accumulation peak {peak:.2f} GiB is not within 1 "
+                         f"GiB of 6a's {peak_6a:.2f}")
+    if tr.opt_state.outer_step.item() < 1:
+        raise SystemExit("the accumulation run merged no time")
+    counts = train_launches(mods)
+    del tr
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_equals_plain_dependent(dev, mods, configs, tol=1e-4, steps=5):
+    """Phase 8d: ``dependent_diag`` through the kernels on the card against
+    the plain route on the CPU (the 2-layer full-width cut, fp32 compute,
+    5 steps, lazy_k 2, V drawn from a CPU generator on both sides): losses
+    within ``tol`` relative per step, and the energy each resample
+    water-fills and the energy at the end within ``tol`` of its largest
+    entry.  A resample whose systematic selection differs between the
+    sides (an energy off by its last bits moves a point across an
+    interval's edge) is logged, and drawn again from the CPU's energy,
+    then, if it still differs, given the CPU's V."""
+    from repro_torch.data.synthetic import StatelessLoader
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import subspace
+    from repro_torch.train.trainer import Trainer
+    cfg, tcfg = train_config(configs, layers=2, dtype="float32",
+                             compute_dtype="float32", lazy_k=2,
+                             warmup_steps=1, total_steps=steps, lr=1e-3,
+                             sampler="dependent_diag")
+    cpu = torch.device("cpu")
+    params = lm.init_params(cfg, seed=7, device=cpu)
+    loader = StatelessLoader("lm", 3, device=cpu, batch=4, seq_len=256,
+                             vocab=cfg.vocab_size)
+    orig = subspace._sample_proj_group
+    drawn = []
+
+    def record(name, gen, spec, n, c, dtype, device, energy=None):
+        v = orig(name, gen, spec, n, c, dtype, device, energy=energy)
+        drawn.append((energy.clone(), v))
+        return v
+
+    def run(where, sampler):
+        subspace._sample_proj_group = sampler
+        try:
+            tr = Trainer(cfg, tcfg, loader, device=where,
+                         params=tree_map(lambda t: t.to(where), params),
+                         sample_device=cpu)
+            return tr, tr.run(steps).losses
+        finally:
+            subspace._sample_proj_group = orig
+
+    plain, plain_losses = run(cpu, record)
+    calls, gaps, flips = iter(drawn), [0.0], []
+
+    def rel(a, b):
+        return ((a.cpu() - b).abs().max() /
+                b.abs().max().clamp(min=1e-30)).item()
+
+    def compare(name, gen, spec, n, c, dtype, device, energy=None):
+        e_cpu, v_cpu = next(calls)
+        state = gen.get_state()
+        v = orig(name, gen, spec, n, c, dtype, device, energy=energy)
+        gaps.append(rel(energy, e_cpu))
+        if not torch.equal((v != 0).cpu(), v_cpu != 0):
+            gen.set_state(state)
+            v = orig(name, gen, spec, n, c, dtype, device,
+                     energy=e_cpu.to(device))
+            injected = "energy"
+            if not torch.equal((v != 0).cpu(), v_cpu != 0):
+                v, injected = v_cpu.to(device, dtype), "V"
+            flips.append((spec.shape, injected))
+        return v
+
+    for mod in mods.get("counters", ()):
+        mod.reset_launches()
+    card, card_losses = run(dev, compare)
+    worst = max(abs(a - b) / abs(b) for a, b in zip(card_losses,
+                                                    plain_losses))
+    end = max(rel(a.energy, b.energy)
+              for a, b in zip(card.opt_state.groups, plain.opt_state.groups))
+    log(f"[train==plain dependent_diag] {cfg.name} 2 layers, fp32 compute, "
+        f"batch 4x256 lazy_k=2, {steps} steps: card {card_losses}, cpu "
+        f"{plain_losses}, max rel diff {worst:.3g} (tol {tol}); energy at "
+        f"the resamples within {max(gaps):.3g}, at the end {end:.3g} of its "
+        f"largest entry (tol {tol}); selections that flipped: "
+        f"{flips or 'none'}; card launches forward={mods['lf'].launches()} "
+        f"backward={mods['lb'].launches()} "
+        f"merge={mods['lu'].launches('lowrank_merge')}")
+    if not (worst <= tol and max(gaps) <= tol and end <= tol):
+        raise SystemExit("dependent_diag training through the kernels "
+                         "disagrees with the plain route")
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: encoder fine-tuning (the paper's section 6.2.1)
+# ---------------------------------------------------------------------------
+
+FT_ARCH, FT_CLASSES = "encoder-small", 4
+FT_BATCH, FT_SEQ, FT_STEPS = 32, 256, 200
+FT_M = FT_BATCH * FT_SEQ
+FT_RANK = 4
+# (K, N) of the encoder's low-rank forward -> leaves; its grouped weights
+ENC_SHAPES = {(256, 256): "wq,wk,wv,wo", (256, 683): "w_gate,w_up",
+              (683, 256): "w_down"}
+ENC_MERGE_SHAPES = {(4, 4, 256, 256): "wq,wk,wv,wo",
+                    (2, 4, 256, 683): "w_gate,w_up",
+                    (1, 4, 683, 256): "w_down"}
+# the reference's table settings (benchmarks/finetune_table.py): rank 4,
+# lazy_k 50, lr 2e-4, zo_sigma 1e-2, constant lr, low rank from dim 64;
+# compute in fp32, as the model
+FT_COMMON = dict(rank=FT_RANK, lazy_k=50, schedule="constant",
+                 warmup_steps=0, total_steps=FT_STEPS,
+                 min_dim_for_lowrank=64, weight_decay=0.0,
+                 compute_dtype="float32")
+FT_RUNS = tuple((f"lowrank_lr {s}", dict(optimizer="lowrank_lr", sampler=s,
+                                         lr=2e-4, zo_sigma=1e-2))
+                for s in ("gaussian", "stiefel", "coordinate")) + (
+    ("adamw", dict(optimizer="adamw", lr=1e-3)),)
+
+
+def finetune(dev, mods, smi, configs):
+    """Phase 9: ``encoder-small`` at its full size (4 layers, d 256, vocab
+    1024, fp32), 4 classes, batch 32 x 256, driven through
+    ``methods.get(...).make_inner_step(cfg, tcfg, loss_fn=...)`` as the
+    reference's fine-tuning table drives it: ``lowrank_lr`` under the
+    Gaussian, Stiefel and coordinate samplers and ``adamw`` backprop, 200
+    steps each.  Logs the accuracy before and after (8 batches of
+    ``classification_batch(99, i)``), ms/step, the peak and the SIMT
+    launches.  Every ``lowrank_lr`` peak must lie below ``adamw``'s (the
+    paper's Table 2 ordering), and ``adamw``'s accuracy above chance by
+    six binomial standard deviations.  Returns the launches by JSON row
+    key."""
+    from repro_torch import methods
+    from repro_torch.data.synthetic import classification_batch
+    from repro_torch.models import encoder_cls
+    from repro_torch.optim import subspace
+    from repro_torch.train.loss import cls_accuracy, cls_ce
+    lf, lu = mods["lf"], mods["lu"]
+    cfg = configs.get_config(FT_ARCH)
+    log(f"[finetune] {cfg.name} layers={cfg.num_layers} d_model="
+        f"{cfg.d_model} d_ff={cfg.d_ff} vocab={cfg.vocab_size} dtype="
+        f"{cfg.dtype}, {FT_CLASSES} classes, batch {FT_BATCH}x{FT_SEQ}, "
+        f"{FT_STEPS} steps, rank {FT_RANK}")
+
+    def loss_fn(packed, batch):
+        return cls_ce(encoder_cls.forward(packed, batch["tokens"], cfg),
+                      batch["labels"])
+
+    @torch.no_grad()
+    def accuracy(params):
+        p = subspace.params_of(params)
+        return sum(cls_accuracy(encoder_cls.forward(
+            p, b["tokens"], cfg), b["labels"]).item()
+            for b in (classification_batch(
+                99, i, batch=FT_BATCH, seq_len=FT_SEQ,
+                vocab=cfg.vocab_size, n_classes=FT_CLASSES, device=dev)
+                for i in range(8))) / 8
+
+    counts, peaks, accs = {}, {}, {}
+    for tag, fields in FT_RUNS:
+        tcfg = configs.TrainConfig(**FT_COMMON, **fields)
+        method = methods.get(tcfg.optimizer)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1)
+        params, state = method.init(
+            encoder_cls.init_params(cfg, FT_CLASSES, seed=0, device=dev),
+            tcfg, gen)
+        inner = method.make_inner_step(cfg, tcfg, loss_fn=loss_fn)
+        outer = method.make_outer_step(cfg, tcfg)
+        acc0 = accuracy(params)
+        batches = [classification_batch(0, i, batch=FT_BATCH,
+                                         seq_len=FT_SEQ,
+                                         vocab=cfg.vocab_size,
+                                         n_classes=FT_CLASSES, device=dev)
+                   for i in range(FT_STEPS)]
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2 ** 30
+        for mod in mods["counters"]:
+            mod.reset_launches()
+        t0 = time.perf_counter()
+        losses = []
+        for i in range(FT_STEPS):
+            if outer is not None and i and i % tcfg.lazy_k == 0:
+                params, state = outer(params, state)
+            params, state, metrics = inner(params, state, batches[i])
+            losses.append(metrics["loss"])
+        if outer is not None:       # merge what the last cycle learned
+            params, state = outer(params, state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = torch.stack(losses).tolist()
+        acc = accuracy(params)
+        simt_f = lf.launches(route="simt")
+        simt_m = lu.launches("lowrank_merge", "simt")
+        log(f"[finetune] {tag}: accuracy {acc0:.3f} -> {acc:.3f}, loss "
+            f"{losses[0]:.4f} -> mean of the last 10 "
+            f"{sum(losses[-10:]) / 10:.4f}, {1e3 * wall / FT_STEPS:.2f} "
+            f"ms/step, peak {peak:.3f} GiB allocated ({held:.3f} when the "
+            f"run started) on {smi}; SIMT "
+            f"launches forward={simt_f} merge={simt_m}, tensor-core "
+            f"{lf.launches(route='tc') + lu.launches(route='tc')}")
+        if not all(x == x and abs(x) < float("inf") for x in losses):
+            raise SystemExit(f"[finetune] {tag}: a non-finite loss")
+        if tcfg.optimizer == "lowrank_lr":
+            if not (simt_f and simt_m):
+                raise SystemExit(f"[finetune] {tag}: no SIMT forward or "
+                                 f"merge launch")
+            for K, N in ENC_SHAPES:
+                key = ("lowrank_forward[shared] r=4", (FT_M, K, N))
+                counts[key] = counts.get(key, 0) + shape_launches(
+                    lf.LAUNCHES, "shared", K, N)
+            for shape in ENC_MERGE_SHAPES:
+                key = ("lowrank_merge r=4", shape)
+                counts[key] = counts.get(key, 0) + update_launches(
+                    lu, "lowrank_merge", shape)
+        peaks[tag], accs[tag] = peak, acc
+        del params, state, inner, outer, batches
+        torch.cuda.empty_cache()
+    chance = 1.0 / FT_CLASSES
+    floor = chance + 6 * (chance * (1 - chance) / (8 * FT_BATCH)) ** 0.5
+    log(f"[finetune] peak GiB: " + ", ".join(
+        f"{t} {p:.3f}" for t, p in peaks.items()) + f"; adamw accuracy "
+        f"{accs['adamw']:.3f} (must exceed {floor:.3f})")
+    if not all(p < peaks["adamw"] for t, p in peaks.items()
+               if t != "adamw"):
+        raise SystemExit("[finetune] a lowrank_lr peak is not below "
+                         "adamw's")
+    if not accs["adamw"] > floor:
+        raise SystemExit("[finetune] adamw's accuracy is not above chance")
+    return counts
+
+
+def compare_encoder_kernels(mods, dev):
+    """Phase 9b: the forward (shared B) and the merge at the encoder's
+    shapes, fp32, r = 4 (the SIMT route), against their plain versions:
+    the forward within 1e-5 of max|y| (fp32 sums in another order), the
+    merge within 1e-6 of max|W'|.  Bound: fp32 FMAs at 67 TFLOP/s."""
+    ref, lf, lu = mods["ref"], mods["lf"], mods["lu"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    rows = []
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    M, r = FT_M, FT_RANK
+    for (K, N), leaves in ENC_SHAPES.items():
+        x, w = randn(M, K), randn(K, N, scale=K ** -0.5)
+        v, b = randn(K, r, scale=r ** -0.5), randn(N, r, scale=0.02)
+        lf.reset_launches()
+        y = lf.lowrank_forward(x, w, v, b)
+        torch.cuda.synchronize()
+        path = launch_path(lf)
+        err = _agree(f"forward r=4 K={K} N={N}", y,
+                     ref.lowrank_forward(x, w, v, b), 1e-5)
+        bms, by = bound_of(4 * (M * K + K * N + K * r + N * r + M * N),
+                           2 * M * K * N + 2 * M * K * r + 2 * M * r * N,
+                           FP32_FLOP_PER_S)
+        row = dict(kernel="lowrank_forward[shared] r=4", shape=(M, K, N),
+                   leaves=leaves, path=path, max_abs_err=err,
+                   ms=time_auto(lambda: lf.lowrank_forward(x, w, v, b)),
+                   plain_ms=time_auto(lambda: ref.lowrank_forward(x, w, v,
+                                                                  b)),
+                   library_ms=time_auto(lambda: x @ w + (x @ v) @ b.T),
+                   bound_ms=bms, bound_by=by)
+        rows.append(row)
+        log(f"[kernel] lowrank_forward[shared] fp32 r=4 ({M}, {K}, {N}) "
+            f"({leaves}) route={path} max_abs_err={err:.4g} (tol "
+            f"1e-5*max|y|) ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f}"
+            f" library_ms={row['library_ms']:.4f} bound_ms={bms:.4f} ({by})")
+        del x, w, v, b, y
+    for shape, leaves in ENC_MERGE_SHAPES.items():
+        lead, (K, N) = shape[:-2], shape[-2:]
+        w = randn(*shape, scale=K ** -0.5)
+        v = randn(*lead, K, r, scale=r ** -0.5)
+        b = randn(*lead, N, r, scale=0.02)
+        lu.reset_launches()
+        got = lu.lowrank_merge(w, v, b)
+        torch.cuda.synchronize()
+        path = launch_path(lu, at=1)
+        err = _agree(f"merge r=4 {shape}", got, ref.lowrank_merge(w, v, b),
+                     1e-6)
+        items = w.numel() // (K * N)
+        bms, by = bound_of(4 * (2 * K * N + K * r + N * r) * items,
+                           2 * K * N * r * items, FP32_FLOP_PER_S)
+        w3, v3 = w.reshape(-1, K, N), v.reshape(-1, K, r)
+        b3t = b.reshape(-1, N, r).transpose(1, 2)
+        row = dict(kernel="lowrank_merge r=4", shape=shape, leaves=leaves,
+                   path=path, max_abs_err=err,
+                   ms=queued_ms(lambda: lu.lowrank_merge(w, v, b, out=got)),
+                   plain_ms=queued_ms(lambda: ref.lowrank_merge(w, v, b)),
+                   library_ms=queued_ms(lambda: torch.baddbmm(w3, v3, b3t)),
+                   bound_ms=bms, bound_by=by,
+                   eager_ms=time_ms(lambda: lu.lowrank_merge(w, v, b,
+                                                             out=got),
+                                    iters=50))
+        rows.append(row)
+        log(f"[kernel] lowrank_merge fp32 r=4 {shape} ({leaves}) route="
+            f"{path} max_abs_err={err:.4g} (tol 1e-6*max|W'|) ms="
+            f"{row['ms']:.4f} plain_ms={row['plain_ms']:.4f} library_ms="
+            f"{row['library_ms']:.4f} bound_ms={bms:.4f} ({by}) [queued; "
+            f"eager {row['eager_ms']:.4f} ms/call]")
+        del w, v, b, got, w3, v3, b3t
+    torch.cuda.empty_cache()
+    return rows
+
+
 def gemm_rows(src):
     """``python3 chip_smoke.py --gemm-rows SRC``: the forward (both forms)
     and the backward of the package under ``SRC`` (a checkout's ``src``)
@@ -1947,10 +2534,12 @@ def main():
     bf16_decode_without_sync(dev, mods, "mamba2-780m")
     serve_equals_plain(dev, mods)
 
+    sampler_laws(dev, mods)
     cfg, tcfg = train_config(configs, lazy_k=4, lr=3e-3, warmup_steps=2,
                              total_steps=1000)
     tr, _ = train(dev, mods, smi, cfg, tcfg, TRAIN_BATCH, TRAIN_SEQ,
                   steps=14)
+    peak_6a = torch.cuda.max_memory_allocated() / 2 ** 30
     train_counts = train_launches(mods)
     profile_train(tr, match=("adam_kernel", "tc::"))
     fp32_bytes = state_bytes(tr)
@@ -1958,8 +2547,16 @@ def main():
     torch.cuda.empty_cache()
     state_counts = train_state_runs(dev, mods, smi, configs, fp32_bytes)
     train_counts.update(method_runs(dev, mods, smi, configs))
+    # the new paths add to the launches of rows 1 (return_p), 2, 3 and 6
+    for more in (sampler_runs(dev, mods, smi, configs),
+                 accum_run(dev, mods, smi, configs, peak_6a)):
+        for key, n in more.items():
+            train_counts[key] = train_counts.get(key, 0) + n
     for label, fields, tol in PLAIN_RUNS:
         train_equals_plain(dev, mods, configs, label, fields, tol)
+    train_equals_plain_dependent(dev, mods, configs)
+    enc_rows = compare_encoder_kernels(mods, dev)
+    enc_counts = finetune(dev, mods, smi, configs)
 
     kernels = []
     for model, rws, cnt in (("", rows, counts),
@@ -2048,6 +2645,19 @@ def main():
             "timing": "queued", "eager_ms": row["eager_ms"],
             **({"splits_ms": row["splits_ms"]} if "splits_ms" in row
                else {})})
+    for row in enc_rows:
+        kernels.append({
+            "name": f"{row['kernel'].split()[0]} [fp32, r=4] "
+                    f"{list(row['shape'])} (encoder-small {row['leaves']})",
+            "route": "cuda", "path": row["path"],
+            "source": TRAIN_SOURCES[row["kernel"].split()[0]],
+            "replaces": TRAIN_REPLACES[row["kernel"].split()[0]],
+            "launches": enc_counts.get((row["kernel"], row["shape"]), 0),
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            **({"timing": "queued", "eager_ms": row["eager_ms"]}
+               if "eager_ms" in row else {})})
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     if missing:
         raise SystemExit(f"kernels never launched on the main path: "

@@ -144,13 +144,15 @@ class TrainConfig:
     ``lowrank_adam`` or ``lowrank_lion`` on fp32 or int8 moments and fp32
     or bf16 B masters, the forward-only ``lowrank_lr``, and the
     ``galore`` and ``adamw`` baselines).  Defaults equal the reference's.
-    Values the port does not implement yet (gradient accumulation,
-    samplers other than Stiefel) are refused where they are read."""
+    Every sampler and gradient accumulation (``make_train_step``) are
+    ported."""
     optimizer: str = "lowrank_adam"   # any repro_torch.methods registry
                                       # name: 'adamw' | 'galore' |
                                       # 'lowrank_adam' | 'lowrank_lion' |
                                       # 'lowrank_lr'
-    sampler: str = "stiefel"          # projection law of V
+    sampler: str = "stiefel"          # projection law of V: 'gaussian' |
+                                      # 'stiefel' | 'coordinate' |
+                                      # 'dependent_diag'
     rank: int = 128                   # projection rank r
     c: float = 1.0                    # weak-unbiasedness scale
     lazy_k: int = 200                 # inner steps per projection
@@ -162,7 +164,9 @@ class TrainConfig:
     eps: float = 1e-8
     weight_decay: float = 0.05
     grad_clip: float = 1.0
-    grad_accum: int = 1               # microbatches per step (1 only)
+    grad_accum: int = 1               # microbatches per step (activation
+                                      # memory / A; lowrank_adam and
+                                      # lowrank_lion)
     warmup_steps: int = 1000
     total_steps: int = 100_000
     zo_sigma: float = 1e-3            # LowRank-LR perturbation scale

@@ -8,7 +8,9 @@ state (``repro.optim.subspace.SubspaceState`` with numpy leaves) becomes
 the port's grouped master weights and subspace state
 (:func:`subspace_from_numpy`); a GaLore state becomes the port's
 (:func:`galore_from_numpy`), and a dense AdamW run's parameters and
-moments the port's (:func:`adamw_from_numpy`).  Adapters need no
+moments the port's (:func:`adamw_from_numpy`).  The encoder classifier's
+parameters are checked against the port's specs on the way
+(:func:`encoder_params_from_numpy`).  Adapters need no
 conversion:
 ``AdapterStore.add_tenant`` takes the numpy ``B`` and ``V`` buffers the
 JAX package hands over.
@@ -71,6 +73,20 @@ def _b_master(ref_b, like, dev):
     return b
 
 
+def _energy(group, like, dev):
+    """A group's energy EMA from the reference's slot, or ``like`` (the
+    port's zeros) where the item carries none."""
+    has = ("energy" in group) if isinstance(group, dict) else \
+        hasattr(group, "energy")
+    if not has:
+        return like
+    e = to_tensor(_field(group, "energy"), dev, torch.float32)
+    if e.shape != like.shape:
+        raise ValueError(f"energy of shape {tuple(e.shape)}; the layout "
+                         f"expects {tuple(like.shape)}")
+    return e
+
+
 def subspace_from_numpy(params, tcfg, *, groups=None, dense=None, step=0,
                         outer_step=0, gen=None, device=None):
     """The port's ``(GroupedParams, SubspaceState)`` from the reference's.
@@ -81,8 +97,11 @@ def subspace_from_numpy(params, tcfg, *, groups=None, dense=None, step=0,
     one item per group with fields ``proj``, ``b``, ``m`` and ``v`` (the
     reference's ``GroupedLowRankSlot`` with numpy leaves, or dicts);
     ``dense`` one item per dense leaf with ``m`` and ``v`` (its
-    ``DenseSlot``).  Missing parts start as the port's ``init`` makes
-    them (fresh V from ``gen``, zero B and moments).  ``V`` is stored in
+    ``DenseSlot``).  A group item's ``energy`` (the ``dependent_diag``
+    EMA, ``(G, k)`` or ``(G, 0)``) is carried when it has one and must
+    have the shape the port's layout gives it.  Missing parts start as
+    the port's ``init`` makes them (fresh V from ``gen``, zero B and
+    moments).  ``V`` is stored in
     the run's compute dtype, everything else as given: an int8 moment
     (the reference's ``QuantizedTensor``, or a dict with its ``q``,
     ``scale``, ``block`` and ``codec``) carries its payload and scales,
@@ -104,7 +123,8 @@ def subspace_from_numpy(params, tcfg, *, groups=None, dense=None, step=0,
             slot._replace(proj=to_tensor(_field(g, "proj"), dev, cdt),
                           b=_b_master(_field(g, "b"), slot.b, dev),
                           m=_moment(_field(g, "m"), slot.m, dev),
-                          v=_moment(_field(g, "v"), slot.v, dev))
+                          v=_moment(_field(g, "v"), slot.v, dev),
+                          energy=_energy(g, slot.energy, dev))
             for slot, g in zip(state.groups, groups, strict=True))
     if dense is not None:
         state.dense = tuple(
@@ -137,6 +157,27 @@ def galore_from_numpy(params, tcfg, *, groups=None, dense=None, step=0,
                                          device=device)
     state.host_step = int(step)
     return gparams, state
+
+
+def encoder_params_from_numpy(tree, cfg, n_classes: int,
+                              device=None) -> dict:
+    """The port's ``encoder_cls`` parameters from the reference's
+    ``encoder_cls.init_params`` tree (numpy leaves): every path, shape and
+    dtype must be the one :func:`repro_torch.models.encoder_cls.
+    param_specs` gives, so a tree of another config or class count is
+    refused rather than half loaded."""
+    from .models import encoder_cls
+    from .models.common import tree_flatten_with_path
+    params = params_from_numpy(tree, device)
+    want = {p: (s.shape, s.dtype) for p, s in tree_flatten_with_path(
+        encoder_cls.param_specs(cfg, n_classes))}
+    got = {p: (tuple(t.shape), t.dtype)
+           for p, t in tree_flatten_with_path(params)}
+    if got != want:
+        bad = sorted(set(got.items()) ^ set(want.items()))
+        raise ValueError(f"encoder tree does not fit {cfg.name} with "
+                         f"{n_classes} classes: {bad[:4]}")
+    return params
 
 
 def adamw_from_numpy(params, *, m=None, v=None, step=0, device=None):

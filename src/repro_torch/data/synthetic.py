@@ -1,11 +1,17 @@
-"""Deterministic, restart-safe synthetic LM data.
+"""Deterministic, restart-safe synthetic data.
 
-Counterpart of ``repro.data.synthetic.lm_batch`` and
-``StatelessLoader("lm")``.  Every batch is a pure function of
-``(seed, step)``: a restarted run resumes with exactly the stream it
-would have seen.  The law is the reference's — a random-walk mode picks
-one of ``n_modes`` vocabulary slices, and tokens are uniform in that
-slice — drawn from a ``torch.Generator`` keyed by ``(seed, step)``.
+Counterpart of ``repro.data.synthetic``: ``lm_batch`` and
+``classification_batch``, and ``StatelessLoader("lm" | "cls")``.  Every
+batch is a pure function of ``(seed, step)``: a restarted run resumes
+with exactly the stream it would have seen.  The laws are the
+reference's, drawn from a ``torch.Generator`` keyed by ``(seed, step)``:
+
+* ``lm``: a random-walk mode picks one of ``n_modes`` vocabulary
+  slices, and tokens are uniform in that slice;
+* ``cls`` (the fine-tuning task): a uniform class label, and each token
+  uniform in the class's own vocabulary slice with probability 0.7, else
+  uniform over the vocabulary.
+
 JAX's threefry and torch's generators give different numbers, so the
 two streams agree in law, not bit for bit.
 """
@@ -38,16 +44,39 @@ def lm_batch(seed: int, step: int, *, batch: int, seq_len: int, vocab: int,
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
+def classification_batch(seed: int, step: int, *, batch: int, seq_len: int,
+                         vocab: int, n_classes: int, device=None) -> dict:
+    """Tokens (int32, ``(batch, seq_len)``) and class labels (int32,
+    ``(batch,)``) of the fine-tuning task, separable by the tokens' share
+    in the class's slice; made on ``device`` (cuda unless named)."""
+    dev = resolve_device(device)
+    gen = _generator(seed + 7919, step, dev)
+    i64 = dict(dtype=torch.int64, device=dev, generator=gen)
+    y = torch.randint(0, n_classes, (batch,), **i64)
+    width = max(vocab // n_classes, 2)
+    clean = y[:, None] * width + torch.randint(0, width, (batch, seq_len),
+                                               **i64)
+    noise = torch.randint(0, vocab, (batch, seq_len), **i64)
+    keep = torch.rand((batch, seq_len), generator=gen, device=dev) < 0.7
+    toks = torch.where(keep, clean, noise).int()
+    return {"tokens": toks, "labels": y.int()}
+
+
+SOURCES = {"cls": classification_batch, "lm": lm_batch}
+
+
 class StatelessLoader:
-    """Step-indexed loader: ``loader(step) -> batch``.  Only the ``"lm"``
-    source is ported."""
+    """Step-indexed loader: ``loader(step) -> batch`` from the ``"lm"`` or
+    ``"cls"`` source (the reference's ``"encdec"`` waits for its
+    family)."""
 
     def __init__(self, kind: str, seed: int, device=None, **kw):
-        if kind != "lm":
-            raise NotImplementedError(
-                f"data source {kind!r} is not ported to repro_torch yet")
+        if kind not in SOURCES:
+            raise ValueError(f"unknown data source {kind!r}; available: "
+                             f"{', '.join(sorted(SOURCES))}")
         self.kind, self.seed, self.kw = kind, seed, dict(kw)
         self.device = resolve_device(device)
 
     def __call__(self, step: int) -> dict:
-        return lm_batch(self.seed, step, device=self.device, **self.kw)
+        return SOURCES[self.kind](self.seed, step, device=self.device,
+                                  **self.kw)

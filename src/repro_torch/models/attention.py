@@ -1,4 +1,5 @@
-"""Attention for serving: causal blockwise prefill and paged decode.
+"""Attention: blockwise prefill (causal, or bidirectional for the
+encoder) and paged decode.
 
 Counterpart of ``repro.models.attention``.  Plain PyTorch ops that keep
 the reference's arithmetic — scores and the online softmax in fp32,
@@ -22,12 +23,13 @@ NEG_INF = -1e30
 
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, q_offset: int = 0, q_chunk: int = 512,
-                        kv_chunk: int = 1024,
+                        *, causal: bool = True, q_offset: int = 0,
+                        q_chunk: int = 512, kv_chunk: int = 1024,
                         softmax_scale: Optional[float] = None
                         ) -> torch.Tensor:
-    """Causal online-softmax attention over query and key chunks (the
-    prefill path of the reference's ``blockwise_attention``).
+    """Online-softmax attention over query and key chunks (the prefill
+    path of the reference's ``blockwise_attention``), causal unless
+    ``causal=False`` (every query sees every key, as the encoder's).
     ``q_offset`` is the absolute position of q[0]."""
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
@@ -60,7 +62,9 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             s = torch.einsum("bqhgd,bkhd->bqhgk", qblk.float(),
                              kblk.float()) * scale
             kpos = ki * kc + torch.arange(kc, device=dev)
-            mask = (kpos[None, :] <= qpos[:, None]) & (kpos < Skv0)[None, :]
+            mask = (kpos < Skv0)[None, :]
+            if causal:
+                mask = mask & (kpos[None, :] <= qpos[:, None])
             s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])

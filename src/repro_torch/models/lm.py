@@ -151,8 +151,9 @@ def _layer(tree, i: int):
 
 
 def attn_apply(h, p, cfg, *, pos_offset=0, cache=None, cache_index=None,
-               decode=False, paged=None):
-    """GQA attention. Returns (out, (k, v) caches or None).
+               causal=True, decode=False, paged=None):
+    """GQA attention. Returns (out, (k, v) caches or None).  ``causal=False``
+    lets every position attend to every other (the encoder's blocks).
 
     ``pos_offset`` is an int or a per-row ``(B,)`` tensor (serving:
     sequences at different depths share one decode batch).  Decoding
@@ -190,8 +191,8 @@ def attn_apply(h, p, cfg, *, pos_offset=0, cache=None, cache_index=None,
         new_kv = (ck, cv)
     else:
         out = blockwise_attention(
-            q, k, v, q_offset=pos_offset, q_chunk=cfg.attn_chunk // 2,
-            kv_chunk=cfg.attn_chunk)
+            q, k, v, causal=causal, q_offset=pos_offset,
+            q_chunk=cfg.attn_chunk // 2, kv_chunk=cfg.attn_chunk)
         if cache is not None:   # prefill: persist k/v
             new_kv = cache_update(*cache, k, v, cache_index or 0)
     return linear(out.reshape(B, S, hq * dh), p["wo"]), new_kv
@@ -203,6 +204,8 @@ def mlp_apply(h, p, cfg):
 
 
 def dense_block(h, p, cfg, **kw):
+    """Pre-norm attention and SwiGLU MLP; ``kw`` (``causal``, the cache
+    and decode arguments) goes to :func:`attn_apply`."""
     a, kv = attn_apply(rms_norm(h, p["ln1"], cfg.norm_eps), p["attn"], cfg,
                        **kw)
     h = h + a

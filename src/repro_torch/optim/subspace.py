@@ -24,18 +24,23 @@ Counterpart of ``repro.optim.subspace``:
 * the INNER step (:func:`inner_update`): global-norm clip, one fused
   update launch per group (Adam or Lion, on fp32 or int8 moments), plain
   AdamW or Lion on the dense leaves;
+* the energy EMA of the instance-dependent sampler
+  (``tcfg.sampler == "dependent_diag"``): every group keeps a ``(G, k)``
+  running estimate of diag(Sigma), updated by each inner step from the
+  clipped subspace gradients (:func:`_group_energy_update`), and the
+  resample water-fills it (:func:`_sample_proj_group`);
 * the OUTER step (:func:`outer_merge_resample`): ``W += V Bᵀ`` per group
   in place (stochastically rounded into a bf16 ``W`` under bf16
-  masters), a fresh Stiefel ``V``, ``B`` zeroed, moments reset.
+  masters), a fresh ``V`` from ``tcfg.sampler``, ``B`` zeroed, moments
+  reset, the energy carried over.
 
 Unlike the reference's pure functions, the outer merge updates the
 grouped master buffer where it lies (the training loop never reads the
 old weights again).  The reference key becomes a ``torch.Generator``
 carried in the state, which also draws the stochastic-rounding noise.
 GaLore's opt-out (``quantize_state=False``) pins fp32 storage whatever
-the knobs say.  The instance-dependent sampler's energy EMA and the
-reference's ``REPRO_STATE_DTYPE``/``REPRO_MASTER_DTYPE`` overrides are
-not ported.
+the knobs say.  The reference's ``REPRO_STATE_DTYPE``/
+``REPRO_MASTER_DTYPE`` overrides are not ported.
 """
 from __future__ import annotations
 
@@ -91,11 +96,13 @@ class GroupedLowRankSlot(NamedTuple):
     (V) ``(G,) + lead + (k, r)``; ``b`` ``(G,) + lead + (n_out, r)`` in
     the master dtype; ``m``/``v`` the same shape, fp32 tensors or
     :class:`~repro_torch.optim.quant.QuantizedTensor` (``v`` is
-    ``(G,) + lead + (0, r)`` under Lion)."""
+    ``(G,) + lead + (0, r)`` under Lion); ``energy`` the ``(G, k)`` fp32
+    EMA of diag(Sigma) under ``dependent_diag``, else ``(G, 0)``."""
     proj: torch.Tensor
     b: torch.Tensor
     m: Union[torch.Tensor, quant.QuantizedTensor]
     v: Union[torch.Tensor, quant.QuantizedTensor]
+    energy: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -186,16 +193,28 @@ def build_layout(params, tcfg, algo: str = "adam",
 # ---------------------------------------------------------------------------
 
 def _sample_proj_group(name: str, gen: torch.Generator, spec: GroupSpec,
-                       n_members: int, c: float, dtype,
-                       device) -> torch.Tensor:
+                       n_members: int, c: float, dtype, device,
+                       energy: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """One batched draw for a whole group, ``(G,) + lead + (k, r)``:
-    leading layer dims fold into the sample batch."""
+    leading layer dims fold into the sample batch.  Under
+    ``dependent_diag`` each member's ``(k,)`` energy row is repeated
+    across its own leading dims (one EMA per member, shared by its
+    layers), and a member whose row sums to zero draws from a row of
+    ones: the warm-up, whose uniform pi is the coordinate law."""
     lead, k_dim = spec.shape[:-2], spec.shape[-2]
-    batch = n_members
+    lead_n = 1
     for d in lead:
-        batch *= d
+        lead_n *= d
+    batch = n_members * lead_n
+    kw = {}
+    if name == "dependent_diag":
+        e = torch.where(energy.sum(-1, keepdim=True) > 0, energy,
+                        torch.ones_like(energy))
+        kw["diag_energy"] = e[:, None, :].expand(
+            n_members, lead_n, k_dim).reshape(batch, k_dim)
     v = samplers.sample_v_batched(name, gen, batch, k_dim, spec.rank, c=c,
-                                  dtype=dtype)
+                                  dtype=dtype, **kw)
     return v.reshape((n_members,) + tuple(lead) + (k_dim, spec.rank)).to(
         device)
 
@@ -263,14 +282,17 @@ def init(params, tcfg, gen: torch.Generator, algo: str = "adam",
         n_members = len(spec.leaf_idx)
         bshape = (n_members,) + spec.shape[:-2] + (spec.shape[-1],
                                                    spec.rank)
+        energy = torch.zeros(
+            (n_members, spec.shape[-2] if tcfg.sampler == "dependent_diag"
+             else 0), **f32)
         proj = _sample_proj_group(tcfg.sampler, gen, spec, n_members,
-                                  tcfg.c, cdt, device)
+                                  tcfg.c, cdt, device, energy=energy)
         v = (torch.zeros(bshape[:-2] + (0, spec.rank), **f32)
              if layout.algo == "lion"
              else _moment_zeros(bshape, layout, device, codec="sqrt"))
         groups.append(GroupedLowRankSlot(
             proj=proj, b=torch.zeros(bshape, dtype=mdt, device=device),
-            m=_moment_zeros(bshape, layout, device), v=v))
+            m=_moment_zeros(bshape, layout, device), v=v, energy=energy))
     i32 = dict(dtype=torch.int32, device=device)
     return SubspaceState(dense=dense, groups=tuple(groups),
                          step=torch.zeros((), **i32),
@@ -357,13 +379,31 @@ def _sr_bits(gen: torch.Generator, shape, device) -> torch.Tensor:
                          generator=gen, device=gen.device).to(device)
 
 
+def _group_energy_update(slot: GroupedLowRankSlot, g32) -> torch.Tensor:
+    """``dependent_diag``: the EMA ``0.99 e + 0.01 diag(V (gᵀ g) Vᵀ)`` of
+    diag(Sigma) from the group's clipped fp32 subspace gradients ``g32``
+    and its current ``V`` (cast to fp32), batched over the group and
+    averaged over the leading layer dims of each member; O(k r²), with
+    no ``(k, r, r)`` intermediate.  A zero-width energy passes through."""
+    if not slot.energy.shape[-1]:
+        return slot.energy
+    proj32 = slot.proj.float()
+    mm = g32.mT @ g32
+    e = ((proj32 @ mm) * proj32).sum(-1)
+    if e.ndim > 2:
+        e = e.mean(dim=tuple(range(1, e.ndim - 1)))
+    return 0.99 * slot.energy + 0.01 * e
+
+
 def _update_group(slot: GroupedLowRankSlot, g32, bits, *, lr, stepf,
                   layout: SubspaceLayout, tcfg) -> GroupedLowRankSlot:
     """One group's fused update through the kernel that fits its layout:
     Adam or Lion on fp32 or int8 moments; bf16 masters are rounded with
-    ``bits`` (fused into the q8 kernels, after the fp32-state ones)."""
+    ``bits`` (fused into the q8 kernels, after the fp32-state ones).  The
+    energy EMA follows the gradient in every branch."""
     lion = layout.algo == "lion"
     wd = float(tcfg.weight_decay)
+    slot = slot._replace(energy=_group_energy_update(slot, g32))
     if layout.state_dtype == "int8":
         if lion:
             nb, nmq, nms = dispatch.subspace_lion_q8(
@@ -453,7 +493,8 @@ def outer_merge_resample(params: GroupedParams, state: SubspaceState,
     """``W += V Bᵀ`` (fp32 accumulate, one merge launch per group, in
     place on the grouped buffer; stochastically rounded into a bf16 W
     under bf16 masters), a fresh V per group from the state's generator
-    (stored in V's dtype), B zeroed, and the moments zeroed when
+    (stored in V's dtype; ``dependent_diag`` water-fills the group's
+    energy, which carries over), B zeroed, and the moments zeroed when
     ``tcfg.reset_moments``."""
     sr_master = state.layout.master_dtype == "bfloat16"
     new_groups = []
@@ -468,7 +509,8 @@ def outer_merge_resample(params: GroupedParams, state: SubspaceState,
             dispatch.lowrank_merge(w, slot.proj, slot.b, out=w)
         proj = _sample_proj_group(tcfg.sampler, state.gen, spec,
                                   len(spec.leaf_idx), tcfg.c,
-                                  slot.proj.dtype, slot.proj.device)
+                                  slot.proj.dtype, slot.proj.device,
+                                  energy=slot.energy)
         m, v = ((quant.zeros_like(slot.m), quant.zeros_like(slot.v))
                 if tcfg.reset_moments else (slot.m, slot.v))
         new_groups.append(slot._replace(proj=proj,

@@ -1,6 +1,7 @@
-"""Chunked cross-entropy.
+"""Chunked cross-entropy, and the classification loss and accuracy of
+the fine-tuning scenario (:func:`cls_ce`, :func:`cls_accuracy`).
 
-Counterpart of ``repro.train.loss.chunked_ce``.  Logits for a whole
+Counterpart of ``repro.train.loss``.  Logits for a whole
 (B, S, vocab) block would dominate activation memory, so the sequence
 is cut into chunks; each chunk's logits are reduced to per-token CE at
 once and recomputed in the backward (``torch.utils.checkpoint``, as the
@@ -52,3 +53,16 @@ def chunked_ce(hidden: torch.Tensor, unembed, labels: torch.Tensor, *,
                                      use_reentrant=False)
                           for i in range(n)]).sum(dim=0)
     return totals[0] / torch.clamp(totals[1], min=1.0)
+
+
+def cls_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of class logits (B, n_classes), in fp32."""
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    picked = torch.gather(lg, -1, labels.long()[:, None])[:, 0]
+    return (lse - picked).mean()
+
+
+def cls_accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Share of rows whose largest logit is the label's."""
+    return (torch.argmax(logits, -1) == labels.long()).float().mean()

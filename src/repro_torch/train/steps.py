@@ -2,8 +2,8 @@
 
 Counterpart of ``repro.train.steps`` for the dense LM: ``build_loss_fn``,
 ``make_train_step`` (Algorithm 1's inner step, ``lowrank_adam`` and
-``lowrank_lion``), ``make_outer_step`` (merge + resample),
-``make_adamw_train_step`` (the dense AdamW baseline) and
+``lowrank_lion``, with gradient accumulation), ``make_outer_step``
+(merge + resample), ``make_adamw_train_step`` (the dense AdamW baseline) and
 ``make_zo_train_step`` (the forward-only LowRank-LR step).  GaLore's
 steps live in :mod:`repro_torch.optim.galore`.  The steps run eagerly;
 the LR, the step counter and the bias corrections stay on the device, so
@@ -54,36 +54,71 @@ def pack_dtype(cfg, tcfg, device) -> torch.dtype:
     return cdt if cdt != torch.float32 else act_dtype(cfg)
 
 
+def _microbatches(batch: dict, n: int) -> list:
+    """``n`` contiguous microbatches of every batch entry (the reference's
+    ``_microbatch``); ``n`` must divide the batch."""
+    rows = next(iter(batch.values())).shape[0]
+    if rows % n:
+        raise ValueError(f"grad_accum={n} does not divide the batch of "
+                         f"{rows} rows")
+    size = rows // n
+    return [{k: x[i * size:(i + 1) * size] for k, x in batch.items()}
+            for i in range(n)]
+
+
 def make_train_step(cfg, tcfg, loss_fn: Optional[Callable] = None):
     """Inner step: one backward through the packed model, then the
     method's update (subspace-Adam or -Lion on B, AdamW or Lion on the
     dense leaves; see ``subspace.inner_update``).
 
+    ``tcfg.grad_accum = A > 1`` runs the batch as A contiguous
+    microbatches, one forward and backward each (activation memory / A):
+    the fp32 gradients are summed in microbatch order and divided by A,
+    and the loss is the mean, exactly the one-batch step for a mean loss
+    over equal splits.
+
     ``step(params, opt_state, batch) -> (params, opt_state, metrics)``;
     ``metrics`` holds ``loss``, ``grad_norm`` and ``lr`` as 0-d device
     tensors.
     """
-    if getattr(tcfg, "grad_accum", 1) != 1:
-        raise NotImplementedError(
-            "grad_accum > 1 is not ported to repro_torch yet")
     loss_fn = loss_fn or build_loss_fn(cfg)
+    accum = max(1, getattr(tcfg, "grad_accum", 1))
+
+    def value_and_grads(params, opt_state, trainable, pdt, batch):
+        packed = subspace.packed_params(params, opt_state, trainable,
+                                        dtype=pdt)
+        loss = loss_fn(packed, batch)
+        leaves = list(trainable.dense) + list(trainable.groups)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
 
     def train_step(params, opt_state: subspace.SubspaceState, batch):
         lr = lr_at(tcfg, opt_state.step)
         trainable = subspace.trainable_of(params, opt_state)
         pdt = pack_dtype(cfg, tcfg, opt_state.step.device)
-        packed = subspace.packed_params(params, opt_state, trainable,
-                                        dtype=pdt)
-        loss = loss_fn(packed, batch)
-        leaves = list(trainable.dense) + list(trainable.groups)
-        grads = torch.autograd.grad(loss, leaves)
+        if accum == 1:
+            loss, grads = value_and_grads(params, opt_state, trainable, pdt,
+                                          batch)
+        else:
+            lsum, gsum = 0.0, None
+            for mb in _microbatches(batch, accum):
+                loss, grads = value_and_grads(params, opt_state, trainable,
+                                              pdt, mb)
+                grads = [g.float() for g in grads]
+                gsum = grads if gsum is None else [
+                    a.add_(g) for a, g in zip(gsum, grads)]
+                lsum = lsum + loss
+            # true divisions (a CUDA tensor divided by a Python number is
+            # multiplied by its reciprocal)
+            a = torch.full((), float(accum), device=lsum.device)
+            grads = [g / a for g in gsum]
+            loss = lsum / a
         nd = len(trainable.dense)
         grads = subspace.Trainable(dense=tuple(grads[:nd]),
                                    groups=tuple(grads[nd:]))
         new_params, _, new_state, gn = subspace.inner_update(
             grads, trainable, params, opt_state, lr=lr, tcfg=tcfg)
-        return new_params, new_state, {"loss": loss.detach(),
-                                       "grad_norm": gn, "lr": lr}
+        return new_params, new_state, {"loss": loss, "grad_norm": gn,
+                                       "lr": lr}
 
     return train_step
 

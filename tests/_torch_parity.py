@@ -79,7 +79,8 @@ def widened(params, state, master_dtype=None):
         state, layout=layout,
         dense=tuple(d._replace(m=dbl(d.m), v=dbl(d.v)) for d in state.dense),
         groups=tuple(g._replace(proj=dbl(g.proj), b=dbl_b(g.b), m=dbl(g.m),
-                                v=dbl(g.v)) for g in state.groups))
+                                v=dbl(g.v), energy=dbl(g.energy))
+                     for g in state.groups))
     return params, state
 
 
@@ -108,6 +109,7 @@ def assert_float64(params, state):
         check(g.b, may_bf16=b_bf16)
         check(g.m)
         check(g.v)
+        check(g.energy)
 
 
 def _f64(x):

@@ -444,7 +444,7 @@ def test_lowrank_lr_trainer_tracks_the_jax_trainer_over_two_outer_cycles(
     v_queue, n_queue = [], []
     monkeypatch.setattr(
         subspace, "_sample_proj_group",
-        lambda name, gen, spec, n, c, dtype, device:
+        lambda name, gen, spec, n, c, dtype, device, energy=None:
         _t(v_queue.pop(0)).to(device, dtype))
     _inject_noise(monkeypatch, n_queue)
     losses, outer = [], 0

@@ -281,7 +281,7 @@ def test_one_outer_merge_matches_jax(start, monkeypatch):
     _inject_bits(monkeypatch, queue)
     monkeypatch.setattr(
         subspace, "_sample_proj_group",
-        lambda name, gen, spec, n, c, dtype, device:
+        lambda name, gen, spec, n, c, dtype, device, energy=None:
         torch.from_numpy(np.array(new_v.pop(0))).to(device, dtype))
     p2, s2 = subspace.outer_merge_resample(gp, st, start["tcfg"])
     assert not queue and not new_v

@@ -202,7 +202,8 @@ def test_one_outer_merge_matches_jax_with_its_v_injected(start,
         step=2, device="cpu")
     drawn = []
 
-    def injected(name, gen, spec, n_members, c, dtype, device):
+    def injected(name, gen, spec, n_members, c, dtype, device,
+                 energy=None):
         drawn.append((name, spec.shape, n_members))
         return _t(new_v[len(drawn) - 1]).to(device, dtype)
 
@@ -272,7 +273,7 @@ def test_trainer_tracks_the_jax_trainer_over_two_outer_cycles(monkeypatch):
     queue = []
     monkeypatch.setattr(
         subspace, "_sample_proj_group",
-        lambda name, gen, spec, n, c, dtype, device:
+        lambda name, gen, spec, n, c, dtype, device, energy=None:
         _t(queue.pop(0)).to(device, dtype))
     losses, outer = [], 0
     for s in range(7):
@@ -362,7 +363,8 @@ def _port_trainer_run(tcfg, seed, start, projs, bits, f64=False,
     with pytest.MonkeyPatch.context() as mp, \
             float64_plain_path() if f64 else contextlib.nullcontext():
         mp.setattr(subspace, "_sample_proj_group",
-                   lambda name, gen, spec, n, c, dtype, device:
+                   lambda name, gen, spec, n, c, dtype, device,
+                   energy=None:
                    _t(v_queue.pop(0)).to(device, dtype))
         mp.setattr(subspace, "_sr_bits", injected_bits)
         for s in range(7):
@@ -583,8 +585,10 @@ def test_stiefel_matches_the_reference_law_not_its_bits():
         gram = np.swapaxes(a, -1, -2) @ a
         np.testing.assert_allclose(gram, np.broadcast_to(
             4.0 * np.eye(8), gram.shape), atol=2e-5)
-    with pytest.raises(NotImplementedError, match="gaussian"):
-        samplers.sample_v_batched("gaussian", gen, 1, 8, 2)
+    with pytest.raises(ValueError, match="available: coordinate, "
+                                         "dependent_diag, gaussian, "
+                                         "stiefel"):
+        samplers.sample_v_batched("haar", gen, 1, 8, 2)
 
 
 def _mode_stats(tokens, vocab, n_modes=8):
@@ -622,8 +626,8 @@ def test_lm_batch_is_a_pure_function_of_seed_and_step():
     loader = StatelessLoader("lm", 1, device="cpu", batch=4, seq_len=16,
                              vocab=64)
     assert torch.equal(loader(5)["labels"], a["labels"])
-    with pytest.raises(NotImplementedError, match="cls"):
-        StatelessLoader("cls", 1, device="cpu")
+    with pytest.raises(ValueError, match="cls, lm"):
+        StatelessLoader("encdec", 1, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -717,11 +721,58 @@ def test_only_the_ported_method_and_state_are_accepted():
     for bad in (dict(state_dtype="int4"), dict(master_dtype="float16")):
         with pytest.raises(ValueError, match="expected one of"):
             Trainer(CFG, TrainConfig(**bad), loader, device="cpu")
-    with pytest.raises(NotImplementedError, match="grad_accum"):
-        Trainer(CFG, TrainConfig(grad_accum=2), loader, device="cpu")
+    tr = Trainer(CFG, TrainConfig(grad_accum=3), loader, device="cpu")
+    with pytest.raises(ValueError, match="grad_accum=3 does not divide"):
+        tr.run(1)
     with pytest.raises(ValueError, match="compute_dtype"):
         Trainer(CFG, TrainConfig(compute_dtype="int4"), loader,
                 device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Trainer(CFG, TCFG, loader)
+
+
+def _seed_sweep(n_seeds):
+    """The int8 + bf16 Adam gate's free runs at seeds ``0 .. n_seeds - 1``
+    (``python tests/test_torch_train.py N``, with ``PYTHONPATH=src``):
+    per seed, the largest relative loss gap from the first merge on of
+    the port and of the reference to the port's float64 plain run, and
+    the grouped W's rounds off float64's after each merge, the port's
+    count over the reference's; then the medians over the seeds."""
+    kw = dict(KW, optimizer="lowrank_adam", state_dtype="int8",
+              master_dtype="bfloat16")
+    first = KW["lazy_k"]
+    rows = []
+    for seed in range(n_seeds):
+        tcfg = TrainConfig(**dict(kw, seed=seed))
+        run = _jax_trainer_run(kw, seed)
+        start, jlosses, jsnap = run[0], run[1], run[4]
+        losses, _, _, snap = _port_trainer_run(tcfg, seed, start, *run[2:4])
+        l64, _, _, snap64 = _port_trainer_run(tcfg, seed, start, *run[2:4],
+                                              f64=True)
+        port = float(np.max(np.abs(losses[first:] - l64[first:])
+                            / np.abs(l64[first:])))
+        ref = float(np.max(np.abs(jlosses[first:] - l64[first:])
+                           / np.abs(l64[first:])))
+        flips = {s: sum(int((a != x).sum()) for a, x in zip(snap[s], ex))
+                 / max(sum(int((b != x).sum())
+                           for b, x in zip(jsnap[s], ex)), 1)
+                 for s, ex in snap64.items()}
+        rows.append((port, ref, flips))
+        print(f"seed {seed:2d}: loss gap to float64 port {port:.3g} "
+              f"reference {ref:.3g}; W rounds port/reference " + ", ".join(
+                  f"after step {s}: {r:.3f}" for s, r in flips.items()),
+              flush=True)
+    port, ref = np.array([r[0] for r in rows]), np.array([r[1] for r in rows])
+    print(f"{n_seeds} seeds: loss gap port max {port.max():.3g} median "
+          f"{np.median(port):.3g}; reference max {ref.max():.3g} median "
+          f"{np.median(ref):.3g}; port farther at {(port > ref).sum()} "
+          f"seeds")
+    for s in rows[0][2]:
+        print(f"W rounds after step {s}: median port/reference "
+              f"{np.median([r[2][s] for r in rows]):.3f}")
+
+
+if __name__ == "__main__":
+    import sys
+    _seed_sweep(int(sys.argv[1]) if len(sys.argv) > 1 else 24)
