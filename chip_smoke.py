@@ -111,6 +111,22 @@
    fine-tuned 200 steps by ``lowrank_lr`` under three samplers and by
    ``adamw``, with accuracy, ms/step and peaks (every ``lowrank_lr``
    peak below ``adamw``'s).
+10. Checkpoints and resilience, at llama-100m's full width and depth
+   for 6a and 6b: two uninterrupted 8-step runs, with the health guard
+   on and off (ms/step, device ms/step from a profiled step, peak),
+   equal bit for bit; a run stopped by a chaos SIGTERM at step 4 after
+   a checkpoint, resumed by a fresh Trainer and equal to them in every
+   record, generator included (archive MB, save and restore seconds);
+   a NaN step and a loss-spike step skipped with every record
+   unchanged, and one guarded inner step under
+   ``set_sync_debug_mode("error")``.  6a's checkpoint loaded by
+   ``AdapterStore.load_tenant`` into a llama-100m engine and served,
+   and a 2-layer fp32 cut's held lazy == merged; a flipped bit in the
+   newest archive quarantined and walked back; one rollback (restore,
+   the reseed's merges, the LR halved).  qwen2-7b and mamba2-780m
+   engines (2 tenants, 6 requests) snapshot at step 3 and drained by a
+   chaos SIGTERM at step 6, each snapshot restored into a fresh engine
+   that finishes with an uninterrupted engine's tokens (MB, seconds).
 
 Each ``[kernel]`` row and JSON entry names the route its launch took,
 ``"tc"`` (the tensor cores: TMA + ``wgmma``, or ``mma.sync`` for the SSD
@@ -139,6 +155,7 @@ import dataclasses
 import gc
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -711,20 +728,23 @@ def paged_from_prefill(lm, cfg, st, S, page, dev):
         lengths=torch.tensor([S], dtype=torch.int32, device=dev))
 
 
-def lazy_equals_merged(dev, mods, arch="qwen2-7b", S=24):
+def lazy_equals_merged(dev, mods, arch="qwen2-7b", S=24, store=None,
+                       tenant="tenant0", tag=None):
     """Phase 5: lazy (B, V) serving == merged W + V B^T, fp32, 2 layers:
-    prefill of ``S`` tokens and one paged decode step."""
+    prefill of ``S`` tokens and one paged decode step.  ``store`` (of
+    the 2-layer fp32 cut) serves ``tenant`` in place of a random one."""
     lm, configs, serve_mod = mods["lm"], mods["configs"], mods["serve"]
     from repro_torch.models.common import tree_map
     from repro_torch.models.linear import effective_weight
-    tag = "lazy==merged" if arch == "qwen2-7b" \
-        else f"lazy==merged {arch.split('-')[0]}"
+    tag = tag or ("lazy==merged" if arch == "qwen2-7b"
+                  else f"lazy==merged {arch.split('-')[0]}")
     cfg = configs.get_config(arch).replace(
         num_layers=2, dtype="float32", param_dtype="float32")
     params = lm.init_params(cfg, seed=3, device=dev)
-    store = make_store(cfg, configs.TrainConfig(rank=RANK), 1, dev,
-                       serve_mod.AdapterStore)
-    merged = tree_map(effective_weight, store.lrpack_tree(params, "tenant0"))
+    if store is None:
+        store = make_store(cfg, configs.TrainConfig(rank=RANK), 1, dev,
+                           serve_mod.AdapterStore)
+    merged = tree_map(effective_weight, store.lrpack_tree(params, tenant))
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
     page = 16
@@ -733,7 +753,8 @@ def lazy_equals_merged(dev, mods, arch="qwen2-7b", S=24):
     nxt = torch.randint(0, cfg.vocab_size, (1, 1), generator=gen,
                         device=dev)
     tenants = torch.zeros((1,), dtype=torch.long, device=dev)
-    lazy_pre = store.lrpack_tree(params, "tenant0")
+    tenants = tenants + store.tenant_index(tenant)
+    lazy_pre = store.lrpack_tree(params, tenant)
     lazy_dec = serve_mod.batched_pack_tree(params, store.layout,
                                            store.b_full, store.projs,
                                            tenants)
@@ -1766,6 +1787,7 @@ def profile_train(tr, steps=2, tag="profile-train", match=(), top=12):
     log(f"[{tag}] the forward's finish epilogue: " + (", ".join(
         f"{e.self_device_time_total / 1e3 / steps:.2f} ms/step" for e in fin)
         or "no rows"))
+    return 1e3 * wall / steps, dev_us / 1e3 / steps
 
 
 # Phase 7's runs: (label, TrainConfig fields, relative per-step loss gap
@@ -2421,6 +2443,419 @@ def compare_encoder_kernels(mods, dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: checkpoints and resilience
+# ---------------------------------------------------------------------------
+
+# the configurations [resume] and [guard] run at llama-100m's full width
+# and depth: 6a (fp32 state) and 6b (int8 moments, bf16 B masters)
+RESIL_RUNS = (("6a", dict(lazy_k=4, lr=3e-3)),
+              ("6b", dict(optimizer="lowrank_adam", state_dtype="int8",
+                          master_dtype="bfloat16", lazy_k=4, lr=3e-3)))
+RESUME_STEPS, RESUME_EVERY, RESUME_KILL = 8, 4, 4   # SIGTERM at step 4
+GUARD_NAN, GUARD_SPIKE = 3, 6   # the guard steps poisoned (of 8)
+GUARD_WARMUP = 3          # tcfg.spike_warmup: armed by the spike step
+ROLLBACK_NAN = (3, 4, 5)  # three skips in a row: one rollback
+
+
+def resil_trainer(dev, cfg, tcfg, workdir=None, batch=None, seq=None,
+                  **kw):
+    from repro_torch.data.synthetic import StatelessLoader
+    from repro_torch.train.trainer import Trainer
+    loader = StatelessLoader("lm", 0, device=dev, batch=batch or TRAIN_BATCH,
+                             seq_len=seq or TRAIN_SEQ, vocab=cfg.vocab_size)
+    return Trainer(cfg, tcfg, loader, workdir, device=dev, **kw)
+
+
+def snapshot_state(tr):
+    """A device copy of every tensor of the trainer's params and state,
+    and its generator's state: what a checkpoint would hold."""
+    from repro_torch.train import checkpoint as ckpt
+    tree = {"params": tr.params, "opt": tr.opt_state}
+    return [t.clone() for t in ckpt.tensors(tree)], \
+        tr.opt_state.gen.get_state()
+
+
+def differ(tr, snap) -> list:
+    """Names of the records of ``tr`` that differ from ``snap`` bit for
+    bit (``opt||gen`` for the generator)."""
+    from repro_torch.train import checkpoint as ckpt
+    tree = {"params": tr.params, "opt": tr.opt_state}
+    tensors, gen = snap
+    idx = [i for i, (a, b) in enumerate(zip(ckpt.tensors(tree), tensors))
+           if not torch.equal(a, b)]
+    names = []
+    if idx:
+        keys = [k for k in ckpt.records(tree)
+                if not k.endswith(("||key", "||gen"))]
+        names = [keys[i] for i in idx]
+    if not torch.equal(tr.opt_state.gen.get_state(), gen):
+        names.append("opt||gen")
+    return names
+
+
+def reset_counters(mods):
+    for mod in mods["counters"] + (mods["sc"],):
+        mod.reset_launches()
+
+
+def free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def resume_and_guard(dev, mods, smi, configs, tag, fields, workdir):
+    """[guard] and [resume] of one configuration.  The run uninterrupted
+    twice, guard on and off (timed; the last step profiled): bit for bit
+    equal shows the card deterministic and the guard transparent at
+    once.  The run stopped by a chaos SIGTERM after a checkpoint and
+    resumed in a fresh Trainer must equal it wherever the two agree,
+    generator included.  A NaN step and a loss-spike step (the detector
+    armed after ``GUARD_WARMUP`` accepted steps) leave every record
+    unchanged and the run goes on with finite losses, and one guarded
+    inner step runs under ``set_sync_debug_mode("error")``.  Returns the
+    training kernels' launches."""
+    from repro_torch.train import chaos
+    cfg, tcfg = train_config(configs, warmup_steps=2, total_steps=1000,
+                             spike_warmup=GUARD_WARMUP, **fields)
+    reset_counters(mods)
+    runs = {}
+    for on in (True, False):
+        tr = resil_trainer(dev, cfg, dataclasses.replace(tcfg,
+                                                         health_guard=on))
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rep = tr.run(RESUME_STEPS - 1)
+        _, device = profile_train(tr, steps=1, top=0, tag=f"profile guard "
+                                  f"{tag} {'on' if on else 'off'}")
+        inner = [t for i, t in enumerate(rep.step_times) if i % tcfg.lazy_k]
+        # the guard-on run's device copy stays held through the other's
+        held = 0 if on else sum(t.nbytes for t in base[0])
+        runs[on] = dict(losses=rep.losses, device=device,
+                        ms=1e3 * sum(inner[1:]) / len(inner[1:]),
+                        peak=(torch.cuda.max_memory_allocated() - held)
+                        / 2 ** 30)
+        if on:
+            base = snapshot_state(tr)
+        else:
+            off = set(differ(tr, base))
+        del tr
+        free()
+    total = len(base[0]) + 1
+    on, no = runs[True], runs[False]
+    log(f"[guard {tag}] guard on: {on['ms']:.1f} ms/step (steps 3, 4, 6, "
+        f"7: no merge, no first step), device {on['device']:.1f} ms/step, "
+        f"peak "
+        f"{on['peak']:.2f} GiB; guard off: {no['ms']:.1f} ms/step, device "
+        f"{no['device']:.1f} ms/step, peak {no['peak']:.2f} GiB; on {smi}")
+    log(f"[resume {tag}] the two uninterrupted runs of {RESUME_STEPS} steps "
+        f"(guard on, off): {total - len(off)}/{total} records bit-identical, "
+        f"losses " + ("equal" if on["losses"] == no["losses"] else
+                      f"differ: {on['losses']} vs {no['losses']}")
+        + ("" if not off else f"; records that differ: {sorted(off)}"))
+    with chaos.injected(chaos.ChaosHook(sigterm_at_step=RESUME_KILL)):
+        tr = resil_trainer(dev, cfg, tcfg, workdir,
+                           checkpoint_every=RESUME_EVERY)
+        rep1 = tr.run(RESUME_STEPS)
+    stop = tr.step
+    del tr
+    free()
+    if not rep1.preempted or stop != RESUME_KILL + 1:
+        raise SystemExit(f"resume {tag}: the SIGTERM at step {RESUME_KILL} "
+                         f"did not drain the run (preempted "
+                         f"{rep1.preempted}, stopped at step {stop})")
+    mb = (Path(workdir) / f"step_{stop:08d}" / "arrays.npz").stat(
+    ).st_size / 1e6
+    tr = resil_trainer(dev, cfg, tcfg, workdir)
+    rep2 = tr.run(RESUME_STEPS - stop)
+    bad = [k for k in differ(tr, base) if k not in off]
+    del tr
+    free()
+    log(f"[resume {tag}] SIGTERM at step {RESUME_KILL}: {rep1.steps_run} "
+        f"steps run, checkpoints at steps {RESUME_EVERY} and {stop} "
+        f"(preempted); archive {mb:.1f} MB; save " + ", ".join(
+            f"{t:.2f}" for t in rep1.save_times)
+        + f" s (fsync included); a fresh Trainer resumed from step "
+        f"{rep2.resumed_from} in {rep2.resume_seconds:.2f} s; on {smi}")
+    agree = total - len(off)
+    log(f"[resume {tag}] resumed == uninterrupted: {agree - len(bad)}/"
+        f"{agree} of the records the uninterrupted runs agree on")
+    if rep2.resumed_from != stop or bad:
+        raise SystemExit(f"resume {tag}: the resumed run differs from the "
+                         f"uninterrupted one at {bad[:8]}")
+    hook = chaos.ChaosHook(grad_nan_steps=(GUARD_NAN,),
+                           spike_scale_steps=(GUARD_SPIKE,))
+    with chaos.injected(hook):
+        tr = resil_trainer(dev, cfg, tcfg)
+        losses = []
+        for s in range(RESUME_STEPS):
+            before = snapshot_state(tr) if s in (GUARD_NAN, GUARD_SPIKE) \
+                else None
+            rep = tr.run(1)
+            if before is None:
+                losses += rep.losses
+                if rep.skipped_steps:
+                    raise SystemExit(f"guard {tag}: healthy step {s} "
+                                     f"skipped")
+                continue
+            changed = differ(tr, before)
+            what = "NaN" if s == GUARD_NAN else "spike"
+            log(f"[guard {tag}] step {s} ({what}): skipped "
+                f"{rep.skipped_steps == 1}, loss read "
+                f"{rep.losses[0]:.4g}, records changed {len(changed)}")
+            if rep.skipped_steps != 1 or changed:
+                raise SystemExit(f"guard {tag}: step {s} not skipped bit-"
+                                 f"identically: {changed[:8]}")
+    if not all(map(math.isfinite, losses)):
+        raise SystemExit(f"guard {tag}: non-finite accepted losses {losses}")
+    log(f"[guard {tag}] accepted losses " + ", ".join(
+        f"{x:.4f}" for x in losses) + f"; skips {int(tr.health.total_skips)}")
+    counts = train_launches(mods)
+    # one guarded inner step, the trainer's fetch left out, syncs nothing
+    batch = tr.loader(tr.step)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gen_state = tr.opt_state.gen.get_state()
+        _, _, h, met = tr._inner(tr.params, tr.opt_state, tr.health, batch,
+                                 tr.guard_steps)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    tr.opt_state.gen.set_state(gen_state)
+    log(f"[guard {tag}] one guarded inner step under set_sync_debug_mode"
+        f"(\"error\"): no host sync; health vector "
+        f"{[round(x, 4) for x in met['health'].tolist()]}")
+    del tr, h, met, base
+    free()
+    return counts
+
+
+def rollback_run(dev, mods, smi, configs, workdir):
+    """[rollback]: three NaN steps in a row roll back once: restore the
+    last checkpoint, halve the LR, reseed (an outer merge, which must
+    launch the merge kernel); the run goes on with finite losses."""
+    from repro_torch.train import chaos
+    tag = "rollback"
+    cfg, tcfg = train_config(configs, warmup_steps=2, total_steps=1000,
+                             lazy_k=4, lr=3e-3)
+    reset_counters(mods)
+    lu = mods["lu"]
+    times, merges = [], []
+    with chaos.injected(chaos.ChaosHook(grad_nan_steps=ROLLBACK_NAN)):
+        tr = resil_trainer(dev, cfg, tcfg, workdir, checkpoint_every=2)
+        real = tr._rollback
+
+        def timed(report):
+            n0 = lu.launches("lowrank_merge")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            real(report)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            merges.append(lu.launches("lowrank_merge") - n0)
+
+        tr._rollback = timed
+        rep = tr.run(8)
+    log(f"[{tag}] NaN at guard steps {list(ROLLBACK_NAN)}: {rep.skipped_steps}"
+        f" skipped, {rep.rollbacks} rollback in " + ", ".join(
+            f"{t:.2f}" for t in times)
+        + f" s (restore, reseed with {merges} merge launches, LR "
+        f"{tcfg.lr} -> {tr.tcfg.lr}); then {rep.steps_run} steps, losses "
+        + ", ".join(f"{x:.4f}" for x in rep.losses[-4:]) + f"; on {smi}")
+    if rep.rollbacks != 1 or not merges or not merges[0] or \
+            tr.tcfg.lr != tcfg.lr * tcfg.rollback_backoff or \
+            not all(map(math.isfinite, rep.losses[-4:])):
+        raise SystemExit(f"{tag}: the rollback did not restore, reseed "
+                         f"and go on")
+    del tr
+    free()
+    return train_launches(mods)
+
+
+def walkback(dev, configs, workdir, fields):
+    """[walkback]: one flipped bit in the newest archive; the resume
+    quarantines it as ``step_*.corrupt`` and lands on the step before."""
+    from repro_torch.train import chaos
+    from repro_torch.train import checkpoint as ckpt
+    cfg, tcfg = train_config(configs, warmup_steps=2, total_steps=1000,
+                             **fields)
+    steps = ckpt.all_steps(workdir)
+    npz = Path(workdir) / f"step_{steps[-1]:08d}" / "arrays.npz"
+    chaos.flip_bit(str(npz), npz.stat().st_size // 2, 3)
+    tr = resil_trainer(dev, cfg, tcfg, workdir)
+    rep = tr.run(0)
+    corrupt = (Path(workdir) / f"step_{steps[-1]:08d}.corrupt").is_dir()
+    log(f"[walkback] a bit flipped in step {steps[-1]}'s archive: resumed "
+        f"from step {rep.resumed_from} in {rep.resume_seconds:.2f} s, step "
+        f"{steps[-1]} quarantined {corrupt}")
+    if rep.resumed_from != steps[-2] or not corrupt:
+        raise SystemExit("walkback: the resume did not quarantine the "
+                         "damaged step and land on the one before")
+    del tr
+    free()
+
+
+def serve_trained_tenant(dev, mods, smi, configs, workdir, root):
+    """[serve trained tenant]: the [resume] run's llama-100m checkpoint
+    loaded by ``load_tenant`` into a llama-100m store and served; then a
+    2-layer fp32 cut trained 2 steps, loaded the same way, lazy ==
+    merged within phase 5's limit."""
+    lf, lm, serve_mod = mods["lf"], mods["lm"], mods["serve"]
+    tag = "serve trained tenant"
+    cfg = configs.get_config(TRAIN_ARCH)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    store = serve_mod.AdapterStore(cfg, configs.TrainConfig(rank=RANK), 2,
+                                   device=dev)
+    t0 = time.perf_counter()
+    store.load_tenant("trained", workdir)
+    load_s = time.perf_counter() - t0
+    eng = serve_mod.Engine(params, cfg, adapters=store,
+                           engine_cfg=serve_mod.EngineConfig(
+                               page_size=16, max_batch=4, max_len=96,
+                               max_out=16), device=dev)
+    gen = torch.Generator().manual_seed(5)
+    reset_counters(mods)
+    for i in range(4):
+        eng.submit(serve_mod.Request(
+            f"r{i}", torch.randint(0, cfg.vocab_size, (64,),
+                                   generator=gen).numpy(), 16,
+            tenant="trained"))
+    out = eng.run()
+    bad = [r for r, v in out.items() if len(v) != 16 or v.min() < 0
+           or v.max() >= cfg.vocab_size]
+    log(f"[{tag}] {TRAIN_ARCH} tenant loaded in {load_s:.2f} s; 4 requests "
+        f"x 16 tokens: launches shared={lf.launches('shared')} batched="
+        f"{lf.launches('batched')}; r0 {out['r0'][:8].tolist()}")
+    if len(out) != 4 or bad or eng.errors or not lf.launches("shared") \
+            or not lf.launches("batched"):
+        raise SystemExit(f"{tag}: serving the trained tenant failed")
+    del eng, store, params
+    free()
+    cfg2, tcfg2 = train_config(configs, layers=2, dtype="float32",
+                               compute_dtype="float32", warmup_steps=2,
+                               total_steps=1000, lazy_k=4, lr=3e-3)
+    wd2 = str(Path(root) / "cut")
+    resil_trainer(dev, cfg2, tcfg2, wd2, batch=2, seq=64,
+                  checkpoint_every=2).run(2)
+    store2 = serve_mod.AdapterStore(cfg2, configs.TrainConfig(rank=RANK), 1,
+                                    device=dev)
+    store2.load_tenant("trained", wd2)
+    lazy_equals_merged(dev, mods, TRAIN_ARCH, store=store2,
+                       tenant="trained", tag=f"{tag} lazy==merged")
+
+
+SNAP_TOKENS = 16          # new tokens per request
+SNAP_AT, SNAP_KILL = 3, 6  # engine steps of the snapshot and the SIGTERM
+
+
+def serve_snapshot(dev, mods, smi, arch, root):
+    """[serve snapshot]: 6 requests over 2 tenants (4 slots: 2 queued).
+    An engine snapshots at step ``SNAP_AT``, goes on, and a chaos SIGTERM
+    at step ``SNAP_KILL`` drains it into a second snapshot; each restores
+    (``Engine.restore``) into a fresh engine and store that finishes with
+    the tokens of an uninterrupted engine."""
+    import numpy as np
+    from repro_torch.train import chaos
+    lm, configs, serve_mod = mods["lm"], mods["configs"], mods["serve"]
+    tag = f"serve snapshot {arch.split('-')[0]}"
+    cfg = configs.get_config(arch)
+    tcfg = configs.TrainConfig(rank=RANK)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    ecfg = serve_mod.EngineConfig(page_size=16, max_batch=4, max_len=160,
+                                  max_out=SNAP_TOKENS)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, 128) for _ in range(6)]
+
+    def engine(**kw):
+        eng = serve_mod.Engine(params, cfg, adapters=make_store(
+            cfg, tcfg, 2, dev, serve_mod.AdapterStore), engine_cfg=ecfg,
+            device=dev, **kw)
+        for i, p in enumerate(prompts):
+            eng.submit(serve_mod.Request(f"r{i}", p, SNAP_TOKENS,
+                                         tenant=f"tenant{i % 2}"))
+        return eng
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def size_mb(wd):
+        return sum(f.stat().st_size for f in Path(wd).rglob("*")
+                   if f.is_file()) / 1e6
+
+    base = engine().run()
+    free()
+    wd, wd2 = (str(Path(root) / arch / d) for d in ("snap", "drain"))
+    eng = engine(snapshot_dir=wd2)
+    for _ in range(SNAP_AT):
+        eng.step()
+    queued = len(eng._queue)
+    _, snap_s = timed(lambda: eng.snapshot(wd))
+    with chaos.injected(chaos.ChaosHook(sigterm_at_step=SNAP_KILL)):
+        out1 = eng.run()
+    del eng
+    free()
+    for name, d, done in (("snapshot", wd, {}), ("drain", wd2, out1)):
+        eng, rest_s = timed(lambda: serve_mod.Engine.restore(
+            d, params, cfg, adapters=serve_mod.AdapterStore(
+                cfg, tcfg, 2, device=dev), device=dev))
+        step = eng.step_count
+        reset_counters(mods)
+        merged = dict(done)
+        merged.update(eng.run())
+        ssd = mods["sc"].launches()
+        del eng
+        free()
+        same = set(merged) == set(base) and all(
+            np.array_equal(merged[r], base[r]) for r in base)
+        log(f"[{tag}] {arch} {name} at engine step {step}"
+            + (f" ({queued} queued), written in {snap_s:.2f} s"
+               if name == "snapshot" else
+               f" (SIGTERM; {len(done)} finished before it)")
+            + f": {size_mb(d):.1f} MB, restored in {rest_s:.2f} s; the "
+            f"tokens == an uninterrupted engine's {same}"
+            + (f"; ssd_intra_chunk launches after the restore {ssd}"
+               if cfg.family == "ssm" and name == "snapshot" else "")
+            + f"; on {smi}")
+        if not same or (cfg.family == "ssm" and name == "snapshot"
+                        and not ssd):
+            raise SystemExit(f"{tag}: the engine restored from the {name} "
+                             f"gave other tokens")
+    del params
+    free()
+
+
+def resilience(dev, mods, smi, configs):
+    """Phase 10; returns the training kernels' launches of its runs."""
+    import tempfile
+    counts = {}
+
+    def add(more):
+        for key, n in more.items():
+            counts[key] = counts.get(key, 0) + n
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        for tag, fields in RESIL_RUNS:
+            wd = str(Path(root) / f"resume {tag}")
+            add(resume_and_guard(dev, mods, smi, configs, tag, fields,
+                                 wd))
+            if tag == "6a":
+                serve_trained_tenant(dev, mods, smi, configs, wd, root)
+                walkback(dev, configs, wd, fields)
+            shutil.rmtree(wd)
+        add(rollback_run(dev, mods, smi, configs,
+                         str(Path(root) / "rollback")))
+        for arch in ("qwen2-7b", "mamba2-780m"):
+            serve_snapshot(dev, mods, smi, arch, root)
+    log(f"[resilience] phase 10 in {time.perf_counter() - t0:.0f} s")
+    return counts
+
+
 def gemm_rows(src):
     """``python3 chip_smoke.py --gemm-rows SRC``: the forward (both forms)
     and the backward of the package under ``SRC`` (a checkout's ``src``)
@@ -2557,6 +2992,8 @@ def main():
     train_equals_plain_dependent(dev, mods, configs)
     enc_rows = compare_encoder_kernels(mods, dev)
     enc_counts = finetune(dev, mods, smi, configs)
+    for key, n in resilience(dev, mods, smi, configs).items():
+        train_counts[key] = train_counts.get(key, 0) + n
 
     kernels = []
     for model, rws, cnt in (("", rows, counts),

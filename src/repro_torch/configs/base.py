@@ -143,9 +143,10 @@ class TrainConfig:
     the knobs of every registered training method (Algorithm 1 as
     ``lowrank_adam`` or ``lowrank_lion`` on fp32 or int8 moments and fp32
     or bf16 B masters, the forward-only ``lowrank_lr``, and the
-    ``galore`` and ``adamw`` baselines).  Defaults equal the reference's.
-    Every sampler and gradient accumulation (``make_train_step``) are
-    ported."""
+    ``galore`` and ``adamw`` baselines), and the resilience knobs of the
+    trainer's health guard and rollback.  Defaults equal the
+    reference's.  Every sampler and gradient accumulation
+    (``make_train_step``) are ported."""
     optimizer: str = "lowrank_adam"   # any repro_torch.methods registry
                                       # name: 'adamw' | 'galore' |
                                       # 'lowrank_adam' | 'lowrank_lion' |
@@ -182,4 +183,13 @@ class TrainConfig:
                                       # 'float32' | 'bfloat16' (updates
                                       # and the merge into a bf16 W
                                       # stochastically rounded)
+
+    # --- resilience (train/health.py + the Trainer's escalation) ---
+    health_guard: bool = True         # non-finite/spike skip guard
+    spike_zscore: float = 6.0         # EMA z-score that flags a loss spike
+    spike_ema: float = 0.99           # EMA decay of the loss mean/variance
+    spike_warmup: int = 20            # accepted steps before it arms
+    max_consecutive_skips: int = 3    # N consecutive skips -> rollback
+    rollback_backoff: float = 0.5     # LR multiplier per rollback
+    max_rollbacks: int = 3            # bounded retries; then the run stops
     seed: int = 0

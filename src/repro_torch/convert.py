@@ -10,7 +10,11 @@ the port's grouped master weights and subspace state
 (:func:`galore_from_numpy`), and a dense AdamW run's parameters and
 moments the port's (:func:`adamw_from_numpy`).  The encoder classifier's
 parameters are checked against the port's specs on the way
-(:func:`encoder_params_from_numpy`).  Adapters need no
+(:func:`encoder_params_from_numpy`).  The ``*_to_numpy`` functions
+are the inverses: the port's state as the numpy arrays the
+``*_from_numpy`` functions take (a bfloat16 tensor as ``|V2`` records,
+the bytes of an ``ml_dtypes`` bfloat16 array, as the checkpoints hold
+it).  Adapters need no
 conversion:
 ``AdapterStore.add_tenant`` takes the numpy ``B`` and ``V`` buffers the
 JAX package hands over.
@@ -29,13 +33,24 @@ def to_tensor(a, device, dtype=None) -> torch.Tensor:
     """One numpy array (bfloat16 from ``ml_dtypes`` included) as a tensor
     on ``device``, optionally cast to ``dtype``."""
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    if a.dtype.name == "bfloat16" or a.dtype == np.dtype("V2"):
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(a))   # a writable copy
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t.to(device)
+
+
+def to_numpy(t) -> np.ndarray:
+    """The inverse of :func:`to_tensor`: a host array in the tensor's
+    dtype, a bfloat16 tensor as ``|V2`` records."""
+    if not torch.is_tensor(t):
+        return np.asarray(t)
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16).view("V2")
+    return t.numpy()
 
 
 def params_from_numpy(tree, device=None, dtype=None) -> dict:
@@ -192,3 +207,48 @@ def adamw_from_numpy(params, *, m=None, v=None, step=0, device=None):
         m=state.m if m is None else params_from_numpy(m, dev),
         v=state.v if v is None else params_from_numpy(v, dev),
         step=torch.tensor(int(step), dtype=torch.int32, device=dev))
+
+
+def params_to_numpy(tree) -> dict:
+    """The inverse of :func:`params_from_numpy`."""
+    return tree_map(to_numpy, tree)
+
+
+def _moment_to_numpy(m):
+    if quant.is_quantized(m):
+        return {"q": to_numpy(m.q), "scale": to_numpy(m.scale),
+                "block": m.block, "codec": m.codec}
+    return to_numpy(m)
+
+
+def subspace_to_numpy(gparams, state) -> dict:
+    """The inverse of :func:`subspace_from_numpy`: the keyword arguments
+    that rebuild ``(gparams, state)`` (``params`` model-shaped, one dict
+    per group with ``proj``, ``b``, ``m``, ``v`` and ``energy``, one per
+    dense leaf with ``m`` and ``v``, an int8 moment as a dict of its
+    ``q``, ``scale``, ``block`` and ``codec``; ``step`` and
+    ``outer_step`` as ints).  The generator is not an array: pass
+    ``gen`` to rebuild it."""
+    return {
+        "params": params_to_numpy(subspace.params_of(gparams)),
+        "groups": [{"proj": to_numpy(g.proj), "b": to_numpy(g.b),
+                    "m": _moment_to_numpy(g.m), "v": _moment_to_numpy(g.v),
+                    "energy": to_numpy(g.energy)} for g in state.groups],
+        "dense": [{"m": to_numpy(d.m), "v": to_numpy(d.v)}
+                  for d in state.dense],
+        "step": int(state.step), "outer_step": int(state.outer_step)}
+
+
+def galore_to_numpy(gparams, state) -> dict:
+    """The inverse of :func:`galore_from_numpy` (see
+    :func:`subspace_to_numpy`; GaLore has no ``outer_step``)."""
+    out = subspace_to_numpy(gparams, state)
+    del out["outer_step"]
+    return out
+
+
+def adamw_to_numpy(params, state) -> dict:
+    """The inverse of :func:`adamw_from_numpy`."""
+    return {"params": params_to_numpy(params),
+            "m": params_to_numpy(state.m), "v": params_to_numpy(state.v),
+            "step": int(state.step)}

@@ -1,15 +1,19 @@
 """The Method protocol: one gradient-estimation paradigm, end to end.
 
 Counterpart of ``repro.methods.base``.  A ``Method`` owns the state
-construction and the inner and outer steps; the trainer calls them
-through ``methods.get(tcfg.optimizer)`` and never branches on the name.
-The reference's sharding hook (``pspecs``), rollback ``reseed``,
-checkpoint tag and table description wait for the slices that use them.
+construction, the inner and outer steps, the checkpoint tag and the
+rollback reseed; the trainer calls them through
+``methods.get(tcfg.optimizer)`` and never branches on the name.  The
+reference's sharding hook (``pspecs``) and table description wait for
+the slices that use them.
 """
 from __future__ import annotations
 
 import abc
+import dataclasses
 from typing import Any, Callable, Optional, Tuple
+
+import torch
 
 
 class Method(abc.ABC):
@@ -19,6 +23,12 @@ class Method(abc.ABC):
     name: str = ""
     #: gradient family: "bp" (backprop/IPA) or "zo" (forward-only/LR)
     family: str = "bp"
+
+    @property
+    def checkpoint_tag(self) -> str:
+        """Tag written into checkpoint manifests; a resume under a method
+        with another tag is refused (the state trees differ)."""
+        return self.name
 
     @abc.abstractmethod
     def init(self, params, tcfg, gen) -> Tuple[Any, Any]:
@@ -34,3 +44,15 @@ class Method(abc.ABC):
     def make_outer_step(self, cfg, tcfg) -> Optional[Callable]:
         """The every-``lazy_k``-steps step, or ``None``."""
         return None
+
+    def reseed(self, params, opt_state, seed: int, tcfg) -> Tuple[Any, Any]:
+        """Rotate the paradigm's draws after an anomaly rollback, so the
+        restored run does not replay the offending draw: a state that
+        carries a generator gets a fresh one on the same device, seeded
+        with ``seed``; anything else (dense AdamW) is returned as is.
+        Subspace paradigms also draw a fresh projection."""
+        if not hasattr(opt_state, "gen"):
+            return params, opt_state
+        gen = torch.Generator(device=opt_state.gen.device)
+        gen.manual_seed(seed)
+        return params, dataclasses.replace(opt_state, gen=gen)

@@ -7,8 +7,8 @@ lazy outer merge + resample every ``lazy_k`` steps.  The two differ only
 in how the subspace gradient ``g_B`` is produced: autodiff through the
 packed model (IPA) or the antithetic two-point forward-only estimate
 (LR).  :class:`_LowRankBase` holds what the subspace paradigms share
-(``lowrank_lion`` in :mod:`.lion` too).  The fused outer step, the
-sharding hook and the rollback reseed are not ported yet.
+(``lowrank_lion`` in :mod:`.lion` too).  The fused outer step and the
+sharding hook are not ported yet.
 """
 from __future__ import annotations
 
@@ -36,6 +36,14 @@ class _LowRankBase(Method):
 
     def make_outer_step(self, cfg, tcfg) -> Optional[Callable]:
         return steps_mod.make_outer_step(cfg, tcfg)
+
+    def reseed(self, params, opt_state, seed: int, tcfg):
+        """Anomaly-rollback reseed: a fresh generator, then one outer
+        merge + resample — function-preserving (``W += V Bᵀ``, B zeroed)
+        with the offending ``V`` replaced by a fresh draw from the same
+        law, so unbiasedness is untouched."""
+        params, state = super().reseed(params, opt_state, seed, tcfg)
+        return subspace.outer_merge_resample(params, state, tcfg)
 
 
 @register("lowrank_adam")

@@ -10,14 +10,20 @@ the ``(batch,)`` tenant index of the decode slots, so no step copies a
 zero, which serves the base weights exactly.
 
 Adapters arrive as arrays (numpy, as the JAX package hands them over, or
-tensors) through :meth:`AdapterStore.add_tenant`.  Installs are
-two-phase: validate and stage into fresh buffers first, then commit by
-plain attribute rebinds, so a refusal leaves the store unchanged.
-Loading from training checkpoints arrives with the checkpoint port.
+tensors) through :meth:`AdapterStore.add_tenant`, or from a training
+checkpoint of either package through :meth:`AdapterStore.load_tenant`,
+which reads only the ``opt||groups||g||b`` and ``...||proj`` records
+(CRC-checked) and refuses a manifest whose method has no servable
+``(B, V)`` or whose arch differs, before the store is touched.
+Installs are two-phase: validate and stage into fresh buffers first,
+then commit by plain attribute rebinds, so a refusal, or a crash at one
+of the labeled ``chaos.SWAP_SITES`` before the commit, leaves the store
+unchanged.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+import re
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -27,6 +33,14 @@ from ..models import lm
 from ..models.common import act_dtype, tree_flatten_with_path, tree_unflatten
 from ..models.linear import BatchLRPack, LRPack
 from ..optim.subspace import build_layout
+from ..train import chaos, checkpoint
+
+# Methods whose checkpointed B is a servable low-rank adapter: adamw has
+# no subspace, and galore's projected moments are no weight delta.
+ADAPTER_METHODS = ("lowrank_adam", "lowrank_lion", "lowrank_lr")
+
+_SEP = re.escape(checkpoint.SEP)
+_GROUP_KEY = re.compile(rf"^opt{_SEP}groups{_SEP}(\d+){_SEP}(b|proj)$")
 
 
 class AdapterMismatchError(ValueError):
@@ -103,9 +117,57 @@ class AdapterStore:
             self._check_proj_drift(tenant, projs)
         return self._two_phase_install(tenant, b_groups, projs)
 
+    def load_tenant(self, tenant: str, workdir: str,
+                    step: Optional[int] = None) -> int:
+        """Load a tenant's ``(B, V)`` from a training checkpoint (the
+        newest step unless ``step`` is named), written by either package.
+
+        The manifest's method and arch, the records' CRCs and the group
+        count and shapes are checked before the store is touched; a
+        refusal raises :class:`AdapterMismatchError` (corruption raises
+        the checkpoint layer's ``IOError``).  Reloading a known tenant
+        swaps its slot in place, two-phase."""
+        if step is None:
+            step = checkpoint.latest_step(workdir)
+            if step is None:
+                raise AdapterMismatchError(
+                    f"no checkpoint found in {workdir!r} for tenant "
+                    f"{tenant!r}")
+        leaves, manifest = checkpoint.read_leaves(
+            workdir, step, lambda k: _GROUP_KEY.match(k) is not None)
+        extra = manifest.get("extra") or {}
+        method = extra.get("method")
+        if method not in ADAPTER_METHODS:
+            raise AdapterMismatchError(
+                f"tenant {tenant!r}: checkpoint method {method!r} does not "
+                f"produce servable low-rank adapters (expected one of "
+                f"{ADAPTER_METHODS}); adamw/galore states have no (B, V) "
+                f"to serve")
+        arch = extra.get("arch")
+        if arch is not None and arch != self.cfg.name:
+            raise AdapterMismatchError(
+                f"tenant {tenant!r}: checkpoint arch {arch!r} != engine "
+                f"arch {self.cfg.name!r}")
+        n_g = len(self.layout.groups)
+        seen = {int(m.group(1)) for m in map(_GROUP_KEY.match, leaves)}
+        if seen != set(range(n_g)) or len(leaves) != 2 * n_g:
+            raise AdapterMismatchError(
+                f"tenant {tenant!r}: checkpoint group ids {sorted(seen)} "
+                f"!= engine layout groups {list(range(n_g))} (arch/config "
+                f"drift?)")
+        pre = [f"opt{checkpoint.SEP}groups{checkpoint.SEP}{g}"
+               f"{checkpoint.SEP}" for g in range(n_g)]
+        b_groups = [leaves[p + "b"].float() for p in pre]
+        projs = [leaves[p + "proj"].float() for p in pre]
+        self._check_group_shapes(tenant, b_groups, projs)
+        self._check_proj_drift(tenant, projs)
+        return self._two_phase_install(tenant, b_groups, projs)
+
     def _two_phase_install(self, tenant, b_groups, projs) -> int:
-        """Stage-then-commit: everything that can fail happens on staged
-        copies; the commit is plain attribute rebinds."""
+        """Stage-then-commit: everything that can fail (allocation, the
+        chaos crashes) happens on staged copies; the commit is plain
+        attribute rebinds with nothing between them that can raise."""
+        chaos.maybe_raise("swap:pre_stage")
         slot = self._next_slot(tenant)
         staged_b = []
         for g, b in enumerate(b_groups):
@@ -116,11 +178,13 @@ class AdapterStore:
         if projs is not None and not self._proj_loaded:
             staged_v = [v.to(self.device, self.projs[g].dtype)
                         for g, v in enumerate(projs)]
+        chaos.maybe_raise("swap:pre_commit")
         if staged_v is not None:
             self.projs = staged_v
             self._proj_loaded = True
         self.b_full = staged_b
         self._tenants[tenant] = slot
+        chaos.maybe_raise("swap:post_commit")
         return slot
 
     def _check_group_shapes(self, tenant, b_groups, projs):

@@ -31,12 +31,30 @@ the offending rows: a faulted row's length does not advance, so its
 cache write sits past ``length`` where attention never reads it, and its
 SSM state is selected back to its value before the step; its
 co-tenants keep decoding.  The one per-step device-to-host fetch is the
-fault vector.  Temperature/top-k sampling, snapshot/restore and signal
-draining of the reference engine are not ported yet.
+fault vector.
+
+Resilience, as the reference's: the serving fault sites of
+:mod:`repro_torch.train.chaos` (a poisoned decode row at a given step,
+decided on the host and multiplied into that row on the device; a
+page-pool spike; a deadline storm; a real SIGTERM at a given step),
+SIGTERM/SIGINT draining in :meth:`Engine.run` (the current step
+completes, the engine snapshots to ``snapshot_dir`` and the finished
+outputs are returned; the previous handlers are put back), and
+:meth:`Engine.snapshot` / :meth:`Engine.restore` through the checkpoint
+layer (atomic fsynced publish, CRC manifest): the KV arenas, the page
+tables, the slot map, the output rings, the adapter buffers, every piece
+of host bookkeeping and, for the SSM family, the per-slot recurrent
+state.  Since the port keeps that state per slot with no page chain, an
+engine snapshot is the port's own and is restored by the port (a
+training checkpoint is what crosses between the packages).
+``EngineConfig.from_env`` reads the reference's documented
+``REPRO_SERVE_*`` knobs.  Temperature/top-k sampling is not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import signal
 from collections import deque
 from typing import Dict, List, Optional
 
@@ -44,6 +62,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..train import chaos, checkpoint
 from ..models.lm import (alloc_decode_state, alloc_paged_state,
                          decode_step_paged, prefill)
 from .adapters import AdapterStore, batched_pack_tree
@@ -61,6 +80,11 @@ class TenantQuarantinedError(RuntimeError):
     quarantined; surfaced to that tenant's caller, never to co-tenants."""
 
 
+def _env_int(name: str, default: int) -> int:
+    v = os.environ.get(name)
+    return int(v) if v else default
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Static engine geometry and policy."""
@@ -73,6 +97,22 @@ class EngineConfig:
     max_queue: int = 0  # admission-queue bound; 0 -> unbounded
     guard: bool = True  # per-row logit health guard
     max_strikes: int = 3  # row faults before a tenant is disabled
+
+    @classmethod
+    def from_env(cls, **over) -> "EngineConfig":
+        """The defaults overridden by the reference's documented
+        ``REPRO_SERVE_*`` knobs, then by ``over``."""
+        base = dict(
+            page_size=_env_int("REPRO_SERVE_PAGE_SIZE", cls.page_size),
+            max_batch=_env_int("REPRO_SERVE_MAX_BATCH", cls.max_batch),
+            num_pages=_env_int("REPRO_SERVE_NUM_PAGES", cls.num_pages),
+            max_len=_env_int("REPRO_SERVE_MAX_LEN", cls.max_len),
+            max_queue=_env_int("REPRO_SERVE_MAX_QUEUE", cls.max_queue),
+            guard=bool(_env_int("REPRO_SERVE_GUARD", int(cls.guard))),
+            max_strikes=_env_int("REPRO_SERVE_STRIKES", cls.max_strikes),
+        )
+        base.update(over)
+        return cls(**base)
 
     def resolved_num_pages(self) -> int:
         if self.num_pages:
@@ -113,12 +153,15 @@ class Engine:
     """Multi-tenant continuous-batching engine for one model config.
 
     ``params`` must live on ``device`` (cuda unless the caller names
-    another), as must the adapter store.
+    another), as must the adapter store.  ``engine_cfg`` defaults to
+    :meth:`EngineConfig.from_env`; a drain snapshots to
+    ``snapshot_dir`` when one is given.
     """
 
     def __init__(self, params, cfg, *,
                  adapters: Optional[AdapterStore] = None,
-                 engine_cfg: Optional[EngineConfig] = None, device=None):
+                 engine_cfg: Optional[EngineConfig] = None,
+                 snapshot_dir: Optional[str] = None, device=None):
         self.device = resolve_device(device)
         if adapters is not None and adapters.device != self.device:
             raise ValueError(
@@ -127,7 +170,8 @@ class Engine:
         self.params = params
         self.cfg = cfg
         self.adapters = adapters
-        self.ecfg = engine_cfg or EngineConfig()
+        self.ecfg = engine_cfg or EngineConfig.from_env()
+        self.snapshot_dir = snapshot_dir
         ec = self.ecfg
         self.num_pages = ec.resolved_num_pages()
         # pure-SSM sequences keep their state per slot, not in pages
@@ -151,11 +195,18 @@ class Engine:
         self._disabled: set = set()
         self._admit_seq = 0
         self._step_count = 0
+        self._chaos_pages: List[int] = []
+        self._draining = False
+        self._prev_handlers: Optional[dict] = None
         # device-resident decode ring: current token, output ring, counts
         dev = dict(dtype=torch.long, device=self.device)
         self._tok = torch.zeros((ec.max_batch, 1), **dev)
         self._out = torch.zeros((ec.max_batch, ec.max_out), **dev)
         self._counts = torch.zeros((ec.max_batch,), **dev)
+
+    @property
+    def step_count(self) -> int:
+        return self._step_count
 
     def strikes(self, tenant: str) -> int:
         return self._strikes.get(tenant, 0)
@@ -177,6 +228,14 @@ class Engine:
                                        self.adapters.projs, tenants)
         lg, nstate = decode_step_paged(packed, self._tok, self.cfg, state)
         row = lg[:, -1, :]
+        hook = chaos.get()
+        poison = [(r, mode) for s, r, mode in
+                  (hook.logit_rows if hook is not None else ())
+                  if s == self._step_count]
+        if poison:      # chaos: a bf16 adapter overflow's signature
+            row = row.clone()
+            for r, mode in poison:
+                row[r] = row[r] * (float("nan") if mode == "nan" else 0.0)
         # health looks at the REAL vocab lanes only: the -1e30 padding
         # fill would mask an all-mass collapse
         if self.ecfg.guard:
@@ -315,8 +374,9 @@ class Engine:
                 self._disabled.add(tenant)
 
     def _evict_finished(self) -> None:
-        """The eviction boundary: done, capped, expired and
-        disabled-tenant slots leave the batch here."""
+        """The eviction boundary: done, capped, expired (TTL or deadline
+        storm) and disabled-tenant slots leave the batch here."""
+        storm = chaos.deadline_storm(self._step_count)
         for slot in self._active_slots():
             meta = self._slots[slot]
             tenant = meta["tenant"]
@@ -332,14 +392,15 @@ class Engine:
             done = meta["generated"] >= meta["max_new"]
             capped = int(self._len[slot]) >= self.ecfg.max_len
             ttl = meta["ttl"]
-            expired = ttl is not None and \
-                self._step_count - meta["born"] >= ttl
+            expired = ttl is not None and (
+                storm or self._step_count - meta["born"] >= ttl)
             if done or capped or expired:
                 self._finish(
                     slot, "deadline" if expired and not done else "completed")
 
     def _expire_queued(self) -> None:
         """Deadlines and quarantines apply to queued requests too."""
+        storm = chaos.deadline_storm(self._step_count)
         keep: deque = deque()
         while self._queue:
             req = self._queue.popleft()
@@ -350,8 +411,8 @@ class Engine:
                 self.reasons[req.rid] = "quarantined"
                 self._partial.pop(req.rid, None)
                 continue
-            if req.ttl is not None and \
-                    self._step_count - req._born >= req.ttl:
+            if req.ttl is not None and (
+                    storm or self._step_count - req._born >= req.ttl):
                 prior = self._partial.pop(req.rid, None)
                 self._outputs[req.rid] = (
                     prior if prior is not None else np.zeros((0,), np.int32))
@@ -393,8 +454,8 @@ class Engine:
             need = self.pool.pages_for(s_total) if self._paged else 0
             pages = self.pool.alloc(need)
             if pages is None:
-                if not self._active_slots() and \
-                        self.pool.available == self.num_pages:
+                if not self._active_slots() and not self._chaos_pages \
+                        and self.pool.available == self.num_pages:
                     raise RuntimeError(
                         f"request {req.rid!r} needs {need} pages but the "
                         f"pool only has {self.num_pages}; raise "
@@ -446,23 +507,46 @@ class Engine:
             got = self.pool.alloc(1)
             while got is None:
                 victims = [s for s in self._active_slots() if s != slot]
-                if not victims:
+                if victims:
+                    self._preempt(max(victims,
+                                      key=lambda s: self._slots[s]["seq"]))
+                elif self._chaos_pages:
+                    # a pool spike degrades to preemption, never to a
+                    # crash of the last sequence
+                    self.pool.release(self._chaos_pages)
+                    self._chaos_pages = []
+                else:
                     raise RuntimeError(
                         "page pool exhausted with a single active "
                         "sequence; raise EngineConfig.num_pages")
-                self._preempt(max(victims,
-                                  key=lambda s: self._slots[s]["seq"]))
                 got = self.pool.alloc(1)
             self._pt[slot, pidx] = got[0]
             meta["pages"].append(got[0])
+
+    def _chaos_pool_tick(self) -> None:
+        """Pool-exhaustion chaos: hold every free page for one step."""
+        if self._chaos_pages:
+            self.pool.release(self._chaos_pages)
+            self._chaos_pages = []
+        if chaos.pool_spike(self._step_count) and self.pool.available:
+            got = self.pool.alloc(self.pool.available)
+            if got is not None:
+                self._chaos_pages = list(got)
 
     # -- the engine loop ---------------------------------------------------
 
     def step(self) -> bool:
         """One engine iteration.  Returns True if any work remains."""
+        chaos.maybe_sigterm(self._step_count)
+        self._chaos_pool_tick()
         self._evict_finished()
         self._expire_queued()
         self._admit()
+        if not self._active_slots() and self._queue and self._chaos_pages:
+            # everything waits behind a chaos spike: give the pages back
+            self.pool.release(self._chaos_pages)
+            self._chaos_pages = []
+            self._admit()
         if not self._active_slots():
             if self._queue:
                 raise RuntimeError(
@@ -494,9 +578,171 @@ class Engine:
     def run(self) -> Dict:
         """Drain the queue; returns {rid: np.int32 generated tokens}.
         Failed requests surface in ``self.errors``; ``self.reasons``
-        records why each request left the engine."""
-        while self._queue or self._active_slots():
-            self.step()
+        records why each request left the engine.  A SIGTERM/SIGINT
+        during the loop drains: the current step completes, the engine
+        snapshots to ``snapshot_dir`` (when set) and the finished
+        outputs are returned."""
+        self._install_handlers()
+        try:
+            while self._queue or self._active_slots():
+                self.step()
+                if self._draining:
+                    if self.snapshot_dir is not None:
+                        self.snapshot(self.snapshot_dir)
+                    break
+        finally:
+            self._restore_handlers()
         self._evict_finished()
         out, self._outputs = self._outputs, {}
         return out
+
+    # -- drain / snapshot / warm restart -----------------------------------
+
+    def _on_signal(self, signum, frame) -> None:
+        self._draining = True
+
+    def _install_handlers(self) -> None:
+        if self._prev_handlers is not None:
+            return
+        try:
+            self._prev_handlers = {s: signal.signal(s, self._on_signal)
+                                   for s in (signal.SIGTERM, signal.SIGINT)}
+        except ValueError:          # not the main thread: no drain
+            self._prev_handlers = None
+
+    def _restore_handlers(self) -> None:
+        if self._prev_handlers:
+            for s, h in self._prev_handlers.items():
+                signal.signal(s, h)
+        self._prev_handlers = None
+
+    def _snapshot_tree(self) -> dict:
+        dev = self.device
+        tree = {"arena": self.state._replace(
+                    page_table=torch.as_tensor(self._pt, device=dev),
+                    lengths=torch.as_tensor(self._len, device=dev)),
+                "tok": self._tok, "out": self._out, "counts": self._counts}
+        if self.adapters is not None:
+            tree["adapter_b"] = tuple(self.adapters.b_full)
+            tree["adapter_v"] = tuple(self.adapters.projs)
+        return tree
+
+    @staticmethod
+    def _req_json(req: Request) -> dict:
+        return {"rid": req.rid, "prompt": [int(t) for t in req.prompt],
+                "max_new": req.max_new, "tenant": req.tenant,
+                "ttl": req.ttl, "seq": req._seq, "born": req._born}
+
+    def _snapshot_extra(self) -> dict:
+        slots = []
+        for meta in self._slots:
+            if meta is None:
+                slots.append(None)
+                continue
+            m = dict(meta)
+            m["prompt"] = [int(t) for t in meta["prompt"]]
+            slots.append(m)
+
+        def rows(d):
+            return {str(k): np.asarray(v).tolist() for k, v in d.items()}
+
+        return {
+            "engine_cfg": dataclasses.asdict(self.ecfg),
+            "arch": self.cfg.name,
+            "step_count": self._step_count,
+            "admit_seq": self._admit_seq,
+            "pt": self._pt.tolist(),
+            "len": self._len.tolist(),
+            "slot_tenant": self._slot_tenant.tolist(),
+            "slots": slots,
+            "queue": [self._req_json(r) for r in self._queue],
+            "outputs": rows(self._outputs),
+            "partial": rows(self._partial),
+            "reasons": {str(k): v for k, v in self.reasons.items()},
+            "errors": {str(k): str(v) for k, v in self.errors.items()},
+            "strikes": dict(self._strikes),
+            "disabled": sorted(self._disabled),
+            "tenants": (dict(self.adapters._tenants)
+                        if self.adapters is not None else None),
+        }
+
+    def snapshot(self, workdir: str, *, keep: int = 3) -> int:
+        """Serialize the whole engine through the checkpoint layer (the
+        arenas, page tables, slot map, output rings, adapter buffers and
+        host bookkeeping).  Request ids must be strings (they key the
+        JSON manifest).  Returns the snapshot's step."""
+        checkpoint.save(workdir, self._step_count, self._snapshot_tree(),
+                        keep=keep, extra={"serve": self._snapshot_extra()})
+        return self._step_count
+
+    @classmethod
+    def restore(cls, workdir: str, params, cfg, *,
+                adapters: Optional[AdapterStore] = None,
+                step: Optional[int] = None,
+                snapshot_dir: Optional[str] = None,
+                device=None) -> "Engine":
+        """Warm-restart an engine from :meth:`snapshot` on ``device``.
+
+        In-flight sequences resume mid-decode with the outputs an
+        uninterrupted engine gives; queued requests, partial outputs,
+        strikes and disabled tenants carry over.  ``adapters`` must be a
+        store built for the same config and rank: its buffers and tenant
+        map are overwritten from the snapshot."""
+        if step is None:
+            step = checkpoint.latest_step(workdir)
+            if step is None:
+                raise FileNotFoundError(
+                    f"no engine snapshot found in {workdir!r}")
+        ex = (checkpoint.read_manifest(workdir, step).get("extra")
+              or {}).get("serve")
+        if ex is None:
+            raise IOError(f"checkpoint at step {step} in {workdir!r} is "
+                          f"not an engine snapshot")
+        if ex.get("arch") != cfg.name:
+            raise ValueError(f"snapshot arch {ex.get('arch')!r} != engine "
+                             f"config {cfg.name!r}")
+        if (ex.get("tenants") is not None) != (adapters is not None):
+            raise ValueError(
+                "snapshot and restore disagree about the adapter store")
+        eng = cls(params, cfg, adapters=adapters,
+                  engine_cfg=EngineConfig(**ex["engine_cfg"]),
+                  snapshot_dir=snapshot_dir, device=device)
+        tree, _ = checkpoint.restore(workdir, step, eng._snapshot_tree())
+        eng.state = tree["arena"]
+        eng._tok, eng._out = tree["tok"], tree["out"]
+        eng._counts = tree["counts"]
+        if adapters is not None:
+            adapters.b_full = list(tree["adapter_b"])
+            adapters.projs = list(tree["adapter_v"])
+            adapters._tenants = dict(ex["tenants"])
+            adapters._proj_loaded = True
+        eng._pt = np.asarray(ex["pt"], np.int32)
+        eng._len = np.asarray(ex["len"], np.int32)
+        eng._slot_tenant = np.asarray(ex["slot_tenant"], np.int64)
+        eng._step_count = int(ex["step_count"])
+        eng._admit_seq = int(ex["admit_seq"])
+        eng.reasons = dict(ex["reasons"])
+        eng._strikes = dict(ex["strikes"])
+        eng._disabled = set(ex["disabled"])
+        eng._outputs = {k: np.asarray(v, np.int32)
+                        for k, v in ex["outputs"].items()}
+        eng._partial = {k: np.asarray(v, np.int32)
+                        for k, v in ex["partial"].items()}
+        eng.errors = {k: TenantQuarantinedError(v)
+                      for k, v in ex["errors"].items()}
+        held: List[int] = []
+        for slot, m in enumerate(ex["slots"]):
+            if m is None:
+                continue
+            meta = dict(m)
+            meta["prompt"] = np.asarray(m["prompt"], np.int32)
+            meta["pages"] = [int(p) for p in m["pages"]]
+            eng._slots[slot] = meta
+            held.extend(meta["pages"])
+        for r in ex["queue"]:
+            req = Request(r["rid"], np.asarray(r["prompt"], np.int32),
+                          r["max_new"], tenant=r["tenant"], ttl=r["ttl"])
+            req._seq, req._born = r["seq"], r["born"]
+            eng._queue.append(req)
+        eng.pool.reserve(held)
+        return eng

@@ -1,2 +1,3 @@
-"""Training of the port: chunked loss, step builders and the loop
-(counterpart of ``repro.train``)."""
+"""Training of the port: chunked loss, step builders, the loop, its
+checkpoints, health guard and chaos hooks (counterpart of
+``repro.train``)."""
