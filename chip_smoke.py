@@ -11,15 +11,20 @@
    M = 128, or 1 for the unembedding; one B per row at decode, batch 4 x
    seq 1, read by tenant index from a store of 4 tenants with rows
    [0, 2, 2, 1]) against their plain PyTorch version at the five (K, N)
-   shapes of qwen2-7b, and at mamba2-780m's three (shared B at M = 512,
-   or 1 for the unembedding), in bf16, and times kernel, plain version
+   shapes of qwen2-7b, at mamba2-780m's three (shared B at M = 512,
+   or 1 for the unembedding) and at mistral-nemo-12b's six (M = 128, or
+   1 for the unembedding), in bf16, and times kernel, plain version
    and a cuBLAS yardstick (the per-row-B form's three with the stream
    held while the host queues the calls, which leaves the host's time
    out, beside the eager time per call).  Holds the SSD intra-chunk
    kernel against its plain version at mamba2-780m's four prefill
    shapes (prompts of 100, 128, 256 and 512 tokens), fp32, with dt and
    A drawn by the mixer's laws, logs the launch split its plan chose,
-   and times both the same way.  Each forward row logs its launch plan
+   and times both the same way; then at mamba2-780m's training shape
+   (BC 128 = batch 16 x 8 chunks), the forward and the backward kernel
+   (``ssd_intra_chunk_bwd``), the backward also with a decay whose
+   masked differences pass 4 x 88.7 (every gradient finite) and three
+   launches bit-identical.  Each forward row logs its launch plan
    (per pass of the mainloop: tile width, splits of K, cluster size,
    units, persistent or not; or the per-row-B kernel's), and a shared-B
    row of at most ``SKINNY_ROWS`` rows, which takes the per-row-B kernel,
@@ -64,7 +69,9 @@
    2-layer full-width fp32 cut of mamba2-780m serves two tenants
    (prefill of 256 tokens each, 4 decode steps at batch 2) through the
    kernels on the card and through the plain versions on the CPU, from
-   the same weights and adapters, and holds the logits together.
+   the same weights and adapters, and holds the logits together.  Then
+   mistral-nemo-12b at full width and depth (40 layers, bf16, 4 tenants,
+   4 requests of 128 prompt and 16 new tokens), every launch ``"tc"``.
 6. Trains llama-100m at full width and depth (12 layers) with
    ``lowrank_adam``: bf16 compute over fp32 B masters and moments,
    Stiefel V at r = 128, batch 64 x seq 256, lazy_k = 4, 14 steps
@@ -92,7 +99,14 @@
    once with ``lowrank_adam`` and once with ``lowrank_lion`` (V and the
    rounding bits drawn on the CPU for both sides); then ``galore``,
    ``adamw`` and ``lowrank_lr`` (its noise drawn on the CPU for both
-   sides) in fp32.
+   sides) in fp32.  After phase 8's runs: ``[train mamba2]``,
+   mamba2-780m at full width and depth (48 layers, bf16 compute over fp32
+   B, m, v, r = 128), batch 16 x 1024, ``lazy_k`` 4, lr 1e-3, 10 steps:
+   finite, falling losses, 96 SSD forward launches a step (48 and 48
+   under remat) and 48 backward, every bf16 GEMM ``"tc"``, and a profile
+   of two steps with the SSD backward's device time; then
+   ``[train==plain mamba2]``, its 2-layer fp32 cut through the kernels
+   against the CPU, as above.
 8. The paper's samplers and the paths that use them: every sampler
    (Gaussian, Stiefel, coordinate, ``dependent_diag``) batched at the
    llama-100m group shapes, held to its laws on the card (``Vᵀ V``, one
@@ -502,22 +516,25 @@ def make_store(cfg, tcfg, n_tenants, dev, AdapterStore, scale=0.02):
     return store
 
 
-# (model, prompt lengths of its 8 requests, max_len): qwen2-7b's one
-# prompt length; mamba2-780m's four, two requests each, give the SSD a
-# chunk shorter than 128 (Q = 100), one chunk, and 2 or 4 chunks
-SERVE_RUNS = {"qwen2-7b": ((128,) * 8, 160),
-              "mamba2-780m": ((100, 128, 256, 512) * 2, 544)}
+# (model, prompt lengths of its requests, max_len, new tokens a request):
+# qwen2-7b's one prompt length; mamba2-780m's four, two requests each,
+# give the SSD a chunk shorter than 128 (Q = 100), one chunk, and 2 or 4
+# chunks; mistral-nemo-12b (40 layers at d 5120, heads of 128 against
+# 5120 / 32) four requests
+SERVE_RUNS = {"qwen2-7b": ((128,) * 8, 160, 32),
+              "mamba2-780m": ((100, 128, 256, 512) * 2, 544, 32),
+              "mistral-nemo-12b": ((128,) * 4, 160, 16)}
 
 
 def serve(dev, mods, smi, arch="qwen2-7b"):
-    """Phase 4: one model at full width and depth, 4 tenants, 8 requests
-    of 32 new tokens through the engine.  Returns the forward's launch
-    counts and, for the SSM family, the SSD kernel's."""
+    """Phase 4: one model at full width and depth, 4 tenants, the
+    requests of ``SERVE_RUNS`` through the engine.  Returns the forward's
+    launch counts and, for the SSM family, the SSD kernel's."""
     import numpy as np
     lf, sc, lm, configs, serve_mod = (mods["lf"], mods["sc"], mods["lm"],
                                       mods["configs"], mods["serve"])
     tag = "serve" if arch == "qwen2-7b" else f"serve {arch.split('-')[0]}"
-    prompts, max_len = SERVE_RUNS[arch]
+    prompts, max_len, new = SERVE_RUNS[arch]
     cfg = configs.get_config(arch)
     log(f"[{tag}] {arch} d_model={cfg.d_model} layers={cfg.num_layers} "
         f"vocab={cfg.vocab_size} dtype={cfg.dtype}")
@@ -552,7 +569,6 @@ def serve(dev, mods, smi, arch="qwen2-7b"):
                          key=lambda req, *_: len(req.prompt))
     eng._decode = timed(eng._decode, decode_s)
     rng = np.random.default_rng(0)
-    new = 32
     for i, n in enumerate(prompts):
         eng.submit(serve_mod.Request(
             f"req{i}", rng.integers(0, cfg.vocab_size, n), new,
@@ -915,8 +931,15 @@ def serve_equals_plain(dev, mods, arch="mamba2-780m", S=256, steps=4):
 SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_chunk.cu"
 SSD_REPLACES = "src/repro/kernels/ssd_chunk.py:63"
 # (BC, Q, H, P, N) of mamba2-780m's prefills -> prompt tokens
-SSD_SHAPES = {(1, 100, 48, 64, 128): 100, (1, 128, 48, 64, 128): 128,
-              (2, 128, 48, 64, 128): 256, (4, 128, 48, 64, 128): 512}
+SSD_SHAPES = {(1, 100, 48, 64, 128): "100-token prompt",
+              (1, 128, 48, 64, 128): "128-token prompt",
+              (2, 128, 48, 64, 128): "256-token prompt",
+              (4, 128, 48, 64, 128): "512-token prompt"}
+# the training shape: mamba2-780m at batch 16 x seq 1024 (8 chunks each)
+SSD_TRAIN_SHAPE = (128, 128, 48, 64, 128)
+SSD_BWD_SOURCE = "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu"
+# no Pallas kernel: the reference autodiffs its jnp ssd_chunked
+SSD_BWD_REPLACES = "src/repro/models/ssm.py:82"
 # relative to max|y| and max|state|.  The SIMT kernel this one replaced
 # measured 0 at all four shapes on an H100 80GB HBM3 (700 W): it summed in
 # the order of cuBLAS's unsplit FFMA GEMM and of torch's outer-dim scan.  The
@@ -933,7 +956,36 @@ MAMBA_SHAPES = {(1536, 6448): ("in_proj", 512),
                 (1536, 50432): ("unembed", 1)}
 
 
-def compare_ssd_kernel(mods, dev):
+# mistral-nemo-12b's projections (K, N) -> (leaves, prefill rows): q is
+# 32 heads of 128 (4096) against d 5120, k and v 8 of 128
+NEMO_SHAPES = {(5120, 4096): ("wq", 128), (5120, 1024): ("wk,wv", 128),
+               (4096, 5120): ("wo", 128), (5120, 14336): ("w_gate,w_up", 128),
+               (14336, 5120): ("w_down", 128),
+               (5120, 131072): ("unembed", 1)}
+
+
+def _ssd_operands(gen, dev, shape, groups=1, strong=False):
+    """x, dt, da, b, c (b and c (BC, Q, groups, N)) for the SSD kernels,
+    dt and A by the mixer's laws (dt = softplus(z + dt_bias), z ~ N(0,
+    1), dt_bias the inverse softplus of exp(U[log 1e-3, log 0.1]), A =
+    -U[1, 16]); ``strong``: dt = softplus(z), the top of the range, so a
+    masked clog_i - clog_j reaches hundreds."""
+    BC, Q, H, P, N = shape
+
+    def uniform(lo, hi, *size):
+        return lo + (hi - lo) * torch.rand(size, generator=gen, device=dev)
+    dt0 = torch.exp(uniform(math.log(1e-3), math.log(0.1), H))
+    dt_bias = 0.0 if strong else dt0 + torch.log(-torch.expm1(-dt0))
+    dt = torch.nn.functional.softplus(
+        torch.randn((BC, Q, H), generator=gen, device=dev) + dt_bias)
+    da = dt * -uniform(1.0, 16.0, H)
+    x = torch.randn((BC, Q, H, P), generator=gen, device=dev)
+    b, c = (torch.randn((BC, Q, groups, N), generator=gen, device=dev)
+            for _ in range(2))
+    return x, dt, da, b, c
+
+
+def compare_ssd_kernel(mods, dev, shapes=SSD_SHAPES):
     """Phase 3b: the SSD intra-chunk kernel against its plain version at
     the prefill shapes, in fp32 as the mixer calls it, with B and C one
     group broadcast over the heads (head stride 0, as the path passes
@@ -952,20 +1004,10 @@ def compare_ssd_kernel(mods, dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(8)
     rows = []
-    for shape, tokens in SSD_SHAPES.items():
+    for shape, tokens in shapes.items():
         BC, Q, H, P, N = shape
-
-        def uniform(lo, hi, *size):
-            return lo + (hi - lo) * torch.rand(size, generator=gen,
-                                               device=dev)
-        dt0 = torch.exp(uniform(math.log(1e-3), math.log(0.1), H))
-        dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
-        dt = torch.nn.functional.softplus(
-            torch.randn((BC, Q, H), generator=gen, device=dev) + dt_bias)
-        da = dt * -uniform(1.0, 16.0, H)
-        x = torch.randn((BC, Q, H, P), generator=gen, device=dev)
-        b, c = (torch.randn((BC, Q, 1, N), generator=gen, device=dev)
-                .expand(-1, -1, H, -1) for _ in range(2))
+        x, dt, da, b, c = _ssd_operands(gen, dev, shape)
+        b, c = (t.expand(-1, -1, H, -1) for t in (b, c))
         plan = sc.ssd_plan(BC, Q, H, N, P, True)
         log(f"[kernel] ssd_intra_chunk {list(shape)}: plan {plan.groups} "
             f"Gram group, {plan.pairs} strip pairs x {plan.gram_cols} "
@@ -1000,8 +1042,7 @@ def compare_ssd_kernel(mods, dev):
                  eager_ms=time_ms(lambda: sc.ssd_intra_chunk(x, dt, da, b,
                                                              c), iters=50))
         rows.append(r)
-        log(f"[kernel] ssd_intra_chunk {list(shape)} ({tokens}-token "
-            f"prompt) route=tc max_abs_err={err:.4g} (max rel {rel:.3g}, "
+        log(f"[kernel] ssd_intra_chunk {list(shape)} ({tokens}) route=tc max_abs_err={err:.4g} (max rel {rel:.3g}, "
             f"tol {SSD_TOL}*max; the largest masked clog_i - clog_j "
             f"{overflow:.1f}) ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
             f"library_ms=null bound_ms={bms:.4f} ({by}; fp32 SIMT "
@@ -1010,6 +1051,77 @@ def compare_ssd_kernel(mods, dev):
         del x, dt, da, b, c, y, st, want_y, want_st
     torch.cuda.empty_cache()
     return rows
+
+
+def compare_ssd_bwd_kernel(mods, dev, shape=SSD_TRAIN_SHAPE):
+    """Phase 3b: the SSD backward kernel against its plain version at the
+    training shape, fp32, one B/C group (as the mixer passes it), dt and A
+    by the mixer's laws, then again with a decay whose masked clog
+    differences pass 4 x 88.7 (every gradient finite); three launches
+    queued back to back bit-identical.  Kernel and plain version timed
+    with events; the bound is the larger of the bytes (each input read
+    once, each output written once) and the causal half's multiply-adds
+    as 3xTF32 products at the TF32 peak (the fp32 SIMT bound beside it in
+    the log).  No PyTorch call computes it: library_ms is null."""
+    ref, sc = mods["ref"], mods["sc"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    BC, Q, H, P, N = shape
+    out = None
+    for strong in (False, True):
+        x, dt, da, b, c = _ssd_operands(gen, dev, shape, strong=strong)
+        dy = torch.randn_like(x)
+        ds = torch.randn((BC, H, N, P), generator=gen, device=dev)
+        ops = (x, dt, da, b, c, dy, ds)
+        runs = [sc.ssd_intra_chunk_bwd(*ops) for _ in range(3)]
+        torch.cuda.synchronize()
+        want = ref.ssd_intra_chunk_bwd(*ops)
+        clog = torch.cumsum(da, dim=1)
+        reach = (clog[:, :1] - clog[:, -1:]).max().item()
+        if strong and not reach > 4 * 88.7:
+            raise SystemExit(f"the strong-decay case reaches only {reach}")
+        err, rel = 0.0, 0.0
+        for name, got, w in zip(("dx", "ddt", "dda", "db", "dc"), runs[0],
+                                want):
+            if not torch.isfinite(w).all().item():
+                raise SystemExit(f"ssd bwd plain {name} is not finite")
+            err = max(err, _agree(f"ssd bwd {name} {shape}", got, w,
+                                  SSD_TOL))
+            rel = max(rel, (got - w).abs().max().item()
+                      / w.abs().max().item())
+        same = all(torch.equal(a, b) for again in runs[1:]
+                   for a, b in zip(runs[0], again))
+        if not same:
+            raise SystemExit("ssd_intra_chunk_bwd: three launches differ")
+        log(f"[kernel] ssd_intra_chunk_bwd {list(shape)} "
+            f"({'strong decay' if strong else 'mixer laws'}) route=simt "
+            f"max_abs_err={err:.4g} (max rel {rel:.3g}, tol {SSD_TOL}*max "
+            f"per output; the largest masked clog_i - clog_j {reach:.1f}); "
+            f"every gradient finite; 3 launches bit-identical")
+        if not strong:
+            groups = 1
+            tri = Q * (Q + 1) // 2
+            ops_n = 2 * (BC * H * (2 * tri * P + 2 * Q * N * P)
+                         + BC * groups * 3 * tri * N)
+            nbytes = 4 * (4 * BC * Q * H * P + 4 * BC * Q * H
+                          + 4 * BC * Q * groups * N)
+            bms, by = bound_of(nbytes, 3 * ops_n, TF32_FLOP_PER_S)
+            fp32_bms, fp32_by = bound_of(nbytes, ops_n, FP32_FLOP_PER_S)
+            ms = time_ms(lambda: sc.ssd_intra_chunk_bwd(*ops), iters=10)
+            plain_ms = time_ms(lambda: ref.ssd_intra_chunk_bwd(*ops),
+                               iters=3, warmup=1)
+            out = dict(shape=shape, max_abs_err=err, ms=ms,
+                       plain_ms=plain_ms, library_ms=None, bound_ms=bms,
+                       bound_by=by)
+            log(f"[kernel] ssd_intra_chunk_bwd {list(shape)} ms={ms:.4f} "
+                f"plain_ms={plain_ms:.4f} library_ms=null bound_ms="
+                f"{bms:.4f} ({by}; fp32 SIMT {fp32_bms:.4f}, {fp32_by}; "
+                f"{nbytes / 1e6:.0f} MB, {ops_n / 1e9:.1f} GFLOP)")
+        else:
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+        del x, dt, da, b, c, dy, ds, ops, runs, want
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1494,8 +1606,8 @@ def compare_project_kernel(mods, dev):
     return rows
 
 
-def train_config(configs, layers=None, dtype=None, **tkw):
-    cfg = configs.get_config(TRAIN_ARCH)
+def train_config(configs, layers=None, dtype=None, arch=TRAIN_ARCH, **tkw):
+    cfg = configs.get_config(arch)
     if layers is not None:
         cfg = cfg.replace(num_layers=layers)
     if dtype is not None:
@@ -1620,6 +1732,44 @@ def update_launches(lu, kernel, shape):
     the routes."""
     return sum(n for (k, _, s), n in lu.LAUNCHES.items()
                if k == kernel and s == shape)
+
+
+MAMBA_TRAIN = dict(batch=16, seq=1024, steps=10)   # 16 384 tokens a step
+
+
+def train_mamba2(dev, mods, smi, configs):
+    """[train mamba2]: mamba2-780m at full width and depth (48 layers,
+    bf16 compute over fp32 B, m and v, Stiefel V at r = 128), batch 16 x
+    seq 1024 (8 SSD chunks a sequence), lazy_k 4, lr 1e-3, 10 steps (two
+    merges): finite, falling losses (at 6a's lr 3e-3 the 48-layer model
+    diverges after the first merge, through the kernels and through the
+    plain SSD alike, measured on an H100); per step 96 SSD forward launches (48
+    and 48 recomputed under remat) and 48 backward launches at the
+    training shape; every bf16 GEMM on the tensor cores; then a profile
+    of two steps with the SSD backward's device time.  Returns the SSD
+    launch counts of the 10 steps."""
+    sc = mods["sc"]
+    cfg, tcfg = train_config(configs, arch="mamba2-780m", lazy_k=4, lr=1e-3,
+                             warmup_steps=2, total_steps=1000)
+    steps = MAMBA_TRAIN["steps"]
+    run_mods = dict(mods, counters=tuple(mods["counters"]) + (sc,))
+    tr, _ = train(dev, run_mods, smi, cfg, tcfg, MAMBA_TRAIN["batch"],
+                  MAMBA_TRAIN["seq"], steps, tag="train mamba2")
+    counts = dict(sc.LAUNCHES)
+    want = {("ssd_intra_chunk", SSD_TRAIN_SHAPE): 2 * cfg.num_layers * steps,
+            ("ssd_intra_chunk_bwd", SSD_TRAIN_SHAPE): cfg.num_layers * steps}
+    log("[train mamba2] launches " + ", ".join(
+        f"{k}{list(sh)}={n} ({n / steps:.0f} a step)"
+        for (k, sh), n in counts.items()))
+    if counts != want:
+        raise SystemExit(f"SSD launches {counts}, the path should make "
+                         f"{want}")
+    profile_train(tr, tag="profile-train mamba2", match=("ssd_",))
+    torch.cuda.synchronize()
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 def train_launches(mods):
@@ -1783,6 +1933,11 @@ def profile_train(tr, steps=2, tag="profile-train", match=(), top=12):
             log(f"[{tag}] {e.key[:60]}: {e.count // steps} calls/step, "
                 f"{e.self_device_time_total / e.count / 1e3:.4f} ms device "
                 f"time per call")
+    bwd = [e for e in rows if "ssd_bwd_" in e.key]
+    if bwd:
+        log(f"[{tag}] ssd_intra_chunk_bwd: "
+            f"{sum(e.self_device_time_total for e in bwd) / 1e3 / steps:.2f}"
+            f" device ms/step in its four grids")
     fin = [e for e in rows if "finish" in e.key]
     log(f"[{tag}] the forward's finish epilogue: " + (", ".join(
         f"{e.self_device_time_total / 1e3 / steps:.2f} ms/step" for e in fin)
@@ -1817,10 +1972,16 @@ PLAIN_RUNS = (
     ("adamw", dict(optimizer="adamw"), 1e-6),
     ("lowrank_lr", dict(optimizer="lowrank_lr"), 5e-7),
 )
+# [train==plain mamba2]: mamba2-780m cut to 2 layers at full width, fp32,
+# lowrank_adam; the same fp32 arithmetic with sums in other orders (the
+# SSD kernels' 3xTF32 products and fp32 FMAs, cuBLAS's, against the
+# CPU's).  About six times its gap as measured on an H100 80GB HBM3 (700
+# W; 1.68e-7, the same to the last digit in five runs)
+MAMBA_PLAIN_TOL = 1e-6
 
 
 def train_equals_plain(dev, mods, configs, label="fp32", fields=(),
-                       tol=1e-4, steps=5):
+                       tol=1e-4, steps=5, arch=TRAIN_ARCH):
     """Phase 7: the kernel route on the card against the plain route on
     the CPU, fp32 compute, from the same weights, V draws, rounding bits
     (drawn on the CPU for both) and batches.  Under bf16 masters the
@@ -1835,7 +1996,8 @@ def train_equals_plain(dev, mods, configs, label="fp32", fields=(),
     fields = dict(dict(lr=1e-3), **dict(fields))
     cfg, tcfg = train_config(configs, layers=2, dtype="float32",
                              compute_dtype="float32", lazy_k=2,
-                             warmup_steps=1, total_steps=steps, **fields)
+                             warmup_steps=1, total_steps=steps, arch=arch,
+                             **fields)
     cpu = torch.device("cpu")
     params = lm.init_params(cfg, seed=7, device=cpu)
     if tcfg.master_dtype == "bfloat16":
@@ -1848,7 +2010,8 @@ def train_equals_plain(dev, mods, configs, label="fp32", fields=(),
              enumerate(flat)])
     loader = StatelessLoader("lm", 3, device=cpu, batch=4, seq_len=256,
                              vocab=cfg.vocab_size)
-    for mod in mods.get("counters", ()):
+    for mod in mods.get("counters", ()) + ((mods["sc"],) if "sc" in mods
+                                           else ()):
         mod.reset_launches()
     card, plain = (
         Trainer(cfg, tcfg, loader, device=where,
@@ -1856,9 +2019,22 @@ def train_equals_plain(dev, mods, configs, label="fp32", fields=(),
                 sample_device=cpu).run(steps).losses
         for where in (dev, cpu))
     worst = max(abs(a - b) / abs(b) for a, b in zip(card, plain))
-    log(f"[train==plain] {cfg.name} 2 layers, {label}, fp32 compute, batch "
+    tag = "train==plain" + ("" if arch == TRAIN_ARCH
+                            else f" {arch.split('-')[0]}")
+    log(f"[{tag}] {cfg.name} 2 layers, {label}, fp32 compute, batch "
         f"4x256 lazy_k=2, {steps} steps: card {card}, cpu {plain}, max rel "
         f"diff {worst:.3g} (tol {tol})")
+    if cfg.family == "ssm":
+        sc = mods["sc"]
+        fwd, bwd = (sum(n for k, n in sc.LAUNCHES.items() if k[0] == kernel)
+                    for kernel in ("ssd_intra_chunk", "ssd_intra_chunk_bwd"))
+        log(f"[{tag}] card launches ssd_intra_chunk={fwd} "
+            f"ssd_intra_chunk_bwd={bwd} lowrank_forward="
+            f"{mods['lf'].launches()} lowrank_backward="
+            f"{mods['lb'].launches()}")
+        if not (fwd and bwd and mods["lf"].launches()
+                and mods["lb"].launches()):
+            raise SystemExit("the card run missed an SSM training kernel")
     if "lu" in mods and tcfg.optimizer == "galore":
         n = mods["lu"].launches("lowrank_project")
         log(f"[train==plain] card launches lowrank_project={n}")
@@ -2923,7 +3099,8 @@ def main():
 
     t0 = time.perf_counter()
     sources = ("lowrank_forward", "lowrank_backward", "lowrank_merge",
-               "subspace_adam", "subspace_q8", "lowrank_project", "ssd_chunk")
+               "subspace_adam", "subspace_q8", "lowrank_project", "ssd_chunk",
+               "ssd_chunk_bwd")
     built = _build.build_all(sources, force=True)
     log(f"[build] {len(sources)} sources in parallel in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -2956,8 +3133,12 @@ def main():
                 counters=(lf, lb, lu, sa))
     rows = compare_kernels(lf, ref, dev)
     mamba_rows = compare_kernels(lf, ref, dev, MAMBA_SHAPES)
+    nemo_rows = compare_kernels(lf, ref, dev, NEMO_SHAPES)
     split_determinism(mods, dev)
     ssd_rows = compare_ssd_kernel(mods, dev)
+    ssd_train_row = compare_ssd_kernel(
+        mods, dev, {SSD_TRAIN_SHAPE: "training, batch 16 x 1024"})[0]
+    ssd_bwd_row = compare_ssd_bwd_kernel(mods, dev)
     train_rows = compare_train_kernels(mods, dev)
     state_rows = compare_state_kernels(mods, dev)
     project_rows = compare_project_kernel(mods, dev)
@@ -2968,6 +3149,7 @@ def main():
     lazy_equals_merged(dev, mods, "mamba2-780m", S=256)
     bf16_decode_without_sync(dev, mods, "mamba2-780m")
     serve_equals_plain(dev, mods)
+    nemo_counts, _ = serve(dev, mods, smi, "mistral-nemo-12b")
 
     sampler_laws(dev, mods)
     cfg, tcfg = train_config(configs, lazy_k=4, lr=3e-3, warmup_steps=2,
@@ -2990,6 +3172,9 @@ def main():
     for label, fields, tol in PLAIN_RUNS:
         train_equals_plain(dev, mods, configs, label, fields, tol)
     train_equals_plain_dependent(dev, mods, configs)
+    mamba_train_counts = train_mamba2(dev, mods, smi, configs)
+    train_equals_plain(dev, mods, configs, "lowrank_adam fp32", (),
+                       MAMBA_PLAIN_TOL, arch="mamba2-780m")
     enc_rows = compare_encoder_kernels(mods, dev)
     enc_counts = finetune(dev, mods, smi, configs)
     for key, n in resilience(dev, mods, smi, configs).items():
@@ -2997,7 +3182,8 @@ def main():
 
     kernels = []
     for model, rws, cnt in (("", rows, counts),
-                            ("mamba2-780m ", mamba_rows, mamba_counts)):
+                            ("mamba2-780m ", mamba_rows, mamba_counts),
+                            ("mistral-nemo-12b ", nemo_rows, nemo_counts)):
         for row in rws:
             kernels.append({
                 "name": f"lowrank_forward[{row['form']} B] K={row['K']} "
@@ -3019,7 +3205,7 @@ def main():
         kernels.append({
             "name": f"ssd_intra_chunk [fp32, B/C head stride 0] "
                     f"{list(row['shape'])} (mamba2-780m, "
-                    f"{row['tokens']}-token prompt)",
+                    f"{row['tokens']})",
             "route": "cuda", "path": "tc", "source": SSD_SOURCE,
             "replaces": SSD_REPLACES,
             "launches": ssd_counts.get(("ssd_intra_chunk", row["shape"]), 0),
@@ -3027,6 +3213,29 @@ def main():
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "timing": "queued", "eager_ms": row["eager_ms"]})
+    row = ssd_train_row
+    kernels.append({
+        "name": f"ssd_intra_chunk [fp32, B/C head stride 0] "
+                f"{list(row['shape'])} (mamba2-780m {row['tokens']})",
+        "route": "cuda", "path": "tc", "source": SSD_SOURCE,
+        "replaces": SSD_REPLACES,
+        "launches": mamba_train_counts[("ssd_intra_chunk", row["shape"])],
+        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        "timing": "queued", "eager_ms": row["eager_ms"]})
+    row = ssd_bwd_row
+    kernels.append({
+        "name": f"ssd_intra_chunk_bwd [fp32, one B/C group] "
+                f"{list(row['shape'])} (mamba2-780m training, batch 16 x "
+                f"1024)",
+        "route": "cuda", "path": "simt", "source": SSD_BWD_SOURCE,
+        "replaces": SSD_BWD_REPLACES,
+        "launches": mamba_train_counts[("ssd_intra_chunk_bwd",
+                                        row["shape"])],
+        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     for row in train_rows:
         kernels.append({
             "name": f"{row['kernel']} {list(row['shape'])} "

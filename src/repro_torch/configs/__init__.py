@@ -1,18 +1,24 @@
 """Config registry of the port: the architectures of the families it
 has ported, dense and SSM.
 
-``qwen2-7b`` and ``mamba2-780m`` are the serving targets; the paper's
-LLaMA grid (with ``llama-tiny``) is what training runs and the small
-dense model the CPU tests run.  Other architectures of ``repro.configs``
-join as their families are ported.
+``qwen2-7b``, ``mistral-nemo-12b`` and ``mamba2-780m`` are the serving
+targets; the paper's LLaMA grid (with ``llama-tiny``) and ``mamba2-780m``
+are what training runs, and the small dense model the CPU tests run.
+``internlm2-20b`` and ``mistral-large-123b`` are the registry's other
+dense architectures.  Other architectures of ``repro.configs`` join as
+their families are ported.
 """
 from __future__ import annotations
 
-from . import llama_paper, mamba2_780m, qwen2_7b
+from . import (internlm2_20b, llama_paper, mamba2_780m, mistral_large_123b,
+               mistral_nemo_12b, qwen2_7b)
 from .base import ModelConfig, TrainConfig
 
 CONFIGS = {
     "qwen2-7b": qwen2_7b.CONFIG,
+    "internlm2-20b": internlm2_20b.CONFIG,
+    "mistral-nemo-12b": mistral_nemo_12b.CONFIG,
+    "mistral-large-123b": mistral_large_123b.CONFIG,
     "mamba2-780m": mamba2_780m.CONFIG,
     "llama-20m": llama_paper.LLAMA_20M,
     "llama-60m": llama_paper.LLAMA_60M,

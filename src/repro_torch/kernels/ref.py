@@ -193,6 +193,19 @@ def subspace_lion_q8(b, g, mq, ms, *, lr, beta1, beta2, wd, bits=None):
     return b2, mq2, ms2
 
 
+def _ssd_decay(clog: torch.Tensor) -> torch.Tensor:
+    """``L[b, i, j, h] = exp(clog_i - clog_j)`` for i >= j, else 0, from
+    clog (BC,Q,H).  A masked pair (i < j) takes the exponential of -inf:
+    its difference is positive and past 88.7 ``exp`` gives inf, which a
+    ``where`` would drop from the value but not from the gradient (0 · inf
+    = NaN).  No infinity is formed, so the values are those of the masked
+    ``where`` and autograd through this is finite."""
+    Q = clog.shape[1]
+    diff = clog[:, :, None, :] - clog[:, None, :, :]        # (BC,Q,Q,H) i-j
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=clog.device).tril()
+    return torch.exp(diff.masked_fill(~mask[:, :, None], float("-inf")))
+
+
 def ssd_intra_chunk(x, dt, da, b, c):
     """Mamba2 SSD intra-chunk block over BC = batch x chunks flattened.
 
@@ -203,15 +216,66 @@ def ssd_intra_chunk(x, dt, da, b, c):
     ``sum_j exp(clog_last - clog_j) dt_j B_j x_jᵀ`` (BC,H,N,P) in fp32.
     """
     xf, dtf, daf, bf, cf = (t.float() for t in (x, dt, da, b, c))
-    Q = x.shape[1]
     clog = torch.cumsum(daf, dim=1)                         # (BC,Q,H)
-    diff = clog[:, :, None, :] - clog[:, None, :, :]        # (BC,Q,Q,H) i-j
-    mask = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-    # exp of a masked pair may overflow; where() drops it without inf * 0
-    L = torch.where(mask[:, :, None], torch.exp(diff), 0.0)
+    L = _ssd_decay(clog)
     s = torch.einsum("bihn,bjhn->bijh", cf, bf)
     att = s * L * dtf[:, None, :, :]
     y = torch.einsum("bijh,bjhp->bihp", att, xf)
     wj = torch.exp(clog[:, -1:, :] - clog) * dtf            # (BC,Q,H)
     state = torch.einsum("bjhn,bjhp,bjh->bhnp", bf, xf, wj)
     return y.to(x.dtype), state
+
+
+def ssd_intra_chunk_bwd(x, dt, da, b, c, dy, dstate):
+    """The backward of :func:`ssd_intra_chunk`, as explicit formulas.
+
+    x, dy (BC,Q,H,P); dt, da (BC,Q,H); b, c (BC,Q,G,N) **per B/C group**,
+    head h reading group ``h // (H // G)``; dstate (BC,H,N,P).  Returns
+    ``(dx, ddt, dda, db, dc)`` in fp32, db and dc per group (summed over
+    the group's heads).  With ``clog = cumsum(da)``, ``L`` the masked
+    decay, ``s = C Bᵀ``, ``att = s ⊙ L ⊙ dt_j`` and ``w_j = exp(clog_Q -
+    clog_j) dt_j``:
+
+    * ``datt = dY Xᵀ``; ``ds = datt ⊙ L ⊙ dt_j``; ``K = datt ⊙ s ⊙ L``
+      and ``M = K ⊙ dt_j = ds ⊙ s``;
+    * ``u = B dS`` (Q,P); ``dx = attᵀ dY + w ⊙ u``; ``dw_j = u_j · x_j``;
+    * ``ddt_j = Σ_i K_ij + dw_j exp(clog_Q - clog_j)``;
+    * ``dclog_i = Σ_j M_ij - Σ_j M_ji - dw_i w_i``, plus ``Σ_j dw_j w_j``
+      at the last token; ``dda`` its reverse cumsum;
+    * per group, ``D = Σ_h ds_h``: ``dC = D B``, ``dB = Dᵀ C + Σ_h w_h ⊙
+      (X_h dS_hᵀ)``.
+
+    The masked decay forms no infinity (:func:`_ssd_decay`), so a decay
+    whose masked differences pass exp's range gives finite gradients,
+    where autograd through the reference's ``where`` gives NaN.
+    """
+    xf, dtf, daf, bf, cf, dyf, dsf = (
+        t.float() for t in (x, dt, da, b, c, dy, dstate))
+    BC, Q, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    rep = H // G
+    bh = bf.repeat_interleave(rep, dim=2)                   # (BC,Q,H,N)
+    ch = cf.repeat_interleave(rep, dim=2)
+    clog = torch.cumsum(daf, dim=1)                         # (BC,Q,H)
+    s = torch.einsum("bihn,bjhn->bijh", ch, bh)
+    L = _ssd_decay(clog)                                    # 0 where i < j
+    e = torch.exp(clog[:, -1:, :] - clog)                   # (BC,Q,H)
+    w = e * dtf
+    datt = torch.einsum("bihp,bjhp->bijh", dyf, xf)
+    K = datt * s * L
+    ds = datt * L * dtf[:, None, :, :]
+    m = ds * s
+    u = torch.einsum("bjhn,bhnp->bjhp", bh, dsf)            # B dS
+    dx = torch.einsum("bijh,bihp->bjhp", s * L * dtf[:, None, :, :], dyf) \
+        + w[..., None] * u
+    dw = (u * xf).sum(-1)                                   # (BC,Q,H)
+    ddt = K.sum(1) + dw * e
+    dclog = m.sum(2) - m.sum(1) - dw * w
+    dclog[:, -1] += (dw * w).sum(1)
+    dda = torch.flip(torch.cumsum(torch.flip(dclog, (1,)), 1), (1,))
+    dsum = ds.reshape(BC, Q, Q, G, rep).sum(-1)             # (BC,Q,Q,G)
+    e_x = torch.einsum("bjhp,bhnp,bjh->bjhn", xf, dsf, w)   # w ⊙ X dSᵀ
+    dc = torch.einsum("bijg,bjgn->bign", dsum, bf)
+    db = torch.einsum("bijg,bign->bjgn", dsum, cf) \
+        + e_x.reshape(BC, Q, G, rep, N).sum(3)
+    return dx, ddt, dda, db, dc

@@ -15,8 +15,19 @@ mismatched shape, a non-contiguous x, dt or da, Q, N or P outside
 1..128).  Then the route is the tensor's device alone: a CPU tensor
 takes the plain version in :mod:`.ref`; a CUDA tensor launches the
 kernel or raises.
-The kernel has no backward (nor has the TPU kernel): CUDA inputs that
-require a gradient raise ``NotImplementedError``.
+
+Gradients: :func:`ssd_intra_chunk_grouped` takes b and c **per B/C
+group** (BC, Q, G, N), head h reading group ``h // (H // G)``, and is a
+``torch.autograd.Function``: forward the kernel above (b and c a head
+broadcast of stride 0 for one group, per head otherwise), backward the
+hand-written ``csrc/ssd_chunk_bwd.cu`` (:func:`ssd_intra_chunk_bwd`;
+the plain ``ref.ssd_intra_chunk_bwd`` on the CPU), which returns db and
+dc per group.  It saves only its inputs.  The TPU kernel has no
+backward (the reference autodiffs its jnp ``ssd_chunked``), so the
+backward replaces that autodiff.  It takes fp32 alone: an input that
+requires a gradient in another dtype is refused on both routes, as
+training casts every SSD operand to fp32.  :func:`ssd_intra_chunk`
+with inputs that require a gradient goes through the same Function.
 
 The kernel splits the work by a fixed rule of the shapes and of b's and
 c's head stride, :func:`ssd_plan`, which the wrapper passes to the C
@@ -27,7 +38,9 @@ state and a pair of 16-row strips of y from it.  :func:`ssd_cta` says
 what each CTA computes, as the kernels decode their block index.
 
 ``LAUNCHES`` counts launches per ``("ssd_intra_chunk", (BC, Q, H, P,
-N))``: one per call, which queues both grids.
+N))``: one per call, which queues both grids; and the backward's per
+``("ssd_intra_chunk_bwd", (BC, Q, H, P, N))``: one per call, which
+queues its four (:func:`ssd_bwd_plan`).
 """
 from __future__ import annotations
 
@@ -35,6 +48,7 @@ import collections
 import ctypes
 import dataclasses
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -207,13 +221,13 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, da: torch.Tensor,
     (BC,H,N,P) fp32)``; see :func:`repro_torch.kernels.ref.
     ssd_intra_chunk` for the function."""
     b_strides, c_strides = _check(x, dt, da, b, c)
+    if _wants_grad(x, dt, da, b, c):
+        # one group read by every head (stride 0), else a group per head
+        if b_strides[2] == 0 and c_strides[2] == 0:
+            b, c = b[:, :, :1], c[:, :, :1]
+        return ssd_intra_chunk_grouped(x, dt, da, b, c)
     if not _route(x, "ssd_intra_chunk"):
         return ref.ssd_intra_chunk(x, dt, da, b, c)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, dt, da, b, c)):
-        raise NotImplementedError(
-            "ssd_intra_chunk: the CUDA kernel has no backward; SSM training "
-            "through it is not ported yet (ROADMAP.md Queue 1 item 5)")
     BC, Q, H, P = x.shape
     N = b.shape[-1]
     if BC == 0 or H == 0:
@@ -247,3 +261,163 @@ def _launch(x, dt, da, b, c, plan, b_strides, c_strides):
             f"ssd_intra_chunk kernel launch failed with CUDA error {rc} "
             f"(x {tuple(x.shape)}, N={N}, {plan.groups} Gram groups)")
     return y, state
+
+
+# ---------------------------------------------------------------------------
+# Gradient: per-group b and c, the backward kernel
+# ---------------------------------------------------------------------------
+
+SLICE_HEADS = 8     # heads per slice of the backward's group sums
+
+
+class SSDBwdPlan(NamedTuple):
+    """The backward's split: its four grids are the Gram and group CTAs,
+    one per (bc, group), the head CTAs, one per (bc, head), and the slice
+    CTAs, one per (bc, group, slice of ``heads_per_slice`` heads), each
+    slice's sums read by its group's CTA in slice order."""
+    heads_per_slice: int
+    slices: int
+
+
+def ssd_bwd_plan(H: int, G: int) -> SSDBwdPlan:
+    """The split of a backward launch (the launcher refuses another).  At
+    mamba2-780m's training shape (BC 128, H 48, one group): 128 Gram and
+    group CTAs, 6144 head CTAs and 6 slices of 8 heads (768 CTAs)."""
+    rep = H // G
+    hs = min(rep, SLICE_HEADS)
+    return SSDBwdPlan(hs, -(-rep // hs))
+
+
+def _wants_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _check_grouped(x, dt, da, b, c):
+    """The per-group form's shapes; returns (H, G)."""
+    if b.ndim != 4 or tuple(c.shape) != tuple(b.shape) \
+            or tuple(b.shape[:2]) != tuple(x.shape[:2]):
+        raise ValueError(
+            f"ssd_intra_chunk: b and c must be (BC, Q, G, N) per group; got "
+            f"x {tuple(x.shape)}, b {tuple(b.shape)}, c {tuple(c.shape)}")
+    H, G = x.shape[2], b.shape[2]
+    if G < 1 or H % G:
+        raise ValueError(f"ssd_intra_chunk: {G} B/C groups do not divide "
+                         f"{H} heads")
+    return H, G
+
+
+def _heads(b, c, H):
+    """Per-group b, c as the forward kernel reads them: one group a head
+    broadcast (stride 0, no copy), H groups as they are, else each group
+    repeated over its heads."""
+    BC, Q, G, N = b.shape
+    if G == 1:
+        return (b.contiguous().expand(BC, Q, H, N),
+                c.contiguous().expand(BC, Q, H, N))
+    if G == H:
+        return b.contiguous(), c.contiguous()
+    return (torch.repeat_interleave(b, H // G, dim=2),
+            torch.repeat_interleave(c, H // G, dim=2))
+
+
+def _require_fp32(*ts):
+    for t in ts:
+        if t.dtype != torch.float32:
+            raise TypeError(
+                f"ssd_intra_chunk: the backward takes float32 alone (training "
+                f"casts every SSD operand to float32); got {t.dtype} for an "
+                f"input that requires a gradient")
+
+
+class _SSDIntraChunk(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, da, b, c):
+        ctx.save_for_backward(x, dt, da, b, c)
+        return ssd_intra_chunk(x, dt, da, *_heads(b, c, x.shape[2]))
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, da, b, c = ctx.saved_tensors
+        BC, Q, H, P = x.shape
+        if dy is None:
+            dy = torch.zeros_like(x)
+        if dstate is None:
+            dstate = torch.zeros((BC, H, b.shape[-1], P), dtype=x.dtype,
+                                 device=x.device)
+        return ssd_intra_chunk_bwd(x, dt, da, b, c, dy, dstate)
+
+
+def ssd_intra_chunk_grouped(x: torch.Tensor, dt: torch.Tensor,
+                            da: torch.Tensor, b: torch.Tensor,
+                            c: torch.Tensor):
+    """:func:`ssd_intra_chunk` with b and c per B/C group (BC, Q, G, N),
+    head h reading group ``h // (H // G)``; differentiable (the backward
+    kernel on the card).  Returns ``(y, state)`` as the head form does."""
+    _check_grouped(x, dt, da, b, c)
+    if _wants_grad(x, dt, da, b, c):
+        _require_fp32(x, dt, da, b, c)
+    return _SSDIntraChunk.apply(x, dt, da, b, c)
+
+
+def ssd_intra_chunk_bwd(x, dt, da, b, c, dy, dstate):
+    """The backward of :func:`ssd_intra_chunk_grouped`: ``(dx, ddt, dda,
+    db, dc)`` in fp32, db and dc per group.  x, dy (BC,Q,H,P); dt, da
+    (BC,Q,H); b, c (BC,Q,G,N); dstate (BC,H,N,P); all fp32.  A CPU
+    tensor takes ``ref.ssd_intra_chunk_bwd``; a CUDA tensor launches the
+    kernel or raises."""
+    H, G = _check_grouped(x, dt, da, b, c)
+    BC, Q, _, P = x.shape
+    N = b.shape[-1]
+    named = (("x", x), ("dt", dt), ("da", da), ("b", b), ("c", c),
+             ("dy", dy), ("dstate", dstate))
+    for name, t in named:
+        if t.device != x.device:
+            raise ValueError(f"ssd_intra_chunk_bwd: {name} is on "
+                             f"{t.device}, x on {x.device}")
+    _require_fp32(*(t for _, t in named))
+    if (tuple(dt.shape) != (BC, Q, H) or tuple(da.shape) != (BC, Q, H)
+            or tuple(dy.shape) != tuple(x.shape)
+            or tuple(dstate.shape) != (BC, H, N, P)):
+        raise ValueError(
+            f"ssd_intra_chunk_bwd: shapes x {tuple(x.shape)}, dt "
+            f"{tuple(dt.shape)}, da {tuple(da.shape)}, b {tuple(b.shape)}, "
+            f"dy {tuple(dy.shape)}, dstate {tuple(dstate.shape)} do not fit")
+    if not (0 < Q <= MAX_Q and 0 < N <= MAX_N and 0 < P <= MAX_P):
+        raise ValueError(
+            f"ssd_intra_chunk_bwd: the kernel takes chunks of 1..{MAX_Q} "
+            f"tokens, state 1..{MAX_N} and head dim 1..{MAX_P}; got Q={Q}, "
+            f"N={N}, P={P}")
+    if not _route(x, "ssd_intra_chunk_bwd"):
+        return ref.ssd_intra_chunk_bwd(x, dt, da, b, c, dy, dstate)
+    ts = [t.contiguous() for _, t in named]
+    outs = (torch.empty_like(x), torch.empty_like(dt), torch.empty_like(da),
+            torch.empty_like(b), torch.empty_like(c))
+    if BC == 0 or H == 0:
+        return outs
+    plan = ssd_bwd_plan(H, G)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    gram = torch.empty(BC * G * Q * Q, **f32)
+    dpart = torch.empty(BC * G * plan.slices * Q * Q, **f32)
+    epart = torch.empty(BC * G * plan.slices * Q * N, **f32)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _bwd_kernel()(*(t.data_ptr() for t in ts),
+                           *(t.data_ptr() for t in outs), gram.data_ptr(),
+                           dpart.data_ptr(), epart.data_ptr(), BC, Q, H, P,
+                           N, G, plan.heads_per_slice, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"ssd_intra_chunk_bwd kernel launch failed with CUDA error {rc} "
+            f"(x {tuple(x.shape)}, N={N}, {G} groups)")
+    LAUNCHES[("ssd_intra_chunk_bwd", (BC, Q, H, P, N))] += 1
+    return outs
+
+
+@functools.cache
+def _bwd_kernel():
+    fn = _build.load("ssd_chunk_bwd").ssd_intra_chunk_bwd_launch
+    # x, dt, da, b, c, dy, dstate, dx, ddt, dda, db, dc, gram, dpart,
+    # epart, BC, Q, H, P, N, G, heads_per_slice, stream
+    fn.argtypes = [_VP] * 15 + [_LL] + [_CI] * 6 + [_VP]
+    fn.restype = _CI
+    return fn

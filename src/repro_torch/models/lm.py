@@ -1,5 +1,5 @@
-"""Decoder-only LM: the dense family for training and serving, the SSM
-family (Mamba2) for serving.
+"""Decoder-only LM: the dense family and the SSM family (Mamba2), for
+training and serving.
 
 Counterpart of ``repro.models.lm`` for the dense family (``qwen2-7b``,
 the LLaMA grid) and the SSM family (``mamba2-780m``).  Layers stay
@@ -43,17 +43,16 @@ def padded_vocab(cfg) -> int:
     return -(-cfg.vocab_size // VOCAB_PAD) * VOCAB_PAD
 
 
-def _require_ported(cfg, families=("dense", "ssm")) -> None:
+def _require_ported(cfg) -> None:
     """Refuse a family the port does not run: MoE, MLA, hybrid, vlm and
-    audio everywhere, and SSM where ``families`` leaves it out
-    (training)."""
-    if cfg.family not in families or cfg.use_mla or cfg.num_experts \
-            or cfg.first_dense_layers or cfg.is_encoder_decoder:
+    audio (it trains and serves the dense and SSM families)."""
+    if cfg.family not in ("dense", "ssm") or cfg.use_mla \
+            or cfg.num_experts or cfg.first_dense_layers \
+            or cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported to "
-            f"repro_torch for this entry point (serving runs the dense and "
-            f"SSM families, training the dense one); see ROADMAP.md "
-            f"Queue 1 item 5")
+            f"repro_torch (it trains and serves the dense and SSM "
+            f"families); see ROADMAP.md Queue 1 item 9")
 
 
 # ---------------------------------------------------------------------------
@@ -224,19 +223,22 @@ def _embed(params, tokens, cfg):
 def forward_hidden(params, tokens, cfg):
     """(B, S) tokens -> ((B, S, d) final hidden after the final norm,
     aux).  ``aux`` holds the reference's MoE loss terms, zero for the
-    dense family.  The SSM family does not train in the port yet.
+    dense and SSM families.  A dense block is attention and MLP; an SSM
+    block ``h + mamba2_mixer(rms_norm(h, ln1))`` (the reference's
+    ``mamba_body``).
 
     With ``cfg.remat`` each block runs under ``torch.utils.checkpoint``
     (the reference's ``jax.checkpoint`` around the scan body): only the
     block inputs are kept, and the backward recomputes the block.
     """
-    _require_ported(cfg, families=("dense",))
+    _require_ported(cfg)
+    apply = _mamba_block if cfg.family == "ssm" else dense_block
     h = _embed(params, tokens, cfg)
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
 
         def block(h, lp=lp):
-            return dense_block(h, lp, cfg)[0]
+            return apply(h, lp, cfg)[0]
 
         h = checkpoint(block, h, use_reentrant=False) if cfg.remat \
             else block(h)

@@ -9,9 +9,18 @@ is, within a chunk of Q tokens, a masked quadratic "attention" (scores
 ``(C_i . B_j) decay(i, j) dt_j``), and across chunks a small (H, N, P)
 state carried from chunk to chunk.  The intra-chunk part and each
 chunk's local end state come from :func:`repro_torch.kernels.ssd_chunk.
-ssd_intra_chunk`: the hand-written kernel on the card, its plain version
-on the CPU (the reference's ``_segsum_decay`` helper of that part has no
-counterpart here).  The scan over chunks is a Python loop.
+ssd_intra_chunk_grouped`: the hand-written kernel on the card, its plain
+version on the CPU, with a hand-written backward of each (the
+reference's ``_segsum_decay`` helper of that part has no counterpart
+here).  The scan over chunks is a Python loop, differentiated by
+autograd.
+
+One deliberate departure from the reference: its ``_segsum_decay``
+takes ``exp`` of every pair's difference and drops the masked ones with
+a ``where``.  A masked difference is positive and passes ``exp``'s range
+(88.7) at mamba2's decays over 128 tokens, so the reference's gradient
+is NaN there (0 · inf); the port never forms that infinity and its
+gradients stay finite.  The values are the same.
 
 Single-token decode keeps O(1) state per sequence: the (B, H, N, P)
 SSM state and a (K-1)-deep causal-conv window.
@@ -23,7 +32,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from ..kernels.ssd_chunk import ssd_intra_chunk
+from ..kernels.ssd_chunk import ssd_intra_chunk_grouped
 from .common import rms_norm
 from .linear import linear
 
@@ -76,7 +85,6 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     """
     B, S, H, P = x.shape
     G, N = b.shape[-2], b.shape[-1]
-    rep = H // G
     Q = min(chunk, S)
     if S % Q:
         raise ValueError(f"ssd_chunked: sequence {S} is not a multiple of "
@@ -85,18 +93,14 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
     a = -torch.exp(a_log.float())                        # (H,) negative
     da = dt * a                                          # (B, S, H)
-    if G == 1:   # every head reads the one group: head stride 0, no copy
-        bh = b.contiguous().expand(B, S, H, N)
-        ch = c.contiguous().expand(B, S, H, N)
-    else:
-        bh = torch.repeat_interleave(b, rep, dim=2)      # (B, S, H, N)
-        ch = torch.repeat_interleave(c, rep, dim=2)
-
-    y_intra, s_local = ssd_intra_chunk(
+    # b and c per group: one group reaches the kernel as a head broadcast
+    # of stride 0, with no copy
+    y_intra, s_local = ssd_intra_chunk_grouped(
         x.contiguous().reshape(B * nc, Q, H, P),
         dt.contiguous().reshape(B * nc, Q, H),
         da.contiguous().reshape(B * nc, Q, H),
-        bh.reshape(B * nc, Q, H, N), ch.reshape(B * nc, Q, H, N))
+        b.contiguous().reshape(B * nc, Q, G, N),
+        c.contiguous().reshape(B * nc, Q, G, N))
     y_intra = y_intra.reshape(B, nc, Q, H, P)
     s_local = s_local.reshape(B, nc, H, N, P)
 
@@ -104,13 +108,15 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     clog = torch.cumsum(da.reshape(B, nc, Q, H), dim=2)  # (B, nc, Q, H)
     decay_chunk = torch.exp(clog[:, :, -1, :])           # (B, nc, H)
     s = init_state if init_state is not None \
-        else torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+        else torch.zeros((B, H, N, P), dtype=s_local.dtype, device=x.device)
     s_in = []
     for k in range(nc):
         s_in.append(s)                                   # state before chunk
         s = decay_chunk[:, k, :, None, None] * s + s_local[:, k]
     s_in = torch.stack(s_in, dim=1)                      # (B, nc, H, N, P)
 
+    ch = c.expand(B, S, H, N) if G == 1 else \
+        torch.repeat_interleave(c, H // G, dim=2)        # (B, S, H, N)
     y_inter = torch.einsum("bcqhn,bcqh,bchnp->bcqhp",
                            ch.reshape(B, nc, Q, H, N), torch.exp(clog), s_in)
     y = (y_intra + y_inter).reshape(B, S, H, P) + \

@@ -1,13 +1,14 @@
 """Step builders of the training methods.
 
-Counterpart of ``repro.train.steps`` for the dense LM: ``build_loss_fn``,
-``make_train_step`` (Algorithm 1's inner step, ``lowrank_adam`` and
-``lowrank_lion``, with gradient accumulation), ``make_outer_step``
-(merge + resample), ``make_adamw_train_step`` (the dense AdamW baseline) and
-``make_zo_train_step`` (the forward-only LowRank-LR step).  GaLore's
-steps live in :mod:`repro_torch.optim.galore`.  The steps run eagerly;
-the LR, the step counter and the bias corrections stay on the device, so
-an inner step makes no host round trip.
+Counterpart of ``repro.train.steps`` for the dense and SSM LMs:
+``build_loss_fn``, ``make_train_step`` (Algorithm 1's inner step,
+``lowrank_adam`` and ``lowrank_lion``, with gradient accumulation),
+``make_outer_step`` (merge + resample), ``make_adamw_train_step`` (the
+dense AdamW baseline) and ``make_zo_train_step`` (the forward-only
+LowRank-LR step).  GaLore's steps live in :mod:`repro_torch.optim.
+galore`.  The steps run eagerly; the LR, the step counter and the bias
+corrections stay on the device, so an inner step makes no host round
+trip.
 """
 from __future__ import annotations
 
@@ -24,9 +25,10 @@ from .loss import chunked_ce
 
 def build_loss_fn(cfg) -> Callable:
     """loss_fn(packed_params, batch) -> scalar (batch-mean token CE)."""
-    if cfg.is_encoder_decoder or cfg.family != "dense":
+    if cfg.is_encoder_decoder or cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense family trains in repro_torch yet")
+            f"{cfg.name}: the dense and SSM families train in repro_torch; "
+            f"see ROADMAP.md Queue 1 item 9")
 
     def loss_fn(packed, batch):
         h, _ = lm.forward_hidden(packed, batch["tokens"], cfg)

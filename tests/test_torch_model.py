@@ -34,7 +34,11 @@ from repro_torch.optim.subspace import build_layout  # noqa: E402
 from repro_torch.serve import AdapterStore, batched_pack_tree  # noqa: E402
 
 RTOL, ATOL = 1e-4, 1e-5
-ARCHS = ["qwen2-7b", "llama-tiny", "mamba2-780m"]
+# "+hd32": reduced() sets head_dim = d / heads, which hides an explicit
+# head_dim (mistral-nemo-12b's 128 against 5120 / 32); this case keeps
+# heads x head_dim (4 x 32) apart from d (64), as the model does
+ARCHS = ["qwen2-7b", "llama-tiny", "mamba2-780m", "internlm2-20b",
+         "mistral-nemo-12b", "mistral-nemo-12b+hd32"]
 # full-size configs: low-rank leaves, all at r = 128 (qwen2-7b: every
 # projection and the unembedding; mamba2-780m: in_proj, out_proj and the
 # unembedding, conv_w excluded)
@@ -44,8 +48,17 @@ JTCFG = JTrainConfig(optimizer="lowrank_adam", rank=4,
                      min_dim_for_lowrank=32)
 
 
+def _reduced(arch):
+    """The port's and the reference's reduced configs of ``arch``."""
+    name, _, variant = arch.partition("+")
+    cfg, jcfg = get_config(name).reduced(), jget_config(name).reduced()
+    if variant == "hd32":
+        cfg, jcfg = cfg.replace(head_dim=32), jcfg.replace(head_dim=32)
+    return cfg, jcfg
+
+
 def _pair(arch, seed=0):
-    cfg, jcfg = get_config(arch).reduced(), jget_config(arch).reduced()
+    cfg, jcfg = _reduced(arch)
     jp = jlm.init_params(jcfg, jax.random.key(seed))
     tp = convert.params_from_numpy(jax.tree.map(np.asarray, jp),
                                    device="cpu")
@@ -75,10 +88,11 @@ def _close(got, want):
 def test_layout_groups_match_jax(arch):
     full = arch.endswith("-full")
     name = arch.removesuffix("-full")
-    cfg, jcfg = get_config(name), jget_config(name)
     tcfg, jtcfg = TrainConfig(), JTrainConfig()
-    if not full:
-        cfg, jcfg, tcfg, jtcfg = cfg.reduced(), jcfg.reduced(), TCFG, JTCFG
+    if full:
+        cfg, jcfg = get_config(name), jget_config(name)
+    else:
+        (cfg, jcfg), tcfg, jtcfg = _reduced(name), TCFG, JTCFG
     got = build_layout(lm.param_specs(cfg), tcfg)
     want = jsubspace.build_layout(jlm.abstract_params(jcfg), jtcfg)
     assert [tuple(g) for g in got.groups] == \
@@ -107,7 +121,7 @@ def test_param_tree_converts_one_to_one(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_init_params_follow_the_reference_laws(arch):
-    cfg = get_config(arch).reduced()
+    cfg = _reduced(arch)[0]
     p = lm.init_params(cfg, seed=3, device="cpu")
     d = cfg.d_model
     layer = p["layers"]
@@ -261,8 +275,10 @@ def test_other_families_are_refused():
             lm.param_specs(cfg)
         with pytest.raises(NotImplementedError, match="not ported"):
             lm.alloc_paged_state(cfg, 1, 2, 4, 8, device="cpu")
-    # SSM serves but does not train in the port yet
+    # SSM trains too: forward_hidden takes the reference's SSM branch
     ssm = get_config("mamba2-780m").reduced()
     params = lm.init_params(ssm, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        lm.forward_hidden(params, torch.zeros((1, 4), dtype=torch.long), ssm)
+    h, aux = lm.forward_hidden(params, torch.zeros((1, 32), dtype=torch.long),
+                               ssm)
+    assert h.shape == (1, 32, ssm.d_model) and torch.isfinite(h).all()
+    assert not aux["lb_loss"] and not aux["router_z"]

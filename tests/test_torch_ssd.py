@@ -30,9 +30,15 @@ carries the two cumsums' last-bit differences (measured: 2.2e-5).
 The ``cuda``-marked tests hold the CUDA kernel to its plain version on
 the card (ragged and path shapes, the plan's split for both b/c layouts
 and the launcher's refusal of any other, repeated launches, a decay far
-past expf's overflow, bf16) and check that a CUDA input that requires a gradient raises; they
-skip here with a reason and import no JAX.  Run them on a card with
-``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_ssd.py``.
+past expf's overflow, bf16), and its backward kernel
+(``csrc/ssd_chunk_bwd.cu``) to ``ref.ssd_intra_chunk_bwd`` (ragged
+shapes and mamba2-780m's training shape, b and c one group or one per
+head, a decay far past expf's overflow with every gradient finite, three
+launches bit-identical, the gradient through the wrapper and
+``ssd_chunked``, and the refusal of a bf16 input that requires a
+gradient); they skip here with a reason and import no JAX.  Run them on
+a card with ``PYTHONPATH=src python -m pytest -m cuda
+tests/test_torch_ssd.py``.
 """
 import dataclasses
 from types import SimpleNamespace
@@ -596,17 +602,100 @@ def test_ssd_kernel_bf16_matches_plain_on_card(cuda):
 
 @pytest.mark.cuda
 def test_ssd_kernel_refuses_a_gradient_on_card(cuda):
+    """A gradient through the wrapper and ``ssd_chunked`` on the card takes
+    the backward kernel and equals the plain version's; a bf16 input that
+    requires a gradient is refused (the backward takes fp32 alone)."""
     ops = [_t(a).to(cuda) for a in _chunk_operands(1, 16, 2, 8, 8, seed=2)]
-    ops[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        sc.ssd_intra_chunk(*ops)
+    bf = [t.bfloat16() for t in ops]
+    bf[0].requires_grad_(True)
+    with pytest.raises(TypeError, match="float32 alone"):
+        sc.ssd_intra_chunk(*bf)
     with torch.no_grad():
-        sc.ssd_intra_chunk(*ops)
-    x = ops[0].detach()
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ssm.ssd_chunked(x.reshape(1, 16, 2, 8).requires_grad_(True),
-                        ops[1].reshape(1, 16, 2), torch.zeros(2, device=cuda),
-                        ops[3][:, :, :1], ops[4][:, :, :1],
-                        torch.ones(2, device=cuda))
+        sc.ssd_intra_chunk(*bf)
+    sc.reset_launches()
+    x = ops[0].detach().requires_grad_(True)
+    y, st = sc.ssd_intra_chunk(x, *ops[1:])
+    (gx,) = torch.autograd.grad((y * y).sum() + st.sum(), x)
+    xp = ops[0].detach().requires_grad_(True)
+    wy, ws = ref.ssd_intra_chunk(xp, *ops[1:])
+    (wx,) = torch.autograd.grad((wy * wy).sum() + ws.sum(), xp)
+    assert (gx - wx).abs().max().item() <= REL_STRONG * wx.abs().max().item()
+    assert sc.LAUNCHES[("ssd_intra_chunk_bwd", (1, 16, 2, 8, 8))] == 1
+    args = (ops[0].reshape(1, 16, 2, 8), ops[1].reshape(1, 16, 2),
+            torch.zeros(2, device=cuda), ops[3][:, :, :1], ops[4][:, :, :1],
+            torch.ones(2, device=cuda))
+    grads = []
+    for a in (args, tuple(t.cpu() for t in args)):
+        leaves = [t.detach().requires_grad_(True) for t in a]
+        y = ssm.ssd_chunked(*leaves, chunk=8)
+        grads.append(torch.autograd.grad(y.square().sum(), leaves))
+    for got, want in zip(*grads):
+        assert (got.cpu() - want).abs().max().item() <= \
+            REL_STRONG * want.abs().max().item()
     with pytest.raises(ValueError, match="on"):
         sc.ssd_intra_chunk(x, ops[1].cpu(), *ops[2:])
+
+
+# (BC, Q, H, P, N): ragged shapes, P past 64 (the wide head tile), and
+# mamba2-780m's training shape (batch 16 x 8 chunks of 128 tokens)
+BWD_CARD_SHAPES = [(1, 1, 1, 1, 1), (3, 20, 5, 16, 8), (2, 45, 3, 70, 33),
+                   (1, 128, 2, 128, 128), (128, 128, 48, 64, 128)]
+
+
+def _bwd_operands(shape, groups, seed, strong=True):
+    """x, dt, da, b, c (per group), dy, dstate as numpy fp32."""
+    BC, Q, H, P, N = shape
+    x, dt, da, b, c = _chunk_operands(BC, Q, H, P, N, seed, strong)
+    rng = np.random.default_rng(seed + 1)
+    dy = rng.standard_normal((BC, Q, H, P)).astype(np.float32)
+    ds = rng.standard_normal((BC, H, N, P)).astype(np.float32)
+    return x, dt, da, b[:, :, :groups], c[:, :, :groups], dy, ds
+
+
+def test_ssd_bwd_plan_slices_the_heads_of_a_group():
+    """Every head of a group in one slice, slices of at most 8 heads."""
+    assert sc.ssd_bwd_plan(48, 1) == (8, 6)
+    assert sc.ssd_bwd_plan(6, 2) == (3, 1)
+    assert sc.ssd_bwd_plan(20, 1) == (8, 3)
+    assert sc.ssd_bwd_plan(1, 1) == (1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_head", [False, True])
+@pytest.mark.parametrize("shape", BWD_CARD_SHAPES)
+def test_ssd_bwd_kernel_matches_plain_on_card(cuda, shape, per_head):
+    """Every gradient within 1e-4 of its largest magnitude (fp32 sums in
+    another order, expf against torch.exp, and clog up to hundreds as in
+    the forward's REL_STRONG); three launches bit-identical."""
+    H = shape[2]
+    ops = [_t(a).to(cuda) for a in _bwd_operands(
+        shape, H if per_head else 1, seed=sum(shape))]
+    sc.reset_launches()
+    runs = [sc.ssd_intra_chunk_bwd(*ops) for _ in range(3)]
+    torch.cuda.synchronize()
+    want = ref.ssd_intra_chunk_bwd(*ops)
+    for name, got, w in zip(("dx", "ddt", "dda", "db", "dc"), runs[0], want):
+        assert got.shape == w.shape and torch.isfinite(got).all(), name
+        err = (got - w).abs().max().item()
+        assert err <= REL_STRONG * w.abs().max().item(), (name, err)
+    for again in runs[1:]:
+        for a, b in zip(runs[0], again):
+            assert torch.equal(a, b)
+    assert sc.LAUNCHES == {("ssd_intra_chunk_bwd", shape): 3}
+
+
+@pytest.mark.cuda
+def test_ssd_bwd_kernel_strong_decay_stays_finite_on_card(cuda):
+    """Masked differences far past expf's overflow: every gradient finite
+    and equal to the plain version's (which forms no inf either)."""
+    shape = (2, 128, 48, 64, 128)
+    ops = [_t(a).to(cuda) for a in _bwd_operands(shape, 1, seed=11)]
+    clog = torch.cumsum(ops[2], dim=1)
+    assert (clog[:, :1] - clog[:, -1:]).max().item() > 4 * 88.7
+    got = sc.ssd_intra_chunk_bwd(*ops)
+    torch.cuda.synchronize()
+    want = ref.ssd_intra_chunk_bwd(*ops)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all() and torch.isfinite(w).all()
+        assert (g - w).abs().max().item() <= \
+            REL_STRONG * w.abs().max().item()
