@@ -6,7 +6,7 @@
    ``nvcc`` per source, all started together), and counts the tensor-core
    instructions in the SASS: ``HGMMA`` (wgmma) in the forward's, the
    backward's, the merge's and the projection's libraries, ``HMMA``
-   (mma.sync) in the SSD kernel's; none is a failure.
+   (mma.sync) in the SSD kernel's and its backward's; none is a failure.
 2. Holds both forms of the low-rank forward kernel (shared B at prefill,
    M = 128, or 1 for the unembedding; one B per row at decode, batch 4 x
    seq 1, read by tenant index from a store of 4 tenants with rows
@@ -24,7 +24,7 @@
    (BC 128 = batch 16 x 8 chunks), the forward and the backward kernel
    (``ssd_intra_chunk_bwd``), the backward also with a decay whose
    masked differences pass 4 x 88.7 (every gradient finite) and three
-   launches bit-identical.  Each forward row logs its launch plan
+   launches bit-identical, timed queued and eager.  Each forward row logs its launch plan
    (per pass of the mainloop: tile width, splits of K, cluster size,
    units, persistent or not; or the per-row-B kernel's), and a shared-B
    row of at most ``SKINNY_ROWS`` rows, which takes the per-row-B kernel,
@@ -1058,11 +1058,13 @@ def compare_ssd_bwd_kernel(mods, dev, shape=SSD_TRAIN_SHAPE):
     training shape, fp32, one B/C group (as the mixer passes it), dt and A
     by the mixer's laws, then again with a decay whose masked clog
     differences pass 4 x 88.7 (every gradient finite); three launches
-    queued back to back bit-identical.  Kernel and plain version timed
-    with events; the bound is the larger of the bytes (each input read
-    once, each output written once) and the causal half's multiply-adds
-    as 3xTF32 products at the TF32 peak (the fp32 SIMT bound beside it in
-    the log).  No PyTorch call computes it: library_ms is null."""
+    queued back to back bit-identical.  The kernel timed queued (the
+    stream held while the host queues the calls) and eager, the plain
+    version eager, with events; the bound is the larger of the bytes (each
+    input read once, each output written once) and the causal half's
+    multiply-adds as 3xTF32 products at the TF32 peak (the fp32 SIMT bound
+    beside it in the log).  No PyTorch call computes it: library_ms is
+    null."""
     ref, sc = mods["ref"], mods["sc"]
     gen = torch.Generator(device=dev)
     gen.manual_seed(9)
@@ -1094,7 +1096,7 @@ def compare_ssd_bwd_kernel(mods, dev, shape=SSD_TRAIN_SHAPE):
         if not same:
             raise SystemExit("ssd_intra_chunk_bwd: three launches differ")
         log(f"[kernel] ssd_intra_chunk_bwd {list(shape)} "
-            f"({'strong decay' if strong else 'mixer laws'}) route=simt "
+            f"({'strong decay' if strong else 'mixer laws'}) route=tc "
             f"max_abs_err={err:.4g} (max rel {rel:.3g}, tol {SSD_TOL}*max "
             f"per output; the largest masked clog_i - clog_j {reach:.1f}); "
             f"every gradient finite; 3 launches bit-identical")
@@ -1107,16 +1109,33 @@ def compare_ssd_bwd_kernel(mods, dev, shape=SSD_TRAIN_SHAPE):
                           + 4 * BC * Q * groups * N)
             bms, by = bound_of(nbytes, 3 * ops_n, TF32_FLOP_PER_S)
             fp32_bms, fp32_by = bound_of(nbytes, ops_n, FP32_FLOP_PER_S)
-            ms = time_ms(lambda: sc.ssd_intra_chunk_bwd(*ops), iters=10)
+            ms = queued_ms(lambda: sc.ssd_intra_chunk_bwd(*ops), calls=10)
+            eager_ms = time_ms(lambda: sc.ssd_intra_chunk_bwd(*ops), iters=10)
             plain_ms = time_ms(lambda: ref.ssd_intra_chunk_bwd(*ops),
                                iters=3, warmup=1)
+            plan = sc.ssd_bwd_plan(BC, H, N, 1)
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    sc.ssd_intra_chunk_bwd(*ops)
+                torch.cuda.synchronize()
+            rows, _ = device_rows(prof)
+            grids = {grid: sum(e.self_device_time_total for e in rows
+                               if f"ssd_bwd_{grid}_kernel" in e.key) / 5e3
+                     for grid in ("heads", "groups")}
             out = dict(shape=shape, max_abs_err=err, ms=ms,
-                       plain_ms=plain_ms, library_ms=None, bound_ms=bms,
-                       bound_by=by)
-            log(f"[kernel] ssd_intra_chunk_bwd {list(shape)} ms={ms:.4f} "
+                       eager_ms=eager_ms, plain_ms=plain_ms,
+                       library_ms=None, bound_ms=bms, bound_by=by,
+                       grids_ms=grids)
+            log(f"[kernel] ssd_intra_chunk_bwd {list(shape)} route=tc: plan "
+                f"{plan.slices} slices of {plan.heads_per_slice} heads, "
+                f"{plan.heads_ctas} heads CTAs, then {plan.group_ctas} group "
+                f"CTAs; ms={ms:.4f} [queued; eager {eager_ms:.4f} ms/call] "
                 f"plain_ms={plain_ms:.4f} library_ms=null bound_ms="
                 f"{bms:.4f} ({by}; fp32 SIMT {fp32_bms:.4f}, {fp32_by}; "
-                f"{nbytes / 1e6:.0f} MB, {ops_n / 1e9:.1f} GFLOP)")
+                f"{nbytes / 1e6:.0f} MB, {ops_n / 1e9:.1f} GFLOP); device ms "
+                f"a call: heads grid {grids['heads']:.4f}, group grid "
+                f"{grids['groups']:.4f}")
         else:
             out["max_abs_err"] = max(out["max_abs_err"], err)
         del x, dt, da, b, c, dy, ds, ops, runs, want
@@ -1937,7 +1956,7 @@ def profile_train(tr, steps=2, tag="profile-train", match=(), top=12):
     if bwd:
         log(f"[{tag}] ssd_intra_chunk_bwd: "
             f"{sum(e.self_device_time_total for e in bwd) / 1e3 / steps:.2f}"
-            f" device ms/step in its four grids")
+            f" device ms/step in its two grids")
     fin = [e for e in rows if "finish" in e.key]
     log(f"[{tag}] the forward's finish epilogue: " + (", ".join(
         f"{e.self_device_time_total / 1e3 / steps:.2f} ms/step" for e in fin)
@@ -3119,14 +3138,17 @@ def main():
         log(f"[build] lib{name}: {n} HGMMA (wgmma) instructions in its SASS")
         if n == 0:
             raise SystemExit(f"lib{name} holds no tensor-core instruction")
-    # the SSD kernel runs mma.sync (TF32), which is HMMA in the SASS
-    sass = subprocess.run([str(cuobjdump), "-sass",
-                           str(built["ssd_chunk"]["path"])],
-                          capture_output=True, text=True, check=True).stdout
-    n = sum("HMMA" in line for line in sass.splitlines())
-    log(f"[build] libssd_chunk: {n} HMMA (mma.sync) instructions in its SASS")
-    if n == 0:
-        raise SystemExit("libssd_chunk holds no tensor-core instruction")
+    # the SSD kernels run mma.sync (TF32), which is HMMA in the SASS
+    for name in ("ssd_chunk", "ssd_chunk_bwd"):
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(built[name]["path"])],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        n = sum("HMMA" in line for line in sass.splitlines())
+        log(f"[build] lib{name}: {n} HMMA (mma.sync) instructions in its "
+            f"SASS")
+        if n == 0:
+            raise SystemExit(f"lib{name} holds no tensor-core instruction")
 
     mods = dict(lf=lf, lb=lb, lu=lu, sa=sa, sc=sc, ref=ref,
                 dispatch=dispatch, lm=lm, configs=configs, serve=serve_mod,
@@ -3229,13 +3251,15 @@ def main():
         "name": f"ssd_intra_chunk_bwd [fp32, one B/C group] "
                 f"{list(row['shape'])} (mamba2-780m training, batch 16 x "
                 f"1024)",
-        "route": "cuda", "path": "simt", "source": SSD_BWD_SOURCE,
+        "route": "cuda", "path": "tc", "source": SSD_BWD_SOURCE,
         "replaces": SSD_BWD_REPLACES,
         "launches": mamba_train_counts[("ssd_intra_chunk_bwd",
                                         row["shape"])],
         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        "timing": "queued", "eager_ms": row["eager_ms"],
+        "grids_ms": row["grids_ms"]})
     for row in train_rows:
         kernels.append({
             "name": f"{row['kernel']} {list(row['shape'])} "

@@ -13,7 +13,7 @@
 //   dda  = reverse cumsum of dclog
 //
 // and per B/C group g, over its heads:  D = Σ_h ds_h,  dC = D B,
-// dB = Dᵀ C + Σ_h w_h ⊙ (X_h dS_hᵀ).
+// dB = Dᵀ C + E,  E = Σ_h w_h ⊙ (X_h dS_hᵀ).
 //
 // fp32 throughout: x, dt, da, b, c, dy and dstate in, dx, ddt, dda, db, dc
 // out.  Training casts every SSD operand to fp32 (as the reference
@@ -27,77 +27,133 @@
 //
 // What bounds it: at mamba2-780m's training shape (BC 128, Q 128, H 48,
 // P 64, N 128, one group) a call moves about 851 MB (x, dy, dstate, dx at
-// 201 MB each) for about 2e10 multiply-adds on the causal half: about 47
-// operations per byte, above the fp32 FMA balance point (67 TFLOP/s
-// against 3.35 TB/s, 20), so operations.  This first kernel takes every
-// product on fp32 FMAs from shared memory (a 16 x 16 thread grid, each
-// thread an 8 x 8 or 8 x 4 register tile, rows and columns strided by
-// 16, row strides padded odd so no read conflicts), computes the full
-// square of each Q x Q product and masks it, and recomputes datt in a
-// second grid rather than write a Q x Q matrix per head to device
-// memory.  Four launches, stream-ordered, no atomics, every sum in a
-// fixed order, so repeated calls give bit-identical outputs:
+// 201 MB each) for about 2e10 multiply-adds on the causal half, which as
+// 3xTF32 products (three tensor-core products each) take about as long at
+// the TF32 peak as the bytes at the memory's: both about 0.25 ms.  The
+// design runs every product on the tensor cores, forms each Q x Q product
+// on its causal tiles only, forms datt once per head, and reads x, dy and
+// dstate once:
 //
-// 1. gram:   per (bc, group) G = C Bᵀ (Q x Q) into scratch, once per group
-//            whatever the number of heads that read it.
-// 2. heads:  per (bc, head): datt, K, att (in shared memory), the row and
-//            column sums for ddt and dclog, dx = attᵀ dY + w ⊙ (B dS),
-//            dw, ddt and dda (warp scans in fp64, rounded once).
-// 3. slices: per (bc, group, slice of at most kSliceHeads heads): D and
-//            Σ w ⊙ X dSᵀ over the slice's heads in head order (D in
-//            registers, the other in shared memory), to scratch.
-// 4. groups: per (bc, group): the slices' sums in slice order, then
-//            dC = D B and dB = Dᵀ C + Σ.
+// * Two grids, stream-ordered.  A heads CTA (bc, group, slice) walks the
+//   slice's heads (at most kSliceHeads, the wrapper's ssd_bwd_plan; the
+//   launcher refuses another split) in head order.  It loads B and C of
+//   its group once and keeps its Gram s = C Bᵀ in registers; per head it
+//   forms datt, K, M, att and ds on the causal tiles, writes dx, ddt and
+//   dda, and adds ds into D (registers) and w ⊙ X dSᵀ into E (registers)
+//   in head order.  At the end it stores D and E as the slice's partial
+//   sums.  A group CTA (bc, group, 32 columns of n) sums the slices' D and
+//   E in slice order and forms dC = D B and dB = Dᵀ C + E.
+// * Per head, in 64-column passes of the head dim (one at P <= 64): the
+//   datt pass (dY Xᵀ on the causal 16 x 8 tiles, two column parities of a
+//   strip pair per warp, 9 tiles each at Q = 128; the decay masked only on
+//   diagonal tiles and rows past Q; att into shared memory, packed by
+//   16-row strip; the column sums of K and M reduced over the lanes three
+//   tiles at a time), the E pass (X dSᵀ per 16-row strip, dw = Σ_n B_jn
+//   (X dSᵀ)_jn beside it), then the dx pass (B dS, then attᵀ dY on the
+//   causal k only, summed onto w ⊙ B dS; a strip pair and half the columns
+//   per warp).  datt is linear in the passes' sums, so K, M and ds of a
+//   pass add up.  The next head's x is copied (cp.async) during the dx
+//   pass, its dY and dS after it, its dt and da fetched before it.
+// * The tensor cores at fp32 accuracy: mma.sync m16n8k8 TF32 with the
+//   3xTF32 split (tf32_mma.cuh, shared with the forward): hi.hi in one
+//   sum, hi.lo + lo.hi in another.  mma.sync and not wgmma: TF32 wgmma
+//   takes only K-major operands, and these products reduce over the row
+//   axis of x, dY, dS, B and C.
+// * Shared memory: B (and C before the first head) and one head's x, dY,
+//   dS and att, 226 KB, one CTA an SM; the Gram, D and E (136 registers a
+//   thread) stay in registers.  Row strides 8 mod 32 (x, dY, dS, att) and
+//   4 mod 32 (B, C) keep every fragment read free of bank conflicts.  The
+//   heads kernel has two instances: Q = N = 128 with P a multiple of 64
+//   (every loop bound a constant), and the ragged shapes (Q, N, P any of
+//   1..128, zero-filled and masked on store).
+// * No atomics, every sum in a fixed order, so repeated calls give
+//   bit-identical outputs.  The fp64 warp scans of clog and dda are
+//   rounded once.
+//
+// What holds it back (measured on an H100, 700 W; PERF.md §6): the
+// 3xTF32 inner loops split every fragment they load, which caps them at
+// about 0.4 tensor-core products a clock an SM against mma.sync's 0.66,
+// and the resident Gram, D and E leave no registers for larger warp
+// tiles (255 a thread); the datt pass's decay and sums add about a sixth.
 //
 // Plain C interface, loaded with ctypes; the Python wrapper
 // (repro_torch/kernels/ssd_chunk.py) allocates the outputs and scratch.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // a 16 x 16 thread grid
-constexpr int kMax = 128;      // Q, N, P at most; tiles cover 128 rows
-constexpr int kSq = kMax + 1;  // row stride of a 128-column tile (odd)
-constexpr int kSliceHeads = 8;
+constexpr int kThreads = 256;
+constexpr int kMax = 128;        // Q, N, P at most
+constexpr int kPC = 64;          // head-dim columns a pass
+constexpr int kXS = kPC + 8;     // row stride of x, dY, dS (8 mod 32)
+constexpr int kBS = kMax + 4;    // row stride of B, C, D (4 mod 32)
+constexpr int kSlots = 9;        // datt tiles a warp, at most
+constexpr int kSliceHeads = 16;  // heads a slice, at most
+constexpr int kNB = 32;          // columns n a group CTA
+constexpr int kGB = kNB + 8;     // row stride of a group CTA's B (8 mod 32)
+constexpr int kGC = kNB + 4;     // and of its C (4 mod 32)
+
+// The heads CTA's shared memory (floats): B, x, dY, dS, att, vectors; C
+// over dS and att until the Gram is formed.  att is packed by 16-row
+// strip s: its 16(s+1) columns at row stride 16(s+1) + 8 (8 mod 16).
+constexpr int kOffX = kMax * kBS;
+constexpr int kOffY = kOffX + kMax * kXS;
+constexpr int kOffS = kOffY + kMax * kXS;
+constexpr int kOffAt = kOffS + kMax * kXS;
+constexpr int kOffVec = kOffAt + 16 * 8 * 80;  // Σ_s 16 (16 s + 24)
+// vectors: clog, dt, e, w, dw; row sums by column parity (2); column sums
+// of K and of M by strip (8 each)
+constexpr int kVClog = 0, kVDt = kMax, kVE = 2 * kMax, kVW = 3 * kMax,
+              kVDw = 4 * kMax, kVRow = 5 * kMax, kVColK = 7 * kMax,
+              kVColM = 15 * kMax, kVecFloats = 23 * kMax;
+constexpr int kHeadsFloats = kOffVec + kVecFloats;
+static_assert(kOffS + kMax * kBS <= kOffVec, "C fits over dS and att");
+// the group CTA's: D (Q x Q), B and C (Q x 32)
+constexpr int kGroupFloats = kMax * (kBS + kGB + kGC);
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
 
 struct Args {
   const float *x, *dt, *da, *b, *c, *dy, *dstate;
   float *dx, *ddt, *dda, *db, *dc;
-  float *gram, *dpart, *epart;  // (BC,G,Q,Q), (BC,G,S,Q,Q), (BC,G,S,Q,N)
-  long long BC;
-  int Q, H, P, N, G, rep, hs, slices, PS;  // PS: row stride of a P tile
+  float *dpart, *epart;  // (BC, G, slices, Q, Q) and (.., Q, N) scratch
+  int Q, H, P, N, G, rep, hs, slices;
+  int S, pairs, Qp, N8, passes, nblk;  // strips, their pairs, Q to 16, ...
+  bool vec_p, vec_n;  // 16-byte copies of x / dy / dstate rows, b / c rows
 };
 
-// acc[m][n] += Σ_{k<K} A(ty + 16m, k) B(k, tx + 16n), A(r, k) at
-// A[r ars + k aks] and B(k, c) at B[k bks + c bcs], all in shared memory
-template <int RM, int RN>
-__device__ __forceinline__ void mm(float (&acc)[RM][RN], const float* A,
-                                   int ars, int aks, const float* B, int bks,
-                                   int bcs, int K, int ty, int tx) {
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float a[RM], b[RN];
-#pragma unroll
-    for (int m = 0; m < RM; ++m) a[m] = A[(ty + 16 * m) * ars + k * aks];
-#pragma unroll
-    for (int n = 0; n < RN; ++n) b[n] = B[k * bks + (tx + 16 * n) * bcs];
-#pragma unroll
-    for (int m = 0; m < RM; ++m)
-#pragma unroll
-      for (int n = 0; n < RN; ++n) acc[m][n] = fmaf(a[m], b[n], acc[m][n]);
-  }
+__device__ __forceinline__ int at_base(int s) { return 128 * s * (s + 2); }
+__device__ __forceinline__ int at_stride(int s) { return 16 * s + 24; }
+__device__ __forceinline__ int at_index(int i, int j) {
+  return at_base(i >> 4) + (i & 15) * at_stride(i >> 4) + j;
 }
 
-// rows x cols floats of a (row stride rs) into dst (row stride ds), the
-// tile's kMax rows and `pad` columns, zero outside [0, rows) x [0, cols)
-__device__ __forceinline__ void load_tile(float* dst, int ds, const float* src,
+// rows x cols floats (cols a multiple of 4 when vec) into dst (row stride
+// ds) from src (row r at src + r rs), zero where r >= vrows or the column
+// >= vcols: cp.async, 16-byte pieces when `vec` (vcols and the rows'
+// starts then multiples of 4 floats).  A piece not copied reads nothing.
+__device__ __forceinline__ void copy_rows(float* dst, int ds, const float* src,
                                           long long rs, int rows, int cols,
-                                          int pad) {
-  for (int e = threadIdx.x; e < kMax * pad; e += kThreads) {
-    const int r = e / pad, q = e - r * pad;
-    dst[r * ds + q] = (r < rows && q < cols) ? src[r * rs + q] : 0.f;
+                                          int vrows, int vcols, bool vec) {
+  if (vec) {
+    const int pieces = cols / 4;
+    for (int e = threadIdx.x; e < rows * pieces; e += kThreads) {
+      const int r = e / pieces, q = 4 * (e - r * pieces);
+      const bool ok = r < vrows && q < vcols;
+      cp16(dst + r * ds + q, ok ? src + r * rs + q : src, ok);
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < rows * cols; e += kThreads) {
+    const int r = e / cols, q = e - r * cols;
+    const bool ok = r < vrows && q < vcols;
+    cp4(dst + r * ds + q, ok ? src + r * rs + q : src, ok);
   }
 }
 
@@ -128,327 +184,589 @@ __device__ __forceinline__ void warp_scan(float* v, int Q, int lane,
   }
 }
 
-// sum over the 16 lanes of a half warp (the tx of one ty), fixed order
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
+// The causal datt tiles (16 rows i x 8 columns j) of a warp: strips a =
+// pair and b = S-1-pair (rows 16a.., 16b..), the column blocks cb < 2s + 2
+// that hold a token, of one parity (the warp's lowest bit).  Slot k < na
+// is strip a's block par + 2k, then strip b's.  At Q = 128: 9 tiles each.
+struct Slots {
+  int a, b, na, nb, par;
+  __device__ __forceinline__ Slots(const Args& g, int warp) {
+    const int pair = warp >> 1;
+    par = warp & 1;
+    a = pair;
+    b = g.S - 1 - pair;
+    const int cbq = cdiv(g.Q, 8);
+    auto tiles = [&](int s) {
+      return (imin(2 * s + 2, cbq) - par + 1) / 2;
+    };
+    na = pair < g.pairs ? tiles(a) : 0;
+    nb = pair < g.pairs && b > a ? tiles(b) : 0;
+  }
+  __device__ __forceinline__ bool has(int k) const { return k < na + nb; }
+  __device__ __forceinline__ int strip(int k) const { return k < na ? a : b; }
+  __device__ __forceinline__ int block(int k) const {
+    return par + 2 * (k < na ? k : k - na);
+  }
+};
+
+// The decay of head h: dt, da of token t (zero past Q), fetched into
+// registers a head ahead (during the previous head's dx pass)
+struct Decay {
+  float dt, da;
+};
+__device__ __forceinline__ Decay fetch_decay(const Args& a, long long bc,
+                                             int h) {
+  const int t = threadIdx.x;
+  const bool in = t < a.Q;
+  const long long at = (bc * a.Q + t) * a.H + h;
+  return {in ? a.dt[at] : 0.f, in ? a.da[at] : 0.f};
+}
+
+// one pass's copies: x or dY of head h, columns [64 c, +64), Qp rows; dS
+// rows n < N8
+__device__ __forceinline__ void copy_xy(const Args& a, float* dst,
+                                        const float* src, long long bc,
+                                        int h, int c) {
+  const int p0 = kPC * c, pw = imin(kPC, a.P - p0);
+  const long long rs = (long long)a.H * a.P;
+  copy_rows(dst, kXS, src + (bc * a.Q * a.H + h) * a.P + p0, rs, a.Qp,
+            (pw + 7) & ~7, a.Q, pw, a.vec_p);
+}
+__device__ __forceinline__ void copy_ds(const Args& a, float* dst,
+                                        long long bc, int h, int c) {
+  const int p0 = kPC * c, pw = imin(kPC, a.P - p0);
+  copy_rows(dst, kXS, a.dstate + (bc * a.H + h) * a.N * (long long)a.P + p0,
+            a.P, a.N8, (pw + 7) & ~7, a.N, pw, a.vec_p);
+}
+
+// sum over the lanes of one g (xor over t)
+__device__ __forceinline__ float sum_over_t(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
   return v;
 }
 
-// clog = cumsum(da), dts = dt of head h (zero past Q), then
-// e_j = exp(clog_last - clog_j) and w_j = e_j dt_j; ends synchronised
-__device__ __forceinline__ void decay(const Args& a, long long bc, int h,
-                                      float* clog, float* dts, float* es,
-                                      float* ws) {
-  const int t = threadIdx.x;
-  if (t < kMax) {
-    const long long at = (bc * a.Q + t) * a.H + h;
-    clog[t] = t < a.Q ? a.da[at] : 0.f;
-    dts[t] = t < a.Q ? a.dt[at] : 0.f;
-  }
-  __syncthreads();
-  if (t < 32) warp_scan(clog, a.Q, t, false);
-  __syncthreads();
-  if (t < kMax) {
-    const float e = t < a.Q ? expf(clog[a.Q - 1] - clog[t]) : 0.f;
-    es[t] = e;
-    ws[t] = e * dts[t];
-  }
-  __syncthreads();
-}
-
-// 1. G = C Bᵀ of group g, (Q, Q) into scratch
-__global__ void __launch_bounds__(kThreads, 1)
-    ssd_bwd_gram_kernel(const Args a) {
-  extern __shared__ __align__(16) float sm[];
-  const long long bc = blockIdx.x / a.G;
-  const int g = blockIdx.x % a.G;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  float* cs = sm;
-  float* bs = sm + kMax * kSq;
-  const long long at = (bc * a.Q * a.G + g) * a.N;
-  const long long rs = (long long)a.G * a.N;
-  load_tile(cs, kSq, a.c + at, rs, a.Q, a.N, kMax);
-  load_tile(bs, kSq, a.b + at, rs, a.Q, a.N, kMax);
-  __syncthreads();
-  float acc[8][8] = {};
-  mm(acc, cs, kSq, 1, bs, 1, kSq, a.N, ty, tx);
-  float* gm = a.gram + (bc * a.G + g) * a.Q * (long long)a.Q;
-#pragma unroll
-  for (int m = 0; m < 8; ++m)
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int i = ty + 16 * m, j = tx + 16 * n;
-      if (i < a.Q && j < a.Q) gm[(long long)i * a.Q + j] = acc[m][n];
-    }
-}
-
-// 2. per (bc, head): dx, ddt, dda
-template <int RN>
+// 1. per (bc, group, slice): the slice's heads in order.  kFull: Q = N =
+// 128 and P a multiple of 64 (mamba2's shapes), every loop bound and tile
+// count a constant; else the ragged shapes, zero-filled and masked.
+template <bool kFull>
 __global__ void __launch_bounds__(kThreads, 1)
     ssd_bwd_heads_kernel(const Args a) {
   extern __shared__ __align__(16) float sm[];
-  const long long bc = blockIdx.x / a.H;
-  const int h = blockIdx.x % a.H, g = h / a.rep;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int PS = a.PS, pad = 16 * RN;
-  float* xs = sm;                   // x_h (Q, P)
-  float* ys = xs + kMax * PS;       // dY_h, then dS_h (N, P)
-  float* W = ys + kMax * PS;        // att (i, j), then B_g (j, n)
-  float* clog = W + kMax * kSq;
-  float* dts = clog + kMax;
-  float* es = dts + kMax;
-  float* ws = es + kMax;
-  float* rowm = ws + kMax;          // Σ_j M_ij
-  float* colm = rowm + kMax;        // Σ_i M_ij, then dclog
-  float* colk = colm + kMax;        // Σ_i K_ij
-  float* dwv = colk + kMax;
-  float* stage = dwv + kMax;        // (2, 16, kMax) column partials by ty
-  const long long xrow = (long long)a.H * a.P;
-  const long long xo = (bc * a.Q * a.H + h) * a.P;
-  load_tile(xs, PS, a.x + xo, xrow, a.Q, a.P, pad);
-  load_tile(ys, PS, a.dy + xo, xrow, a.Q, a.P, pad);
-  decay(a, bc, h, clog, dts, es, ws);
+  long long blk = blockIdx.x;
+  const int sl = (int)(blk % a.slices);
+  blk /= a.slices;
+  const int grp = (int)(blk % a.G);
+  const long long bc = blk / a.G;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  float* bs = sm;
+  float* xs = sm + kOffX;
+  float* ys = sm + kOffY;
+  float* dss = sm + kOffS;
+  float* cs = sm + kOffS;  // C until the Gram is formed
+  float* at = sm + kOffAt;
+  float* vec = sm + kOffVec;
+  float* clog = vec + kVClog;
+  float* dts = vec + kVDt;
+  float* es = vec + kVE;
+  float* ws = vec + kVW;
+  float* dwv = vec + kVDw;
+  float* rowp = vec + kVRow;
+  float* colk = vec + kVColK;
+  float* colm = vec + kVColM;
+  const int h0 = grp * a.rep + sl * a.hs;
+  const int h1 = imin(h0 + a.hs, (grp + 1) * a.rep);
+  const Slots slots(a, warp);
+  const int Q = kFull ? kMax : a.Q, N8 = kFull ? kMax : a.N8;
+  const int Qp = kFull ? kMax : a.Qp, S = kFull ? 8 : a.S;
+  const int pairs = kFull ? 4 : a.pairs;
 
-  {  // datt = dY Xᵀ; K, M, att; row and column sums
-    float t[8][8] = {};
-    mm(t, ys, PS, 1, xs, 1, PS, a.P, ty, tx);
-    const float* gm = a.gram + (bc * a.G + g) * a.Q * (long long)a.Q;
-    float cm[8] = {}, ck[8] = {};
-#pragma unroll
-    for (int m = 0; m < 8; ++m) {
-      const int i = ty + 16 * m;
-      float rm = 0.f;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const int j = tx + 16 * n;
-        float att = 0.f;
-        if (j <= i && i < a.Q) {  // a masked pair never reaches the exp
-          const float sl =
-              gm[(long long)i * a.Q + j] * expf(clog[i] - clog[j]);
-          const float k = t[m][n] * sl;
-          const float mv = k * dts[j];
-          att = sl * dts[j];
-          rm += mv;
-          cm[n] += mv;
-          ck[n] += k;
-        }
-        W[i * kSq + j] = att;
-      }
-      rm = half_warp_sum(rm);
-      if (tx == 0) rowm[i] = rm;
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      stage[ty * kMax + tx + 16 * n] = cm[n];
-      stage[(16 + ty) * kMax + tx + 16 * n] = ck[n];
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < kMax) {  // column sums over ty, in order
-    const int j = threadIdx.x;
-    float sm_ = 0.f, sk = 0.f;
-    for (int r = 0; r < 16; ++r) {
-      sm_ += stage[r * kMax + j];
-      sk += stage[(16 + r) * kMax + j];
-    }
-    colm[j] = sm_;
-    colk[j] = sk;
-  }
-  float dx1[8][RN] = {};
-  mm(dx1, W, 1, kSq, ys, PS, 1, a.Q, ty, tx);  // attᵀ dY
-  __syncthreads();
-  // B of group g into W, dS_h into ys
-  const long long bo = (bc * a.Q * a.G + g) * a.N;
-  load_tile(W, kSq, a.b + bo, (long long)a.G * a.N, a.Q, a.N, kMax);
-  load_tile(ys, PS, a.dstate + (bc * a.H + h) * a.N * (long long)a.P, a.P,
-            a.N, a.P, pad);
-  __syncthreads();
+  // B and C of the group, then x and dY of the first head
   {
-    float u[8][RN] = {};
-    mm(u, W, kSq, 1, ys, PS, 1, a.N, ty, tx);  // B dS
-#pragma unroll
-    for (int m = 0; m < 8; ++m) {
-      const int j = ty + 16 * m;
-      float dw = 0.f;
-#pragma unroll
-      for (int n = 0; n < RN; ++n) {
-        const int p = tx + 16 * n;
-        if (j < a.Q && p < a.P) {
-          a.dx[xo + j * xrow + p] = fmaf(ws[j], u[m][n], dx1[m][n]);
-          dw = fmaf(u[m][n], xs[j * PS + p], dw);
-        }
-      }
-      dw = half_warp_sum(dw);
-      if (tx == 0) dwv[j] = dw;
-    }
+    const long long go = (bc * a.Q * a.G + grp) * a.N;
+    const long long rs = (long long)a.G * a.N;
+    copy_rows(bs, kBS, a.b + go, rs, a.Qp, a.N8, a.Q, a.N, a.vec_n);
+    copy_rows(cs, kBS, a.c + go, rs, a.Qp, a.N8, a.Q, a.N, a.vec_n);
+    cp_commit();
+    copy_xy(a, xs, a.x, bc, h0, 0);
+    cp_commit();
+    copy_xy(a, ys, a.dy, bc, h0, 0);
+    cp_commit();
   }
+  cp_wait<2>();
   __syncthreads();
-  if (threadIdx.x < 32) {  // ddt, dclog, then dda = its reverse cumsum
-    const int lane = threadIdx.x;
-    float last = 0.f;
-    for (int j = lane; j < a.Q; j += 32) last = fmaf(dwv[j], ws[j], last);
+  // the Gram s = C Bᵀ on the warp's tiles, three at a time
+  float gs[kSlots][4], dsum[kSlots][4];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      last += __shfl_xor_sync(0xffffffffu, last, off);
-    for (int j = lane; j < a.Q; j += 32) {
-      const long long at = (bc * a.Q + j) * a.H + h;
-      a.ddt[at] = fmaf(dwv[j], es[j], colk[j]);
-      float dcl = rowm[j] - colm[j] - dwv[j] * ws[j];
-      if (j == a.Q - 1) dcl += last;
-      colm[j] = dcl;
+  for (int k0 = 0; k0 < kSlots; k0 += 3) {
+    float acc[3][4] = {}, cor[3][4] = {};
+    for (int n = 0; n < N8; n += 8) {
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        if (!kFull && !slots.has(k0 + q)) continue;
+        Frag<true, true> f;
+        load_a_nat(f, cs + 16 * slots.strip(k0 + q) * kBS + n, kBS, gq,
+                   tq);
+        load_b_nrow_nat(f, bs + 8 * slots.block(k0 + q) * kBS + n, kBS, gq,
+                        tq);
+        f.mma3(acc[q], cor[q]);
+      }
     }
-    __syncwarp();
-    warp_scan(colm, a.Q, lane, true);
-    __syncwarp();
-    for (int j = lane; j < a.Q; j += 32)
-      a.dda[(bc * a.Q + j) * a.H + h] = colm[j];
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        gs[k0 + q][e] = acc[q][e] + cor[q][e];
+        dsum[k0 + q][e] = 0.f;
+      }
   }
-}
+  float esum[kMax / 8][4];
+#pragma unroll
+  for (int u = 0; u < kMax / 8; ++u)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) esum[u][e] = 0.f;
+  __syncthreads();  // C is read: dS may land over it
+  copy_ds(a, dss, bc, h0, 0);
+  cp_commit();
 
-// 3. per (bc, group, slice): Σ_h ds_h and Σ_h w_h ⊙ X_h dS_hᵀ, head order
-__global__ void __launch_bounds__(kThreads, 1)
-    ssd_bwd_slices_kernel(const Args a) {
-  extern __shared__ __align__(16) float sm[];
-  long long t = blockIdx.x;
-  const int sl = (int)(t % a.slices);
-  t /= a.slices;
-  const int g = (int)(t % a.G);
-  const long long bc = t / a.G;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int PS = a.PS;
-  float* xs = sm;
-  float* ys = xs + kMax * PS;   // dY_h, then dS_h
-  float* es_ = ys + kMax * PS;  // Σ w ⊙ X dSᵀ (j, n)
-  float* clog = es_ + kMax * kSq;
-  float* dts = clog + kMax;
-  float* ev = dts + kMax;
-  float* ws = ev + kMax;
-  for (int e = threadIdx.x; e < kMax * kSq; e += kThreads) es_[e] = 0.f;
-  float D[8][8] = {};
   const long long xrow = (long long)a.H * a.P;
-  const int h0 = g * a.rep + sl * a.hs;
-  const int h1 = min(h0 + a.hs, (g + 1) * a.rep);
+  Decay dec = fetch_decay(a, bc, h0);
   for (int h = h0; h < h1; ++h) {
-    __syncthreads();  // the previous head's reads are done
-    const long long xo = (bc * a.Q * a.H + h) * a.P;
-    load_tile(xs, PS, a.x + xo, xrow, a.Q, a.P, a.P);
-    load_tile(ys, PS, a.dy + xo, xrow, a.Q, a.P, a.P);
-    decay(a, bc, h, clog, dts, ev, ws);
-    {
-      float d[8][8] = {};
-      mm(d, ys, PS, 1, xs, 1, PS, a.P, ty, tx);  // datt = dY Xᵀ
+    // the head's decay: clog = cumsum(da), e_j, w_j; partial sums zeroed
+    __syncthreads();  // the previous head's last reads of the vectors
+    for (int e = threadIdx.x; e < kVecFloats - kVDw; e += kThreads)
+      vec[kVDw + e] = 0.f;
+    if (threadIdx.x < kMax) {
+      dts[threadIdx.x] = dec.dt;
+      clog[threadIdx.x] = dec.da;
+    }
+    __syncthreads();
+    if (warp == 0) warp_scan(clog, Q, lane, false);
+    __syncthreads();
+    if (threadIdx.x < kMax) {
+      const int t = threadIdx.x;
+      const float e = t < Q ? expf(clog[Q - 1] - clog[t]) : 0.f;
+      es[t] = e;
+      ws[t] = e * dts[t];
+    }
+    for (int c = 0; c < a.passes; ++c) {
+      const int p0 = kPC * c, pw = kFull ? kPC : imin(kPC, a.P - p0);
+      const int pw8 = kFull ? kPC : (pw + 7) & ~7;
+      const bool last = h + 1 == h1 && c + 1 == a.passes;
+      const int hn = c + 1 < a.passes ? h : h + 1;
+      const int cn = c + 1 < a.passes ? c + 1 : 0;
+      cp_wait<1>();   // x and dY of this pass
+      __syncthreads();
+
+      // -- datt = dY Xᵀ on the warp's causal tiles; K, M, att, ds
+      float rsum[2][2] = {};  // row sums of M: strip a, b x rows g, g + 8
 #pragma unroll
-      for (int m = 0; m < 8; ++m) {
-        const int i = ty + 16 * m;
+      for (int k0 = 0; k0 < kSlots; k0 += 3) {
+        float acc[3][4] = {}, cor[3][4] = {};
+        for (int p = 0; p < pw8; p += 8) {
 #pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          const int j = tx + 16 * n;
-          if (j <= i && i < a.Q)
-            D[m][n] = fmaf(d[m][n] * expf(clog[i] - clog[j]), dts[j], D[m][n]);
+          for (int q = 0; q < 3; ++q) {
+            if (!kFull && !slots.has(k0 + q)) continue;
+            Frag<true, true> f;
+            load_a(f, ys + 16 * slots.strip(k0 + q) * kXS + p, kXS, gq,
+                   tq);
+            load_b_nrow(f, xs + 8 * slots.block(k0 + q) * kXS + p, kXS, gq,
+                        tq);
+            f.mma3(acc[q], cor[q]);
+          }
         }
+        // the three tiles' column sums of K and M (columns 2t, 2t + 1),
+        // reduced over g together
+        float col[3][4];
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          const int k = k0 + q;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) col[q][e] = 0.f;
+          if (!kFull && !slots.has(k)) continue;
+          const int s = slots.strip(k), cb = slots.block(k);
+          const int i0 = 16 * s + gq, j0 = 8 * cb + 2 * tq;
+          // diagonal tiles and the rows past Q are masked, no others: a
+          // masked pair's exponent is -inf (L = 0), so its difference
+          // never reaches the exponential
+          const bool full = cb < 2 * s && (kFull || 16 * s + 16 <= Q);
+          const float2 cj = *reinterpret_cast<const float2*>(clog + j0);
+          const float2 dj = *reinterpret_cast<const float2*>(dts + j0);
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int i = i0 + 8 * hr;
+            const float ci = clog[i];
+            float av[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int j = j0 + e;
+              const float d = acc[q][2 * hr + e] + cor[q][2 * hr + e];
+              const float dtj = e ? dj.y : dj.x;
+              const bool in = full || (j <= i && i < Q);
+              const float L = __expf(in ? ci - (e ? cj.y : cj.x) : -INFINITY);
+              const float sl_ = gs[k][2 * hr + e] * L;
+              const float kv = d * sl_, mv = kv * dtj;
+              av[e] = sl_ * dtj;
+              dsum[k][2 * hr + e] = fmaf(d * L, dtj, dsum[k][2 * hr + e]);
+              col[q][e] += kv;
+              col[q][2 + e] += mv;
+              if (k < slots.na) rsum[0][hr] += mv;
+              else rsum[1][hr] += mv;
+            }
+            *reinterpret_cast<float2*>(at + at_index(i, j0)) =
+                make_float2(av[0], av[1]);
+          }
+        }
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1)
+#pragma unroll
+          for (int q = 0; q < 3; ++q)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              col[q][e] += __shfl_xor_sync(0xffffffffu, col[q][e], off);
+        if (gq == 0) {
+#pragma unroll
+          for (int q = 0; q < 3; ++q) {
+            const int k = k0 + q;
+            if (!kFull && !slots.has(k)) continue;
+            const int s = slots.strip(k);
+            const int j0 = 8 * slots.block(k) + 2 * tq;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              colk[s * kMax + j0 + e] += col[q][e];
+              colm[s * kMax + j0 + e] += col[q][2 + e];
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1)
+#pragma unroll
+        for (int st = 0; st < 2; ++st)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr)
+            rsum[st][hr] += __shfl_xor_sync(0xffffffffu, rsum[st][hr], off);
+      if (tq == 0) {
+#pragma unroll
+        for (int st = 0; st < 2; ++st) {
+          if (st == 0 ? slots.na == 0 : slots.nb == 0) continue;
+          const int s = st == 0 ? slots.a : slots.b;
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr)
+            rowp[slots.par * kMax + 16 * s + gq + 8 * hr] += rsum[st][hr];
+        }
+      }
+      cp_wait<0>();   // dS of this pass
+      __syncthreads();  // and att
+
+      // -- E += w ⊙ X dSᵀ on strip `warp`; dw_j = Σ_n B_jn (X dSᵀ)_jn
+      if (kFull || warp < S) {
+        const int j0 = 16 * warp + gq;
+        const float w0 = ws[j0], w1 = ws[j0 + 8];
+        float dw[2] = {};
+#pragma unroll
+        for (int q = 0; q < kMax / 32; ++q) {
+          if (!kFull && 32 * q >= N8) continue;
+          float acc[4][4] = {}, cor[4][4] = {};
+          for (int p = 0; p < pw8; p += 8) {
+            Frag<true, true> f;
+            load_a(f, xs + 16 * warp * kXS + p, kXS, gq, tq);
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              if (!kFull && 8 * (4 * q + u) >= N8) continue;
+              load_b_nrow(f, dss + 8 * (4 * q + u) * kXS + p, kXS, gq, tq);
+              f.mma3(acc[u], cor[u]);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            if (!kFull && 8 * (4 * q + u) >= N8) continue;
+            const int n = 8 * (4 * q + u) + 2 * tq;
+            const float2 b0 =
+                *reinterpret_cast<const float2*>(bs + j0 * kBS + n);
+            const float2 b1 =
+                *reinterpret_cast<const float2*>(bs + (j0 + 8) * kBS + n);
+            float f[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) f[e] = acc[u][e] + cor[u][e];
+            esum[4 * q + u][0] = fmaf(w0, f[0], esum[4 * q + u][0]);
+            esum[4 * q + u][1] = fmaf(w0, f[1], esum[4 * q + u][1]);
+            esum[4 * q + u][2] = fmaf(w1, f[2], esum[4 * q + u][2]);
+            esum[4 * q + u][3] = fmaf(w1, f[3], esum[4 * q + u][3]);
+            dw[0] = fmaf(b0.x, f[0], fmaf(b0.y, f[1], dw[0]));
+            dw[1] = fmaf(b1.x, f[2], fmaf(b1.y, f[3], dw[1]));
+          }
+        }
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const float v = sum_over_t(dw[hr]);
+          if (tq == 0) dwv[j0 + 8 * hr] += v;
+        }
+      }
+      __syncthreads();  // x is read
+      if (!last) {
+        copy_xy(a, xs, a.x, bc, hn, cn);
+        cp_commit();
+      }
+      if (c + 1 == a.passes && h + 1 < h1) dec = fetch_decay(a, bc, h + 1);
+
+      // -- dx = w ⊙ (B dS) + attᵀ dY, strips a and b, half the columns
+      {
+        const int pair = warp >> 1, hf = warp & 1;
+#pragma unroll
+        for (int st = 0; st < 2; ++st) {
+          const int sj = st == 0 ? pair : S - 1 - pair;
+          if (!kFull && (pair >= pairs || (st == 1 && sj <= pair))) continue;
+          float acc[4][4] = {}, cor[4][4] = {};
+          for (int n = 0; n < N8; n += 8) {
+            Frag<true, true> f;
+            load_a_nat(f, bs + 16 * sj * kBS + n, kBS, gq, tq);
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const int pc = 8 * (4 * hf + u);
+              if (!kFull && pc >= pw8) continue;
+              load_b_krow_nat(f, dss + n * kXS + pc, kXS, gq, tq);
+              f.mma3(acc[u], cor[u]);
+            }
+          }
+          const int j0 = 16 * sj + gq;
+          const float w0 = ws[j0], w1 = ws[j0 + 8];
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              acc[u][e] = (e < 2 ? w0 : w1) * (acc[u][e] + cor[u][e]);
+              cor[u][e] = 0.f;
+            }
+          for (int i0 = 16 * sj; i0 < Qp; i0 += 8) {
+            const int si = i0 >> 4;
+            Frag<true, true> f;
+            load_at_nat(f, at + at_base(si) + (i0 & 15) * at_stride(si) +
+                               16 * sj,
+                        at_stride(si), gq, tq);
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const int pc = 8 * (4 * hf + u);
+              if (!kFull && pc >= pw8) continue;
+              load_b_krow_nat(f, ys + i0 * kXS + pc, kXS, gq, tq);
+              f.mma3(acc[u], cor[u]);
+            }
+          }
+          float* dxh = a.dx + (bc * a.Q * a.H + h) * a.P + p0;
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int p = 8 * (4 * hf + u) + 2 * tq;
+#pragma unroll
+            for (int hr = 0; hr < 2; ++hr) {
+              const int j = j0 + 8 * hr;
+              if (!kFull && j >= Q) continue;
+              float* dst = dxh + j * xrow + p;
+              if (kFull) {
+                *reinterpret_cast<float2*>(dst) =
+                    make_float2(acc[u][2 * hr] + cor[u][2 * hr],
+                                acc[u][2 * hr + 1] + cor[u][2 * hr + 1]);
+              } else {
+#pragma unroll
+                for (int e = 0; e < 2; ++e)
+                  if (p + e < pw) dst[e] = acc[u][2 * hr + e] + cor[u][2 * hr + e];
+              }
+            }
+          }
+        }
+      }
+      __syncthreads();  // dY, dS and att are read
+      if (!last) {
+        copy_xy(a, ys, a.dy, bc, hn, cn);
+        cp_commit();
+        copy_ds(a, dss, bc, hn, cn);
+        cp_commit();
+      }
+    }
+
+    // ddt and dclog by token, then dda = the reverse cumsum of dclog
+    if (threadIdx.x < kMax) {
+      const int j = threadIdx.x;
+      if (j < Q) {
+        float ck = 0.f, cm = 0.f;
+        for (int s = j >> 4; s < S; ++s) {
+          ck += colk[s * kMax + j];
+          cm += colm[s * kMax + j];
+        }
+        a.ddt[(bc * a.Q + j) * a.H + h] = fmaf(dwv[j], es[j], ck);
+        rowp[j] = (rowp[j] + rowp[kMax + j]) - cm - dwv[j] * ws[j];
       }
     }
     __syncthreads();
-    load_tile(ys, PS, a.dstate + (bc * a.H + h) * a.N * (long long)a.P, a.P,
-              a.N, a.P, a.P);
-    __syncthreads();
-    {
-      float e[8][8] = {};
-      mm(e, xs, PS, 1, ys, 1, PS, a.P, ty, tx);  // X dSᵀ (j, n)
+    if (warp == 0) {
+      float lastv = 0.f;
+      for (int j = lane; j < Q; j += 32) lastv = fmaf(dwv[j], ws[j], lastv);
 #pragma unroll
-      for (int m = 0; m < 8; ++m) {
-        const int j = ty + 16 * m;
+      for (int off = 16; off > 0; off >>= 1)
+        lastv += __shfl_xor_sync(0xffffffffu, lastv, off);
+      if (lane == 0) rowp[Q - 1] += lastv;
+      __syncwarp();
+      warp_scan(rowp, Q, lane, true);
+      __syncwarp();
+      for (int j = lane; j < Q; j += 32)
+        a.dda[(bc * a.Q + j) * a.H + h] = rowp[j];
+    }
+  }
+
+  // the slice's D and E
+  const long long part = (bc * a.G + grp) * a.slices + sl;
+  float* dp = a.dpart + part * a.Q * (long long)a.Q;
 #pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          float* dst = es_ + j * kSq + tx + 16 * n;
-          *dst = fmaf(ws[j], e[m][n], *dst);
-        }
+  for (int k = 0; k < kSlots; ++k) {
+    if (!kFull && !slots.has(k)) continue;
+    const int i0 = 16 * slots.strip(k) + gq, j0 = 8 * slots.block(k) + 2 * tq;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int i = i0 + 8 * hr;
+      if (kFull) {
+        *reinterpret_cast<float2*>(dp + (long long)i * kMax + j0) =
+            make_float2(dsum[k][2 * hr], dsum[k][2 * hr + 1]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (i < Q && j0 + e < Q)
+            dp[(long long)i * Q + j0 + e] = dsum[k][2 * hr + e];
       }
     }
   }
-  const long long part = (bc * a.G + g) * a.slices + sl;
-  float* dp = a.dpart + part * a.Q * (long long)a.Q;
-  float* ep = a.epart + part * a.Q * (long long)a.N;
+  if (kFull || warp < S) {
+    float* ep = a.epart + part * a.Q * (long long)a.N;
 #pragma unroll
-  for (int m = 0; m < 8; ++m)
+    for (int u = 0; u < kMax / 8; ++u)
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int r = ty + 16 * m, q = tx + 16 * n;
-      if (r < a.Q && q < a.Q) dp[(long long)r * a.Q + q] = D[m][n];
-      if (r < a.Q && q < a.N)
-        ep[(long long)r * a.N + q] = es_[r * kSq + q];
-    }
+      for (int e = 0; e < 4; ++e) {
+        const int j = 16 * warp + gq + 8 * (e >> 1), n = 8 * u + 2 * tq + (e & 1);
+        if (j < Q && n < a.N) ep[(long long)j * a.N + n] = esum[u][e];
+      }
+  }
 }
 
-// 4. per (bc, group): D and Σ over slices in order; dC = D B,
-// dB = Dᵀ C + Σ
-__global__ void __launch_bounds__(kThreads, 1)
+// 2. per (bc, group, 32 columns of n): D and E summed over the slices in
+// order; dC = D B, dB = Dᵀ C + E on the causal k only
+__global__ void __launch_bounds__(kThreads, 2)
     ssd_bwd_groups_kernel(const Args a) {
   extern __shared__ __align__(16) float sm[];
-  const long long bc = blockIdx.x / a.G;
-  const int g = blockIdx.x % a.G;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  long long blk = blockIdx.x;
+  const int nb = (int)(blk % a.nblk);
+  blk /= a.nblk;
+  const int grp = (int)(blk % a.G);
+  const long long bc = blk / a.G;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
   float* ds = sm;
-  float* bs = sm + kMax * kSq;
-  const long long part0 = (bc * a.G + g) * a.slices;
-  const long long QQ = a.Q * (long long)a.Q, QN = a.Q * (long long)a.N;
-  for (int e = threadIdx.x; e < kMax * kMax; e += kThreads) {
-    const int i = e / kMax, j = e - i * kMax;
-    float v = 0.f;
-    if (i < a.Q && j < a.Q)
-      for (int s = 0; s < a.slices; ++s)
-        v += a.dpart[(part0 + s) * QQ + (long long)i * a.Q + j];
-    ds[i * kSq + j] = v;
-  }
-  const long long at = (bc * a.Q * a.G + g) * a.N;
+  float* bq = sm + kMax * kBS;
+  float* cq = bq + kMax * kGB;
+  const int n0 = kNB * nb, nw = imin(kNB, a.N - n0);
+  const int nw8 = (nw + 7) & ~7;
+  const long long go = (bc * a.Q * a.G + grp) * a.N + n0;
   const long long rs = (long long)a.G * a.N;
-  load_tile(bs, kSq, a.b + at, rs, a.Q, a.N, kMax);
-  __syncthreads();
-  {
-    float acc[8][8] = {};
-    mm(acc, ds, kSq, 1, bs, kSq, 1, a.Q, ty, tx);  // dC = D B
+  copy_rows(bq, kGB, a.b + go, rs, a.Qp, nw8, a.Q, nw, a.vec_n);
+  copy_rows(cq, kGC, a.c + go, rs, a.Qp, nw8, a.Q, nw, a.vec_n);
+  cp_commit();
+  const long long part0 = (bc * a.G + grp) * a.slices;
+  const long long QQ = a.Q * (long long)a.Q, QN = a.Q * (long long)a.N;
+  // D on the causal strips' columns (zero past Q), slices in order: 16
+  // elements a thread, each slice's 16 loads in flight together
+  for (int e0 = 0; e0 < a.Qp * kMax; e0 += 16 * kThreads) {
+    float v[16];
 #pragma unroll
-    for (int m = 0; m < 8; ++m)
+    for (int u = 0; u < 16; ++u) v[u] = 0.f;
+    for (int s = 0; s < a.slices; ++s) {
+      const float* dp = a.dpart + (part0 + s) * QQ;
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const int i = ty + 16 * m, q = tx + 16 * n;
-        if (i < a.Q && q < a.N) a.dc[at + i * rs + q] = acc[m][n];
-      }
-  }
-  __syncthreads();
-  load_tile(bs, kSq, a.c + at, rs, a.Q, a.N, kMax);
-  __syncthreads();
-  float acc[8][8] = {};
-  mm(acc, ds, 1, kSq, bs, kSq, 1, a.Q, ty, tx);  // Dᵀ C
-#pragma unroll
-  for (int m = 0; m < 8; ++m)
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int j = ty + 16 * m, q = tx + 16 * n;
-      if (j < a.Q && q < a.N) {
-        float v = acc[m][n];
-        for (int s = 0; s < a.slices; ++s)
-          v += a.epart[(part0 + s) * QN + (long long)j * a.N + q];
-        a.db[at + j * rs + q] = v;
+      for (int u = 0; u < 16; ++u) {
+        const int e = e0 + u * kThreads + threadIdx.x;
+        const int i = e >> 7, j = e & (kMax - 1);
+        if (i < a.Q && j < a.Q && j < 16 * ((i >> 4) + 1))
+          v[u] += dp[(long long)i * a.Q + j];
       }
     }
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+      const int e = e0 + u * kThreads + threadIdx.x;
+      const int i = e >> 7, j = e & (kMax - 1);
+      if (i < a.Qp && j < 16 * ((i >> 4) + 1)) ds[i * kBS + j] = v[u];
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();
+  const int pair = warp >> 1, hf = warp & 1;
+  if (pair >= a.pairs) return;
+#pragma unroll
+  for (int st = 0; st < 2; ++st) {
+    const int s = st == 0 ? pair : a.S - 1 - pair;
+    if (st == 1 && s <= pair) continue;
+    const int r0 = 16 * s + gq;
+    {  // dC rows of strip s: Σ_{j < 16(s+1)} D_ij B_j
+      float acc[2][4] = {}, cor[2][4] = {};
+      for (int k = 0; k < 16 * (s + 1); k += 8) {
+        Frag<true, true> f;
+        load_a_nat(f, ds + 16 * s * kBS + k, kBS, gq, tq);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int nc = 8 * (2 * hf + u);
+          if (nc >= nw8) continue;
+          load_b_krow_nat(f, bq + k * kGB + nc, kGB, gq, tq);
+          f.mma3(acc[u], cor[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = r0 + 8 * (e >> 1);
+          const int n = 8 * (2 * hf + u) + 2 * tq + (e & 1);
+          if (i < a.Q && n < nw)
+            a.dc[go + i * rs + n] = acc[u][e] + cor[u][e];
+        }
+    }
+    {  // dB rows of strip s: Σ_{i >= 16 s} D_ij C_i, + E
+      float acc[2][4] = {}, cor[2][4] = {};
+      float ev[2][4] = {};  // E: the slices' partial sums, in order
+      for (int sl = 0; sl < a.slices; ++sl)
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j = r0 + 8 * (e >> 1);
+            const int n = 8 * (2 * hf + u) + 2 * tq + (e & 1);
+            if (j < a.Q && n < nw)
+              ev[u][e] += a.epart[(part0 + sl) * QN + (long long)j * a.N +
+                                  n0 + n];
+          }
+      for (int k = 16 * s; k < a.Qp; k += 8) {
+        Frag<true, true> f;
+        load_at(f, ds + k * kBS + 16 * s, kBS, gq, tq);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int nc = 8 * (2 * hf + u);
+          if (nc >= nw8) continue;
+          load_b_krow(f, cq + k * kGC + nc, kGC, gq, tq);
+          f.mma3(acc[u], cor[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = r0 + 8 * (e >> 1);
+          const int n = 8 * (2 * hf + u) + 2 * tq + (e & 1);
+          if (j < a.Q && n < nw)
+            a.db[go + j * rs + n] = (acc[u][e] + cor[u][e]) + ev[u][e];
+        }
+    }
+  }
 }
 
 constexpr int kMaxDevices = 64;
 
-int gram_smem() { return 2 * kMax * kSq * (int)sizeof(float); }
-int heads_smem(int PS) {
-  return (2 * kMax * PS + kMax * kSq + 8 * kMax + 32 * kMax) *
-         (int)sizeof(float);
-}
-int slices_smem(int PS) {
-  return (2 * kMax * PS + kMax * kSq + 4 * kMax) * (int)sizeof(float);
-}
-
 // Above 48 KB of dynamic shared memory a launch needs an opt-in, set once
-// per device to what the largest shape (P = 128) takes
+// per device
 cudaError_t allow_shared_memory() {
   static bool done[kMaxDevices] = {};
   int dev = 0;
@@ -456,68 +774,64 @@ cudaError_t allow_shared_memory() {
   if (err != cudaSuccess) return err;
   if (dev < kMaxDevices && done[dev]) return cudaSuccess;
   const cudaFuncAttribute attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
-  err = cudaFuncSetAttribute(ssd_bwd_gram_kernel, attr, gram_smem());
+  err = cudaFuncSetAttribute(ssd_bwd_heads_kernel<true>, attr,
+                             kHeadsFloats * (int)sizeof(float));
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ssd_bwd_groups_kernel, attr, gram_smem());
+    err = cudaFuncSetAttribute(ssd_bwd_heads_kernel<false>, attr,
+                               kHeadsFloats * (int)sizeof(float));
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ssd_bwd_heads_kernel<4>, attr,
-                               heads_smem(65));
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ssd_bwd_heads_kernel<8>, attr,
-                               heads_smem(kSq));
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ssd_bwd_slices_kernel, attr,
-                               slices_smem(kSq));
+    err = cudaFuncSetAttribute(ssd_bwd_groups_kernel, attr,
+                               kGroupFloats * (int)sizeof(float));
   if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
   return err;
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
 
 // All pointers fp32 and contiguous: x, dy, dx (BC,Q,H,P); dt, da, ddt, dda
 // (BC,Q,H); b, c, db, dc (BC,Q,G,N), head h reading group h / (H / G);
-// dstate (BC,H,N,P).  Scratch: gram BC*G*Q*Q, dpart BC*G*S*Q*Q and epart
-// BC*G*S*Q*N floats, S = ceil((H / G) / heads_per_slice).
-// 1 <= Q, N, P <= 128; heads_per_slice must be min(H / G, 8), the
-// wrapper's plan (ssd_bwd_plan), or the call is refused.  Four launches on
+// dstate (BC,H,N,P).  Scratch: dpart BC*G*S*Q*Q and epart BC*G*S*Q*N
+// floats, S = slices.  1 <= Q, N, P <= 128; heads_per_slice must be
+// min(H / G, 16) and slices ceil((H / G) / heads_per_slice), the wrapper's
+// plan (ssd_bwd_plan), or the call is refused.  Two launches on
 // `stream`.  Returns the first CUDA error (0 = queued).
 extern "C" int ssd_intra_chunk_bwd_launch(
     const float* x, const float* dt, const float* da, const float* b,
     const float* c, const float* dy, const float* dstate, float* dx,
-    float* ddt, float* dda, float* db, float* dc, float* gram, float* dpart,
-    float* epart, long long BC, int Q, int H, int P, int N, int G,
-    int heads_per_slice, void* stream) {
+    float* ddt, float* dda, float* db, float* dc, float* dpart, float* epart,
+    long long BC, int Q, int H, int P, int N, int G, int heads_per_slice,
+    int slices, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (BC < 1 || Q < 1 || Q > kMax || N < 1 || N > kMax || P < 1 ||
       P > kMax || G < 1 || H < G || H % G)
     return (int)cudaErrorInvalidValue;
   const int rep = H / G;
-  const int hs = rep < kSliceHeads ? rep : kSliceHeads;
-  if (heads_per_slice != hs) return (int)cudaErrorInvalidValue;
-  const int slices = (rep + hs - 1) / hs;
-  if (BC * H > 0x7fffffffLL || BC * G * slices > 0x7fffffffLL)
+  const int hs = imin(rep, kSliceHeads);
+  if (heads_per_slice != hs || slices != cdiv(rep, hs))
     return (int)cudaErrorInvalidValue;
-  const bool wide = P > 64;
-  const int PS = wide ? kSq : 65;
-  const Args a{x,   dt,  da,    b,     c,     dy, dstate, dx, ddt,
-               dda, db,  dc,    gram,  dpart, epart, BC,  Q,  H,
-               P,   N,   G,     rep,   hs,    slices, PS};
+  const int nblk = cdiv(N, kNB);
+  if (BC * G * slices > 0x7fffffffLL || BC * G * nblk > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const int S = cdiv(Q, 16);
+  Args a{x,  dt, da, b,  c,   dy,     dstate, dx,    ddt, dda,
+         db, dc, dpart, epart, Q, H, P, N, G, rep, hs, slices,
+         S,  cdiv(S, 2), 16 * S, (N + 7) & ~7, cdiv(P, kPC), nblk,
+         P % 4 == 0 && aligned16(x) && aligned16(dy) && aligned16(dstate),
+         N % 4 == 0 && aligned16(b) && aligned16(c)};
   cudaError_t err = allow_shared_memory();
   if (err != cudaSuccess) return (int)err;
-  ssd_bwd_gram_kernel<<<(unsigned)(BC * G), kThreads, gram_smem(), st>>>(
-      a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if (wide)
-    ssd_bwd_heads_kernel<8>
-        <<<(unsigned)(BC * H), kThreads, heads_smem(PS), st>>>(a);
+  const unsigned heads = (unsigned)(BC * G * slices);
+  const size_t smem = kHeadsFloats * sizeof(float);
+  if (Q == kMax && N == kMax && P % kPC == 0)
+    ssd_bwd_heads_kernel<true><<<heads, kThreads, smem, st>>>(a);
   else
-    ssd_bwd_heads_kernel<4>
-        <<<(unsigned)(BC * H), kThreads, heads_smem(PS), st>>>(a);
+    ssd_bwd_heads_kernel<false><<<heads, kThreads, smem, st>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ssd_bwd_slices_kernel<<<(unsigned)(BC * G * slices), kThreads,
-                          slices_smem(PS), st>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ssd_bwd_groups_kernel<<<(unsigned)(BC * G), kThreads, gram_smem(), st>>>(
-      a);
+  ssd_bwd_groups_kernel<<<(unsigned)(BC * G * nblk), kThreads,
+                          kGroupFloats * sizeof(float), st>>>(a);
   return (int)cudaGetLastError();
 }

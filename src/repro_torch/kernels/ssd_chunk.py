@@ -40,7 +40,7 @@ what each CTA computes, as the kernels decode their block index.
 ``LAUNCHES`` counts launches per ``("ssd_intra_chunk", (BC, Q, H, P,
 N))``: one per call, which queues both grids; and the backward's per
 ``("ssd_intra_chunk_bwd", (BC, Q, H, P, N))``: one per call, which
-queues its four (:func:`ssd_bwd_plan`).
+queues its two grids (:func:`ssd_bwd_plan`, :func:`ssd_bwd_cta`).
 """
 from __future__ import annotations
 
@@ -267,25 +267,73 @@ def _launch(x, dt, da, b, c, plan, b_strides, c_strides):
 # Gradient: per-group b and c, the backward kernel
 # ---------------------------------------------------------------------------
 
-SLICE_HEADS = 8     # heads per slice of the backward's group sums
+SLICE_HEADS = 16    # heads a backward CTA walks, at most
+GROUP_COLS = 32     # columns n of db, dc per group CTA
 
 
 class SSDBwdPlan(NamedTuple):
-    """The backward's split: its four grids are the Gram and group CTAs,
-    one per (bc, group), the head CTAs, one per (bc, head), and the slice
-    CTAs, one per (bc, group, slice of ``heads_per_slice`` heads), each
-    slice's sums read by its group's CTA in slice order."""
+    """The backward's split: a grid of ``heads_ctas`` heads CTAs ``(bc,
+    group, slice)``, each walking ``heads_per_slice`` heads of its group
+    in head order, then one of ``group_ctas`` group CTAs ``(bc, group,
+    block of GROUP_COLS columns n)``, which sum the slices' partial sums
+    in slice order; each index's last field fastest."""
     heads_per_slice: int
     slices: int
+    heads_ctas: int
+    n_blocks: int
+    group_ctas: int
 
 
-def ssd_bwd_plan(H: int, G: int) -> SSDBwdPlan:
+def ssd_bwd_plan(BC: int, H: int, N: int, G: int) -> SSDBwdPlan:
     """The split of a backward launch (the launcher refuses another).  At
-    mamba2-780m's training shape (BC 128, H 48, one group): 128 Gram and
-    group CTAs, 6144 head CTAs and 6 slices of 8 heads (768 CTAs)."""
+    mamba2-780m's training shape (BC 128, H 48, N 128, one group): 3
+    slices of 16 heads, 384 heads CTAs (one an SM at a time: 2.9 an SM),
+    then 512 group CTAs."""
     rep = H // G
     hs = min(rep, SLICE_HEADS)
-    return SSDBwdPlan(hs, -(-rep // hs))
+    slices = -(-rep // hs)
+    n_blocks = -(-N // GROUP_COLS)
+    return SSDBwdPlan(hs, slices, BC * G * slices, n_blocks,
+                      BC * G * n_blocks)
+
+
+def ssd_bwd_cta(plan: SSDBwdPlan, H: int, N: int, G: int, cta: int):
+    """What CTA ``cta`` computes, counting the heads grid's blocks first,
+    as the kernels decode their block index: ``("heads", bc, group,
+    heads)`` (dx, ddt and dda of those heads, in the order it walks them,
+    and their partial sums of D and E) or ``("group", bc, group,
+    columns)`` (those columns n of db and dc)."""
+    rep = H // G
+    if cta < plan.heads_ctas:
+        sl, rest = cta % plan.slices, cta // plan.slices
+        grp = rest % G
+        h0 = grp * rep + sl * plan.heads_per_slice
+        h1 = min(h0 + plan.heads_per_slice, (grp + 1) * rep)
+        return ("heads", rest // G, grp, tuple(range(h0, h1)))
+    cta -= plan.heads_ctas
+    nb, rest = cta % plan.n_blocks, cta // plan.n_blocks
+    n0 = GROUP_COLS * nb
+    return ("group", rest // G, rest % G,
+            tuple(range(n0, min(n0 + GROUP_COLS, N))))
+
+
+BWD_WARPS = 8       # warps of a heads CTA (256 threads)
+
+
+def ssd_bwd_tiles(Q: int, warp: int):
+    """The causal 16 x 8 tiles ``(i0, j0)`` of datt (rows i, columns j)
+    that warp ``warp`` of a heads CTA forms, as the kernel's ``Slots``:
+    16-row strips a = warp // 2 and b = S-1-a (S = ceil(Q / 16)), the
+    column blocks of the warp's parity below each strip's diagonal block's
+    end that hold a token."""
+    S = -(-Q // STRIP)
+    pair, par = warp // 2, warp % 2
+    if pair >= -(-S // 2):
+        return []
+    cbq = -(-Q // 8)
+    strips = [pair] + ([S - 1 - pair] if S - 1 - pair > pair else [])
+    return [(STRIP * s, 8 * cb) for s in strips
+            for cb in range(par, min(2 * s + 2, cbq), 2)]
 
 
 def _wants_grad(*ts) -> bool:
@@ -394,30 +442,39 @@ def ssd_intra_chunk_bwd(x, dt, da, b, c, dy, dstate):
             torch.empty_like(b), torch.empty_like(c))
     if BC == 0 or H == 0:
         return outs
-    plan = ssd_bwd_plan(H, G)
+    _bwd_launch(ts, outs, ssd_bwd_plan(BC, H, N, G))
+    LAUNCHES[("ssd_intra_chunk_bwd", (BC, Q, H, P, N))] += 1
+    return outs
+
+
+def _bwd_launch(ts, outs, plan):
+    """The backward kernel's two launches split by ``plan``, on the
+    contiguous CUDA tensors (x, dt, da, b, c, dy, dstate) and outputs;
+    counts nothing.  Raises if the launcher refuses the split (any other
+    than :func:`ssd_bwd_plan`'s)."""
+    x, b = ts[0], ts[3]
+    BC, Q, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
     f32 = dict(dtype=torch.float32, device=x.device)
-    gram = torch.empty(BC * G * Q * Q, **f32)
     dpart = torch.empty(BC * G * plan.slices * Q * Q, **f32)
     epart = torch.empty(BC * G * plan.slices * Q * N, **f32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _bwd_kernel()(*(t.data_ptr() for t in ts),
-                           *(t.data_ptr() for t in outs), gram.data_ptr(),
-                           dpart.data_ptr(), epart.data_ptr(), BC, Q, H, P,
-                           N, G, plan.heads_per_slice, stream)
+                           *(t.data_ptr() for t in outs), dpart.data_ptr(),
+                           epart.data_ptr(), BC, Q, H, P, N, G,
+                           plan.heads_per_slice, plan.slices, stream)
     if rc != 0:
         raise RuntimeError(
             f"ssd_intra_chunk_bwd kernel launch failed with CUDA error {rc} "
-            f"(x {tuple(x.shape)}, N={N}, {G} groups)")
-    LAUNCHES[("ssd_intra_chunk_bwd", (BC, Q, H, P, N))] += 1
-    return outs
+            f"(x {tuple(x.shape)}, N={N}, {G} groups, plan {plan})")
 
 
 @functools.cache
 def _bwd_kernel():
     fn = _build.load("ssd_chunk_bwd").ssd_intra_chunk_bwd_launch
-    # x, dt, da, b, c, dy, dstate, dx, ddt, dda, db, dc, gram, dpart,
-    # epart, BC, Q, H, P, N, G, heads_per_slice, stream
-    fn.argtypes = [_VP] * 15 + [_LL] + [_CI] * 6 + [_VP]
+    # x, dt, da, b, c, dy, dstate, dx, ddt, dda, db, dc, dpart, epart,
+    # BC, Q, H, P, N, G, heads_per_slice, slices, stream
+    fn.argtypes = [_VP] * 14 + [_LL] + [_CI] * 7 + [_VP]
     fn.restype = _CI
     return fn

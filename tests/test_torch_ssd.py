@@ -19,6 +19,13 @@
   - hi cut to 10 bits as the MMA reads it; lo*hi + hi*lo + hi*hi summed
   in fp64) and its fp64 warp-shuffle scan for ``cumsum(da)``, against
   the plain version at the four prefill shapes.
+* The backward kernel's split (``ssd_bwd_plan``, ``ssd_bwd_cta``,
+  ``ssd_bwd_tiles``): every head's dx, ddt, dda and every group's db,
+  dc owned by one CTA, a slice's heads in order, the warps' datt tiles
+  covering the causal pairs once; and its arithmetic emulated
+  (``_bwd_emulated``: 3xTF32 in two sums, 64-column passes, head- and
+  slice-order sums, fp64 scans) against the plain version and a float64
+  run, with two planted faults it must catch.
 
 Every comparison is fp32 against fp32 with sums in another order: the
 max abs error within ``REL`` = 1e-5 of the output's largest magnitude
@@ -33,14 +40,16 @@ and the launcher's refusal of any other, repeated launches, a decay far
 past expf's overflow, bf16), and its backward kernel
 (``csrc/ssd_chunk_bwd.cu``) to ``ref.ssd_intra_chunk_bwd`` (ragged
 shapes and mamba2-780m's training shape, b and c one group or one per
-head, a decay far past expf's overflow with every gradient finite, three
-launches bit-identical, the gradient through the wrapper and
-``ssd_chunked``, and the refusal of a bf16 input that requires a
-gradient); they skip here with a reason and import no JAX.  Run them on
-a card with ``PYTHONPATH=src python -m pytest -m cuda
+head, two groups with slices starting inside a group, a decay far past
+expf's overflow with every gradient finite, three launches
+bit-identical, the launcher's refusal of any other split, the gradient
+through the wrapper and ``ssd_chunked``, and the refusal of a bf16 input
+that requires a gradient); they skip here with a reason and import no
+JAX.  Run them on a card with ``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_ssd.py``.
 """
 import dataclasses
+import functools
 from types import SimpleNamespace
 
 import numpy as np
@@ -54,6 +63,7 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import ssd_chunk as sc  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models.linear import LRPack  # noqa: E402
+from _torch_parity import float64_plain_path  # noqa: E402
 
 REL = 1e-5
 REL_STRONG = 1e-4
@@ -653,11 +663,235 @@ def _bwd_operands(shape, groups, seed, strong=True):
 
 
 def test_ssd_bwd_plan_slices_the_heads_of_a_group():
-    """Every head of a group in one slice, slices of at most 8 heads."""
-    assert sc.ssd_bwd_plan(48, 1) == (8, 6)
-    assert sc.ssd_bwd_plan(6, 2) == (3, 1)
-    assert sc.ssd_bwd_plan(20, 1) == (8, 3)
-    assert sc.ssd_bwd_plan(1, 1) == (1, 1)
+    """The heads of a group in slices of at most SLICE_HEADS (16), in
+    order; at mamba2-780m's training shape 384 heads CTAs (2.9 an SM)."""
+    assert sc.ssd_bwd_plan(128, 48, 128, 1)[:2] == (16, 3)
+    assert sc.ssd_bwd_plan(1, 6, 8, 2)[:2] == (3, 1)
+    assert sc.ssd_bwd_plan(1, 20, 8, 1)[:2] == (16, 2)
+    assert sc.ssd_bwd_plan(1, 1, 1, 1)[:2] == (1, 1)
+    assert sc.ssd_bwd_plan(128, 48, 128, 1).heads_ctas >= 2 * 132
+
+
+# (BC, Q, H, P, N, G): the training shape, the card shapes for one group
+# and one a head, mid-size G (a slice starting inside a group: H 40, G 2
+# gives slices of heads 0-15 and 16-19 in group 0), and the old plan cases
+BWD_PLAN_CASES = (
+    [(128, 128, 48, 64, 128, 1), (128, 128, 48, 64, 128, 48)]
+    + [s + (g,) for s in [(1, 1, 1, 1, 1), (3, 20, 5, 16, 8),
+                          (2, 45, 3, 70, 33), (1, 128, 2, 128, 128)]
+       for g in (1, s[2])]
+    + [(2, 64, 8, 32, 48, 2), (2, 64, 40, 32, 48, 2), (1, 100, 34, 64, 40, 1),
+       (1, 32, 48, 16, 16, 1), (1, 16, 6, 8, 8, 2), (1, 16, 20, 8, 8, 1)])
+
+
+@pytest.mark.parametrize("case", BWD_PLAN_CASES)
+def test_ssd_bwd_plan_owns_every_gradient_once(case):
+    """Every (bc, head) -- its dx, ddt and dda -- is walked by exactly one
+    heads CTA, a slice's heads consecutive, in head order and in its
+    group; every (bc, group, n) of db and dc belongs to exactly one group
+    CTA; and the eight warps' datt tiles cover every causal (i, j >= i)
+    pair exactly once, none above the diagonal, at most 9 a warp (9 each
+    at Q = 128)."""
+    BC, Q, H, P, N, G = case
+    rep = H // G
+    plan = sc.ssd_bwd_plan(BC, H, N, G)
+    assert plan.heads_per_slice == min(rep, sc.SLICE_HEADS)
+    heads = np.zeros((BC, H), np.int64)
+    cols = np.zeros((BC, G, N), np.int64)
+    starts = set()
+    for cta in range(plan.heads_ctas + plan.group_ctas):
+        role = sc.ssd_bwd_cta(plan, H, N, G, cta)
+        if role[0] == "heads":
+            _, bc, grp, hs = role
+            assert cta < plan.heads_ctas and 0 < len(hs) <= \
+                plan.heads_per_slice
+            assert list(hs) == list(range(hs[0], hs[0] + len(hs)))
+            assert all(h // rep == grp for h in hs)
+            heads[bc, list(hs)] += 1
+            starts.add(hs[0] % rep)
+        else:
+            _, bc, grp, ns = role
+            assert cta >= plan.heads_ctas and len(ns) <= sc.GROUP_COLS
+            cols[bc, grp, list(ns)] += 1
+    assert (heads == 1).all() and (cols == 1).all()
+    if rep > sc.SLICE_HEADS:          # a slice that starts inside a group
+        assert max(starts) > 0
+    cover = np.zeros((Q, Q), np.int64)
+    for w in range(sc.BWD_WARPS):
+        tiles = sc.ssd_bwd_tiles(Q, w)
+        assert len(tiles) <= 9 and (Q < 128 or len(tiles) == 9)
+        for i0, j0 in tiles:
+            assert i0 < Q and j0 < Q and j0 <= i0 + sc.STRIP - 1
+            cover[i0:i0 + sc.STRIP, j0:j0 + 8] += 1
+    causal = np.tril(np.ones((Q, Q), np.int64))
+    assert ((cover * causal) == causal).all() and cover.max() == 1
+    # above the diagonal only inside the diagonal 16 x 16 blocks
+    assert all(j // sc.STRIP == i // sc.STRIP
+               for i, j in zip(*np.nonzero(cover * (1 - causal))))
+
+
+def _mm3_chains(a, b, eq, drop_lo_hi=False):
+    """The kernel's 3xTF32 product: hi.hi in one fp32 sum, lo.hi + hi.lo
+    in another (each exact here, fp64, rounded once), then added."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _trunc_tf32(a - ah), _trunc_tf32(b - bh)
+
+    def f(u, v):
+        return torch.einsum(eq, u.double(), v.double())
+    cross = f(ah, bl) if drop_lo_hi else f(al, bh) + f(ah, bl)
+    return f(ah, bh).float(), cross.float()
+
+
+def _fma(a, b, c):
+    """fmaf: a b + c rounded once."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _bwd_emulated(x, dt, da, b, c, dy, dstate, drop_lo_hi=False,
+                  leak=False):
+    """The backward kernel's arithmetic on the CPU: the fp64 scans of
+    clog and dda, every product as 3xTF32 (two fp32 chains), the head dim
+    in 64-column passes, D and E summed over heads in head order (fmaf)
+    and over slices in slice order, dx as w (B dS) carried into attᵀ dY's
+    hi.hi sum, the row sums of M by column-block parity, the column sums
+    of K and M by 16-row strip, dw as Σ_n B (X dSᵀ).  ``drop_lo_hi`` and
+    ``leak`` plant faults: the lo.hi term dropped; the tile (i 0..15, j
+    8..15), above the diagonal, let in unmasked."""
+    BC, Q, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    rep, S = H // G, -(-Q // sc.STRIP)
+    plan = sc.ssd_bwd_plan(BC, H, N, G)
+    mm = functools.partial(_mm3_chains, drop_lo_hi=drop_lo_hi)
+    clog = _warp_cumsum(da)                                  # (BC, Q, H)
+    e = torch.exp(clog[:, -1:] - clog)
+    w = e * dt
+    bh, ch = (t.repeat_interleave(rep, dim=2) for t in (b, c))
+    hh, cr = mm(ch, bh, "bihn,bjhn->bhij")
+    s = hh + cr                                              # (BC,H,Q,Q)
+    cl = clog.permute(0, 2, 1)                               # (BC,H,Q)
+    diff = cl[..., :, None] - cl[..., None, :]
+    keep = torch.ones((Q, Q), dtype=torch.bool).tril()
+    if leak:
+        keep = keep.clone()
+        keep[:16, 8:16] = True
+    L = torch.exp(diff.masked_fill(~keep, float("-inf")))
+    dtj = dt.permute(0, 2, 1)[..., None, :]                  # (BC,H,1,Q)
+    wj = w.permute(0, 2, 1)                                  # (BC,H,Q)
+    sl = s * L
+    att = sl * dtj
+    dx = torch.empty_like(x)
+    dl, fs = [], []                   # per pass: datt ⊙ L and X dSᵀ
+    rows = torch.zeros((2, BC, H, Q))
+    colk = torch.zeros((BC, H, S, Q))
+    colm = torch.zeros((BC, H, S, Q))
+    dw = torch.zeros((BC, H, Q))
+    par = (torch.arange(Q) // 8) % 2
+    for p0 in range(0, P, 64):
+        cs = slice(p0, min(p0 + 64, P))
+        hh, cr = mm(dy[..., cs], x[..., cs], "bihp,bjhp->bhij")
+        datt = hh + cr
+        K = datt * sl
+        M = K * dtj
+        dl.append(datt * L)
+        for q in (0, 1):
+            rows[q] += (M * (par == q)).sum(-1)
+        pad = S * sc.STRIP - Q
+        colk += torch.nn.functional.pad(K, (0, 0, 0, pad)).reshape(
+            BC, H, S, sc.STRIP, Q).sum(3)
+        colm += torch.nn.functional.pad(M, (0, 0, 0, pad)).reshape(
+            BC, H, S, sc.STRIP, Q).sum(3)
+        hh, cr = mm(x[..., cs], dstate[..., cs], "bjhp,bhnp->bhjn")
+        F = hh + cr
+        fs.append(F)
+        dw += (bh.permute(0, 2, 1, 3) * F).sum(-1)
+        hh, cr = mm(bh, dstate[..., cs], "bjhn,bhnp->bjhp")
+        wu = w[..., None] * (hh + cr)
+        hh, cr = mm(att, dy[..., cs], "bhij,bihp->bjhp")
+        dx[..., cs] = (wu.double() + hh.double()).float() + cr
+    colK = torch.zeros((BC, H, Q))
+    colM = torch.zeros((BC, H, Q))
+    for si in range(S):               # strips j // 16 .. S - 1, in order
+        on = torch.arange(Q) // sc.STRIP <= si
+        colK = torch.where(on, colK + colk[:, :, si], colK)
+        colM = torch.where(on, colM + colm[:, :, si], colM)
+    ew = e.permute(0, 2, 1)
+    ddt = _fma(dw, ew, colK)
+    dcl = rows[0] + rows[1] - colM - dw * wj
+    dcl[..., -1] += (dw * wj).sum(-1)
+    dda = _warp_cumsum(dcl.flip(-1).permute(0, 2, 1)).flip(1)
+    # D and E: fmaf over a slice's heads in order (each head's passes in
+    # order), then the slices summed in order
+    Dg = torch.zeros((BC, G, Q, Q))
+    Eg = torch.zeros((BC, G, Q, N))
+    for grp in range(G):
+        for s0 in range(0, rep, plan.heads_per_slice):
+            dpart = torch.zeros((BC, Q, Q))
+            epart = torch.zeros((BC, Q, N))
+            for h in range(grp * rep + s0,
+                           grp * rep + min(s0 + plan.heads_per_slice, rep)):
+                for t, F in zip(dl, fs):
+                    dpart = _fma(t[:, h], dtj[:, h].expand(BC, Q, Q), dpart)
+                    epart = _fma(wj[:, h, :, None].expand(BC, Q, N), F[:, h],
+                                 epart)
+            Dg[:, grp] += dpart
+            Eg[:, grp] += epart
+    hh, cr = mm(Dg, b, "bgij,bjgn->bign")
+    dc = hh + cr
+    hh, cr = mm(Dg, c, "bgij,bign->bjgn")
+    db = (hh + cr) + Eg.permute(0, 2, 1, 3)
+    return dx, ddt.permute(0, 2, 1), dda, db, dc
+
+
+def _bwd_cpu_operands(shape, groups, seed):
+    return [_t(a) for a in _bwd_operands(shape, groups, seed)]
+
+
+# (BC, Q, H, P, N, G): ragged shapes (two head-dim passes at P 70),
+# several slices of a group, and mamba2-780m's training shape reduced to
+# BC 2 and H 8
+BWD_EMU_CASES = [(3, 20, 5, 16, 8, 1), (2, 45, 3, 70, 33, 3),
+                 (1, 100, 34, 64, 40, 2), (2, 128, 8, 64, 128, 1)]
+
+
+@pytest.mark.parametrize("case", BWD_EMU_CASES)
+def test_bwd_3xtf32_emulation_keeps_fp32_accuracy(case):
+    """The backward kernel's arithmetic, emulated, against the plain
+    version within REL of each gradient's largest magnitude (measured on
+    the CPU: at most 6e-7), with a decay whose masked differences pass
+    expf's range (every gradient finite); and against a float64 run no
+    farther than the plain fp32 version is, within a quarter and REL / 10:
+    fp32's own clog steps put the plain version itself 1.0e-5 of max|dda|
+    off float64 at the reduced training shape (measured), so REL alone
+    cannot be the float64 limit there."""
+    *shape, G = case
+    ops = _bwd_cpu_operands(tuple(shape), G, seed=sum(case))
+    clog = torch.cumsum(ops[2], dim=1)
+    assert (clog[:, :1] - clog[:, -1:]).max() > 88.7
+    got = _bwd_emulated(*ops)
+    want = ref.ssd_intra_chunk_bwd(*ops)
+    with float64_plain_path():
+        f64 = ref.ssd_intra_chunk_bwd(*(t.double() for t in ops))
+    for g, w, d in zip(got, want, f64):
+        assert d.dtype == torch.float64
+        _close(g, w, REL)
+        top = d.abs().max().item()
+        plain_err = (w.double() - d).abs().max().item()
+        assert (g.double() - d).abs().max().item() <= \
+            1.25 * plain_err + REL / 10 * top
+
+
+@pytest.mark.parametrize("fault", ["drop_lo_hi", "leak"])
+def test_bwd_emulation_catches_planted_faults(fault):
+    """Dropping the lo.hi term of the split, or letting a tile above the
+    diagonal in, moves some gradient past REL (or makes it non-finite)."""
+    ops = _bwd_cpu_operands((2, 128, 8, 64, 128), 1, seed=7)
+    want = ref.ssd_intra_chunk_bwd(*ops)
+    got = _bwd_emulated(*ops, **{fault: True})
+    worst = max(
+        float("inf") if not torch.isfinite(g).all() else
+        ((g - w).abs().max() / w.abs().max()).item()
+        for g, w in zip(got, want))
+    assert worst > REL, (fault, worst)
 
 
 @pytest.mark.cuda
@@ -699,3 +933,45 @@ def test_ssd_bwd_kernel_strong_decay_stays_finite_on_card(cuda):
         assert torch.isfinite(g).all() and torch.isfinite(w).all()
         assert (g - w).abs().max().item() <= \
             REL_STRONG * w.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_ssd_bwd_kernel_refuses_another_split_on_card(cuda):
+    """The launcher takes ssd_bwd_plan's split alone: another slice width
+    or slice count is refused before anything runs."""
+    shape, G = (2, 64, 40, 32, 48), 2
+    ops = [_t(a).to(cuda) for a in _bwd_operands(shape, G, seed=5)]
+    want = sc.ssd_intra_chunk_bwd(*ops)
+    BC, Q, H, P, N = shape
+    plan = sc.ssd_bwd_plan(BC, H, N, G)
+    outs = [torch.empty_like(t) for t in want]
+    sc._bwd_launch(ops, outs, plan)
+    torch.cuda.synchronize()
+    for a, b in zip(outs, want):
+        assert torch.equal(a, b)
+    for wrong in (plan._replace(heads_per_slice=plan.heads_per_slice - 1),
+                  plan._replace(heads_per_slice=plan.heads_per_slice + 1),
+                  plan._replace(slices=plan.slices + 1),
+                  sc.ssd_bwd_plan(BC, H, N, 1)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            sc._bwd_launch(ops, outs, wrong)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 64, 8, 32, 48), (2, 64, 40, 32, 48),
+                                   (3, 100, 34, 64, 40)])
+def test_ssd_bwd_kernel_mid_groups_on_card(cuda, shape):
+    """Two B/C groups, slices that start inside a group (H 40: heads 16-19
+    of group 0 and 36-39 of group 1 form slices of their own; H 34: 17
+    heads a group), every gradient within REL_STRONG of the plain
+    version, repeats bit-identical."""
+    ops = [_t(a).to(cuda) for a in _bwd_operands(shape, 2, seed=sum(shape))]
+    runs = [sc.ssd_intra_chunk_bwd(*ops) for _ in range(2)]
+    torch.cuda.synchronize()
+    want = ref.ssd_intra_chunk_bwd(*ops)
+    for name, got, w in zip(("dx", "ddt", "dda", "db", "dc"), runs[0], want):
+        assert torch.isfinite(got).all(), name
+        err = (got - w).abs().max().item()
+        assert err <= REL_STRONG * w.abs().max().item(), (name, err)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
