@@ -3,10 +3,12 @@
     python3 chip_smoke.py
 
 1. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` per source, all started together), and counts the tensor-core
-   instructions in the SASS: ``HGMMA`` (wgmma) in the forward's, the
-   backward's, the merge's and the projection's libraries, ``HMMA``
-   (mma.sync) in the SSD kernel's and its backward's; none is a failure.
+   ``nvcc`` per source, all started together, and the bounds-checked
+   builds of the two SSD sources beside them), and counts the
+   tensor-core instructions in the SASS: ``HGMMA`` (wgmma) in the
+   forward's, the backward's, the merge's and the projection's
+   libraries, ``HMMA`` (mma.sync) in the SSD kernel's, its backward's
+   and the forward's (the fp32 small-rank route); none is a failure.
 2. Holds both forms of the low-rank forward kernel (shared B at prefill,
    M = 128, or 1 for the unembedding; one B per row at decode, batch 4 x
    seq 1, read by tenant index from a store of 4 tenants with rows
@@ -24,7 +26,10 @@
    (BC 128 = batch 16 x 8 chunks), the forward and the backward kernel
    (``ssd_intra_chunk_bwd``), the backward also with a decay whose
    masked differences pass 4 x 88.7 (every gradient finite) and three
-   launches bit-identical, timed queued and eager.  Each forward row logs its launch plan
+   launches bit-identical, timed queued and eager; then ``[ssd
+   checked]``: both SSD kernels' bounds-checked builds at the training
+   shape, bit-identical to the unchecked builds, no index trapped.  Each
+   forward row logs its launch plan
    (per pass of the mainloop: tile width, splits of K, cluster size,
    units, persistent or not; or the per-row-B kernel's), and a shared-B
    row of at most ``SKINNY_ROWS`` rows, which takes the per-row-B kernel,
@@ -99,7 +104,9 @@
    once with ``lowrank_adam`` and once with ``lowrank_lion`` (V and the
    rounding bits drawn on the CPU for both sides); then ``galore``,
    ``adamw`` and ``lowrank_lr`` (its noise drawn on the CPU for both
-   sides) in fp32.  After phase 8's runs: ``[train mamba2]``,
+   sides) in fp32; each logs its forward launches by route and fails
+   unless every one took ``"simt"`` (fp32 at r = 128).  After phase 8's
+   runs: ``[train mamba2]``,
    mamba2-780m at full width and depth (48 layers, bf16 compute over fp32
    B, m, v, r = 128), batch 16 x 1024, ``lazy_k`` 4, lr 1e-3, 10 steps:
    finite, falling losses, 96 SSD forward launches a step (48 and 48
@@ -120,11 +127,14 @@
    6a's); and ``dependent_diag`` through the kernels against the plain
    route, as phase 7, the energy buffers held too.
 9. Encoder fine-tuning (the paper's section 6.2.1): the forward and the
-   merge at encoder-small's shapes, fp32, r = 4 (the SIMT route),
-   against their plain versions; then encoder-small at its full size
-   fine-tuned 200 steps by ``lowrank_lr`` under three samplers and by
-   ``adamw``, with accuracy, ms/step and peaks (every ``lowrank_lr``
-   peak below ``adamw``'s).
+   merge at encoder-small's shapes, fp32, r = 4 (the small-rank routes:
+   ``"tf32x3"``, 3xTF32 ``mma.sync`` with p formed in the tile, and
+   ``"ew"``, an elementwise merge), against their plain versions, each
+   timed queued and eager beside its library call; then encoder-small
+   at its full size fine-tuned 200 steps by ``lowrank_lr`` under three
+   samplers and by ``adamw``, with accuracy, ms/step and peaks (every
+   ``lowrank_lr`` peak below ``adamw``'s; every r = 4 forward and merge
+   on its small-rank route, none on SIMT).
 10. Checkpoints and resilience, at llama-100m's full width and depth
    for 6a and 6b: two uninterrupted 8-step runs, with the health guard
    on and off (ms/step, device ms/step from a profiled step, peak),
@@ -144,9 +154,11 @@
 
 Each ``[kernel]`` row and JSON entry names the route its launch took,
 ``"tc"`` (the tensor cores: TMA + ``wgmma``, or ``mma.sync`` for the SSD
-kernel) or ``"simt"`` (JSON ``"path"``).  Rows whose kernel takes about
-as long as the wrapper's host time (the decode-shaped forward, the
-merges, the projection, the optimizer updates, the SSD kernel) are
+kernel), ``"tf32x3"`` (the fp32 small-rank forward on ``mma.sync``),
+``"ew"`` (the small-rank merge) or ``"simt"`` (JSON ``"path"``).  Rows
+whose kernel takes about as long as the wrapper's host time (the
+decode-shaped forward, the merges, the projection, the optimizer
+updates, the SSD kernel) are
 timed on the device alone: the stream is held while the host queues the
 calls (JSON ``"timing": "queued"``, the eager time per call beside as
 ``"eager_ms"``).  The optimizer updates and the stochastically rounded
@@ -1143,6 +1155,41 @@ def compare_ssd_bwd_kernel(mods, dev, shape=SSD_TRAIN_SHAPE):
     return out
 
 
+def ssd_checked(mods, dev, shape=SSD_TRAIN_SHAPE):
+    """[ssd checked]: the bounds-checked build of both SSD kernels
+    (``_build.CHECKED``: every shared-memory and global index asserted,
+    a printf and a trap on the first outside its array) at the training
+    shape, the forward with B/C broadcast over the heads (as the mixer
+    passes them) and the backward with one group; each output must equal
+    the unchecked build's bit for bit, and the device must raise no error
+    (a trap surfaces at the synchronisation)."""
+    sc = mods["sc"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    BC, Q, H, P, N = shape
+    x, dt, da, b, c = _ssd_operands(gen, dev, shape)
+    bh, ch = (t.expand(-1, -1, H, -1) for t in (b, c))
+    dy = torch.randn(x.shape, generator=gen, device=dev)
+    ds = torch.randn((BC, H, N, P), generator=gen, device=dev)
+    t0 = time.perf_counter()
+    fwd = [sc.ssd_intra_chunk(x, dt, da, bh, ch, checked=chk)
+           for chk in (False, True)]
+    bwd = [sc.ssd_intra_chunk_bwd(x, dt, da, b, c, dy, ds, checked=chk)
+           for chk in (False, True)]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    same = [torch.equal(u, w) for u, w in zip(fwd[0] + bwd[0],
+                                               fwd[1] + bwd[1])]
+    log(f"[ssd checked] {list(shape)}: forward (y, state) and backward "
+        f"(dx, ddt, dda, db, dc) of the checked build bit-identical to the "
+        f"unchecked build's: {same}; no index trapped ({secs:.2f} s for "
+        f"both builds' calls)")
+    if not all(same):
+        raise SystemExit("[ssd checked] the checked build's outputs differ")
+    del x, dt, da, b, c, bh, ch, dy, ds, fwd, bwd
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # Training (llama-100m)
 # ---------------------------------------------------------------------------
@@ -2043,6 +2090,17 @@ def train_equals_plain(dev, mods, configs, label="fp32", fields=(),
     log(f"[{tag}] {cfg.name} 2 layers, {label}, fp32 compute, batch "
         f"4x256 lazy_k=2, {steps} steps: card {card}, cpu {plain}, max rel "
         f"diff {worst:.3g} (tol {tol})")
+    if "lf" in mods:
+        # fp32 at r = 128: every forward launch on the SIMT route (the
+        # small-rank route takes r <= lf.SMALL_RANK only)
+        by_route = {}
+        for (_, route, _, _), n in mods["lf"].LAUNCHES.items():
+            by_route[route] = by_route.get(route, 0) + n
+        log(f"[{tag}] forward launches by route: {by_route} (fp32, r = "
+            f"{tcfg.rank})")
+        if set(by_route) - {"simt"}:
+            raise SystemExit(f"[{tag}] an fp32 r = {tcfg.rank} forward left "
+                             f"the SIMT route: {by_route}")
     if cfg.family == "ssm":
         sc = mods["sc"]
         fwd, bwd = (sum(n for k, n in sc.LAUNCHES.items() if k[0] == kernel)
@@ -2523,21 +2581,29 @@ def finetune(dev, mods, smi, configs):
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         losses = torch.stack(losses).tolist()
         acc = accuracy(params)
-        simt_f = lf.launches(route="simt")
-        simt_m = lu.launches("lowrank_merge", "simt")
+        f3_f = lf.launches(route="tf32x3")
+        ew_m = lu.launches("lowrank_merge", "ew")
+        simt_f = sum(n for (_, rt, K, N), n in lf.LAUNCHES.items()
+                     if rt == "simt" and (K, N) in ENC_SHAPES)
+        simt_m = sum(n for (k, rt, sh), n in lu.LAUNCHES.items()
+                     if k == "lowrank_merge" and rt == "simt"
+                     and sh in ENC_MERGE_SHAPES)
         log(f"[finetune] {tag}: accuracy {acc0:.3f} -> {acc:.3f}, loss "
             f"{losses[0]:.4f} -> mean of the last 10 "
             f"{sum(losses[-10:]) / 10:.4f}, {1e3 * wall / FT_STEPS:.2f} "
             f"ms/step, peak {peak:.3f} GiB allocated ({held:.3f} when the "
-            f"run started) on {smi}; SIMT "
-            f"launches forward={simt_f} merge={simt_m}, tensor-core "
+            f"run started) on {smi}; launches by route: forward "
+            f"tf32x3={f3_f} simt={simt_f} at the encoder shapes, merge "
+            f"ew={ew_m} simt={simt_m}, tensor-core "
             f"{lf.launches(route='tc') + lu.launches(route='tc')}")
         if not all(x == x and abs(x) < float("inf") for x in losses):
             raise SystemExit(f"[finetune] {tag}: a non-finite loss")
         if tcfg.optimizer == "lowrank_lr":
-            if not (simt_f and simt_m):
-                raise SystemExit(f"[finetune] {tag}: no SIMT forward or "
-                                 f"merge launch")
+            if not (f3_f and ew_m) or simt_f or simt_m:
+                raise SystemExit(
+                    f"[finetune] {tag}: the r = 4 forward and merge must "
+                    f"all take the small-rank routes (tf32x3 {f3_f}, ew "
+                    f"{ew_m}; simt forward {simt_f}, merge {simt_m})")
             for K, N in ENC_SHAPES:
                 key = ("lowrank_forward[shared] r=4", (FT_M, K, N))
                 counts[key] = counts.get(key, 0) + shape_launches(
@@ -2565,9 +2631,18 @@ def finetune(dev, mods, smi, configs):
 
 def compare_encoder_kernels(mods, dev):
     """Phase 9b: the forward (shared B) and the merge at the encoder's
-    shapes, fp32, r = 4 (the SIMT route), against their plain versions:
-    the forward within 1e-5 of max|y| (fp32 sums in another order), the
-    merge within 1e-6 of max|W'|.  Bound: fp32 FMAs at 67 TFLOP/s."""
+    shapes, fp32, r = 4, against their plain versions: the forward
+    (``"tf32x3"``: 3xTF32 ``mma.sync``, p formed in the tile, one launch)
+    within 1e-5 of max|y| (3xTF32 products and fp32 sums in another
+    order), the merge (``"ew"``: an elementwise pass) within 1e-6 of
+    max|W'|.  Each launch must take its small-rank route.  Kernel and
+    library call (``x @ w + (x @ v) @ b.T``; ``torch.baddbmm``) are timed
+    queued (the stream held while the host queues the calls) and eager.
+    The forward's bound: bytes (each input read once, y written once) or
+    the multiply-adds as three TF32 products each at the TF32 peak; the
+    fp32 SIMT bound (fp32 FMAs at 67 TFLOP/s) beside it.  The merge's:
+    bytes (W read and written, V and B read) or its FMAs at the fp32
+    peak."""
     ref, lf, lu = mods["ref"], mods["lf"], mods["lu"]
     gen = torch.Generator(device=dev)
     gen.manual_seed(12)
@@ -2584,23 +2659,37 @@ def compare_encoder_kernels(mods, dev):
         y = lf.lowrank_forward(x, w, v, b)
         torch.cuda.synchronize()
         path = launch_path(lf)
+        if path != "tf32x3":
+            raise SystemExit(f"the fp32 r = 4 forward took {path}")
         err = _agree(f"forward r=4 K={K} N={N}", y,
                      ref.lowrank_forward(x, w, v, b), 1e-5)
-        bms, by = bound_of(4 * (M * K + K * N + K * r + N * r + M * N),
-                           2 * M * K * N + 2 * M * K * r + 2 * M * r * N,
-                           FP32_FLOP_PER_S)
+        nbytes = 4 * (M * K + K * N + K * r + N * r + M * N)
+        ops = 2 * M * K * N + 2 * M * K * r + 2 * M * r * N
+        bms, by = bound_of(nbytes, 3 * ops, TF32_FLOP_PER_S)
+        simt_bms, simt_by = bound_of(nbytes, ops, FP32_FLOP_PER_S)
+
+        def kernel():
+            return lf.lowrank_forward(x, w, v, b)
+
+        def library():
+            return x @ w + (x @ v) @ b.T
         row = dict(kernel="lowrank_forward[shared] r=4", shape=(M, K, N),
                    leaves=leaves, path=path, max_abs_err=err,
-                   ms=time_auto(lambda: lf.lowrank_forward(x, w, v, b)),
+                   ms=queued_ms(kernel), eager_ms=time_ms(kernel, iters=50),
                    plain_ms=time_auto(lambda: ref.lowrank_forward(x, w, v,
                                                                   b)),
-                   library_ms=time_auto(lambda: x @ w + (x @ v) @ b.T),
-                   bound_ms=bms, bound_by=by)
+                   library_ms=queued_ms(library),
+                   library_eager_ms=time_ms(library, iters=50),
+                   bound_ms=bms, bound_by=by, fp32_simt_bound_ms=simt_bms)
         rows.append(row)
         log(f"[kernel] lowrank_forward[shared] fp32 r=4 ({M}, {K}, {N}) "
-            f"({leaves}) route={path} max_abs_err={err:.4g} (tol "
-            f"1e-5*max|y|) ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f}"
-            f" library_ms={row['library_ms']:.4f} bound_ms={bms:.4f} ({by})")
+            f"({leaves}) route={path} max_abs_err={err:.4g} "
+            f"(tol 1e-5*max|y|) ms={row['ms']:.4f} [queued; eager "
+            f"{row['eager_ms']:.4f}] plain_ms={row['plain_ms']:.4f} "
+            f"library_ms={row['library_ms']:.4f} [queued; eager "
+            f"{row['library_eager_ms']:.4f}] bound_ms={bms:.4f} ({by}, "
+            f"3xTF32; fp32 SIMT {simt_bms:.4f}, {simt_by}); kernel/library "
+            f"queued {row['ms'] / row['library_ms']:.3f}")
         del x, w, v, b, y
     for shape, leaves in ENC_MERGE_SHAPES.items():
         lead, (K, N) = shape[:-2], shape[-2:]
@@ -2611,6 +2700,8 @@ def compare_encoder_kernels(mods, dev):
         got = lu.lowrank_merge(w, v, b)
         torch.cuda.synchronize()
         path = launch_path(lu, at=1)
+        if path != "ew":
+            raise SystemExit(f"the fp32 r = 4 merge took {path}")
         err = _agree(f"merge r=4 {shape}", got, ref.lowrank_merge(w, v, b),
                      1e-6)
         items = w.numel() // (K * N)
@@ -2632,7 +2723,8 @@ def compare_encoder_kernels(mods, dev):
             f"{path} max_abs_err={err:.4g} (tol 1e-6*max|W'|) ms="
             f"{row['ms']:.4f} plain_ms={row['plain_ms']:.4f} library_ms="
             f"{row['library_ms']:.4f} bound_ms={bms:.4f} ({by}) [queued; "
-            f"eager {row['eager_ms']:.4f} ms/call]")
+            f"eager {row['eager_ms']:.4f} ms/call]; kernel/library "
+            f"{row['ms'] / row['library_ms']:.3f}")
         del w, v, b, got, w3, v3, b3t
     torch.cuda.empty_cache()
     return rows
@@ -3120,11 +3212,13 @@ def main():
     sources = ("lowrank_forward", "lowrank_backward", "lowrank_merge",
                "subspace_adam", "subspace_q8", "lowrank_project", "ssd_chunk",
                "ssd_chunk_bwd")
-    built = _build.build_all(sources, force=True)
-    log(f"[build] {len(sources)} sources in parallel in "
+    built = _build.build_all(sources, force=True,
+                             checked=("ssd_chunk", "ssd_chunk_bwd"))
+    log(f"[build] {len(built)} builds ({len(sources)} sources and the "
+        f"checked builds of the SSD kernels) in parallel in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, rep in built.items():
-        log(f"[build] {name}.cu: nvcc {rep['seconds']:.1f} s")
+        log(f"[build] {name}: nvcc {rep['seconds']:.1f} s")
         for line in rep["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
@@ -3138,8 +3232,9 @@ def main():
         log(f"[build] lib{name}: {n} HGMMA (wgmma) instructions in its SASS")
         if n == 0:
             raise SystemExit(f"lib{name} holds no tensor-core instruction")
-    # the SSD kernels run mma.sync (TF32), which is HMMA in the SASS
-    for name in ("ssd_chunk", "ssd_chunk_bwd"):
+    # the SSD kernels and the fp32 small-rank forward run mma.sync (TF32),
+    # which is HMMA in the SASS
+    for name in ("ssd_chunk", "ssd_chunk_bwd", "lowrank_forward"):
         sass = subprocess.run([str(cuobjdump), "-sass",
                                str(built[name]["path"])],
                               capture_output=True, text=True,
@@ -3161,6 +3256,7 @@ def main():
     ssd_train_row = compare_ssd_kernel(
         mods, dev, {SSD_TRAIN_SHAPE: "training, batch 16 x 1024"})[0]
     ssd_bwd_row = compare_ssd_bwd_kernel(mods, dev)
+    ssd_checked(mods, dev)
     train_rows = compare_train_kernels(mods, dev)
     state_rows = compare_state_kernels(mods, dev)
     project_rows = compare_project_kernel(mods, dev)
@@ -3326,8 +3422,9 @@ def main():
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            **({"timing": "queued", "eager_ms": row["eager_ms"]}
-               if "eager_ms" in row else {})})
+            "timing": "queued", "eager_ms": row["eager_ms"],
+            **{k: row[k] for k in ("library_eager_ms", "fp32_simt_bound_ms")
+               if k in row}})
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     if missing:
         raise SystemExit(f"kernels never launched on the main path: "

@@ -15,9 +15,11 @@
 //
 // The TPU kernel builds p only while its sequential grid sweeps the
 // j == 0 column slab and reuses the VMEM scratch for later slabs.  GPU
-// blocks run in no order, and recomputing p in every output tile would
-// cost M*K*N*r/bn extra MACs (double the work at r = bn = 128), so p is
-// a pass of its own.  Three routes, chosen by the Python wrapper:
+// blocks run in no order, and recomputing p in every output tile costs
+// M*K*N*r/bn extra MACs: double the work at r = bn = 128, so there p is
+// a pass of its own; at r <= 16, one or two more n8 column blocks of a
+// 128-wide tile (at most 12.5% more), so the fp32 small-rank route forms
+// p in the tile.  Four routes, chosen by the Python wrapper (tc_route):
 //
 // * tensor cores, shared B (lowrank_forward_tc_launch; bf16, every row
 //   length a multiple of 8 so TMA can address it), two launches of the
@@ -77,8 +79,32 @@
 //        not depend on scheduling.  y is cast to bf16 once.  A tenant
 //        index outside [0, T) traps.
 //
-// * SIMT (lowrank_forward_launch; fp32, and a row length that TMA cannot
-//   address), shared-memory tiled fp32 FMAs:
+// * fp32 small rank (lowrank_forward_f3_launch; fp32 shared-B and
+//   return_p launches with r <= 16: encoder-small's fine-tuning at r = 4),
+//   one launch of small_rank_kernel, 3xTF32 mma.sync (tf32_mma.cuh):
+//
+//     y[m0 : m0 + 64, n0 : n0 + 128] = x W + p Bᵀ,  p = x V in the tile
+//
+//   What bounds it: at encoder-small's shapes (M = 8192, K and N 256 or
+//   683) the bytes of x and y and the products as three TF32 products a
+//   multiply-add weigh about alike at the card's peaks; but mma.sync
+//   reaches well under the TF32 rate that wgmma gives, the split adds
+//   integer and fp32 instructions to every fragment, and a single wave
+//   of tiles leaves each SM few warps, so the products and the
+//   instructions around them bound it.  So: one launch, no scratch, no split sums, p at r/128 more work
+//   instead of a pass.  x, W and V tiles stream through a 3-stage
+//   cp.async ring (16-byte copies where a row's length and base allow
+//   them, 4-byte ones otherwise, zero fill at the ragged edges); four
+//   warps of 32 x 64, two CTAs an SM; a warp reads its next step's
+//   fragments while its three product passes run; p stays fp32, the
+//   epilogue adds p Bᵀ by fp32 FMAs from B's tile rows staged in shared
+//   memory, and column tile 0 also stores p.  mma.sync and not wgmma:
+//   TF32 wgmma takes only a K-major B and W is (K, N) row-major; TMA
+//   cannot address a row of 683 floats (2732 bytes).
+//
+// * SIMT (lowrank_forward_launch; fp32 at larger rank and the per-row-B
+//   form, and bf16 with a row length that TMA cannot address),
+//   shared-memory tiled fp32 FMAs:
 //
 //     1. gemm_partial: p_part[s] = x[:, Ks] V[Ks, :]  (split K, fp32)
 //     2. sum_splits:   p = sum_s p_part[s]            (fixed order; with
@@ -101,6 +127,7 @@
 // allocated by the Python wrapper (repro_torch/kernels/lowrank_forward.py).
 
 #include "gemm_tile.cuh"
+#include "tf32_mma.cuh"
 #include "wgmma_gemm.cuh"
 
 namespace {
@@ -767,6 +794,336 @@ int launch_both(Args& gp, Args& gy, int tiles_m, int slots,
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// The fp32 small-rank forward on the tensor cores (3xTF32 mma.sync)
+// ---------------------------------------------------------------------------
+namespace {
+namespace f3 {
+
+// The CTA's tile: BM x BN of y, four warps of 32 x 64 (two m16 x eight
+// n8 tiles; warp (wm, wn) = (warp / 2, warp % 2)); a 3-stage cp.async
+// ring BK deep; two CTAs an SM.  (Measured on an H100 against 128 x 128
+// tiles of eight warps and against 64-wide tiles: equal or faster at
+// encoder-small's three shapes.)
+constexpr int BM = 64, BN = 128, BK = 32, STAGES = 3, THREADS = 128;
+constexpr int MT = 2, NT = 8, WN = 64;
+constexpr int MAX_R = 16;        // V's columns: one or two n8 blocks
+constexpr int XS = BK + 4;       // x tile row stride (4 mod 32)
+constexpr int WS = BN + 8;       // W tile row stride (8 mod 32)
+constexpr int VS = MAX_R + 8;    // V tile row stride (24 mod 32)
+constexpr int PS = MAX_R + 1;    // p and B rows in the epilogue
+constexpr int kMaxDevices = 64;
+
+constexpr int STAGE = BM * XS + BK * WS + BK * VS;
+constexpr int SMEM = (STAGES * STAGE + (BM + BN) * PS) * (int)sizeof(float);
+
+struct Args {
+  const float *x, *w, *v, *b;
+  float* y;
+  float* p;                // (M, r), written by column tile 0, or null
+  int M, K, N, r;
+  int x_mode, w_mode;      // Copy modes of x's and W's rows
+};
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// How a stage copies the rows of x or W: kVec, 16-byte pieces (a row
+// length that is a multiple of 4 and a 16-byte-aligned base); kShift,
+// 16-byte pieces from the 16-byte boundary at or before each row's first
+// element (a row length that is not a multiple of 4: that row's piece
+// starts s = (row index x row length) mod 4 floats early, and the reads
+// add s, which is constant for a lane: (g K) mod 4 for x, (t N) mod 4
+// for W), pieces clipped at the row's end; kScalar, 4-byte copies (a
+// base off the 16-byte boundary).
+enum Copy { kVec, kShift, kScalar };
+
+// rows x (cols + shift room) floats of the row-major matrix `src` (row
+// length `len`, `nrows` rows) from row r0, column c0, into dst (row
+// stride ds): zero past nrows and len, by the CTA's threads
+template <int MODE, int ROWS, int COLS>
+__device__ __forceinline__ void copy_tile(float* dst, int ds, const float* src,
+                                          int len, int nrows, int r0,
+                                          int c0) {
+  const int tid = threadIdx.x;
+  if constexpr (MODE == kScalar) {
+    for (int e = tid; e < ROWS * COLS; e += THREADS) {
+      const int row = e / COLS, q = e % COLS;
+      const bool ok = r0 + row < nrows && c0 + q < len;
+      cp4(dst + row * ds + q,
+          ok ? src + (long long)(r0 + row) * len + c0 + q : src, ok);
+    }
+  } else {
+    // kShift: one more piece, for the row's early start
+    constexpr int P = COLS / 4 + (MODE == kShift ? 1 : 0);
+    for (int e = tid; e < ROWS * P; e += THREADS) {
+      const int row = e / P, j = e % P;
+      const long long at = (long long)(r0 + row) * len + c0;
+      const int col = c0 - (MODE == kShift ? (int)(at & 3) : 0) + 4 * j;
+      int n = r0 + row < nrows ? len - col : 0;
+      n = n < 0 ? 0 : (n > 4 ? 4 : n);
+      cp16n(dst + row * ds + 4 * j, n ? src + (at - c0) + col : src, 4 * n);
+    }
+  }
+}
+
+// copy_tile in the mode the launch chose (a uniform branch: every mode
+// is compiled into one kernel)
+template <int ROWS, int COLS>
+__device__ __forceinline__ void copy_mode(int mode, float* dst, int ds,
+                                          const float* src, int len,
+                                          int nrows, int r0, int c0) {
+  if (mode == kVec)
+    copy_tile<kVec, ROWS, COLS>(dst, ds, src, len, nrows, r0, c0);
+  else if (mode == kShift)
+    copy_tile<kShift, ROWS, COLS>(dst, ds, src, len, nrows, r0, c0);
+  else
+    copy_tile<kScalar, ROWS, COLS>(dst, ds, src, len, nrows, r0, c0);
+}
+
+// Stage k0 / BK of the ring: x[m0.., k0..] (BM x BK), W[k0.., n0..] (BK x
+// BN) and V[k0.., 0..16), zero past M, K, N and r; V's rows of r floats
+// by 4-byte copies.
+__device__ __forceinline__ void load_stage(const Args& a, float* st, int m0,
+                                           int n0, int k0) {
+  float* vt = st + BM * XS + BK * WS;
+  copy_mode<BM, BK>(a.x_mode, st, XS, a.x, a.K, a.M, m0, k0);
+  copy_mode<BK, BN>(a.w_mode, st + BM * XS, WS, a.w, a.N, a.K, k0, n0);
+  for (int e = threadIdx.x; e < BK * MAX_R; e += THREADS) {
+    const int row = e / MAX_R, c = e % MAX_R;
+    const bool ok = k0 + row < a.K && c < a.r;
+    cp4(vt + row * VS + c, ok ? a.v + (long long)(k0 + row) * a.r + c : a.v,
+        ok);
+  }
+}
+
+// One CTA: y[m0 : m0 + BM, n0 : n0 + BN] = x W + p Bᵀ with p = x V, for a
+// rank r <= R (R = 4, 8 or 16).  Warp (wm, wn) holds y rows wm 32 + 16 mt
+// + (g, g + 8) and columns wn BN/2 + 8 nt + (2t, 2t + 1), and p's rows of
+// its m16 tile mt = wn in RP = R / 8 n8 blocks of V's columns (one for R
+// <= 8): its share of p reuses the x fragments it already holds, and the
+// CTA's warps cover its BM rows of p once.  Every product is 3xTF32:
+// lo.hi, hi.lo, then hi.hi into one fp32 sum, each pass over all of the
+// warp's tiles before the next, and a step's fragments are read from
+// shared memory while the step before it runs.  p stays fp32, and the
+// epilogue adds p Bᵀ by fp32 FMAs in c order, from B's and p's values in
+// registers.
+template <int R>
+__global__ void __launch_bounds__(THREADS, 2)
+    small_rank_kernel(const Args a) {
+  constexpr int RP = (R + 7) / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* ps = smem + STAGES * STAGE;  // p (BM x PS)
+  float* bs = ps + BM * PS;           // B's tile rows (BN x PS)
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int kt_n = (a.K + BK - 1) / BK;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < kt_n)
+      load_stage(a, smem + s * STAGE, m0, n0, BK * s);
+    cp_commit();
+  }
+  // B's rows n0 .. n0 + BN, read once for the epilogue (zero past r)
+  for (int e = tid; e < BN * R; e += THREADS) {
+    const int n = e / R, c = e % R;
+    bs[n * PS + c] =
+        n0 + n < a.N && c < a.r ? a.b[(long long)(n0 + n) * a.r + c] : 0.f;
+  }
+
+  float acc[MT][NT][4], pacc[RP][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+#pragma unroll
+  for (int rp = 0; rp < RP; ++rp)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pacc[rp][e] = 0.f;
+
+  // a step's operands as read from shared memory (natural k order: a
+  // lane's k are t and t + 4)
+  float xa[MT][4], wb[NT][2], vb[RP][2];
+  // the lane's shift of a row's first element (kShift copies)
+  const int sx = a.x_mode == kShift ? (int)(((long long)g * a.K) & 3) : 0;
+  const int sw = a.w_mode == kShift ? (int)(((long long)t * a.N) & 3) : 0;
+  auto read = [&](const float* st, int kk) {
+    const float* xs = st + (wm * 32 + g) * XS + sx + kk + t;
+    const float* wt = st + BM * XS + (kk + t) * WS + sw + wn * WN + g;
+    const float* vt = st + BM * XS + BK * WS + (kk + t) * VS + g;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      xa[mt][0] = xs[16 * mt * XS];
+      xa[mt][1] = xs[(16 * mt + 8) * XS];
+      xa[mt][2] = xs[16 * mt * XS + 4];
+      xa[mt][3] = xs[(16 * mt + 8) * XS + 4];
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      wb[nt][0] = wt[8 * nt];
+      wb[nt][1] = wt[4 * WS + 8 * nt];
+    }
+#pragma unroll
+    for (int rp = 0; rp < RP; ++rp) {
+      vb[rp][0] = vt[8 * rp];
+      vb[rp][1] = vt[4 * VS + 8 * rp];
+    }
+  };
+
+  for (int kt = 0; kt < kt_n; ++kt) {
+    cp_wait<STAGES - 2>();
+    __syncthreads();  // stage kt landed, and every warp is past kt - 1
+    {
+      const int nk = kt + STAGES - 1;
+      if (nk < kt_n)
+        load_stage(a, smem + (nk % STAGES) * STAGE, m0, n0,
+                                   BK * nk);
+      cp_commit();
+    }
+    const float* st = smem + (kt % STAGES) * STAGE;
+    read(st, 0);
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 8) {
+      uint32_t ah[MT][4], al[MT][4], bh[NT][2], bl[NT][2];
+      uint32_t vh[RP][2], vl[RP][2], ph[4], pl[4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split(xa[mt][i], ah[mt][i], al[mt][i]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) split(wb[nt][i], bh[nt][i], bl[nt][i]);
+#pragma unroll
+      for (int rp = 0; rp < RP; ++rp)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) split(vb[rp][i], vh[rp][i], vl[rp][i]);
+      if (kk + 8 < BK) read(st, kk + 8);  // the next step's operands
+      // the warp's p tile is its m16 tile wn: its fragments by selects,
+      // so that the step stays one basic block for the scheduler
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ph[i] = wn ? ah[1][i] : ah[0][i];
+        pl[i] = wn ? al[1][i] : al[0][i];
+      }
+      // the three products of a tile into its one sum, each pass over
+      // every tile before the next: a sum's products are a pass apart
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma(acc[mt][nt], al[mt], bh[nt]);
+#pragma unroll
+      for (int rp = 0; rp < RP; ++rp) mma(pacc[rp], pl, vh[rp]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma(acc[mt][nt], ah[mt], bl[nt]);
+#pragma unroll
+      for (int rp = 0; rp < RP; ++rp) mma(pacc[rp], ph, vl[rp]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma(acc[mt][nt], ah[mt], bh[nt]);
+#pragma unroll
+      for (int rp = 0; rp < RP; ++rp) mma(pacc[rp], ph, vh[rp]);
+    }
+  }
+
+  // p of the CTA's rows into shared memory, fp32 (zero past r: V is)
+#pragma unroll
+  for (int rp = 0; rp < RP; ++rp)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 8 * rp + 2 * t + (e & 1);
+      if (c < R)
+        ps[(wm * 32 + 16 * wn + g + 8 * (e >> 1)) * PS + c] = pacc[rp][e];
+    }
+  __syncthreads();
+  if (a.p != nullptr && blockIdx.x == 0) {
+    // p (M, r) row-major: the CTA's rows are one contiguous run
+    const int rows = min(BM, a.M - m0);
+    for (int e = tid; e < rows * a.r; e += THREADS)
+      a.p[(long long)m0 * a.r + e] = ps[(e / a.r) * PS + e % a.r];
+  }
+  // y = x W + p Bᵀ: the rank term by fp32 FMAs in c order, B's values of
+  // a column pair and p's of a row in registers
+  const bool pairs =
+      a.N % 2 == 0 && (reinterpret_cast<uintptr_t>(a.y) & 7) == 0;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int col = wn * WN + 8 * nt + 2 * t;
+    const int n = n0 + col;
+    float b0[R], b1[R];
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+      b0[c] = bs[col * PS + c];
+      b1[c] = bs[(col + 1) * PS + c];
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = wm * 32 + 16 * mt + g + 8 * hr;
+        float pr[R];
+#pragma unroll
+        for (int c = 0; c < R; ++c) pr[c] = ps[row * PS + c];
+        float v0 = acc[mt][nt][2 * hr], v1 = acc[mt][nt][2 * hr + 1];
+#pragma unroll
+        for (int c = 0; c < R; ++c)
+          if (c < a.r) {
+            v0 = fmaf(pr[c], b0[c], v0);
+            v1 = fmaf(pr[c], b1[c], v1);
+          }
+        if (m0 + row >= a.M) continue;
+        float* yr = a.y + (long long)(m0 + row) * a.N;
+        if (pairs && n < a.N) {
+          *reinterpret_cast<float2*>(yr + n) = make_float2(v0, v1);
+        } else {
+          if (n < a.N) yr[n] = v0;
+          if (n + 1 < a.N) yr[n + 1] = v1;
+        }
+      }
+  }
+}
+
+template <int R>
+int launch(const Args& a, cudaStream_t st) {
+  // above 48 KB of dynamic shared memory a launch needs an opt-in, set
+  // once per instantiation and device
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices || !done[dev]) {
+    err = cudaFuncSetAttribute(small_rank_kernel<R>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < kMaxDevices) done[dev] = true;
+  }
+  const dim3 grid((unsigned)((a.N + BN - 1) / BN),
+                  (unsigned)((a.M + BM - 1) / BM));
+  small_rank_kernel<R><<<grid, THREADS, SMEM, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// a matrix's copy mode: 16-byte pieces from a 16-byte-aligned base
+// (kVec, or kShift for rows that are not a multiple of 4 long), else
+// 4-byte copies
+int copy_mode_of(const float* base, int len) {
+  if (!aligned16(base)) return kScalar;
+  return len % 4 == 0 ? kVec : kShift;
+}
+
+}  // namespace f3
+}  // namespace
+
 // The SIMT route.  dtype: 0 = float32, 1 = bfloat16.  seq: rows per
 // adapter (M for a shared B); b_stride: elements between adapters (0 for
 // a shared B); rows: the (batch,) tenant index of each batch row into the
@@ -896,4 +1253,23 @@ extern "C" int lowrank_batch_forward_tc_launch(
   const int tiles_m = (int)ceil_div(M, bn);
   return bn == 8 ? dec::launch_both<8>(gp, gy, tiles_m, slots, st)
                  : dec::launch_both<16>(gp, gy, tiles_m, slots, st);
+}
+
+// The fp32 small-rank route (3xTF32 mma.sync, one launch): x (M, K), w (K,
+// N), v (K, r), b (N, r) and y (M, N) fp32 and contiguous, 1 <= r <= 16;
+// p (M, r) fp32 receives p = x V (the return_p output), or is null.
+// Returns cudaGetLastError() of the launch (0 = queued).
+extern "C" int lowrank_forward_f3_launch(const float* x, const float* w,
+                                         const float* v, const float* b,
+                                         float* y, float* p, int M, int K,
+                                         int N, int r, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M < 1 || K < 0 || N < 1 || r < 1 || r > f3::MAX_R)
+    return (int)cudaErrorInvalidValue;
+  const f3::Args a{x, w, v, b, y, p, M, K, N, r,
+                   f3::copy_mode_of(x, K), f3::copy_mode_of(w, N)};
+  // the rank bucket R (4, 8 or 16): r <= R
+  if (r <= 4) return f3::launch<4>(a, st);
+  if (r <= 8) return f3::launch<8>(a, st);
+  return f3::launch<f3::MAX_R>(a, st);
 }

@@ -20,8 +20,8 @@
 // resident in VMEM and vmaps over the leading dims.  What bounds the work
 // on this card is bytes: W is read and written (77% of them at the
 // llama-100m shapes), and r = 128 gives 2r FLOP per W element, far below
-// the ~295 FLOP per byte where the tensor cores would bind.  Three
-// kernels, chosen by the Python wrapper:
+// the ~295 FLOP per byte where the tensor cores would bind.  Four
+// kernels, chosen by the Python wrapper (lowrank_update.py::merge_route):
 //
 // * tensor cores (lowrank_merge_tc_launch; bf16 W and V, fp32 or bf16 B,
 //   K, N and r multiples of 8 so TMA can address every row, no bits):
@@ -58,7 +58,12 @@
 // * the stochastically rounded merge (lowrank_merge_sr_launch; bf16 W,
 //   fp32 or bf16 V and B, any K, N, r): fp32 FMAs, exact against the
 //   plain version.  See the msr namespace below.
-// * SIMT (lowrank_merge_launch; the plain merge of an fp32 W or V, rows
+// * the small-rank merge (lowrank_merge_ew_launch; the plain merge of an
+//   fp32 W or V at r <= 16, encoder-small's r = 4): an elementwise pass
+//   over W with B's strip and V's rows staged once a block and the rank-r
+//   product in registers.  See the mew namespace below.
+// * SIMT (lowrank_merge_launch; the plain merge of an fp32 W or V at r >
+//   16, where 2r FLOP per element make the fp32 FMAs bind, and bf16 rows
 //   TMA cannot address): one block owns a 64 x 64 tile of one batch item
 //   (gemm_tile.cuh, blockIdx.z = item) on fp32 FMAs; W is the addend of
 //   the tile's epilogue and may be the output itself (each element is
@@ -418,6 +423,223 @@ int launch(const void* w, const void* v, const void* b, void* out,
 }  // namespace
 
 // ---------------------------------------------------------------------------
+// The small-rank merge: an elementwise pass
+// ---------------------------------------------------------------------------
+//
+// W' = W + V Bᵀ for an fp32 W or V (the dtypes the tensor-core merge does
+// not take) of rank r <= 16: encoder-small's fine-tuning merges at r = 4.
+// What bounds it is bytes: W is read and written, and the product adds at
+// most 2 r = 32 FLOP per W element, so the merge is an elementwise pass
+// over W and the rank-r product rides along in registers:
+//
+// * one launch over every item of a group; a block owns ROWS rows of K
+//   and a strip of STRIP columns of one item, and the grid holds several
+//   blocks an SM (encoder-small's groups: 344-768 blocks of 256 threads);
+// * a block stages its strip of B's rows (STRIP x r) and its ROWS rows of
+//   V in shared memory once, widened to fp32; a thread keeps B's values
+//   of its COLS consecutive columns in registers (r rounded up to 4, 8 or
+//   16: few registers, so many blocks an SM) and walks ROWS / LANES rows,
+//   reading each V row from shared memory (a broadcast);
+// * a thread's COLS columns move by one 16-byte access (8 bytes for a
+//   bf16 W) where N % 4 == 0 and the pointers allow it, by scalar ones
+//   otherwise (N = 683); it loads all its rows of W before it stores any;
+// * each element: acc = 0; for c < r: acc = fmaf(V[k][c], B[n][c], acc);
+//   W' = W + acc, rounded once into W's dtype; a fixed order, so
+//   repeated launches give bit-identical outputs.
+//
+// In place (out = w) is safe: a thread reads each W element it writes,
+// before writing it, and no other thread touches it.
+namespace {
+namespace mew {
+
+constexpr int THREADS = 256;
+constexpr int COLS = 4;                       // consecutive n a thread
+constexpr int STRIP = 256;                    // columns a block
+constexpr int LANES = THREADS / (STRIP / COLS);  // rows in flight: 4
+constexpr int ROWS = 8;                       // rows of K a block
+constexpr int MAX_R = 16;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void load4(const float* p, float (&o)[COLS]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  o[0] = q.x;
+  o[1] = q.y;
+  o[2] = q.z;
+  o[3] = q.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p,
+                                      float (&o)[COLS]) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&q.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&q.y));
+  o[0] = a.x;
+  o[1] = a.y;
+  o[2] = b.x;
+  o[3] = b.y;
+}
+__device__ __forceinline__ void store4(float* p, const float (&o)[COLS]) {
+  *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p,
+                                       const float (&o)[COLS]) {
+  uint2 q;
+  *reinterpret_cast<__nv_bfloat162*>(&q.x) = __floats2bfloat162_rn(o[0], o[1]);
+  *reinterpret_cast<__nv_bfloat162*>(&q.y) = __floats2bfloat162_rn(o[2], o[3]);
+  *reinterpret_cast<uint2*>(p) = q;
+}
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+struct Args {
+  const void *w, *v, *b;
+  void* out;
+  int K, N, r, kblocks, strips;
+  bool vec;  // 16-byte (bf16 W: 8-byte) accesses of W and out
+};
+
+// block (item, k block, strip) of a 1-D grid, the strip fastest; RB:
+// the rank rounded up to 4, 8 or 16 (B's values a thread keeps)
+template <typename TW, typename TV, typename TB, int RB>
+__global__ void __launch_bounds__(THREADS) small_rank_merge(const Args a) {
+  __shared__ __align__(16) float bs[RB * STRIP];  // [c][n]
+  __shared__ float vs[ROWS * RB];                 // [k][c]
+  long long bid = blockIdx.x;
+  const int strip = (int)(bid % a.strips);
+  bid /= a.strips;
+  const int kb = (int)(bid % a.kblocks);
+  const long long item = bid / a.kblocks;
+  const int K = a.K, N = a.N, r = a.r;
+  const int n0 = STRIP * strip, k0 = ROWS * kb;
+  const int tid = threadIdx.x, tc = tid % (STRIP / COLS),
+            lr = tid / (STRIP / COLS);
+  const TW* w = static_cast<const TW*>(a.w) + item * K * (long long)N;
+  TW* out = static_cast<TW*>(a.out) + item * K * (long long)N;
+  const TV* v = static_cast<const TV*>(a.v) + item * K * (long long)r;
+  const TB* b = static_cast<const TB*>(a.b) + item * N * (long long)r;
+  // B's rows n0 .. n0 + STRIP and V's rows k0 .. k0 + ROWS: contiguous
+  // runs of (N, r) and (K, r)
+  const int ncols = min(STRIP, N - n0), nrows = min(ROWS, K - k0);
+  for (int e = tid; e < ncols * r; e += THREADS) {
+    const int n = e / r, c = e - n * r;
+    bs[c * STRIP + n] = to_f(b[(long long)n0 * r + e]);
+  }
+  for (int e = tid; e < nrows * r; e += THREADS) {
+    const int k = e / r, c = e - k * r;
+    vs[k * RB + c] = to_f(v[(long long)k0 * r + e]);
+  }
+  __syncthreads();
+  const int n = n0 + COLS * tc;
+  if (n >= N) return;
+  float bv[RB][COLS];
+#pragma unroll
+  for (int c = 0; c < RB; ++c)
+    if (c < r) {
+      const float4 q = *reinterpret_cast<const float4*>(bs + c * STRIP +
+                                                        COLS * tc);
+      bv[c][0] = q.x;
+      bv[c][1] = q.y;
+      bv[c][2] = q.z;
+      bv[c][3] = q.w;
+    }
+  constexpr int RT = ROWS / LANES;  // rows a thread
+  float wv[RT][COLS];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int kl = lr + LANES * i;
+    if (kl >= nrows) continue;
+    const TW* src = w + (long long)(k0 + kl) * N + n;
+    if (a.vec) {
+      load4(src, wv[i]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < COLS; ++j)
+        wv[i][j] = n + j < N ? to_f(src[j]) : 0.f;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int kl = lr + LANES * i;
+    if (kl >= nrows) continue;
+    float o[COLS];
+#pragma unroll
+    for (int j = 0; j < COLS; ++j) {
+      float acc = 0.f;
+#pragma unroll
+      for (int c = 0; c < RB; ++c)
+        if (c < r) acc = fmaf(vs[kl * RB + c], bv[c][j], acc);
+      o[j] = __fadd_rn(wv[i][j], acc);
+    }
+    TW* dst = out + (long long)(k0 + kl) * N + n;
+    if (a.vec) {
+      store4(dst, o);
+    } else {
+#pragma unroll
+      for (int j = 0; j < COLS; ++j)
+        if (n + j < N) store1(dst + j, o[j]);
+    }
+  }
+}
+
+template <typename TW, typename TV, typename TB, int RB>
+int launch(const void* w, const void* v, const void* b, void* out,
+           long long items, int K, int N, int r, cudaStream_t st) {
+  const uintptr_t align = COLS * sizeof(TW) - 1;
+  const bool vec = N % COLS == 0 &&
+                   (reinterpret_cast<uintptr_t>(w) & align) == 0 &&
+                   (reinterpret_cast<uintptr_t>(out) & align) == 0;
+  Args a{w, v, b, out, K, N, r, (K + ROWS - 1) / ROWS,
+         (N + STRIP - 1) / STRIP, vec};
+  const long long blocks = items * a.kblocks * a.strips;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  small_rank_merge<TW, TV, TB, RB><<<(unsigned)blocks, THREADS, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename TW, typename TV, typename TB>
+int pick_rank(const void* w, const void* v, const void* b, void* out,
+              long long items, int K, int N, int r, cudaStream_t st) {
+  if (r <= 4) return launch<TW, TV, TB, 4>(w, v, b, out, items, K, N, r, st);
+  if (r <= 8) return launch<TW, TV, TB, 8>(w, v, b, out, items, K, N, r, st);
+  return launch<TW, TV, TB, MAX_R>(w, v, b, out, items, K, N, r, st);
+}
+
+template <typename TW, typename TV>
+int pick_b(int tb, const void* w, const void* v, const void* b, void* out,
+           long long items, int K, int N, int r, cudaStream_t st) {
+  if (tb == 0)
+    return pick_rank<TW, TV, float>(w, v, b, out, items, K, N, r, st);
+  if (tb == 1)
+    return pick_rank<TW, TV, __nv_bfloat16>(w, v, b, out, items, K, N, r,
+                                            st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// the dtypes the route takes: an fp32 W or V
+int pick_wv(int tw, int tv, int tb, const void* w, const void* v,
+            const void* b, void* out, long long items, int K, int N, int r,
+            cudaStream_t st) {
+  if (tw == 0 && tv == 0)
+    return pick_b<float, float>(tb, w, v, b, out, items, K, N, r, st);
+  if (tw == 0 && tv == 1)
+    return pick_b<float, __nv_bfloat16>(tb, w, v, b, out, items, K, N, r,
+                                        st);
+  if (tw == 1 && tv == 0)
+    return pick_b<__nv_bfloat16, float>(tb, w, v, b, out, items, K, N, r,
+                                        st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace mew
+}  // namespace
+
+// ---------------------------------------------------------------------------
 // The stochastically rounded merge
 // ---------------------------------------------------------------------------
 //
@@ -712,4 +934,18 @@ extern "C" int lowrank_merge_tc_launch(int tb, const void* w, const void* v,
   if (tb == 0) return mtc::launch<true>(w, v, b, out, batch, K, N, r, st);
   if (tb == 1) return mtc::launch<false>(w, v, b, out, batch, K, N, r, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The small-rank merge (an elementwise pass): tw, tv, tb 0 (fp32) or 1
+// (bf16) for w and out, v, b, with an fp32 w or v; 1 <= r <= 16.  w, v,
+// b and out hold `batch` contiguous (K, N), (K, r), (N, r) and (K, N)
+// items; out may equal w.  Returns cudaGetLastError() (0 = queued).
+extern "C" int lowrank_merge_ew_launch(int tw, int tv, int tb, const void* w,
+                                       const void* v, const void* b,
+                                       void* out, long long batch, int K,
+                                       int N, int r, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (r < 1 || r > mew::MAX_R || K < 1 || N < 1 || batch < 1)
+    return (int)cudaErrorInvalidValue;
+  return mew::pick_wv(tw, tv, tb, w, v, b, out, batch, K, N, r, st);
 }

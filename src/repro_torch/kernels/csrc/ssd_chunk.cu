@@ -107,6 +107,7 @@ __host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
 // The launch geometry and the shared-memory carve-up (offsets in floats),
 // computed on the host and passed to the kernel.
 struct Geo {
+  long long BC;
   int Q, N, P, H, groups;  // groups: 1 (b, c of head stride 0) or H
   int Qp, Q8, P8;          // tokens padded to strips, to 8; head dim to 8
   int GS, XS, NS;          // row strides of G, x, and C/B in a Gram CTA
@@ -118,7 +119,7 @@ struct Geo {
 
   __host__ __device__ Geo(long long BC, int Q_, int N_, int P_, int H_,
                           int groups_)
-      : Q(Q_), N(N_), P(P_), H(H_), groups(groups_) {
+      : BC(BC), Q(Q_), N(N_), P(P_), H(H_), groups(groups_) {
     Qp = round_up(Q, kStrip);
     Q8 = round_up(Q, 8);
     P8 = round_up(P, 8);
@@ -153,6 +154,9 @@ struct Args {
   float* gram;       // (BC, groups, Q, Q) scratch
   long long b_sbc, b_sq, b_sh, c_sbc, c_sq, c_sh;
   bool vec_x, vec_bc, vec_g;  // 16-byte copies of x, b and c, G rows
+  // elements each array spans (x and y; dt and da; b; c; the state; G):
+  // the limits of the checked build
+  long long n_x, n_dt, n_b, n_c, n_state, n_gram;
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -164,6 +168,13 @@ __device__ __forceinline__ void store(__nv_bfloat16* dst, float v) {
   *dst = __float2bfloat16(v);
 }
 
+// The source of a copy: `src` lies at element `at` of an array of `n`
+// elements (the checked build asserts every element read inside it).
+struct Src {
+  const char* name;
+  long long at, n;
+};
+
 // rows x cols floats into dst (row stride ds) from src (row r at src + r *
 // rs), zero where r >= vrows or the column >= vcols, by threads tid of
 // nthr.  fp32 goes by cp.async (16-byte pieces when `vec`: cols, vcols
@@ -174,6 +185,7 @@ template <typename T>
 __device__ __forceinline__ void copy_rows(float* dst, int ds, const T* src,
                                           long long rs, int rows, int cols,
                                           int vrows, int vcols, bool vec,
+                                          const Src& from,
                                           int tid = threadIdx.x,
                                           int nthr = kThreads) {
   if constexpr (std::is_same<T, float>::value) {
@@ -182,6 +194,7 @@ __device__ __forceinline__ void copy_rows(float* dst, int ds, const T* src,
       for (int e = tid; e < rows * pieces; e += nthr) {
         const int r = e / pieces, q = 4 * (e - r * pieces);
         const bool ok = r < vrows && q < vcols;
+        if (ok) LRK_CHECK(from.name, from.at + r * rs + q + 3, from.n);
         cp16(dst + r * ds + q, ok ? src + r * rs + q : src, ok);
       }
       return;
@@ -189,11 +202,15 @@ __device__ __forceinline__ void copy_rows(float* dst, int ds, const T* src,
     for (int e = tid; e < rows * cols; e += nthr) {
       const int r = e / cols, q = e - r * cols;
       const bool ok = r < vrows && q < vcols;
+      if (ok) LRK_CHECK(from.name, from.at + r * rs + q, from.n);
       cp4(dst + r * ds + q, ok ? src + r * rs + q : src, ok);
     }
   } else {
     for (int e = tid; e < rows * cols; e += nthr) {
       const int r = e / cols, q = e - r * cols;
+      LRK_SMEM(dst + r * ds + q, 4);
+      if (r < vrows && q < vcols)
+        LRK_CHECK(from.name, from.at + r * rs + q, from.n);
       dst[r * ds + q] =
           (r < vrows && q < vcols) ? to_f(src[r * rs + q]) : 0.f;
     }
@@ -218,6 +235,7 @@ __device__ __forceinline__ void warp_cumsum(float* v, int Q, int lane) {
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const int j = 4 * lane + k;
+    if (j < Q) LRK_SMEM(v + j, 4);
     run += j < Q ? (double)v[j] : 0.0;
     s[k] = run;
   }
@@ -232,6 +250,7 @@ __device__ __forceinline__ void warp_cumsum(float* v, int Q, int lane) {
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const int j = 4 * lane + k;
+    if (j < Q) LRK_SMEM(v + j, 4);
     if (j < Q) v[j] = (float)(before + s[k]);
   }
 }
@@ -247,6 +266,7 @@ __device__ __forceinline__ Decay fetch_decay(const Args<T>& a, const Geo& g,
                                              long long bc, int h, int j) {
   const bool in = j < g.Q;
   const long long at = (bc * g.Q + j) * g.H + h;
+  if (in) LRK_CHECK("dt, da", at, a.n_dt);
   return {in ? to_f(a.dt[at]) : 0.f, in ? to_f(a.da[at]) : 0.f};
 }
 // into dts and clog (Qp each; token j = this thread's index tid among the
@@ -256,6 +276,8 @@ __device__ __forceinline__ void scan_decay(const Decay& d, const Geo& g,
                                            float* clog, float* dts, int tid,
                                            int bar, int nthr) {
   if (tid < g.Qp) {
+    LRK_SMEM(dts + tid, 4);
+    LRK_SMEM(clog + tid, 4);
     dts[tid] = d.dt;
     clog[tid] = d.da;
   }
@@ -305,19 +327,29 @@ __device__ void gram_cta(const Args<T>& a, const Geo& g, float* sm,
   float* cs = sm;
   float* bs = sm + g.g_b;
   // group grp is head grp's B and C (head stride 0 when groups == 1)
-  const T* cb0 = a.c + bc * a.c_sbc + (long long)grp * a.c_sh;
-  const T* bb0 = a.b + bc * a.b_sbc + (long long)grp * a.b_sh;
+  const long long c_at = bc * a.c_sbc + (long long)grp * a.c_sh;
+  const long long b_at = bc * a.b_sbc + (long long)grp * a.b_sh;
+  const T* cb0 = a.c + c_at;
+  const T* bb0 = a.b + b_at;
   const int nst = cdiv(g.N, kStage);
   for (int s = 0; s < nst; ++s) {
     const int n0 = kStage * s;
-    copy_rows(cs + n0, g.NS, cb0 + kStrip * pr.s0 * a.c_sq + n0, a.c_sq,
-              kStrip, kStage, g.Q - kStrip * pr.s0, g.N - n0, a.vec_bc);
-    if (pr.two)
-      copy_rows(cs + kStrip * g.NS + n0, g.NS,
-                cb0 + kStrip * pr.s1 * a.c_sq + n0, a.c_sq, kStrip, kStage,
-                g.Q - kStrip * pr.s1, g.N - n0, a.vec_bc);
-    copy_rows(bs + n0, g.NS, bb0 + j0 * a.b_sq + n0, a.b_sq, kGramCols,
-              kStage, g.Q - j0, g.N - n0, a.vec_bc);
+    LRK_CHECK("C (shared)", (2 * kStrip - 1) * g.NS + n0 + kStage - 1, g.g_b);
+    LRK_CHECK("B (shared)", g.g_b + (kGramCols - 1) * g.NS + n0 + kStage - 1,
+              g.g_floats);
+    const long long c0 = kStrip * pr.s0 * a.c_sq + n0;
+    copy_rows(cs + n0, g.NS, cb0 + c0, a.c_sq, kStrip, kStage,
+              g.Q - kStrip * pr.s0, g.N - n0, a.vec_bc,
+              Src{"c", c_at + c0, a.n_c});
+    if (pr.two) {
+      const long long c1 = kStrip * pr.s1 * a.c_sq + n0;
+      copy_rows(cs + kStrip * g.NS + n0, g.NS, cb0 + c1, a.c_sq, kStrip,
+                kStage, g.Q - kStrip * pr.s1, g.N - n0, a.vec_bc,
+                Src{"c", c_at + c1, a.n_c});
+    }
+    const long long b0 = j0 * a.b_sq + n0;
+    copy_rows(bs + n0, g.NS, bb0 + b0, a.b_sq, kGramCols, kStage, g.Q - j0,
+              g.N - n0, a.vec_bc, Src{"b", b_at + b0, a.n_b});
     cp_commit();
   }
   // tiles: slot warp / 4, columns j0 + 8 (warp % 4)
@@ -338,7 +370,8 @@ __device__ void gram_cta(const Args<T>& a, const Geo& g, float* sm,
     }
   }
   if (live) {
-    float* gm = a.gram + (bc * g.groups + grp) * g.Q * (long long)g.Q;
+    const long long gm_at = (bc * g.groups + grp) * g.Q * (long long)g.Q;
+    float* gm = a.gram + gm_at;
     const int i0 = kStrip * (sl ? pr.s1 : pr.s0) + gq;
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
@@ -346,6 +379,8 @@ __device__ void gram_cta(const Args<T>& a, const Geo& g, float* sm,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int j = jt + 2 * tq + e;
+        if (i < g.Q && j < g.Q)
+          LRK_CHECK("gram", gm_at + (long long)i * g.Q + j, a.n_gram);
         if (i < g.Q && j < g.Q)
           gm[(long long)i * g.Q + j] = acc[2 * hr + e] + cor[2 * hr + e];
       }
@@ -360,16 +395,20 @@ __device__ void gram_cta(const Args<T>& a, const Geo& g, float* sm,
 // ld.global.cg.
 __device__ __forceinline__ void copy_g(float* dst, const Geo& g,
                                        const float* gm, int s, int kc,
-                                       bool vec, int tid) {
+                                       bool vec, int tid, const Src& from) {
   const float* src = gm + (long long)kStrip * s * g.Q;
   const int vrows = g.Q - kStrip * s;
+  const Src at{from.name, from.at + (long long)kStrip * s * g.Q, from.n};
   if (vec) {
-    copy_rows(dst, g.GS, src, g.Q, kStrip, kc, vrows, g.Q, true, tid,
+    copy_rows(dst, g.GS, src, g.Q, kStrip, kc, vrows, g.Q, true, at, tid,
               kHalf);
     return;
   }
   for (int e = tid; e < kStrip * kc; e += kHalf) {
     const int r = e / kc, q = e - r * kc;
+    LRK_SMEM(dst + r * g.GS + q, 4);
+    if (r < vrows && q < g.Q)
+      LRK_CHECK(at.name, at.at + (long long)r * g.Q + q, at.n);
     dst[r * g.GS + q] =
         (r < vrows && q < g.Q) ? __ldcg(src + (long long)r * g.Q + q) : 0.f;
   }
@@ -397,22 +436,31 @@ __device__ void state_half(const Args<T>& a, const Geo& g, float* sm,
   float* clog = sm + g.m_clog;
   float* dts = sm + g.m_dt;
   const long long xrow = (long long)g.H * g.P;  // x's token stride
-  const T* x0 = a.x + (bc * g.Q * g.H + h) * g.P;
+  const long long x_at = (bc * g.Q * g.H + h) * g.P;
+  const T* x0 = a.x + x_at;
   const int n0 = kTileN * r;
-  const T* bb = a.b + bc * a.b_sbc + (long long)h * a.b_sh + n0;
+  const long long b_at = bc * a.b_sbc + (long long)h * a.b_sh + n0;
+  const T* bb = a.b + b_at;
   const Decay dec = fetch_decay(a, g, bc, h, tid);
   const int nst = cdiv(g.Qp, kStage);
   for (int s = 0; s < nst; ++s) {
     const int j0 = kStage * s, n = imin(kStage, g.Qp - j0);
+    LRK_CHECK("B^T (shared)", (j0 + n) * kBtStride - 1, g.Qp * kBtStride);
     copy_rows(bt + j0 * kBtStride, kBtStride, bb + j0 * a.b_sq, a.b_sq, n,
-              kTileN, g.Q - j0, g.N - n0, a.vec_bc, tid, kHalf);
-    if (!has_y)
+              kTileN, g.Q - j0, g.N - n0, a.vec_bc,
+              Src{"b", b_at + j0 * a.b_sq, a.n_b}, tid, kHalf);
+    if (!has_y) {
+      LRK_CHECK("x (shared)", (j0 + n) * g.XS - 1, g.m_bt);
       copy_rows(xs + j0 * g.XS, g.XS, x0 + j0 * xrow, xrow, n, g.P8,
-                g.Q - j0, g.P, a.vec_x, tid, kHalf);
+                g.Q - j0, g.P, a.vec_x, Src{"x", x_at + j0 * xrow, a.n_x},
+                tid, kHalf);
+    }
     cp_commit();
   }
   scan_decay(dec, g, clog, dts, tid, kBarState, kHalf);
+  LRK_CHECK("clog", g.Q - 1, g.Qp);
   const float clast = clog[g.Q - 1];
+  if (tid < g.Qp) LRK_CHECK("w", tid, g.Qp);
   if (tid < g.Qp)
     w[tid] = tid < g.Q ? __expf(clast - clog[tid]) * dts[tid] : 0.f;
   // tiles (16 rows of n, 8 columns of p): rows 16 (warp % 2), p tiles
@@ -434,9 +482,12 @@ __device__ void state_half(const Args<T>& a, const Geo& g, float* sm,
 #pragma unroll 2
       for (int kk = kStage * s; kk < kend; kk += 8) {
         Frag<true, !kExact> f;  // k paired as load_b_krow reads x
+        LRK_CHECK("w", kk + 2 * tq + 1, g.Qp);
         const float2 wk = *reinterpret_cast<const float2*>(w + kk + 2 * tq);
         const float* r0 = bt + (kk + 2 * tq) * kBtStride + m0 + gq;
         const float* r1 = r0 + kBtStride;
+        LRK_CHECK("B^T (shared)", (kk + 2 * tq + 1) * kBtStride + m0 + gq + 8,
+                  g.Qp * kBtStride);
         f.set_a(0, r0[0] * wk.x);
         f.set_a(1, r0[8] * wk.x);
         f.set_a(2, r1[0] * wk.y);
@@ -452,7 +503,8 @@ __device__ void state_half(const Args<T>& a, const Geo& g, float* sm,
       }
     }
     if (!live) continue;
-    float* sh = a.state + ((bc * g.H + h) * g.N + n0 + m0) * g.P;
+    const long long st_at = ((bc * g.H + h) * g.N + n0 + m0) * g.P;
+    float* sh = a.state + st_at;
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int p = 8 * ((warp >> 1) + 2 * u + 8 * pass) + 2 * tq;
@@ -462,8 +514,10 @@ __device__ void state_half(const Args<T>& a, const Geo& g, float* sm,
         if (n0 + m0 + n < g.N) {
 #pragma unroll
           for (int e = 0; e < 2; ++e)
-            if (p + e < g.P)
+            if (p + e < g.P) {
+              LRK_CHECK("state", st_at + n * g.P + p + e, a.n_state);
               sh[n * g.P + p + e] = acc[u][2 * hr + e] + cor[u][2 * hr + e];
+            }
         }
       }
     }
@@ -483,16 +537,19 @@ __device__ void y_half(const Args<T>& a, const Geo& g, float* sm,
   float* dts = sm + g.m_ydt;
   const int grp = g.groups == 1 ? 0 : h;
   const long long xrow = (long long)g.H * g.P;  // x's token stride
-  const T* x0 = a.x + (bc * g.Q * g.H + h) * g.P;
+  const long long x_at = (bc * g.Q * g.H + h) * g.P;
+  const T* x0 = a.x + x_at;
   const Decay dec = fetch_decay(a, g, bc, h, tid);
   // x: every token for the state half, else up to the pair's last strip
   const int rows = has_s ? g.Qp : kStrip * (pr.s1 + 1);
   const int nst = cdiv(rows, kStage);
   for (int s = 0; s < nst; ++s) {
     const int j0 = kStage * s;
+    LRK_CHECK("x (shared)", (j0 + imin(kStage, rows - j0)) * g.XS - 1,
+              g.m_bt);
     copy_rows(xs + j0 * g.XS, g.XS, x0 + j0 * xrow, xrow,
-              imin(kStage, rows - j0), g.P8, g.Q - j0, g.P, a.vec_x, tid,
-              kHalf);
+              imin(kStage, rows - j0), g.P8, g.Q - j0, g.P, a.vec_x,
+              Src{"x", x_at + j0 * xrow, a.n_x}, tid, kHalf);
     cp_commit();
   }
   scan_decay(dec, g, clog, dts, tid, kBarY, kHalf);
@@ -501,9 +558,16 @@ __device__ void y_half(const Args<T>& a, const Geo& g, float* sm,
     if (has_s) bar_arrive(kBarX0 + s, kThreads);
   }
   wait_for_gram();
-  const float* gm = a.gram + (bc * g.groups + grp) * g.Q * (long long)g.Q;
-  copy_g(gs, g, gm, pr.s0, pr.kc0, a.vec_g, tid);
-  if (pr.two) copy_g(gs + kStrip * g.GS, g, gm, pr.s1, pr.kc1, a.vec_g, tid);
+  const long long gm_at = (bc * g.groups + grp) * g.Q * (long long)g.Q;
+  const float* gm = a.gram + gm_at;
+  const Src from{"gram", gm_at, a.n_gram};
+  LRK_CHECK("G (shared)", (kStrip - 1) * g.GS + pr.kc0 - 1, kStrip * g.GS);
+  copy_g(gs, g, gm, pr.s0, pr.kc0, a.vec_g, tid, from);
+  if (pr.two) {
+    LRK_CHECK("G (shared)", (2 * kStrip - 1) * g.GS + pr.kc1 - 1,
+              2 * kStrip * g.GS);
+    copy_g(gs + kStrip * g.GS, g, gm, pr.s1, pr.kc1, a.vec_g, tid, from);
+  }
   cp_commit();
   cp_wait<0>();
   bar_sync(kBarY, kHalf);  // G, and every y thread's x
@@ -513,6 +577,7 @@ __device__ void y_half(const Args<T>& a, const Geo& g, float* sm,
 #pragma unroll
   for (int q = 0; q < kMaxQ / 32; ++q) {
     const int j = lane + 32 * q;
+    if (j < g.Qp) LRK_CHECK("clog, dt", j, g.Qp);
     cj[q] = j < g.Qp ? clog[j] : 0.f;
     dj[q] = j < g.Qp ? dts[j] : 0.f;
   }
@@ -521,11 +586,13 @@ __device__ void y_half(const Args<T>& a, const Geo& g, float* sm,
     const int row = warp + 4 * m;
     const int i = kStrip * (m < 4 ? pr.s0 : pr.s1) + row % kStrip;
     const int kc = m < 4 ? pr.kc0 : pr.kc1;
+    LRK_CHECK("clog", i, g.Qp);
     const float ci = clog[i];
 #pragma unroll
     for (int q = 0; q < kMaxQ / 32; ++q) {
       const int j = lane + 32 * q;
       if (j < kc) {
+        LRK_CHECK("G (shared)", row * g.GS + j, 2 * kStrip * g.GS);
         float v = 0.f;
         if (j <= i && i < g.Q)  // a masked pair never reaches the exp
           v = gs[row * g.GS + j] * __expf(ci - cj[q]) * dj[q];
@@ -568,12 +635,15 @@ __device__ void y_half(const Args<T>& a, const Geo& g, float* sm,
         for (int hr = 0; hr < 2; ++hr) {
           const int i = kStrip * (sl ? pr.s1 : pr.s0) + gq + 8 * hr;
           if (i < g.Q) {
-            T* dst = a.y + ((bc * g.Q + i) * g.H + h) * g.P + p;
+            const long long y_at = ((bc * g.Q + i) * g.H + h) * g.P + p;
+            T* dst = a.y + y_at;
 #pragma unroll
             for (int e = 0; e < 2; ++e)
-              if (p + e < g.P)
+              if (p + e < g.P) {
+                LRK_CHECK("y", y_at + e, a.n_x);
                 store(dst + e, yacc[sl][u][2 * hr + e] +
                                    ycor[sl][u][2 * hr + e]);
+              }
           }
         }
       }
@@ -662,7 +732,15 @@ int launch(const Geo& g, const void* x, const void* dt, const void* da,
                   kF32 && g.P % 4 == 0 && aligned16(x),
                   kF32 && g.N % 4 == 0 && strides4 && aligned16(b) &&
                       aligned16(c),
-                  g.Q % 4 == 0 && aligned16(gram)};
+                  g.Q % 4 == 0 && aligned16(gram),
+                  g.BC * g.Q * g.H * (long long)g.P,
+                  g.BC * g.Q * (long long)g.H,
+                  (g.BC - 1) * b_sbc + (g.Q - 1) * b_sq + (g.H - 1) * b_sh +
+                      g.N,
+                  (g.BC - 1) * c_sbc + (g.Q - 1) * c_sq + (g.H - 1) * c_sh +
+                      g.N,
+                  g.BC * g.H * g.N * (long long)g.P,
+                  g.BC * g.groups * g.Q * (long long)g.Q};
   cudaError_t err = allow_shared_memory<T>();
   if (err != cudaSuccess) return (int)err;
   ssd_gram_kernel<T><<<(unsigned)g.n_gram, kThreads,

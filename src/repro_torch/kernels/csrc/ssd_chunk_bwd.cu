@@ -126,6 +126,16 @@ struct Args {
   int Q, H, P, N, G, rep, hs, slices;
   int S, pairs, Qp, N8, passes, nblk;  // strips, their pairs, Q to 16, ...
   bool vec_p, vec_n;  // 16-byte copies of x / dy / dstate rows, b / c rows
+  // elements each array holds (x, dy, dx; dt, da, ddt, dda; b, c, db, dc;
+  // dstate; the two scratch arrays): the limits of the checked build
+  long long n_x, n_dt, n_bc, n_ds, n_dpart, n_epart;
+};
+
+// The source of a copy: `src` lies at element `at` of an array of `n`
+// elements (the checked build asserts every element read inside it).
+struct Src {
+  const char* name;
+  long long at, n;
 };
 
 __device__ __forceinline__ int at_base(int s) { return 128 * s * (s + 2); }
@@ -140,12 +150,14 @@ __device__ __forceinline__ int at_index(int i, int j) {
 // starts then multiples of 4 floats).  A piece not copied reads nothing.
 __device__ __forceinline__ void copy_rows(float* dst, int ds, const float* src,
                                           long long rs, int rows, int cols,
-                                          int vrows, int vcols, bool vec) {
+                                          int vrows, int vcols, bool vec,
+                                          const Src& from) {
   if (vec) {
     const int pieces = cols / 4;
     for (int e = threadIdx.x; e < rows * pieces; e += kThreads) {
       const int r = e / pieces, q = 4 * (e - r * pieces);
       const bool ok = r < vrows && q < vcols;
+      if (ok) LRK_CHECK(from.name, from.at + r * rs + q + 3, from.n);
       cp16(dst + r * ds + q, ok ? src + r * rs + q : src, ok);
     }
     return;
@@ -153,6 +165,7 @@ __device__ __forceinline__ void copy_rows(float* dst, int ds, const float* src,
   for (int e = threadIdx.x; e < rows * cols; e += kThreads) {
     const int r = e / cols, q = e - r * cols;
     const bool ok = r < vrows && q < vcols;
+    if (ok) LRK_CHECK(from.name, from.at + r * rs + q, from.n);
     cp4(dst + r * ds + q, ok ? src + r * rs + q : src, ok);
   }
 }
@@ -165,6 +178,7 @@ __device__ __forceinline__ void warp_scan(float* v, int Q, int lane,
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const int j = 4 * lane + k;
+    if (j < Q) LRK_SMEM(v + (reverse ? Q - 1 - j : j), 4);
     run += j < Q ? (double)v[reverse ? Q - 1 - j : j] : 0.0;
     s[k] = run;
   }
@@ -180,6 +194,7 @@ __device__ __forceinline__ void warp_scan(float* v, int Q, int lane,
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const int j = 4 * lane + k;
+    if (j < Q) LRK_SMEM(v + (reverse ? Q - 1 - j : j), 4);
     if (j < Q) v[reverse ? Q - 1 - j : j] = (float)(before + s[k]);
   }
 }
@@ -219,6 +234,7 @@ __device__ __forceinline__ Decay fetch_decay(const Args& a, long long bc,
   const int t = threadIdx.x;
   const bool in = t < a.Q;
   const long long at = (bc * a.Q + t) * a.H + h;
+  if (in) LRK_CHECK("dt, da", at, a.n_dt);
   return {in ? a.dt[at] : 0.f, in ? a.da[at] : 0.f};
 }
 
@@ -229,14 +245,20 @@ __device__ __forceinline__ void copy_xy(const Args& a, float* dst,
                                         int h, int c) {
   const int p0 = kPC * c, pw = imin(kPC, a.P - p0);
   const long long rs = (long long)a.H * a.P;
-  copy_rows(dst, kXS, src + (bc * a.Q * a.H + h) * a.P + p0, rs, a.Qp,
-            (pw + 7) & ~7, a.Q, pw, a.vec_p);
+  const long long at = (bc * a.Q * a.H + h) * a.P + p0;
+  LRK_CHECK("x, dY (shared)", (a.Qp - 1) * kXS + ((pw + 7) & ~7) - 1,
+            kMax * kXS);
+  copy_rows(dst, kXS, src + at, rs, a.Qp, (pw + 7) & ~7, a.Q, pw, a.vec_p,
+            Src{"x, dy", at, a.n_x});
 }
 __device__ __forceinline__ void copy_ds(const Args& a, float* dst,
                                         long long bc, int h, int c) {
   const int p0 = kPC * c, pw = imin(kPC, a.P - p0);
-  copy_rows(dst, kXS, a.dstate + (bc * a.H + h) * a.N * (long long)a.P + p0,
-            a.P, a.N8, (pw + 7) & ~7, a.N, pw, a.vec_p);
+  const long long at = (bc * a.H + h) * a.N * (long long)a.P + p0;
+  LRK_CHECK("dS (shared)", (a.N8 - 1) * kXS + ((pw + 7) & ~7) - 1,
+            kMax * kXS);
+  copy_rows(dst, kXS, a.dstate + at, a.P, a.N8, (pw + 7) & ~7, a.N, pw,
+            a.vec_p, Src{"dstate", at, a.n_ds});
 }
 
 // sum over the lanes of one g (xor over t)
@@ -286,8 +308,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   {
     const long long go = (bc * a.Q * a.G + grp) * a.N;
     const long long rs = (long long)a.G * a.N;
-    copy_rows(bs, kBS, a.b + go, rs, a.Qp, a.N8, a.Q, a.N, a.vec_n);
-    copy_rows(cs, kBS, a.c + go, rs, a.Qp, a.N8, a.Q, a.N, a.vec_n);
+    LRK_CHECK("B, C (shared)", (a.Qp - 1) * kBS + a.N8 - 1, kMax * kBS);
+    copy_rows(bs, kBS, a.b + go, rs, a.Qp, a.N8, a.Q, a.N, a.vec_n,
+              Src{"b", go, a.n_bc});
+    copy_rows(cs, kBS, a.c + go, rs, a.Qp, a.N8, a.Q, a.N, a.vec_n,
+              Src{"c", go, a.n_bc});
     cp_commit();
     copy_xy(a, xs, a.x, bc, h0, 0);
     cp_commit();
@@ -335,9 +360,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int h = h0; h < h1; ++h) {
     // the head's decay: clog = cumsum(da), e_j, w_j; partial sums zeroed
     __syncthreads();  // the previous head's last reads of the vectors
-    for (int e = threadIdx.x; e < kVecFloats - kVDw; e += kThreads)
+    for (int e = threadIdx.x; e < kVecFloats - kVDw; e += kThreads) {
+      LRK_CHECK("vectors", kVDw + e, kVecFloats);
       vec[kVDw + e] = 0.f;
+    }
     if (threadIdx.x < kMax) {
+      LRK_SMEM(dts + threadIdx.x, 4);
+      LRK_SMEM(clog + threadIdx.x, 4);
       dts[threadIdx.x] = dec.dt;
       clog[threadIdx.x] = dec.da;
     }
@@ -346,6 +375,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
     if (threadIdx.x < kMax) {
       const int t = threadIdx.x;
+      LRK_CHECK("clog", Q - 1, kMax);
       const float e = t < Q ? expf(clog[Q - 1] - clog[t]) : 0.f;
       es[t] = e;
       ws[t] = e * dts[t];
@@ -391,11 +421,13 @@ __global__ void __launch_bounds__(kThreads, 1)
           // masked pair's exponent is -inf (L = 0), so its difference
           // never reaches the exponential
           const bool full = cb < 2 * s && (kFull || 16 * s + 16 <= Q);
+          LRK_CHECK("clog, dt", j0 + 1, kMax);
           const float2 cj = *reinterpret_cast<const float2*>(clog + j0);
           const float2 dj = *reinterpret_cast<const float2*>(dts + j0);
 #pragma unroll
           for (int hr = 0; hr < 2; ++hr) {
             const int i = i0 + 8 * hr;
+            LRK_CHECK("clog", i, kMax);
             const float ci = clog[i];
             float av[2];
 #pragma unroll
@@ -414,6 +446,7 @@ __global__ void __launch_bounds__(kThreads, 1)
               if (k < slots.na) rsum[0][hr] += mv;
               else rsum[1][hr] += mv;
             }
+            LRK_CHECK("att", at_index(i, j0) + 1, kOffVec - kOffAt);
             *reinterpret_cast<float2*>(at + at_index(i, j0)) =
                 make_float2(av[0], av[1]);
           }
@@ -434,6 +467,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             const int j0 = 8 * slots.block(k) + 2 * tq;
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
+              LRK_CHECK("column sums", s * kMax + j0 + e, 8 * kMax);
               colk[s * kMax + j0 + e] += col[q][e];
               colm[s * kMax + j0 + e] += col[q][2 + e];
             }
@@ -453,8 +487,11 @@ __global__ void __launch_bounds__(kThreads, 1)
           if (st == 0 ? slots.na == 0 : slots.nb == 0) continue;
           const int s = st == 0 ? slots.a : slots.b;
 #pragma unroll
-          for (int hr = 0; hr < 2; ++hr)
+          for (int hr = 0; hr < 2; ++hr) {
+            LRK_CHECK("row sums", slots.par * kMax + 16 * s + gq + 8 * hr,
+                      2 * kMax);
             rowp[slots.par * kMax + 16 * s + gq + 8 * hr] += rsum[st][hr];
+          }
         }
       }
       cp_wait<0>();   // dS of this pass
@@ -463,6 +500,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       // -- E += w ⊙ X dSᵀ on strip `warp`; dw_j = Σ_n B_jn (X dSᵀ)_jn
       if (kFull || warp < S) {
         const int j0 = 16 * warp + gq;
+        LRK_CHECK("w", j0 + 8, kMax);
         const float w0 = ws[j0], w1 = ws[j0 + 8];
         float dw[2] = {};
 #pragma unroll
@@ -483,6 +521,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int u = 0; u < 4; ++u) {
             if (!kFull && 8 * (4 * q + u) >= N8) continue;
             const int n = 8 * (4 * q + u) + 2 * tq;
+            LRK_CHECK("B (shared)", (j0 + 8) * kBS + n + 1, kMax * kBS);
             const float2 b0 =
                 *reinterpret_cast<const float2*>(bs + j0 * kBS + n);
             const float2 b1 =
@@ -501,6 +540,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
           const float v = sum_over_t(dw[hr]);
+          if (tq == 0) LRK_CHECK("dw", j0 + 8 * hr, kMax);
           if (tq == 0) dwv[j0 + 8 * hr] += v;
         }
       }
@@ -531,6 +571,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             }
           }
           const int j0 = 16 * sj + gq;
+          LRK_CHECK("w", j0 + 8, kMax);
           const float w0 = ws[j0], w1 = ws[j0 + 8];
 #pragma unroll
           for (int u = 0; u < 4; ++u)
@@ -541,6 +582,9 @@ __global__ void __launch_bounds__(kThreads, 1)
             }
           for (int i0 = 16 * sj; i0 < Qp; i0 += 8) {
             const int si = i0 >> 4;
+            LRK_CHECK("att", at_base(si) + ((i0 & 15) + 7) * at_stride(si) +
+                                 16 * sj + 15,
+                      kOffVec - kOffAt);
             Frag<true, true> f;
             load_at_nat(f, at + at_base(si) + (i0 & 15) * at_stride(si) +
                                16 * sj,
@@ -553,7 +597,8 @@ __global__ void __launch_bounds__(kThreads, 1)
               f.mma3(acc[u], cor[u]);
             }
           }
-          float* dxh = a.dx + (bc * a.Q * a.H + h) * a.P + p0;
+          const long long dx_at = (bc * a.Q * a.H + h) * a.P + p0;
+          float* dxh = a.dx + dx_at;
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
             const int p = 8 * (4 * hf + u) + 2 * tq;
@@ -563,13 +608,17 @@ __global__ void __launch_bounds__(kThreads, 1)
               if (!kFull && j >= Q) continue;
               float* dst = dxh + j * xrow + p;
               if (kFull) {
+                LRK_CHECK("dx", dx_at + j * xrow + p + 1, a.n_x);
                 *reinterpret_cast<float2*>(dst) =
                     make_float2(acc[u][2 * hr] + cor[u][2 * hr],
                                 acc[u][2 * hr + 1] + cor[u][2 * hr + 1]);
               } else {
 #pragma unroll
                 for (int e = 0; e < 2; ++e)
-                  if (p + e < pw) dst[e] = acc[u][2 * hr + e] + cor[u][2 * hr + e];
+                  if (p + e < pw) {
+                    LRK_CHECK("dx", dx_at + j * xrow + p + e, a.n_x);
+                    dst[e] = acc[u][2 * hr + e] + cor[u][2 * hr + e];
+                  }
               }
             }
           }
@@ -590,9 +639,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (j < Q) {
         float ck = 0.f, cm = 0.f;
         for (int s = j >> 4; s < S; ++s) {
+          LRK_CHECK("column sums", s * kMax + j, 8 * kMax);
           ck += colk[s * kMax + j];
           cm += colm[s * kMax + j];
         }
+        LRK_CHECK("ddt", (bc * a.Q + j) * a.H + h, a.n_dt);
         a.ddt[(bc * a.Q + j) * a.H + h] = fmaf(dwv[j], es[j], ck);
         rowp[j] = (rowp[j] + rowp[kMax + j]) - cm - dwv[j] * ws[j];
       }
@@ -604,18 +655,22 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         lastv += __shfl_xor_sync(0xffffffffu, lastv, off);
+      if (lane == 0) LRK_CHECK("row sums", Q - 1, 2 * kMax);
       if (lane == 0) rowp[Q - 1] += lastv;
       __syncwarp();
       warp_scan(rowp, Q, lane, true);
       __syncwarp();
-      for (int j = lane; j < Q; j += 32)
+      for (int j = lane; j < Q; j += 32) {
+        LRK_CHECK("dda", (bc * a.Q + j) * a.H + h, a.n_dt);
         a.dda[(bc * a.Q + j) * a.H + h] = rowp[j];
+      }
     }
   }
 
   // the slice's D and E
   const long long part = (bc * a.G + grp) * a.slices + sl;
-  float* dp = a.dpart + part * a.Q * (long long)a.Q;
+  const long long dp_at = part * a.Q * (long long)a.Q;
+  float* dp = a.dpart + dp_at;
 #pragma unroll
   for (int k = 0; k < kSlots; ++k) {
     if (!kFull && !slots.has(k)) continue;
@@ -624,24 +679,33 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int hr = 0; hr < 2; ++hr) {
       const int i = i0 + 8 * hr;
       if (kFull) {
+        LRK_CHECK("D partials", dp_at + (long long)i * kMax + j0 + 1,
+                  a.n_dpart);
         *reinterpret_cast<float2*>(dp + (long long)i * kMax + j0) =
             make_float2(dsum[k][2 * hr], dsum[k][2 * hr + 1]);
       } else {
 #pragma unroll
         for (int e = 0; e < 2; ++e)
-          if (i < Q && j0 + e < Q)
+          if (i < Q && j0 + e < Q) {
+            LRK_CHECK("D partials", dp_at + (long long)i * Q + j0 + e,
+                      a.n_dpart);
             dp[(long long)i * Q + j0 + e] = dsum[k][2 * hr + e];
+          }
       }
     }
   }
   if (kFull || warp < S) {
-    float* ep = a.epart + part * a.Q * (long long)a.N;
+    const long long ep_at = part * a.Q * (long long)a.N;
+    float* ep = a.epart + ep_at;
 #pragma unroll
     for (int u = 0; u < kMax / 8; ++u)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int j = 16 * warp + gq + 8 * (e >> 1), n = 8 * u + 2 * tq + (e & 1);
-        if (j < Q && n < a.N) ep[(long long)j * a.N + n] = esum[u][e];
+        if (j < Q && n < a.N) {
+          LRK_CHECK("E partials", ep_at + (long long)j * a.N + n, a.n_epart);
+          ep[(long long)j * a.N + n] = esum[u][e];
+        }
       }
   }
 }
@@ -665,8 +729,12 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int nw8 = (nw + 7) & ~7;
   const long long go = (bc * a.Q * a.G + grp) * a.N + n0;
   const long long rs = (long long)a.G * a.N;
-  copy_rows(bq, kGB, a.b + go, rs, a.Qp, nw8, a.Q, nw, a.vec_n);
-  copy_rows(cq, kGC, a.c + go, rs, a.Qp, nw8, a.Q, nw, a.vec_n);
+  LRK_CHECK("B (shared)", (a.Qp - 1) * kGB + nw8 - 1, kMax * kGB);
+  LRK_CHECK("C (shared)", (a.Qp - 1) * kGC + nw8 - 1, kMax * kGC);
+  copy_rows(bq, kGB, a.b + go, rs, a.Qp, nw8, a.Q, nw, a.vec_n,
+            Src{"b", go, a.n_bc});
+  copy_rows(cq, kGC, a.c + go, rs, a.Qp, nw8, a.Q, nw, a.vec_n,
+            Src{"c", go, a.n_bc});
   cp_commit();
   const long long part0 = (bc * a.G + grp) * a.slices;
   const long long QQ = a.Q * (long long)a.Q, QN = a.Q * (long long)a.N;
@@ -683,6 +751,9 @@ __global__ void __launch_bounds__(kThreads, 2)
         const int e = e0 + u * kThreads + threadIdx.x;
         const int i = e >> 7, j = e & (kMax - 1);
         if (i < a.Q && j < a.Q && j < 16 * ((i >> 4) + 1))
+          LRK_CHECK("D partials", (part0 + s) * QQ + (long long)i * a.Q + j,
+                    a.n_dpart);
+        if (i < a.Q && j < a.Q && j < 16 * ((i >> 4) + 1))
           v[u] += dp[(long long)i * a.Q + j];
       }
     }
@@ -690,6 +761,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int u = 0; u < 16; ++u) {
       const int e = e0 + u * kThreads + threadIdx.x;
       const int i = e >> 7, j = e & (kMax - 1);
+      if (i < a.Qp && j < 16 * ((i >> 4) + 1))
+        LRK_CHECK("D (shared)", i * kBS + j, kMax * kBS);
       if (i < a.Qp && j < 16 * ((i >> 4) + 1)) ds[i * kBS + j] = v[u];
     }
   }
@@ -721,8 +794,10 @@ __global__ void __launch_bounds__(kThreads, 2)
         for (int e = 0; e < 4; ++e) {
           const int i = r0 + 8 * (e >> 1);
           const int n = 8 * (2 * hf + u) + 2 * tq + (e & 1);
-          if (i < a.Q && n < nw)
+          if (i < a.Q && n < nw) {
+            LRK_CHECK("dc", go + i * rs + n, a.n_bc);
             a.dc[go + i * rs + n] = acc[u][e] + cor[u][e];
+          }
         }
     }
     {  // dB rows of strip s: Σ_{i >= 16 s} D_ij C_i, + E
@@ -735,9 +810,13 @@ __global__ void __launch_bounds__(kThreads, 2)
           for (int e = 0; e < 4; ++e) {
             const int j = r0 + 8 * (e >> 1);
             const int n = 8 * (2 * hf + u) + 2 * tq + (e & 1);
-            if (j < a.Q && n < nw)
+            if (j < a.Q && n < nw) {
+              LRK_CHECK("E partials",
+                        (part0 + sl) * QN + (long long)j * a.N + n0 + n,
+                        a.n_epart);
               ev[u][e] += a.epart[(part0 + sl) * QN + (long long)j * a.N +
                                   n0 + n];
+            }
           }
       for (int k = 16 * s; k < a.Qp; k += 8) {
         Frag<true, true> f;
@@ -756,8 +835,10 @@ __global__ void __launch_bounds__(kThreads, 2)
         for (int e = 0; e < 4; ++e) {
           const int j = r0 + 8 * (e >> 1);
           const int n = 8 * (2 * hf + u) + 2 * tq + (e & 1);
-          if (j < a.Q && n < nw)
+          if (j < a.Q && n < nw) {
+            LRK_CHECK("db", go + j * rs + n, a.n_bc);
             a.db[go + j * rs + n] = (acc[u][e] + cor[u][e]) + ev[u][e];
+          }
         }
     }
   }
@@ -821,7 +902,11 @@ extern "C" int ssd_intra_chunk_bwd_launch(
          db, dc, dpart, epart, Q, H, P, N, G, rep, hs, slices,
          S,  cdiv(S, 2), 16 * S, (N + 7) & ~7, cdiv(P, kPC), nblk,
          P % 4 == 0 && aligned16(x) && aligned16(dy) && aligned16(dstate),
-         N % 4 == 0 && aligned16(b) && aligned16(c)};
+         N % 4 == 0 && aligned16(b) && aligned16(c),
+         BC * Q * H * (long long)P, BC * Q * (long long)H,
+         BC * Q * G * (long long)N, BC * H * N * (long long)P,
+         BC * G * slices * Q * (long long)Q,
+         BC * G * slices * Q * (long long)N};
   cudaError_t err = allow_shared_memory();
   if (err != cudaSuccess) return (int)err;
   const unsigned heads = (unsigned)(BC * G * slices);

@@ -1,8 +1,19 @@
-// The SSD kernels' shared device helpers (ssd_chunk.cu, the forward, and
-// ssd_chunk_bwd.cu, its backward): cp.async copies into shared memory, and
-// mma.sync m16n8k8 TF32 with the 3xTF32 split, whose two sums keep fp32
-// accuracy.  Header-only, in an unnamed namespace as wgmma_gemm.cuh is
-// (each source is a library of its own).
+// Device helpers shared by the port's 3xTF32 kernels (ssd_chunk.cu, the
+// SSD forward; ssd_chunk_bwd.cu, its backward; lowrank_forward.cu, the
+// fp32 small-rank forward): cp.async copies into shared memory, and
+// mma.sync m16n8k8 TF32 with the 3xTF32 split (hi.hi plus the two cross
+// products keep fp32 accuracy); and the bounds checks of the checked
+// build.  Header-only, in an unnamed namespace as wgmma_gemm.cuh is (each
+// source is a library of its own; lowrank_forward.cu includes this
+// header, gemm_tile.cuh and wgmma_gemm.cuh, whose names live in the
+// namespaces lrk and tc).
+//
+// The checked build (-DLRK_CHECKED, kernels/_build.py CHECKED): LRK_CHECK
+// asserts an index in [0, limit) and, on failure, prints the function, the
+// array, the index and the limit and traps; every cp.async destination and
+// fragment read of this header is asserted inside the CTA's dynamic shared
+// memory.  Without the define every check is empty, and the arithmetic is
+// the same instructions either way.
 //
 // Fragment layout of m16n8k8 (g = lane / 4, t = lane % 4): A holds (row
 // g, k t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B holds (k t, column
@@ -14,20 +25,74 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#ifdef LRK_CHECKED
+#include <cstdio>
+#endif
+
 namespace {
+
+// ---- bounds checks (the checked build) ----------------------------------
+
+#ifdef LRK_CHECKED
+__device__ __noinline__ void lrk_out_of_bounds(const char* fn,
+                                               const char* array,
+                                               long long index,
+                                               long long limit) {
+  printf("LRK_CHECKED: %s: %s index %lld outside [0, %lld) (block %u, "
+         "thread %u)\n",
+         fn, array, index, limit, blockIdx.x, threadIdx.x);
+  __trap();
+}
+#define LRK_CHECK(array, index, limit)                                  \
+  do {                                                                  \
+    const long long lrk_i_ = (long long)(index);                        \
+    const long long lrk_n_ = (long long)(limit);                        \
+    if (lrk_i_ < 0 || lrk_i_ >= lrk_n_)                                 \
+      lrk_out_of_bounds(__func__, array, lrk_i_, lrk_n_);               \
+  } while (0)
+// `bytes` at p lie inside the CTA's dynamic shared memory
+__device__ __forceinline__ void lrk_check_smem(const char* fn, const void* p,
+                                               int bytes) {
+  extern __shared__ __align__(16) float lrk_dynamic_smem[];
+  const unsigned base =
+      static_cast<unsigned>(__cvta_generic_to_shared(lrk_dynamic_smem));
+  const unsigned at = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  unsigned size;
+  asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(size));
+  if (at < base || at + bytes > base + size)
+    lrk_out_of_bounds(fn, "shared memory (bytes from its start)",
+                      (long long)at - base + bytes - 1, size);
+}
+#define LRK_SMEM(p, bytes) lrk_check_smem(__func__, p, bytes)
+#else
+#define LRK_CHECK(array, index, limit) ((void)0)
+#define LRK_SMEM(p, bytes) ((void)0)
+#endif
 
 // ---- asynchronous copies -------------------------------------------------
 
 __device__ __forceinline__ void cp16(float* dst, const void* src, bool ok) {
+  LRK_SMEM(dst, 16);
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
                "l"(src), "r"(ok ? 16 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp4(float* dst, const void* src, bool ok) {
+  LRK_SMEM(dst, 4);
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
                "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+// 16 bytes at dst from the first `bytes` (0, 4, 8, 12 or 16) at src, the
+// rest zero; with bytes = 0, src is not read
+__device__ __forceinline__ void cp16n(float* dst, const void* src,
+                                      int bytes) {
+  LRK_SMEM(dst, 16);
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+               "l"(src), "r"(bytes)
                : "memory");
 }
 __device__ __forceinline__ void cp_commit() {
@@ -99,6 +164,8 @@ struct Frag {
 template <class F>
 __device__ __forceinline__ void load_a(F& f, const float* m, int s, int g,
                                        int t) {
+  LRK_SMEM(m + g * s + 2 * t, 8);
+  LRK_SMEM(m + (g + 8) * s + 2 * t, 8);
   const float2 r0 = *reinterpret_cast<const float2*>(m + g * s + 2 * t);
   const float2 r1 =
       *reinterpret_cast<const float2*>(m + (g + 8) * s + 2 * t);
@@ -112,6 +179,8 @@ __device__ __forceinline__ void load_a(F& f, const float* m, int s, int g,
 template <class F>
 __device__ __forceinline__ void load_b_krow(F& f, const float* m, int s,
                                             int g, int t) {
+  LRK_SMEM(m + 2 * t * s + g, 4);
+  LRK_SMEM(m + (2 * t + 1) * s + g, 4);
   f.set_b(0, m[2 * t * s + g]);
   f.set_b(1, m[(2 * t + 1) * s + g]);
 }
@@ -119,6 +188,7 @@ __device__ __forceinline__ void load_b_krow(F& f, const float* m, int s,
 template <class F>
 __device__ __forceinline__ void load_b_nrow(F& f, const float* m, int s,
                                             int g, int t) {
+  LRK_SMEM(m + g * s + 2 * t, 8);
   const float2 r = *reinterpret_cast<const float2*>(m + g * s + 2 * t);
   f.set_b(0, r.x);
   f.set_b(1, r.y);
@@ -132,6 +202,8 @@ __device__ __forceinline__ void load_b_nrow(F& f, const float* m, int s,
 template <class F>
 __device__ __forceinline__ void load_a_nat(F& f, const float* m, int s,
                                            int g, int t) {
+  LRK_SMEM(m + g * s + t, 4);
+  LRK_SMEM(m + (g + 8) * s + t + 4, 4);
   f.set_a(0, m[g * s + t]);
   f.set_a(1, m[(g + 8) * s + t]);
   f.set_a(2, m[g * s + t + 4]);
@@ -142,6 +214,8 @@ __device__ __forceinline__ void load_a_nat(F& f, const float* m, int s,
 template <class F>
 __device__ __forceinline__ void load_at_nat(F& f, const float* m, int s,
                                             int g, int t) {
+  LRK_SMEM(m + t * s + g, 4);
+  LRK_SMEM(m + (t + 4) * s + g + 8, 4);
   f.set_a(0, m[t * s + g]);
   f.set_a(1, m[t * s + g + 8]);
   f.set_a(2, m[(t + 4) * s + g]);
@@ -151,6 +225,8 @@ __device__ __forceinline__ void load_at_nat(F& f, const float* m, int s,
 template <class F>
 __device__ __forceinline__ void load_at(F& f, const float* m, int s, int g,
                                         int t) {
+  LRK_SMEM(m + 2 * t * s + g, 4);
+  LRK_SMEM(m + (2 * t + 1) * s + g + 8, 4);
   f.set_a(0, m[2 * t * s + g]);
   f.set_a(1, m[2 * t * s + g + 8]);
   f.set_a(2, m[(2 * t + 1) * s + g]);
@@ -160,6 +236,8 @@ __device__ __forceinline__ void load_at(F& f, const float* m, int s, int g,
 template <class F>
 __device__ __forceinline__ void load_b_krow_nat(F& f, const float* m, int s,
                                                 int g, int t) {
+  LRK_SMEM(m + t * s + g, 4);
+  LRK_SMEM(m + (t + 4) * s + g, 4);
   f.set_b(0, m[t * s + g]);
   f.set_b(1, m[(t + 4) * s + g]);
 }
@@ -167,6 +245,8 @@ __device__ __forceinline__ void load_b_krow_nat(F& f, const float* m, int s,
 template <class F>
 __device__ __forceinline__ void load_b_nrow_nat(F& f, const float* m, int s,
                                                 int g, int t) {
+  LRK_SMEM(m + g * s + t, 4);
+  LRK_SMEM(m + g * s + t + 4, 4);
   f.set_b(0, m[g * s + t]);
   f.set_b(1, m[g * s + t + 4]);
 }

@@ -18,11 +18,14 @@ that kernel).  Three call forms share one kernel source:
 The tensor's device chooses between kernel and plain version: a CPU
 tensor takes the plain version in :mod:`.ref`; a CUDA tensor launches a
 kernel or raises.  There is no fallback.  On the card, :func:`tc_route`
-chooses between the kernel source's two routes by dtype and alignment
-alone, for every form: ``"tc"`` (TMA and ``wgmma`` on the tensor cores,
-in bf16 with every row length a multiple of 8 and 16-byte-aligned
-pointers) or ``"simt"`` (fp32 FMAs: fp32 and rows TMA cannot address).
-Neither gives way to the other: a failed build or launch raises.
+is the one place that chooses among the kernel source's three routes,
+by dtype, form, rank and alignment alone: ``"tc"`` (TMA and ``wgmma`` on
+the tensor cores, in bf16 with every row length a multiple of 8 and
+16-byte-aligned pointers, every form), ``"tf32x3"`` (fp32 shared-B and
+``return_p`` launches of rank at most ``SMALL_RANK``: one launch of
+3xTF32 ``mma.sync`` with p formed in the tile) or ``"simt"`` (fp32 FMAs:
+fp32 at larger rank, fp32 per-row B, and bf16 rows TMA cannot address).
+None gives way to another: a failed build or launch raises.
 ``LAUNCHES`` counts launches per ``(form, route, K, N)`` — form
 ``"shared"``, ``"p"`` (return_p) or ``"batched"`` — so a run can show
 that its main path went through the kernel, and by which route.
@@ -46,7 +49,7 @@ import torch
 from . import _build, ref
 
 # (form, route, K, N) -> launches on CUDA tensors; form "shared" | "p" |
-# "batched", route "tc" | "simt"
+# "batched", route "tc" | "tf32x3" | "simt"
 LAUNCHES: collections.Counter = collections.Counter()
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -76,6 +79,9 @@ BYTES_SMS, OPS_INTENSITY = 48, 512
 # shared-B launches of at most this many rows take the per-row-B kernel
 # with one B (W read once by a swap-AB tile)
 SKINNY_ROWS = 16
+# fp32 shared-B and return_p launches of at most this rank take the
+# "tf32x3" route: V's columns are one or two n8 blocks of its tile
+SMALL_RANK = 16
 
 _COUNTERS: dict = {}      # device index -> zeroed int32 tile counters
 
@@ -221,11 +227,18 @@ def tc_plan(form: str, M: int, K: int, N: int, r: int) -> dict:
 
 
 def tc_route(dtype: torch.dtype, K: int, N: int, r: int,
-             ptrs=()) -> str:
-    """``"tc"`` where the tensor-core route can take a launch of any form
-    — bf16, every row length (K, N, r) a multiple of 8 and every pointer
-    16-byte aligned, as TMA (and the per-row-B form's ``cp.async`` of B)
-    addresses them — else ``"simt"``."""
+             ptrs=(), form: str | None = None) -> str:
+    """The route of a launch.  ``"tc"`` where the ``wgmma`` route can take
+    a launch of any form — bf16, every row length (K, N, r) a multiple of
+    8 and every pointer 16-byte aligned, as TMA (and the per-row-B form's
+    ``cp.async`` of B) addresses them; ``"tf32x3"`` for an fp32 launch of
+    the forward's ``form`` ``"shared"`` or ``"p"`` with ``r <=
+    SMALL_RANK``; else ``"simt"``.  Without a form (the backward, the
+    merge and the projection ask for their bf16 operands) only ``"tc"``
+    or ``"simt"``."""
+    if (dtype == torch.float32 and form in ("shared", "p")
+            and r <= SMALL_RANK):
+        return "tf32x3"
     if dtype != torch.bfloat16 or any(d % TC_ALIGN for d in (K, N, r)):
         return "simt"
     return "simt" if any(int(p) % 16 for p in ptrs) else "tc"
@@ -243,8 +256,11 @@ def scratch_plan(form: str, route: str, M: int, K: int, N: int,
     at decode (M ≤ 16) an ``(s + slots, M, N)`` buffer (the splits' and
     the rank slots' partials) only where the output tiles alone cannot
     fill the card.
-    The SIMT route sums split-K partials in fp32."""
+    The SIMT route sums split-K partials in fp32; ``"tf32x3"`` keeps
+    nothing."""
     bf16, f32 = torch.bfloat16, torch.float32
+    if route == "tf32x3":
+        return {}
     if route == "tc" and form == "shared" and M <= SKINNY_ROWS:
         form, seq = "batched", M
     if route == "tc" and form == "batched":
@@ -288,6 +304,17 @@ def _tc_kernel():
     fn = _build.load("lowrank_forward").lowrank_forward_tc_launch
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [vp] * 11 + [ci] * 4 + [vp]
+    fn.restype = ci
+    return fn
+
+
+@functools.cache
+def _f3_kernel():
+    """The fp32 small-rank route's C entry point."""
+    fn = _build.load("lowrank_forward").lowrank_forward_f3_launch
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    # x, w, v, b, y, p, M, K, N, r, stream
+    fn.argtypes = [vp] * 6 + [ci] * 4 + [vp]
     fn.restype = ci
     return fn
 
@@ -350,11 +377,16 @@ def _launch(form: str, x2, w, v, b, seq: int, rows=None):
     if M == 0:
         return y if p_out is None else (y, p_out)
     route = tc_route(x2.dtype, K, N, r,
-                     (t.data_ptr() for t in (x2, w, v, b)))
+                     (t.data_ptr() for t in (x2, w, v, b)), form)
     plan = scratch_plan(form, route, M, K, N, r, seq)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if route == "tc" and form == "batched":
+        if route == "tf32x3":
+            rc = _f3_kernel()(
+                x2.data_ptr(), w.data_ptr(), v.data_ptr(), b.data_ptr(),
+                y.data_ptr(), None if p_out is None else p_out.data_ptr(),
+                M, K, N, r, stream)
+        elif route == "tc" and form == "batched":
             rc = _launch_dec(x2, w, v, b, y, plan, seq, rows, stream)
         elif route == "tc" and tc_plan(form, M, K, N, r)["route"] == \
                 "skinny":

@@ -22,15 +22,18 @@ fp32 or bf16 (GaLore's path meets an fp32 gradient and a bf16 basis),
 and returns ``Gᵀ V`` (..,N,r) in fp32; a long K is split into ranges
 summed in a fixed order.
 
-Each kernel source has two routes on the card, chosen per launch by
-dtype and alignment alone (:func:`merge_route`, :func:`project_route`):
-``"tc"`` (TMA and ``wgmma`` on the tensor cores: bf16 W and V with an
-fp32 or bf16 B for the merge, a bf16 V with an fp32 or bf16 G for the
-projection, every row length a multiple of 8 and every pointer 16-byte
-aligned; an fp32 B or G is carried into the bf16 products as a (hi, lo)
-pair, :func:`ref.split_hi_lo`) or ``"simt"`` (fp32 FMAs: fp32 W or V,
-the stochastically rounded merge, rows TMA cannot address).  Neither
-gives way to the other: a failed launch raises.
+Each kernel source has its routes on the card, chosen per launch by
+dtype, rank and alignment alone (:func:`merge_route`,
+:func:`project_route`): ``"tc"`` (TMA and ``wgmma`` on the tensor cores:
+bf16 W and V with an fp32 or bf16 B for the merge, a bf16 V with an fp32
+or bf16 G for the projection, every row length a multiple of 8 and every
+pointer 16-byte aligned; an fp32 B or G is carried into the bf16
+products as a (hi, lo) pair, :func:`ref.split_hi_lo`), ``"ew"`` (the
+plain merge of an fp32 W or V at rank at most ``SMALL_RANK``: an
+elementwise pass over W, the rank-r product in registers) or ``"simt"``
+(fp32 FMAs: fp32 W or V at larger rank, the stochastically rounded
+merge, bf16 rows TMA cannot address).  None gives way to another: a
+failed launch raises.
 
 ``LAUNCHES`` counts launches per ``(kernel, route, shape)``: kernel
 ``"lowrank_merge"`` or ``"lowrank_merge_sr"`` (the rounded form) with
@@ -51,11 +54,11 @@ from typing import Optional
 import torch
 
 from . import _build, ref
-from .lowrank_forward import (DTYPE_CODE, MIN_K_PER_SPLIT, SMS, TILE,
-                              _counters, _route, tc_route)
+from .lowrank_forward import (DTYPE_CODE, MIN_K_PER_SPLIT, SMALL_RANK, SMS,
+                              TILE, _counters, _route, tc_route)
 
 # (kernel, route, shape of w or g) -> launches on CUDA tensors; route
-# "tc" | "simt"
+# "tc" | "ew" | "simt"
 LAUNCHES: collections.Counter = collections.Counter()
 
 # the tensor-core projection: 128 output rows x 128 rank columns per
@@ -82,8 +85,14 @@ def merge_route(w_dtype: torch.dtype, v_dtype: torch.dtype,
                 bits: bool = False, ptrs=()) -> str:
     """``"tc"`` where the tensor-core merge takes a launch — bf16 W and
     V, an fp32 or bf16 B, no rounding ``bits``, K, N and r multiples of
-    8 and every pointer 16-byte aligned — else ``"simt"``."""
-    if bits or w_dtype != torch.bfloat16 or b_dtype not in (
+    8 and every pointer 16-byte aligned; ``"ew"`` for the plain merge of
+    an fp32 W or V (the dtypes the tensor cores do not take) of rank at
+    most ``SMALL_RANK``; else ``"simt"``."""
+    if bits:
+        return "simt"
+    if torch.float32 in (w_dtype, v_dtype):
+        return "ew" if r <= SMALL_RANK else "simt"
+    if w_dtype != torch.bfloat16 or b_dtype not in (
             torch.float32, torch.bfloat16):
         return "simt"
     return tc_route(v_dtype, K, N, r, ptrs)
@@ -131,6 +140,16 @@ def project_ranges(K: int, splits: int) -> list:
 @functools.cache
 def _kernel():
     fn = _build.load("lowrank_merge").lowrank_merge_launch
+    # tw, tv, tb, w, v, b, out, batch, K, N, r, stream
+    fn.argtypes = [_CI] * 3 + [_VP] * 4 + [ctypes.c_longlong] + [_CI] * 3 \
+        + [_VP]
+    fn.restype = _CI
+    return fn
+
+
+@functools.cache
+def _ew_kernel():
+    fn = _build.load("lowrank_merge").lowrank_merge_ew_launch
     # tw, tv, tb, w, v, b, out, batch, K, N, r, stream
     fn.argtypes = [_CI] * 3 + [_VP] * 4 + [ctypes.c_longlong] + [_CI] * 3 \
         + [_VP]
@@ -221,6 +240,11 @@ def lowrank_merge(w: torch.Tensor, v: torch.Tensor, b: torch.Tensor,
         stream = torch.cuda.current_stream(w.device).cuda_stream
         if route == "tc":
             rc = _tc_kernel()(DTYPE_CODE[b.dtype], w.data_ptr(),
+                              v.data_ptr(), b.data_ptr(), out.data_ptr(),
+                              items, K, N, r, stream)
+        elif route == "ew":
+            rc = _ew_kernel()(DTYPE_CODE[w.dtype], DTYPE_CODE[v.dtype],
+                              DTYPE_CODE[b.dtype], w.data_ptr(),
                               v.data_ptr(), b.data_ptr(), out.data_ptr(),
                               items, K, N, r, stream)
         elif bits is not None:

@@ -151,8 +151,8 @@ _VP, _CI, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 @functools.cache
-def _kernel():
-    fn = _build.load("ssd_chunk").ssd_intra_chunk_launch
+def _kernel(defines=()):
+    fn = _build.load("ssd_chunk", defines).ssd_intra_chunk_launch
     # dtype, x, dt, da, b, c, y, state, gram, BC, Q, H, P, N, groups,
     # pairs, parts, gram_cols, b strides (3), c strides (3), stream
     fn.argtypes = [_CI] + [_VP] * 8 + [_LL] + [_CI] * 8 + [_LL] * 6 + [_VP]
@@ -216,11 +216,18 @@ def _check(x, dt, da, b, c):
 
 
 def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, da: torch.Tensor,
-                    b: torch.Tensor, c: torch.Tensor):
+                    b: torch.Tensor, c: torch.Tensor, *,
+                    checked: bool = False):
     """Batched intra-chunk SSD: ``(y (BC,Q,H,P) in x's dtype, state
     (BC,H,N,P) fp32)``; see :func:`repro_torch.kernels.ref.
-    ssd_intra_chunk` for the function."""
+    ssd_intra_chunk` for the function.  ``checked``: launch the
+    bounds-checked build (``_build.CHECKED``; the same arithmetic, every
+    shared and global index asserted, a trap on the first outside its
+    array), on a CUDA tensor that wants no gradient."""
     b_strides, c_strides = _check(x, dt, da, b, c)
+    if checked and (x.device.type != "cuda" or _wants_grad(x, dt, da, b, c)):
+        raise ValueError("ssd_intra_chunk: the checked build takes CUDA "
+                         "tensors that want no gradient")
     if _wants_grad(x, dt, da, b, c):
         # one group read by every head (stride 0), else a group per head
         if b_strides[2] == 0 and c_strides[2] == 0:
@@ -234,12 +241,13 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, da: torch.Tensor,
         return torch.empty_like(x), torch.empty(
             (BC, H, N, P), dtype=torch.float32, device=x.device)
     plan = ssd_plan(BC, Q, H, N, P, b_strides[2] == 0 and c_strides[2] == 0)
-    out = _launch(x, dt, da, b, c, plan, b_strides, c_strides)
+    out = _launch(x, dt, da, b, c, plan, b_strides, c_strides,
+                  _build.CHECKED if checked else ())
     LAUNCHES[("ssd_intra_chunk", (BC, Q, H, P, N))] += 1
     return out
 
 
-def _launch(x, dt, da, b, c, plan, b_strides, c_strides):
+def _launch(x, dt, da, b, c, plan, b_strides, c_strides, defines=()):
     """The kernel's two launches split by ``plan``, on CUDA tensors that
     passed ``_check``; counts nothing.  Raises if the launcher refuses
     the split (any other than :func:`ssd_plan`'s for these strides)."""
@@ -251,7 +259,7 @@ def _launch(x, dt, da, b, c, plan, b_strides, c_strides):
                        device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _kernel()(DTYPE_CODE[x.dtype], x.data_ptr(), dt.data_ptr(),
+        rc = _kernel(defines)(DTYPE_CODE[x.dtype], x.data_ptr(), dt.data_ptr(),
                        da.data_ptr(), b.data_ptr(), c.data_ptr(),
                        y.data_ptr(), state.data_ptr(), gram.data_ptr(), BC,
                        Q, H, P, N, plan.groups, plan.pairs, plan.parts,
@@ -407,12 +415,16 @@ def ssd_intra_chunk_grouped(x: torch.Tensor, dt: torch.Tensor,
     return _SSDIntraChunk.apply(x, dt, da, b, c)
 
 
-def ssd_intra_chunk_bwd(x, dt, da, b, c, dy, dstate):
+def ssd_intra_chunk_bwd(x, dt, da, b, c, dy, dstate, *, checked=False):
     """The backward of :func:`ssd_intra_chunk_grouped`: ``(dx, ddt, dda,
     db, dc)`` in fp32, db and dc per group.  x, dy (BC,Q,H,P); dt, da
     (BC,Q,H); b, c (BC,Q,G,N); dstate (BC,H,N,P); all fp32.  A CPU
     tensor takes ``ref.ssd_intra_chunk_bwd``; a CUDA tensor launches the
-    kernel or raises."""
+    kernel or raises.  ``checked``: the bounds-checked build, as
+    :func:`ssd_intra_chunk` takes it (CUDA tensors only)."""
+    if checked and x.device.type != "cuda":
+        raise ValueError("ssd_intra_chunk_bwd: the checked build takes "
+                         "CUDA tensors")
     H, G = _check_grouped(x, dt, da, b, c)
     BC, Q, _, P = x.shape
     N = b.shape[-1]
@@ -442,12 +454,13 @@ def ssd_intra_chunk_bwd(x, dt, da, b, c, dy, dstate):
             torch.empty_like(b), torch.empty_like(c))
     if BC == 0 or H == 0:
         return outs
-    _bwd_launch(ts, outs, ssd_bwd_plan(BC, H, N, G))
+    _bwd_launch(ts, outs, ssd_bwd_plan(BC, H, N, G),
+                _build.CHECKED if checked else ())
     LAUNCHES[("ssd_intra_chunk_bwd", (BC, Q, H, P, N))] += 1
     return outs
 
 
-def _bwd_launch(ts, outs, plan):
+def _bwd_launch(ts, outs, plan, defines=()):
     """The backward kernel's two launches split by ``plan``, on the
     contiguous CUDA tensors (x, dt, da, b, c, dy, dstate) and outputs;
     counts nothing.  Raises if the launcher refuses the split (any other
@@ -460,7 +473,7 @@ def _bwd_launch(ts, outs, plan):
     epart = torch.empty(BC * G * plan.slices * Q * N, **f32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _bwd_kernel()(*(t.data_ptr() for t in ts),
+        rc = _bwd_kernel(defines)(*(t.data_ptr() for t in ts),
                            *(t.data_ptr() for t in outs), dpart.data_ptr(),
                            epart.data_ptr(), BC, Q, H, P, N, G,
                            plan.heads_per_slice, plan.slices, stream)
@@ -471,8 +484,8 @@ def _bwd_launch(ts, outs, plan):
 
 
 @functools.cache
-def _bwd_kernel():
-    fn = _build.load("ssd_chunk_bwd").ssd_intra_chunk_bwd_launch
+def _bwd_kernel(defines=()):
+    fn = _build.load("ssd_chunk_bwd", defines).ssd_intra_chunk_bwd_launch
     # x, dt, da, b, c, dy, dstate, dx, ddt, dda, db, dc, dpart, epart,
     # BC, Q, H, P, N, G, heads_per_slice, slices, stream
     fn.argtypes = [_VP] * 14 + [_LL] + [_CI] * 7 + [_VP]

@@ -17,6 +17,11 @@ other orders:
 The criteria for state that went through a bf16 or int8 round, where
 an fp32 difference in the last bits moves a round only at an edge:
 :func:`bf16_steps_close` and :func:`quant_close`.
+
+The kernels' 3xTF32 arithmetic (``csrc/tf32_mma.cuh``), for emulating
+them on the CPU: :func:`tf32` (the split's rounding), :func:`trunc_tf32`
+(what the MMA reads of an fp32 operand) and :func:`mm3` (one 3xTF32
+product).
 """
 import contextlib
 import dataclasses
@@ -159,3 +164,29 @@ def quant_close(got, want, bf16_grad=False):
     assert (np.abs(scale - ref_scale) <= tol).all()
     dq = got.q.numpy().astype(np.int32) - np.asarray(want.q).astype(np.int32)
     assert np.abs(dq).max() <= 1 and (dq != 0).mean() <= 0.01
+
+
+def tf32(a):
+    """fp32 rounded to 10 mantissa bits, to nearest with ties away from
+    zero (``cvt.rna.tf32.f32``)."""
+    i = a.float().contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1fff).view(torch.float32)
+
+
+def trunc_tf32(a):
+    """fp32 cut to 10 mantissa bits (toward zero): what the MMA reads of
+    an fp32 operand."""
+    i = a.float().contiguous().view(torch.int32)
+    return (i & ~0x1fff).view(torch.float32)
+
+
+def mm3(a, b, eq):
+    """The 3xTF32 product: hi = tf32(a) rounded, lo = a - hi as the MMA
+    reads it (cut to tf32), b likewise; lo*hi + hi*lo + hi*hi summed
+    exactly (fp64), rounded to fp32."""
+    ah, bh = tf32(a), tf32(b)
+    al, bl = trunc_tf32(a - ah), trunc_tf32(b - bh)
+
+    def f(u, v):
+        return torch.einsum(eq, u.double(), v.double())
+    return (f(al, bh) + f(ah, bl) + f(ah, bh)).float()

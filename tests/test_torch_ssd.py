@@ -64,6 +64,9 @@ from repro_torch.kernels import ssd_chunk as sc  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models.linear import LRPack  # noqa: E402
 from _torch_parity import float64_plain_path  # noqa: E402
+from _torch_parity import mm3 as _mm3  # noqa: E402
+from _torch_parity import tf32 as _tf32  # noqa: E402
+from _torch_parity import trunc_tf32 as _trunc_tf32  # noqa: E402
 
 REL = 1e-5
 REL_STRONG = 1e-4
@@ -379,32 +382,6 @@ def test_ssd_plan_covers_every_output_once(shape, shared):
     # at most the diagonal strip's 16-row block above the diagonal
     assert (g_own * (1 - causal)).sum() <= BC * plan.groups * Q * 8
     assert plan.groups == (1 if shared else H)
-
-
-def _tf32(a):
-    """fp32 rounded to 10 mantissa bits, to nearest with ties away from
-    zero (``cvt.rna.tf32.f32``)."""
-    i = a.float().contiguous().view(torch.int32)
-    return ((i + 0x1000) & ~0x1fff).view(torch.float32)
-
-
-def _trunc_tf32(a):
-    """fp32 cut to 10 mantissa bits (toward zero): what the MMA reads of
-    an fp32 operand."""
-    i = a.float().contiguous().view(torch.int32)
-    return (i & ~0x1fff).view(torch.float32)
-
-
-def _mm3(a, b, eq):
-    """The 3xTF32 product: hi = tf32(a) rounded, lo = a - hi as the MMA
-    reads it (cut to tf32), b likewise; lo*hi + hi*lo + hi*hi summed
-    exactly (fp64), rounded to fp32."""
-    ah, bh = _tf32(a), _tf32(b)
-    al, bl = _trunc_tf32(a - ah), _trunc_tf32(b - bh)
-
-    def f(u, v):
-        return torch.einsum(eq, u.double(), v.double())
-    return (f(al, bh) + f(ah, bl) + f(ah, bh)).float()
 
 
 def _warp_cumsum(da):
@@ -975,3 +952,49 @@ def test_ssd_bwd_kernel_mid_groups_on_card(cuda, shape):
         assert err <= REL_STRONG * w.abs().max().item(), (name, err)
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The bounds-checked build (kernels/_build.py CHECKED)
+# ---------------------------------------------------------------------------
+
+def test_checked_build_is_a_library_of_its_own():
+    from repro_torch.kernels import _build
+    plain = _build.library_path("ssd_chunk")
+    checked = _build.library_path("ssd_chunk", _build.CHECKED)
+    assert plain != checked and ".lrk_checked." in checked.name
+    assert "-DLRK_CHECKED" in _build.flags(_build.CHECKED)
+    assert _build.flags() == _build.NVCC_FLAGS
+    # the checked build is a launch on the card: a CPU tensor is refused
+    ops = [_t(a) for a in _bwd_operands((1, 4, 1, 2, 2), 1, seed=0)]
+    with pytest.raises(ValueError, match="checked build"):
+        sc.ssd_intra_chunk(*ops[:5], checked=True)
+    with pytest.raises(ValueError, match="checked build"):
+        sc.ssd_intra_chunk_bwd(*ops, checked=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BWD_CARD_SHAPES + [(1, 100, 48, 64, 128)])
+def test_ssd_checked_build_equals_unchecked_on_card(cuda, shape):
+    """The checked build (every shared-memory and global index asserted;
+    a printf and a trap on the first outside its array) traps on no index
+    at the ragged shapes and the training shape, and its outputs equal the
+    unchecked build's bit for bit: the forward with one group broadcast
+    over the heads and with a group per head, the backward with one
+    group and with one per head."""
+    BC, Q, H, P, N = shape
+    x, dt, da, b, c, dy, ds = (_t(a).to(cuda) for a in _bwd_operands(
+        shape, H, seed=sum(shape) + 7))
+    one = [t[:, :, :1].contiguous() for t in (b, c)]
+    for bb, cc in ((b, c), tuple(t.expand(-1, -1, H, -1) for t in one)):
+        runs = [sc.ssd_intra_chunk(x, dt, da, bb, cc, checked=chk)
+                for chk in (False, True)]
+        torch.cuda.synchronize()
+        for a, w in zip(*runs):
+            assert torch.equal(a, w)
+    for bb, cc in ((b, c), one):
+        runs = [sc.ssd_intra_chunk_bwd(x, dt, da, bb, cc, dy, ds,
+                                       checked=chk) for chk in (False, True)]
+        torch.cuda.synchronize()
+        for a, w in zip(*runs):
+            assert torch.isfinite(a).all() and torch.equal(a, w)

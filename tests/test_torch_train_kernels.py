@@ -346,10 +346,13 @@ def _scale(want):
 DTYPE_TOL = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
 
 
-def _route(dtype, K, N, r):
+def _route(dtype, K, N, r, form=None):
     """The route a launch must take: the tensor cores for bf16 with every
-    row length a multiple of 8 (the last two RAGGED shapes), SIMT for
-    fp32 and the rest."""
+    row length a multiple of 8 (the last two RAGGED shapes), 3xTF32 for
+    the fp32 forward of r <= 16 (every RAGGED shape), SIMT for the
+    rest."""
+    if dtype == torch.float32 and form == "p" and r <= lf.SMALL_RANK:
+        return "tf32x3"
     aligned = all(d % 8 == 0 for d in (K, N, r))
     return "tc" if dtype == torch.bfloat16 and aligned else "simt"
 
@@ -368,7 +371,7 @@ def test_forward_p_kernel_matches_plain_on_card(cuda, dtype, rtol, M, K, N,
     assert _max_err(y, want_y) <= rtol * _scale(want_y)
     assert _max_err(p, want_p) <= rtol * _scale(want_p)
     assert lf.launches("p") == 1 and lf.launches() == 1
-    assert lf.launches("p", _route(dtype, K, N, r)) == 1
+    assert lf.launches("p", _route(dtype, K, N, r, "p")) == 1
 
 
 @pytest.mark.cuda

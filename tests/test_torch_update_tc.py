@@ -5,8 +5,10 @@ On the CPU (no card needed):
 
 * ``lowrank_update.merge_route`` sends every llama-100m group shape in
   the dtypes the training path runs (bf16 W and V; an fp32 or bf16 B) to
-  ``"tc"``, and fp32 W or V, rounding ``bits``, a row length that is no
-  multiple of 8 and a pointer off a 16-byte boundary to ``"simt"``;
+  ``"tc"``, and fp32 W or V at rank above 16 (at most 16: ``"ew"``,
+  ``tests/test_torch_small_rank.py``), rounding ``bits``, a row length
+  that is no multiple of 8 and a pointer off a 16-byte boundary to
+  ``"simt"``;
   ``project_route`` likewise for an fp32 or bf16 G with a bf16 V.
 * The projection's split plan: its K ranges cover K in whole 64-deep
   stages, none is empty, and the blocks (tiles x ranges) fill one wave of
@@ -363,12 +365,12 @@ def test_routes_on_card(cuda):
     bits = torch.randint(0, 1 << 16, w.shape, dtype=torch.int32,
                          device=cuda)
     lu.reset_launches()
-    lu.lowrank_merge(w.float(), v, b)                # fp32 W
+    lu.lowrank_merge(w.float(), v, b)                # fp32 W, r = 8
     lu.lowrank_merge(w, v, b.bfloat16(), bits=bits)  # the rounded merge
     lu.lowrank_project(w.float(), v.float())         # fp32 V
     lu.lowrank_project(w.float(), v)
     torch.cuda.synchronize()
-    assert lu.LAUNCHES == {("lowrank_merge", "simt", (2, 64, 64)): 1,
+    assert lu.LAUNCHES == {("lowrank_merge", "ew", (2, 64, 64)): 1,
                            ("lowrank_merge_sr", "simt", (2, 64, 64)): 1,
                            ("lowrank_project", "simt", (2, 64, 64)): 1,
                            ("lowrank_project", "tc", (2, 64, 64)): 1}
