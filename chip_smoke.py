@@ -13,14 +13,15 @@
    M = 128, or 1 for the unembedding; one B per row at decode, batch 4 x
    seq 1, read by tenant index from a store of 4 tenants with rows
    [0, 2, 2, 1]) against their plain PyTorch version at the five (K, N)
-   shapes of qwen2-7b, at mamba2-780m's three (shared B at M = 512,
-   or 1 for the unembedding) and at mistral-nemo-12b's six (M = 128, or
-   1 for the unembedding), in bf16, and times kernel, plain version
-   and a cuBLAS yardstick (the per-row-B form's three with the stream
+   shapes of qwen2-7b, at mamba2-780m's three and zamba2-7b's six
+   (shared B at M = 512, or 1 for the unembedding) and at
+   mistral-nemo-12b's six (M = 128, or 1 for the unembedding), in
+   bf16, and times kernel, plain version and a cuBLAS yardstick (the per-row-B form's three with the stream
    held while the host queues the calls, which leaves the host's time
    out, beside the eager time per call).  Holds the SSD intra-chunk
-   kernel against its plain version at mamba2-780m's four prefill
-   shapes (prompts of 100, 128, 256 and 512 tokens), fp32, with dt and
+   kernel against its plain version at mamba2-780m's and zamba2-7b's
+   four prefill shapes each (prompts of 100, 128, 256 and 512 tokens;
+   zamba2's 112 heads at N = 64), fp32, with dt and
    A drawn by the mixer's laws, logs the launch split its plan chose,
    and times both the same way; then at mamba2-780m's training shape
    (BC 128 = batch 16 x 8 chunks), the forward and the backward kernel
@@ -75,6 +76,19 @@
    (prefill of 256 tokens each, 4 decode steps at batch 2) through the
    kernels on the card and through the plain versions on the CPU, from
    the same weights and adapters, and holds the logits together.  Then
+   the same for zamba2-7b, the hybrid (81 Mamba2 layers, one shared
+   attention + MLP block after every 6th: its KV pages beside the
+   per-slot SSM state), at full width and depth, with 81 SSD launches a
+   prefill; its lazy == merged and card == plain checks on a 3-layer
+   fp32 cut with ``attn_every`` 2 (a group, the shared block, a tail
+   layer); ``[serve preempt zamba2]`` on that cut, where a pool of 26
+   pages preempts one sequence, which re-enters (256 tokens prefilled,
+   17 teacher-forced) and gives the tokens it gives alone; and
+   ``[sampled decode]``: temperature / top-k sampling, the same seed
+   twice, ``top_k = 1`` against greedy, every token in its step's kept
+   set, frequencies from two fixed rows against the tempered softmax,
+   and a sampled bf16 decode step under ``set_sync_debug_mode("error")``.
+   ``[time]`` lines mark each phase's end.  Then
    mistral-nemo-12b at full width and depth (40 layers, bf16, 4 tenants,
    4 requests of 128 prompt and 16 new tokens), every launch ``"tc"``.
 6. Trains llama-100m at full width and depth (12 layers) with
@@ -206,6 +220,8 @@ SHAPES = {(3584, 3584): ("wq,wo", 128), (3584, 512): ("wk,wv", 128),
           (18944, 3584): ("w_down", 128), (3584, 152064): ("unembed", 1)}
 RANK = 128
 RTOL = 2e-2        # bf16 output rounding, plus fp32 sums in another order
+# times ``queued_ms`` may double its hold for a host too slow to queue
+HOLD_DOUBLINGS = 4
 
 
 def log(*a):
@@ -249,32 +265,32 @@ def queued_ms(fn, calls=20, hold_s=0.05, cold=False):
     host queues an L2 flush (a read of twice the cache) and the call
     between its own pair of events, so that the call's inputs come from
     HBM even where they would fit in L2; the device drains before the
-    next call, and a call the host queued too slowly is run again (at
-    most twice; the calls of a warm run likewise).  Fails if the host
-    took longer to queue than half the hold."""
+    next call."""
+    fn()
     if not cold:
-        fn()
-        for _ in range(3):      # a host that queued too slowly: again
-            ms, queued = _held_ms(fn, calls, hold_s)
-            if queued <= hold_s / 2:
-                break
-    else:
-        flush = _l2_flush()
-        flush.sum()         # its kernel loaded before the host is timed
-        fn()
-        hold_s, ms, worst = hold_s / 5, 0.0, 0.0
-        for _ in range(calls):
-            for _ in range(3):
-                one, queued = _held_ms(fn, 1, hold_s, before=flush.sum)
-                if queued <= hold_s / 2:
-                    break
-            ms, worst = ms + one / calls, max(worst, queued)
-        queued = worst
-    if queued > hold_s / 2:
-        raise SystemExit(f"queued_ms: the host took {queued:.4f} s to queue "
-                         f"{1 if cold else calls} calls, the stream was "
-                         f"held {hold_s} s")
+        return _fitted_ms(fn, calls, hold_s)[0]
+    flush = _l2_flush()
+    flush.sum()         # its kernel loaded before the host is timed
+    hold_s, ms = hold_s / 5, 0.0
+    for _ in range(calls):
+        one, hold_s = _fitted_ms(fn, 1, hold_s, before=flush.sum)
+        ms += one / calls
     return ms
+
+
+def _fitted_ms(fn, calls, hold_s, before=None):
+    """``_held_ms`` under a hold the host queues within: a run the host
+    queued in more than half its hold is run again with the hold doubled,
+    at most ``HOLD_DOUBLINGS`` times, so that a busy host still finishes
+    queueing before the stream starts.  Returns (device ms per call, the
+    hold used); fails if no hold fitted."""
+    for _ in range(HOLD_DOUBLINGS + 1):
+        ms, queued = _held_ms(fn, calls, hold_s, before)
+        if queued <= hold_s / 2:
+            return ms, hold_s
+        hold_s *= 2
+    raise SystemExit(f"queued_ms: the host took {queued:.4f} s to queue "
+                     f"{calls} calls, the stream was held {hold_s / 2} s")
 
 
 def _held_ms(fn, calls, hold_s, before=None):
@@ -531,17 +547,21 @@ def make_store(cfg, tcfg, n_tenants, dev, AdapterStore, scale=0.02):
 # (model, prompt lengths of its requests, max_len, new tokens a request):
 # qwen2-7b's one prompt length; mamba2-780m's four, two requests each,
 # give the SSD a chunk shorter than 128 (Q = 100), one chunk, and 2 or 4
-# chunks; mistral-nemo-12b (40 layers at d 5120, heads of 128 against
+# chunks, and zamba2-7b (81 Mamba2 layers at d 3584, 112 heads of 64,
+# N 64, and one shared attention + MLP block applied 13 times) the
+# same; mistral-nemo-12b (40 layers at d 5120, heads of 128 against
 # 5120 / 32) four requests
 SERVE_RUNS = {"qwen2-7b": ((128,) * 8, 160, 32),
               "mamba2-780m": ((100, 128, 256, 512) * 2, 544, 32),
+              "zamba2-7b": ((100, 128, 256, 512) * 2, 544, 32),
               "mistral-nemo-12b": ((128,) * 4, 160, 16)}
 
 
 def serve(dev, mods, smi, arch="qwen2-7b"):
     """Phase 4: one model at full width and depth, 4 tenants, the
     requests of ``SERVE_RUNS`` through the engine.  Returns the forward's
-    launch counts and, for the SSM family, the SSD kernel's."""
+    launch counts and, for the SSM and hybrid families, the SSD
+    kernel's."""
     import numpy as np
     lf, sc, lm, configs, serve_mod = (mods["lf"], mods["sc"], mods["lm"],
                                       mods["configs"], mods["serve"])
@@ -564,6 +584,11 @@ def serve(dev, mods, smi, arch="qwen2-7b"):
                                   max_out=32)
     eng = serve_mod.Engine(params, cfg, adapters=store, engine_cfg=ecfg,
                            device=dev)
+    # the peak above counts the weights' random init (each leaf drawn in
+    # fp32); the serving peak counts what serving holds and allocates
+    init_peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
     prefill_s, decode_s = [], []
 
     def timed(fn, bucket, key=None):
@@ -604,7 +629,7 @@ def serve(dev, mods, smi, arch="qwen2-7b"):
     if lf.launches("shared") == 0 or lf.launches("batched") == 0:
         raise SystemExit(f"the main path missed a kernel form: {counts}")
     require_tc(mods, tag)
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         # one launch per layer and prefill, at the prompt's chunking
         want = {}
         for n in prompts:
@@ -630,7 +655,8 @@ def serve(dev, mods, smi, arch="qwen2-7b"):
         + f" ({len(prefill_s)} prefills), decode "
         f"{1e3 * sum(decode_s) / len(decode_s):.1f} ms/step "
         f"({len(decode_s)} steps, batch 4); peak {peak / 2**30:.2f} GiB "
-        f"allocated on {smi}")
+        f"allocated serving ({init_peak / 2**30:.2f} while the weights "
+        f"and tenants were made) on {smi}")
     log(f"[{tag}] launches shared={lf.launches('shared')} "
         f"batched={lf.launches('batched')}; per step "
         f"{lf.launches('batched') / len(decode_s):.0f}, per prefill "
@@ -684,7 +710,7 @@ def profile_prefill(params, store, cfg, lm, n, tag, rng):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     log_profile(f"profile {tag}", f"prefill of {n} tokens", prof, wall, 1)
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         rows, _ = device_rows(prof)
         # the chunk grid starts while the Gram grid runs: the sum of the
         # two counts their overlap twice
@@ -738,18 +764,42 @@ def profile_decode(eng, cfg, serve_mod, rng, steps=2, tag="serve"):
                          f"{[e.input_shapes for e in gathers]}")
 
 
+def write_slot(ps, st, slot, pages, page):
+    """Copy what a one-sequence prefill left in ``st`` into the paged
+    state ``ps``: its recurrent state into slot ``slot``, its K/V (the
+    dense layers', the hybrid's shared block's) into ``pages``, which
+    hold the prefill cache's length."""
+    if st.ssm is not None:
+        for arena, cache in zip(ps.ssm, st.ssm):
+            arena[:, slot] = cache[:, 0]
+    for arenas, cache in (((ps.kv_k, ps.kv_v), st.kv),
+                          ((ps.shared_k, ps.shared_v), st.shared_kv)):
+        if cache is not None:
+            for arena, c in zip(arenas, cache):
+                arena[:, pages] = c[:, 0].reshape(
+                    (c.shape[0], len(pages), page) + c.shape[3:])
+
+
+def cut_config(configs, arch, dtype="float32"):
+    """A full-width cut of ``arch`` (2 layers; zamba2-7b 3 layers with
+    ``attn_every`` 2: one group, the shared block, one tail layer), in
+    ``dtype`` (None keeps the model's)."""
+    cfg = configs.get_config(arch)
+    cut = dict(num_layers=3, attn_every=2) if cfg.family == "hybrid" \
+        else dict(num_layers=2)
+    if dtype is not None:
+        cut.update(dtype=dtype, param_dtype=dtype)
+    return cfg.replace(**cut)
+
+
 def paged_from_prefill(lm, cfg, st, S, page, dev):
     """A one-slot paged state holding what a prefill of ``S`` tokens left
-    in ``st``, with room for one more token."""
+    in ``st`` (a cache of ``(S // page + 1) * page``), with room for one
+    more token."""
     n_pages = S // page + 1
     ps = lm.alloc_paged_state(cfg, 1, n_pages, page, n_pages * page,
                               device=dev)
-    if cfg.family == "ssm":
-        for arena, cache in zip(ps.ssm, st.ssm):
-            arena.copy_(cache)
-    else:
-        ps.kv_k.copy_(st.kv.k[:, 0].reshape(ps.kv_k.shape))
-        ps.kv_v.copy_(st.kv.v[:, 0].reshape(ps.kv_v.shape))
+    write_slot(ps, st, 0, torch.arange(n_pages, device=dev), page)
     return ps._replace(
         page_table=torch.arange(n_pages, dtype=torch.int32,
                                 device=dev)[None],
@@ -758,16 +808,16 @@ def paged_from_prefill(lm, cfg, st, S, page, dev):
 
 def lazy_equals_merged(dev, mods, arch="qwen2-7b", S=24, store=None,
                        tenant="tenant0", tag=None):
-    """Phase 5: lazy (B, V) serving == merged W + V B^T, fp32, 2 layers:
-    prefill of ``S`` tokens and one paged decode step.  ``store`` (of
-    the 2-layer fp32 cut) serves ``tenant`` in place of a random one."""
+    """Phase 5: lazy (B, V) serving == merged W + V B^T, fp32, on the
+    full-width cut of :func:`cut_config`: prefill of ``S`` tokens and one
+    paged decode step.  ``store`` (of that cut) serves ``tenant`` in
+    place of a random one."""
     lm, configs, serve_mod = mods["lm"], mods["configs"], mods["serve"]
     from repro_torch.models.common import tree_map
     from repro_torch.models.linear import effective_weight
     tag = tag or ("lazy==merged" if arch == "qwen2-7b"
                   else f"lazy==merged {arch.split('-')[0]}")
-    cfg = configs.get_config(arch).replace(
-        num_layers=2, dtype="float32", param_dtype="float32")
+    cfg = cut_config(configs, arch)
     params = lm.init_params(cfg, seed=3, device=dev)
     if store is None:
         store = make_store(cfg, configs.TrainConfig(rank=RANK), 1, dev,
@@ -864,17 +914,22 @@ def bf16_decode_without_sync(dev, mods, arch="qwen2-7b"):
 # lanes; fp32 sums in another order.  About five times the gap measured
 # on an H100 80GB HBM3 (700 W): 2.98e-6.
 SERVE_PLAIN_TOL = 1.5e-5
+# [serve==plain zamba2]: about five times the gap measured on an H100
+# 80GB HBM3 (700 W), 4.86e-6: its cut adds a shared attention + MLP
+# block and a third Mamba2 layer to mamba2's two
+ZAMBA_PLAIN_TOL = 2.5e-5
 
 
-def serve_equals_plain(dev, mods, arch="mamba2-780m", S=256, steps=4):
-    """Phase 5b: a 2-layer full-width fp32 cut, two tenants: prefill of
-    ``S`` tokens per tenant, then ``steps`` batched paged decode steps on
-    fixed tokens, through the kernels on the card and through the plain
-    versions on the CPU, from the same weights and adapters."""
+def serve_equals_plain(dev, mods, arch="mamba2-780m", S=256, steps=4,
+                       tol=SERVE_PLAIN_TOL):
+    """Phase 5b: the full-width fp32 cut of :func:`cut_config`, two
+    tenants: prefill of ``S`` tokens per tenant, then ``steps`` batched
+    paged decode steps on fixed tokens, through the kernels on the card
+    and through the plain versions on the CPU, from the same weights and
+    adapters; the logits within ``tol`` · max|logit|."""
     lm, configs, serve_mod = mods["lm"], mods["configs"], mods["serve"]
     from repro_torch.models.common import tree_map
-    cfg = configs.get_config(arch).replace(
-        num_layers=2, dtype="float32", param_dtype="float32")
+    cfg = cut_config(configs, arch)
     cpu = torch.device("cpu")
     tcfg = configs.TrainConfig(rank=RANK)
     params = lm.init_params(cfg, seed=5, device=cpu)
@@ -898,17 +953,22 @@ def serve_equals_plain(dev, mods, arch="mamba2-780m", S=256, steps=4):
                                  [b[..., t, :, :] for b in cpu_store.b_full],
                                  cpu_store.projs)
         lgs = []
-        # the recurrent state is per slot: no page is read
-        ps = lm.alloc_paged_state(cfg, 2, 2, page, S + page, device=where)
-        ps = ps._replace(lengths=torch.full((2,), S, dtype=torch.int32,
+        # the recurrent state is per slot; the hybrid's shared block reads
+        # slot t's K/V from pages [t P, (t + 1) P)
+        n_pg = S // page + 1
+        pages = torch.arange(2 * n_pg, dtype=torch.int32,
+                             device=where).reshape(2, n_pg)
+        ps = lm.alloc_paged_state(cfg, 2, 2 * n_pg, page, n_pg * page,
+                                  device=where)
+        ps = ps._replace(page_table=pages,
+                         lengths=torch.full((2,), S, dtype=torch.int32,
                                             device=where))
         for t in range(2):      # prefill each tenant's prompt into slot t
-            st = lm.alloc_decode_state(cfg, 1, S, device=where)
+            st = lm.alloc_decode_state(cfg, 1, n_pg * page, device=where)
             lg, st = lm.prefill(store.lrpack_tree(p, f"tenant{t}"),
                                 prompts[t:t + 1].to(where), cfg, st)
             lgs.append(lg)
-            for arena, cache in zip(ps.ssm, st.ssm):
-                arena[:, t] = cache[:, 0]
+            write_slot(ps, st, t, pages[t].long(), page)
         packed = serve_mod.batched_pack_tree(
             p, store.layout, store.b_full, store.projs,
             torch.arange(2, device=where))
@@ -923,17 +983,211 @@ def serve_equals_plain(dev, mods, arch="mamba2-780m", S=256, steps=4):
             raise SystemExit("serving through the kernels gave non-finite "
                              "logits")
         worst = max(worst, err)
-    log(f"[serve==plain {arch.split('-')[0]}] {arch} 2 layers fp32, 2 "
-        f"tenants: prefill of {S} tokens each + {steps} decode steps at "
-        f"batch 2, card against cpu: max abs err / max|logit| "
-        f"{worst:.3g} (tol {SERVE_PLAIN_TOL}); card launches "
+    log(f"[serve==plain {arch.split('-')[0]}] {arch} {cfg.num_layers} "
+        f"layers fp32, 2 tenants: prefill of {S} tokens each + {steps} "
+        f"decode steps at batch 2, card against cpu: max abs err / "
+        f"max|logit| {worst:.3g} (tol {tol}); card launches "
         f"ssd_intra_chunk={mods['sc'].launches()}")
     if not mods["sc"].launches():
         raise SystemExit("the card run missed ssd_intra_chunk")
-    if worst > SERVE_PLAIN_TOL:
+    if worst > tol:
         raise SystemExit(f"serving through the kernels disagrees with the "
-                         f"plain route: {worst} > {SERVE_PLAIN_TOL}")
+                         f"plain route: {worst} > {tol}")
     torch.cuda.empty_cache()
+
+
+# [serve preempt zamba2]: (request, prompt tokens, new tokens) on the
+# fp32 cut, pages of 16.  "old" and "young" hold 8 + 16 pages at
+# admission and each take a page every 16 steps; with a pool of 26 the
+# pool is dry when "old" needs its tenth page, 17 tokens into "young",
+# which is preempted and re-enters with 273 tokens (256 prefilled, 17
+# teacher-forced) once "old" has finished
+PREEMPT_REQS = (("old", 128, 24), ("young", 256, 32))
+PREEMPT_POOL, PREEMPT_MAX_LEN = 26, 304
+
+
+def serve_preempt(dev, mods, smi, arch="zamba2-7b"):
+    """[serve preempt zamba2]: on the full-width fp32 cut, two tenants, a
+    page pool small enough that one sequence is preempted: the preempted
+    request re-enters and gives the tokens the same request gives when
+    served alone."""
+    import numpy as np
+    lm, configs, serve_mod = mods["lm"], mods["configs"], mods["serve"]
+    tag = f"serve preempt {arch.split('-')[0]}"
+    cfg = cut_config(configs, arch)
+    params = lm.init_params(cfg, seed=7, device=dev)
+    store = make_store(cfg, configs.TrainConfig(rank=RANK), 2, dev,
+                       serve_mod.AdapterStore)
+    rng = np.random.default_rng(9)
+    prompts = {rid: rng.integers(0, cfg.vocab_size, n)
+               for rid, n, _ in PREEMPT_REQS}
+
+    def engine(num_pages=0):
+        return serve_mod.Engine(params, cfg, adapters=store, device=dev,
+                                engine_cfg=serve_mod.EngineConfig(
+                                    page_size=16, max_batch=2,
+                                    num_pages=num_pages,
+                                    max_len=PREEMPT_MAX_LEN, max_out=32))
+
+    def submit(eng, reqs):
+        for i, (rid, _, new) in enumerate(PREEMPT_REQS):
+            if rid in reqs:
+                eng.submit(serve_mod.Request(rid, prompts[rid], new,
+                                             tenant=f"tenant{i}"))
+    eng = engine(PREEMPT_POOL)
+    seen = []
+    preempt, teacher = eng._preempt, eng._teacher_force
+
+    def record_preempt(slot):
+        seen.append(("preempt", eng._slots[slot]["rid"],
+                     eng._slots[slot]["generated"]))
+        preempt(slot)
+
+    def record_teacher(req, pages, slot, head):
+        seen.append(("tail", req.rid, head, len(req.prompt) - head))
+        return teacher(req, pages, slot, head)
+    eng._preempt, eng._teacher_force = record_preempt, record_teacher
+    submit(eng, prompts)
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    same = {}
+    for rid in prompts:
+        solo = engine()
+        submit(solo, (rid,))
+        want = solo.run()[rid]
+        same[rid] = bool(np.array_equal(out.get(rid), want))
+    log(f"[{tag}] {arch} {cfg.num_layers} layers fp32, pool of "
+        f"{PREEMPT_POOL} pages of 16: {seen}; run in {wall:.2f} s; the "
+        f"tokens == each request served alone {same}; reasons "
+        f"{eng.reasons}; on {smi}")
+    if not any(e[0] == "preempt" for e in seen) or \
+            not any(e[0] == "tail" and e[3] > 0 for e in seen):
+        raise SystemExit(f"{tag}: no sequence was preempted and "
+                         f"teacher-forced back in: {seen}")
+    if not all(same.values()) or set(eng.reasons.values()) != {"completed"}:
+        raise SystemExit(f"{tag}: a preempted sequence gave other tokens "
+                         f"than its unpreempted run: {same}")
+    del eng, store, params
+    free()
+
+
+SAMPLE_Z = 6.0          # frequency limits in standard deviations
+SAMPLE_DRAWS = 200_000  # draws per fixed logit row
+
+
+def sampled_decode(dev, mods, smi, arch="zamba2-7b"):
+    """[sampled decode]: temperature / top-k sampling on the card.  On
+    the full-width fp32 cut (4 requests of 128 tokens, 16 new): the same
+    seed gives the same tokens twice, ``top_k = 1`` the greedy tokens,
+    and every sampled token lies in its step's kept set (the logits at or
+    above the k-th largest).  Over ``SAMPLE_DRAWS`` draws from each of
+    two fixed logit rows the frequencies are within ``SAMPLE_Z`` standard
+    deviations of ``softmax(logits / T)`` restricted to the top k.  A
+    sampled bf16 decode step (the bf16 cut) makes no host sync."""
+    import numpy as np
+    lm, configs, serve_mod = mods["lm"], mods["configs"], mods["serve"]
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.serve.sampling import gumbel_noise, select_tokens
+    tag = "sampled decode"
+    cfg = cut_config(configs, arch)
+    params = lm.init_params(cfg, seed=11, device=dev)
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab_size, 128) for _ in range(4)]
+    picks = []
+
+    def recording(logits, temperature, top_k, noise):
+        tok = select_tokens(logits, temperature, top_k, noise)
+        picks.append((logits, top_k, tok))
+        return tok
+
+    def run(params=params, cfg=cfg, **over):
+        eng = serve_mod.Engine(params, cfg, device=dev,
+                               engine_cfg=serve_mod.EngineConfig(
+                                   page_size=16, max_batch=4, max_len=160,
+                                   max_out=16, **over))
+        for i, p in enumerate(prompts):
+            eng.submit(serve_mod.Request(f"r{i}", p, 16))
+        return eng, eng.run()
+    engine_mod.select_tokens = recording
+    try:
+        _, a = run(temperature=0.8, top_k=50, sample_seed=3)
+        _, b = run(temperature=0.8, top_k=50, sample_seed=3)
+        outside = 0
+        for logits, k, tok in picks:
+            kth = torch.topk(logits.float(), k).values[:, -1]
+            got = logits.float().gather(1, tok[:, None])[:, 0]
+            outside += int((got < kth).sum().item())
+        n_steps = len(picks)
+        _, greedy = run()
+        _, top1 = run(temperature=0.8, top_k=1, sample_seed=3)
+    finally:
+        engine_mod.select_tokens = select_tokens
+    same_seed = all(np.array_equal(a[r], b[r]) for r in a)
+    top1_greedy = all(np.array_equal(top1[r], greedy[r]) for r in greedy)
+    left_greedy = sum(int((a[r] != greedy[r]).sum()) for r in a)
+    log(f"[{tag}] {arch} {cfg.num_layers} layers fp32, T 0.8, top_k 50: "
+        f"same seed -> same tokens {same_seed}; {n_steps} sampled steps, "
+        f"{outside} tokens outside their step's kept set; top_k 1 == "
+        f"greedy {top1_greedy}; {left_greedy} of "
+        f"{sum(len(v) for v in a.values())} tokens off the greedy path")
+    if not (same_seed and top1_greedy) or outside or not n_steps:
+        raise SystemExit(f"{tag}: sampled decoding broke a law")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    rows = 2.0 * torch.randn((2, 512), generator=gen, device=dev)
+    worst = 0.0
+    for temperature, top_k in ((1.0, 0), (0.7, 8)):
+        for row in rows:
+            draws = row.expand(SAMPLE_DRAWS, -1)
+            tok = select_tokens(draws, temperature, top_k,
+                                gumbel_noise(gen, draws.shape))
+            freq = torch.bincount(tok, minlength=512).double() / SAMPLE_DRAWS
+            scaled = row.double() / temperature
+            if top_k:
+                kth = torch.topk(scaled, top_k).values[-1]
+                scaled = torch.where(scaled >= kth, scaled, float("-inf"))
+            p = torch.softmax(scaled, dim=0)
+            sigma = torch.sqrt(p * (1 - p) / SAMPLE_DRAWS)
+            if (freq[p == 0] > 0).any().item():
+                raise SystemExit(f"{tag}: a draw outside the top {top_k}")
+            z = ((freq - p).abs() / sigma.clamp_min(1e-300))[p > 0]
+            worst = max(worst, z.max().item())
+    log(f"[{tag}] {SAMPLE_DRAWS} draws from each of 2 fixed rows of 512 "
+        f"logits at (T, top_k) = (1.0, 0), (0.7, 8): largest "
+        f"|freq - p| / sigma {worst:.2f} (limit {SAMPLE_Z})")
+    if worst > SAMPLE_Z:
+        raise SystemExit(f"{tag}: sampled frequencies off softmax(l / T)")
+    del params
+    free()
+    # a sampled bf16 decode step: any host sync raises
+    bcfg = cut_config(configs, arch, dtype=None)
+    bparams = lm.init_params(bcfg, seed=11, device=dev)
+    eng = serve_mod.Engine(bparams, bcfg, device=dev,
+                           engine_cfg=serve_mod.EngineConfig(
+                               page_size=16, max_batch=4, max_len=160,
+                               max_out=16, temperature=0.8, top_k=50,
+                               sample_seed=3))
+    for i, p in enumerate(prompts):
+        eng.submit(serve_mod.Request(f"r{i}", p, 16))
+    eng.step()
+    state = eng.state._replace(
+        page_table=torch.as_tensor(eng._pt, device=dev),
+        lengths=torch.as_tensor(eng._len, device=dev))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, tok, *_ = eng._decode(state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ok = bool(((tok >= 0) & (tok < bcfg.vocab_size)).all().item())
+    log(f"[{tag}] a sampled bf16 decode step of the {bcfg.num_layers}-layer "
+        f"cut at batch 4: no host sync; tokens in vocab {ok}; on {smi}")
+    if not ok:
+        raise SystemExit(f"{tag}: a sampled bf16 token outside the vocab")
+    del eng, bparams
+    free()
 
 
 # ---------------------------------------------------------------------------
@@ -966,6 +1220,25 @@ TF32_FLOP_PER_S = 495e12        # dense TF32 tensor-core peak
 MAMBA_SHAPES = {(1536, 6448): ("in_proj", 512),
                 (3072, 1536): ("out_proj", 512),
                 (1536, 50432): ("unembed", 1)}
+
+
+# zamba2-7b's projections (K, N) -> (leaves, prefill rows): in_proj
+# (z, x, B, C, dt: 2 x 7168 + 2 x 64 + 112 = 14576, no multiple of a
+# tile), out_proj, the shared block's four attention projections (32
+# heads of 112) and its MLP, at the longest prompt; the unembedding at
+# one position
+ZAMBA_SHAPES = {(3584, 14576): ("in_proj", 512),
+                (7168, 3584): ("out_proj", 512),
+                (3584, 3584): ("wq,wk,wv,wo", 512),
+                (3584, 14336): ("w_gate,w_up", 512),
+                (14336, 3584): ("w_down", 512),
+                (3584, 32000): ("unembed", 1)}
+# (BC, Q, H, P, N) of zamba2-7b's prefills: 112 heads, N = 64 (two state
+# tiles against four strip pairs: chunk parts 2 and 3 own y rows alone)
+ZAMBA_SSD_SHAPES = {(1, 100, 112, 64, 64): "100-token prompt",
+                    (1, 128, 112, 64, 64): "128-token prompt",
+                    (2, 128, 112, 64, 64): "256-token prompt",
+                    (4, 128, 112, 64, 64): "512-token prompt"}
 
 
 # mistral-nemo-12b's projections (K, N) -> (leaves, prefill rows): q is
@@ -3248,11 +3521,15 @@ def main():
     mods = dict(lf=lf, lb=lb, lu=lu, sa=sa, sc=sc, ref=ref,
                 dispatch=dispatch, lm=lm, configs=configs, serve=serve_mod,
                 counters=(lf, lb, lu, sa))
+    def mark(label):
+        log(f"[time] {label} done at {time.perf_counter() - t0:.0f} s")
     rows = compare_kernels(lf, ref, dev)
     mamba_rows = compare_kernels(lf, ref, dev, MAMBA_SHAPES)
+    zamba_rows = compare_kernels(lf, ref, dev, ZAMBA_SHAPES)
     nemo_rows = compare_kernels(lf, ref, dev, NEMO_SHAPES)
     split_determinism(mods, dev)
     ssd_rows = compare_ssd_kernel(mods, dev)
+    zamba_ssd_rows = compare_ssd_kernel(mods, dev, ZAMBA_SSD_SHAPES)
     ssd_train_row = compare_ssd_kernel(
         mods, dev, {SSD_TRAIN_SHAPE: "training, batch 16 x 1024"})[0]
     ssd_bwd_row = compare_ssd_bwd_kernel(mods, dev)
@@ -3260,6 +3537,7 @@ def main():
     train_rows = compare_train_kernels(mods, dev)
     state_rows = compare_state_kernels(mods, dev)
     project_rows = compare_project_kernel(mods, dev)
+    mark("[kernel] rows")
     counts, _ = serve(dev, mods, smi)
     lazy_equals_merged(dev, mods)
     bf16_decode_without_sync(dev, mods)
@@ -3267,7 +3545,15 @@ def main():
     lazy_equals_merged(dev, mods, "mamba2-780m", S=256)
     bf16_decode_without_sync(dev, mods, "mamba2-780m")
     serve_equals_plain(dev, mods)
+    mark("qwen2-7b and mamba2-780m serving")
+    zamba_counts, zamba_ssd_counts = serve(dev, mods, smi, "zamba2-7b")
+    lazy_equals_merged(dev, mods, "zamba2-7b", S=256)
+    serve_equals_plain(dev, mods, "zamba2-7b", tol=ZAMBA_PLAIN_TOL)
+    serve_preempt(dev, mods, smi)
+    sampled_decode(dev, mods, smi)
+    mark("zamba2-7b serving and sampled decoding")
     nemo_counts, _ = serve(dev, mods, smi, "mistral-nemo-12b")
+    mark("mistral-nemo-12b serving")
 
     sampler_laws(dev, mods)
     cfg, tcfg = train_config(configs, lazy_k=4, lr=3e-3, warmup_steps=2,
@@ -3290,17 +3576,21 @@ def main():
     for label, fields, tol in PLAIN_RUNS:
         train_equals_plain(dev, mods, configs, label, fields, tol)
     train_equals_plain_dependent(dev, mods, configs)
+    mark("llama-100m training")
     mamba_train_counts = train_mamba2(dev, mods, smi, configs)
     train_equals_plain(dev, mods, configs, "lowrank_adam fp32", (),
                        MAMBA_PLAIN_TOL, arch="mamba2-780m")
+    mark("mamba2-780m training")
     enc_rows = compare_encoder_kernels(mods, dev)
     enc_counts = finetune(dev, mods, smi, configs)
+    mark("encoder fine-tuning")
     for key, n in resilience(dev, mods, smi, configs).items():
         train_counts[key] = train_counts.get(key, 0) + n
 
     kernels = []
     for model, rws, cnt in (("", rows, counts),
                             ("mamba2-780m ", mamba_rows, mamba_counts),
+                            ("zamba2-7b ", zamba_rows, zamba_counts),
                             ("mistral-nemo-12b ", nemo_rows, nemo_counts)):
         for row in rws:
             kernels.append({
@@ -3319,14 +3609,15 @@ def main():
                    {"mainloop_route_ms": row["gemm_route_ms"]}),
                 **({} if row["host_ms"] is None else
                    {"timing": "queued", "eager_ms": row["host_ms"]})})
-    for row in ssd_rows:
+    for model, row, cnt in (
+            [("mamba2-780m", r, ssd_counts) for r in ssd_rows]
+            + [("zamba2-7b", r, zamba_ssd_counts) for r in zamba_ssd_rows]):
         kernels.append({
             "name": f"ssd_intra_chunk [fp32, B/C head stride 0] "
-                    f"{list(row['shape'])} (mamba2-780m, "
-                    f"{row['tokens']})",
+                    f"{list(row['shape'])} ({model}, {row['tokens']})",
             "route": "cuda", "path": "tc", "source": SSD_SOURCE,
             "replaces": SSD_REPLACES,
-            "launches": ssd_counts.get(("ssd_intra_chunk", row["shape"]), 0),
+            "launches": cnt.get(("ssd_intra_chunk", row["shape"]), 0),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

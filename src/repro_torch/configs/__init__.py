@@ -1,9 +1,10 @@
 """Config registry of the port: the architectures of the families it
-has ported, dense and SSM.
+has ported, dense, SSM and hybrid.
 
-``qwen2-7b``, ``mistral-nemo-12b`` and ``mamba2-780m`` are the serving
-targets; the paper's LLaMA grid (with ``llama-tiny``) and ``mamba2-780m``
-are what training runs, and the small dense model the CPU tests run.
+``qwen2-7b``, ``mistral-nemo-12b``, ``mamba2-780m`` and ``zamba2-7b``
+are the serving targets; the paper's LLaMA grid (with ``llama-tiny``)
+and ``mamba2-780m`` are what training runs, and the small dense model
+the CPU tests run.
 ``internlm2-20b`` and ``mistral-large-123b`` are the registry's other
 dense architectures.  Other architectures of ``repro.configs`` join as
 their families are ported.
@@ -11,7 +12,7 @@ their families are ported.
 from __future__ import annotations
 
 from . import (internlm2_20b, llama_paper, mamba2_780m, mistral_large_123b,
-               mistral_nemo_12b, qwen2_7b)
+               mistral_nemo_12b, qwen2_7b, zamba2_7b)
 from .base import ModelConfig, TrainConfig
 
 CONFIGS = {
@@ -20,6 +21,7 @@ CONFIGS = {
     "mistral-nemo-12b": mistral_nemo_12b.CONFIG,
     "mistral-large-123b": mistral_large_123b.CONFIG,
     "mamba2-780m": mamba2_780m.CONFIG,
+    "zamba2-7b": zamba2_7b.CONFIG,
     "llama-20m": llama_paper.LLAMA_20M,
     "llama-60m": llama_paper.LLAMA_60M,
     "llama-100m": llama_paper.LLAMA_100M,

@@ -1,17 +1,21 @@
-"""Decoder-only LM: the dense family and the SSM family (Mamba2), for
+"""Decoder-only LM: the dense, SSM (Mamba2) and hybrid families, for
 training and serving.
 
 Counterpart of ``repro.models.lm`` for the dense family (``qwen2-7b``,
-the LLaMA grid) and the SSM family (``mamba2-780m``).  Layers stay
-stacked on a leading ``L`` axis, as in the reference, and a Python loop
-over ``L`` takes the place of ``lax.scan``.  Every matmul weight is
-consumed through :func:`repro_torch.models.linear.linear`, so a packed
-adapter threads through unchanged.
+the LLaMA grid), the SSM family (``mamba2-780m``) and the hybrid family
+(``zamba2-7b``: Mamba2 layers with ONE shared attention + MLP block
+applied after every ``attn_every``-th of them, then a tail of the
+``L % attn_every`` layers left).  Layers stay stacked on a leading ``L``
+axis, as in the reference, and a Python loop over ``L`` takes the place
+of ``lax.scan``.  Every matmul weight is consumed through
+:func:`repro_torch.models.linear.linear`, so a packed adapter threads
+through unchanged.
 
 Caches are updated in place (the reference returns new arrays): a
 prefill writes into the ``DecodeState`` it was given and a paged decode
-step writes into the KV arenas of its ``PagedDecodeState``.  The SSM
-family's per-slot recurrent state is the exception in decode: the step
+step writes into the KV arenas of its ``PagedDecodeState`` (the hybrid's
+shared block: one arena per application of it).  The recurrent state of
+the SSM and hybrid families is the exception in decode: the step
 returns it as new tensors and leaves the old ones as they were, so the
 serving engine can keep a faulted row's state (a masked write-back).
 
@@ -44,15 +48,27 @@ def padded_vocab(cfg) -> int:
 
 
 def _require_ported(cfg) -> None:
-    """Refuse a family the port does not run: MoE, MLA, hybrid, vlm and
-    audio (it trains and serves the dense and SSM families)."""
-    if cfg.family not in ("dense", "ssm") or cfg.use_mla \
+    """Refuse a family the port does not run: MoE, MLA, enc-dec, vlm and
+    audio (it trains and serves the dense and SSM families, and serves
+    the hybrid)."""
+    if cfg.family not in ("dense", "ssm", "hybrid") or cfg.use_mla \
             or cfg.num_experts or cfg.first_dense_layers \
             or cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported to "
             f"repro_torch (it trains and serves the dense and SSM "
-            f"families); see ROADMAP.md Queue 1 item 9")
+            f"families, and serves the hybrid); see ROADMAP.md Queue 1 "
+            f"item 9")
+
+
+def _hybrid(cfg) -> bool:
+    """zamba2: Mamba2 layers and one shared attention + MLP block."""
+    return cfg.family == "hybrid" and bool(cfg.attn_every)
+
+
+def _n_attn_apps(cfg) -> int:
+    """Applications of the hybrid's shared block (one KV cache each)."""
+    return cfg.num_layers // cfg.attn_every if _hybrid(cfg) else 0
 
 
 # ---------------------------------------------------------------------------
@@ -110,7 +126,7 @@ def _ssm_specs(cfg, d):
 
 def _layer_specs(cfg, d):
     """Specs of one stacked layer (without the leading L axis)."""
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         return {"ln1": _w((d,), cfg, "ones"), "ssm": _ssm_specs(cfg, d)}
     return {"ln1": _w((d,), cfg, "ones"), "attn": _attn_specs(cfg, d),
             "ln2": _w((d,), cfg, "ones"),
@@ -122,12 +138,20 @@ def param_specs(cfg) -> dict:
     d = cfg.d_model
     vp = padded_vocab(cfg)
     layer = _layer_specs(cfg, d)
-    return {
+    specs = {
         "embed": {"tok": _w((vp, d), cfg, "normal")},
         "final_norm": _w((d,), cfg, "ones"),
         "unembed": _w((d, vp), cfg),
         "layers": tree_map(lambda sp: _stack(sp, cfg.num_layers), layer),
     }
+    if _hybrid(cfg):
+        # zamba2: ONE attention + MLP block, unstacked, reused after
+        # every attn_every-th Mamba layer (weight sharing)
+        specs["shared_attn"] = {
+            "ln1": _w((d,), cfg, "ones"), "attn": _attn_specs(cfg, d),
+            "ln2": _w((d,), cfg, "ones"),
+            "mlp": _mlp_specs(cfg, d, cfg.d_ff)}
+    return specs
 
 
 def init_params(cfg, seed: int = 0, *, device=None) -> dict:
@@ -220,28 +244,41 @@ def _embed(params, tokens, cfg):
 # Forward (train / eval): full sequence, loop over layers
 # ---------------------------------------------------------------------------
 
+def _shared_after(cfg, i: int) -> Optional[int]:
+    """The application of the hybrid's shared block that follows layer
+    ``i`` (after every ``attn_every``-th Mamba layer; none in the
+    ``L % attn_every`` tail), else None."""
+    if _hybrid(cfg) and (i + 1) % cfg.attn_every == 0:
+        return (i + 1) // cfg.attn_every - 1
+    return None
+
+
 def forward_hidden(params, tokens, cfg):
     """(B, S) tokens -> ((B, S, d) final hidden after the final norm,
     aux).  ``aux`` holds the reference's MoE loss terms, zero for the
-    dense and SSM families.  A dense block is attention and MLP; an SSM
-    block ``h + mamba2_mixer(rms_norm(h, ln1))`` (the reference's
-    ``mamba_body``).
+    dense, SSM and hybrid families.  A dense block is attention and MLP;
+    an SSM block ``h + mamba2_mixer(rms_norm(h, ln1))`` (the reference's
+    ``mamba_body``); the hybrid runs the shared dense block
+    (``params["shared_attn"]``) after every ``attn_every``-th SSM block.
 
     With ``cfg.remat`` each block runs under ``torch.utils.checkpoint``
     (the reference's ``jax.checkpoint`` around the scan body): only the
     block inputs are kept, and the backward recomputes the block.
     """
     _require_ported(cfg)
-    apply = _mamba_block if cfg.family == "ssm" else dense_block
+    apply = dense_block if cfg.family == "dense" else _mamba_block
+
+    def run(fn, h, p):
+        def block(h):
+            return fn(h, p, cfg)[0]
+        return checkpoint(block, h, use_reentrant=False) if cfg.remat \
+            else block(h)
+
     h = _embed(params, tokens, cfg)
     for i in range(cfg.num_layers):
-        lp = _layer(params["layers"], i)
-
-        def block(h, lp=lp):
-            return apply(h, lp, cfg)[0]
-
-        h = checkpoint(block, h, use_reentrant=False) if cfg.remat \
-            else block(h)
+        h = run(apply, h, _layer(params["layers"], i))
+        if _shared_after(cfg, i) is not None:
+            h = run(dense_block, h, params["shared_attn"])
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
     return h, {"lb_loss": zero, "router_z": zero}
@@ -262,9 +299,10 @@ def logits(params, hidden, cfg):
 # ---------------------------------------------------------------------------
 
 class DecodeState(NamedTuple):
-    kv: Optional[KVCache]        # dense family
-    ssm: Optional[SSMState]      # SSM family
-    pos: int                     # tokens already in cache
+    kv: Optional[KVCache]         # dense family
+    ssm: Optional[SSMState]       # SSM and hybrid families
+    shared_kv: Optional[KVCache]  # hybrid: one cache per shared-block app
+    pos: int                      # tokens already in cache
 
 
 def _alloc_ssm(cfg, batch: int, device) -> SSMState:
@@ -277,12 +315,15 @@ def _alloc_ssm(cfg, batch: int, device) -> SSMState:
 def alloc_decode_state(cfg, batch: int, max_len: int, *,
                        device) -> DecodeState:
     _require_ported(cfg)
-    if cfg.family == "ssm":
-        return DecodeState(None, _alloc_ssm(cfg, batch, device), 0)
-    kv = KVCache.alloc(cfg.num_layers, batch, max_len, cfg.num_kv_heads,
-                       cfg.resolved_head_dim, dtype=act_dtype(cfg),
-                       device=device)
-    return DecodeState(kv, None, 0)
+
+    def kv(layers):
+        return KVCache.alloc(layers, batch, max_len, cfg.num_kv_heads,
+                             cfg.resolved_head_dim, dtype=act_dtype(cfg),
+                             device=device)
+    if cfg.family == "dense":
+        return DecodeState(kv(cfg.num_layers), None, None, 0)
+    shared = kv(_n_attn_apps(cfg)) if _hybrid(cfg) else None
+    return DecodeState(None, _alloc_ssm(cfg, batch, device), shared, 0)
 
 
 def _mamba_block(h, lp, cfg, **kw):
@@ -292,20 +333,27 @@ def _mamba_block(h, lp, cfg, **kw):
 
 
 def prefill(params, tokens, cfg, state: DecodeState):
-    """Full forward writing the caches (the SSM family: each layer's end
-    state and conv window); returns (last-position logits, state)."""
+    """Full forward writing the caches (the SSM and hybrid families: each
+    layer's end state and conv window; the hybrid also each application
+    of its shared block's K/V); returns (last-position logits, state)."""
     _require_ported(cfg)
     h = _embed(params, tokens, cfg)
     S = h.shape[1]
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
-        if cfg.family == "ssm":
-            h, (ns, nc) = _mamba_block(h, lp, cfg, want_state=True)
-            state.ssm.ssm[i].copy_(ns)
-            state.ssm.conv[i].copy_(nc)
-        else:
+        if cfg.family == "dense":
             h, _ = dense_block(h, lp, cfg,
                                cache=(state.kv.k[i], state.kv.v[i]),
+                               cache_index=0)
+            continue
+        h, (ns, nc) = _mamba_block(h, lp, cfg, want_state=True)
+        state.ssm.ssm[i].copy_(ns)
+        state.ssm.conv[i].copy_(nc)
+        g = _shared_after(cfg, i)
+        if g is not None:
+            h, _ = dense_block(h, params["shared_attn"], cfg,
+                               cache=(state.shared_kv.k[g],
+                                      state.shared_kv.v[g]),
                                cache_index=0)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     last = logits(params, h[:, -1:], cfg)
@@ -320,15 +368,20 @@ class PagedDecodeState(NamedTuple):
     """Paged decode caches (serving engine).
 
     ``kv_k`` / ``kv_v``: ``(L, n_pages, page, Hkv, D)`` arenas (dense
-    family); ``ssm``: the SSM family's slot-indexed :class:`SSMState`
-    (O(1) per slot, so not paged); ``page_table``: ``(batch,
-    max_pages)`` int32, ``-1`` = unmapped, one page-id space for every
-    layer; ``lengths``: ``(batch,)`` int32 tokens stored per slot, ``0``
-    marks an inactive slot.
+    family); ``ssm``: the slot-indexed :class:`SSMState` of the SSM and
+    hybrid families (O(1) per slot, so not paged); ``shared_k`` /
+    ``shared_v``: the hybrid's shared-attention arenas ``(n_apps,
+    n_pages, page, Hkv, D)``, one per application of its shared block;
+    ``page_table``: ``(batch, max_pages)`` int32, ``-1`` = unmapped, one
+    page-id space for every layer and application; ``lengths``:
+    ``(batch,)`` int32 tokens stored per slot, ``0`` marks an inactive
+    slot.
     """
     kv_k: Optional[torch.Tensor]
     kv_v: Optional[torch.Tensor]
     ssm: Optional[SSMState]
+    shared_k: Optional[torch.Tensor]
+    shared_v: Optional[torch.Tensor]
     page_table: torch.Tensor
     lengths: torch.Tensor
 
@@ -337,16 +390,21 @@ def alloc_paged_state(cfg, batch: int, num_pages: int, page_size: int,
                       max_len: int, *, device) -> PagedDecodeState:
     _require_ported(cfg)
     max_pages = -(-max_len // page_size)
-    kv_k = kv_v = ssm = None
-    if cfg.family == "ssm":
-        ssm = _alloc_ssm(cfg, batch, device)
-    else:
-        shp = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
+
+    def arenas(layers):
+        shp = (layers, num_pages, page_size, cfg.num_kv_heads,
                cfg.resolved_head_dim)
-        kv_k = torch.zeros(shp, dtype=act_dtype(cfg), device=device)
-        kv_v = torch.zeros(shp, dtype=act_dtype(cfg), device=device)
+        return (torch.zeros(shp, dtype=act_dtype(cfg), device=device),
+                torch.zeros(shp, dtype=act_dtype(cfg), device=device))
+    kv_k = kv_v = ssm = sk = sv = None
+    if cfg.family == "dense":
+        kv_k, kv_v = arenas(cfg.num_layers)
+    else:
+        ssm = _alloc_ssm(cfg, batch, device)
+        if _hybrid(cfg):
+            sk, sv = arenas(_n_attn_apps(cfg))
     return PagedDecodeState(
-        kv_k, kv_v, ssm,
+        kv_k, kv_v, ssm, sk, sv,
         torch.full((batch, max_pages), -1, dtype=torch.int32,
                    device=device),
         torch.zeros((batch,), dtype=torch.int32, device=device))
@@ -357,27 +415,35 @@ def decode_step_paged(params, token, cfg, state: PagedDecodeState):
 
     Slot ``b``'s new token lands at position ``lengths[b]`` of its page
     chain; rows with ``lengths == 0`` are inactive — their cache writes
-    are dropped and their logits are never read.  The SSM family steps
-    every slot's recurrent state (inactive rows included, as in the
-    reference) into new tensors; ``state.ssm`` is left as it was.
+    are dropped and their logits are never read.  The SSM and hybrid
+    families step every slot's recurrent state (inactive rows included,
+    as in the reference) into new tensors; ``state.ssm`` is left as it
+    was.  The hybrid's application ``g`` of its shared block reads and
+    writes the arenas ``shared_k[g]``, ``shared_v[g]``.
     """
     _require_ported(cfg)
     h = _embed(params, token, cfg)
     pt, lengths = state.page_table, state.lengths
     ssm = state.ssm
-    if cfg.family == "ssm":
+    if ssm is not None:
         ssm = SSMState(torch.empty_like(ssm.ssm), torch.empty_like(ssm.conv))
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
-        if cfg.family == "ssm":
-            h, (ns, nc) = _mamba_block(
-                h, lp, cfg, ssm_state=state.ssm.ssm[i],
-                conv_state=state.ssm.conv[i], decode=True)
-            ssm.ssm[i].copy_(ns)
-            ssm.conv[i].copy_(nc)
-        else:
+        if cfg.family == "dense":
             h, _ = dense_block(h, lp, cfg, pos_offset=lengths,
                                cache=(state.kv_k[i], state.kv_v[i]),
+                               decode=True, paged=(pt, lengths))
+            continue
+        h, (ns, nc) = _mamba_block(
+            h, lp, cfg, ssm_state=state.ssm.ssm[i],
+            conv_state=state.ssm.conv[i], decode=True)
+        ssm.ssm[i].copy_(ns)
+        ssm.conv[i].copy_(nc)
+        g = _shared_after(cfg, i)
+        if g is not None:
+            h, _ = dense_block(h, params["shared_attn"], cfg,
+                               pos_offset=lengths,
+                               cache=(state.shared_k[g], state.shared_v[g]),
                                decode=True, paged=(pt, lengths))
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     lg = logits(params, h, cfg)

@@ -1,6 +1,6 @@
 """Continuous-batching serving engine over the paged decode cache.
 
-Counterpart of ``repro.serve.engine`` (greedy decoding).  One decode
+Counterpart of ``repro.serve.engine``.  One decode
 batch of ``max_batch`` slots is stepped in lock-step; sequences join
 (prefill + page-chain allocation) and leave (evict, pages freed) between
 steps.  The per-step loop is:
@@ -15,16 +15,27 @@ steps.  The per-step loop is:
   4. run one batched decode step: every active slot advances one token,
      all tenants answered by one low-rank forward per projection —
      ``W + V Bᵀ`` is never materialised, token selection stays on the
-     device.
+     device: greedy (``temperature == 0``, the default and the exactness
+     reference), or sampled from ``softmax(logits / temperature)`` over
+     the ``top_k`` largest (:mod:`.sampling`, Gumbel noise from a
+     generator on the device seeded with ``sample_seed``, drawn for the
+     whole ``(max_batch, vocab)`` block every step).  The prefill's
+     first token is greedy, as in the reference.
 
 The dense family pages its KV cache; the SSM family (Mamba2) keeps one
 fixed-size recurrent state per slot, which prefill writes into the
-request's slot.  A pure-SSM sequence holds no page chain: nothing of it
-lives in the page pool, so pool pressure never preempts it, and its
-admission is bounded by ``max_batch`` and ``max_len`` alone.  (The
-reference keeps page chains for SSM sequences too, and a preempted one
-re-enters with a prompt off the SSD chunk and fails; a deliberate
-departure.)
+request's slot; the hybrid (zamba2) does both: its shared attention
+block's KV pages (one arena per application) beside the per-slot SSM
+state.  A pure-SSM sequence holds no page chain: nothing of it lives in
+the page pool, so pool pressure never preempts it, and its admission is
+bounded by ``max_batch`` and ``max_len`` alone.  (The reference keeps
+page chains for SSM sequences too, and a preempted one re-enters with a
+prompt off the SSD chunk and fails; a deliberate departure.)  A hybrid
+sequence holds pages and can be preempted: it re-enters by prefilling
+the longest prefix the chunked scan takes (a multiple of ``ssd_chunk``,
+or the whole sequence when shorter than one chunk) and teacher-forcing
+the rest through one-row paged decode steps, the last of which gives
+the next token (the reference fails there; a deliberate departure).
 
 A per-row logit health check (non-finite / collapsed) quarantines only
 the offending rows: a faulted row's length does not advance, so its
@@ -43,12 +54,13 @@ outputs are returned; the previous handlers are put back), and
 :meth:`Engine.snapshot` / :meth:`Engine.restore` through the checkpoint
 layer (atomic fsynced publish, CRC manifest): the KV arenas, the page
 tables, the slot map, the output rings, the adapter buffers, every piece
-of host bookkeeping and, for the SSM family, the per-slot recurrent
-state.  Since the port keeps that state per slot with no page chain, an
-engine snapshot is the port's own and is restored by the port (a
-training checkpoint is what crosses between the packages).
+of host bookkeeping, the sampling generator's state and, for the SSM
+and hybrid families, the per-slot recurrent state.  Since the port keeps
+that state per slot with no page chain, an engine snapshot is the port's
+own and is restored by the port (a training checkpoint is what crosses
+between the packages).
 ``EngineConfig.from_env`` reads the reference's documented
-``REPRO_SERVE_*`` knobs.  Temperature/top-k sampling is not ported yet.
+``REPRO_SERVE_*`` knobs (the reference reads none for sampling).
 """
 from __future__ import annotations
 
@@ -68,6 +80,7 @@ from ..models.lm import (alloc_decode_state, alloc_paged_state,
 from .adapters import AdapterStore, batched_pack_tree
 from .health import logits_row_ok
 from .pages import PagePool
+from .sampling import gumbel_noise, select_tokens
 
 
 class EngineBusy(RuntimeError):
@@ -97,6 +110,9 @@ class EngineConfig:
     max_queue: int = 0  # admission-queue bound; 0 -> unbounded
     guard: bool = True  # per-row logit health guard
     max_strikes: int = 3  # row faults before a tenant is disabled
+    temperature: float = 0.0  # 0 -> greedy (the exactness reference)
+    top_k: int = 0  # sampling keeps the top_k logits; 0 -> full vocab
+    sample_seed: int = 0  # seed of the sampling generator
 
     @classmethod
     def from_env(cls, **over) -> "EngineConfig":
@@ -203,6 +219,8 @@ class Engine:
         self._tok = torch.zeros((ec.max_batch, 1), **dev)
         self._out = torch.zeros((ec.max_batch, ec.max_out), **dev)
         self._counts = torch.zeros((ec.max_batch,), **dev)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(ec.sample_seed)
 
     @property
     def step_count(self) -> int:
@@ -243,7 +261,13 @@ class Engine:
         else:
             row_ok = torch.ones_like(active)
         eff = active & row_ok
-        nxt = torch.argmax(row, dim=-1)
+        ec = self.ecfg
+        if ec.temperature > 0.0:
+            vr = row[:, : self.cfg.vocab_size]
+            nxt = select_tokens(vr, ec.temperature, ec.top_k,
+                                gumbel_noise(self._gen, vr.shape))
+        else:
+            nxt = torch.argmax(row, dim=-1)
         out, counts = self._out, self._counts
         col = torch.arange(out.shape[1], device=self.device)
         write = (col[None, :] == counts[:, None]) & eff[:, None]
@@ -263,30 +287,78 @@ class Engine:
         fault = active & ~row_ok
         return nstate, tok, out, counts, fault
 
+    def _prefill_len(self, n: int) -> int:
+        """Tokens of an ``n``-token sequence that prefill takes: all of
+        them, but for the SSM and hybrid families the longest prefix the
+        chunked scan takes (a multiple of ``ssd_chunk``, or all ``n``
+        when shorter than one chunk).  Only a readmitted hybrid sequence
+        leaves a tail: a submitted prompt off the chunk is refused."""
+        q = self.cfg.ssd_chunk
+        if self.cfg.family not in ("ssm", "hybrid") or n <= q:
+            return n
+        return n - n % q
+
     def _prefill(self, req: Request, pages: List[int], slot: int):
-        """Prefill one request into its page chain (dense) or its slot's
-        recurrent state (SSM); returns the first generated token (a
-        device scalar)."""
+        """Prefill one request into its page chain (the dense family's
+        KV, the hybrid's shared-block KV) and its slot's recurrent state
+        (SSM, hybrid); a tail past :meth:`_prefill_len` is teacher-forced
+        (:meth:`_teacher_force`).  Returns the first generated token, a
+        device scalar (greedy)."""
         packed = self.params
         if self.adapters is not None:
             packed = self.adapters.lrpack_tree(self.params, req.tenant)
         page = self.ecfg.page_size
         n = len(pages)
+        head = self._prefill_len(len(req.prompt))
         tmp = alloc_decode_state(self.cfg, 1, n * page, device=self.device)
-        tokens = torch.as_tensor(req.prompt[None, :], device=self.device)
+        tokens = torch.as_tensor(req.prompt[None, :head], device=self.device)
         lg, tmp = prefill(packed, tokens, self.cfg, tmp)
         if tmp.ssm is not None:
             for arena, cache in zip(self.state.ssm, tmp.ssm):
                 arena[:, slot] = cache[:, 0].to(arena.dtype)
-            return torch.argmax(lg[0, -1])
         idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
-        for arena, cache in ((self.state.kv_k, tmp.kv.k),
-                             (self.state.kv_v, tmp.kv.v)):
-            # (L, 1, cap, H, D) -> (L, nP, page, H, D) -> arena pages
-            blocks = cache[:, 0].reshape(
-                (cache.shape[0], n, page) + cache.shape[3:])
-            arena[:, idx] = blocks.to(arena.dtype)
+        for cache, arenas in ((tmp.kv, (self.state.kv_k, self.state.kv_v)),
+                              (tmp.shared_kv, (self.state.shared_k,
+                                               self.state.shared_v))):
+            if cache is None:
+                continue
+            for arena, c in zip(arenas, cache):
+                # (L, 1, cap, H, D) -> (L, nP, page, H, D) -> arena pages
+                blocks = c[:, 0].reshape((c.shape[0], n, page) + c.shape[3:])
+                arena[:, idx] = blocks.to(arena.dtype)
+        if head < len(req.prompt):
+            lg = self._teacher_force(req, pages, slot, head)
         return torch.argmax(lg[0, -1])
+
+    def _teacher_force(self, req: Request, pages: List[int], slot: int,
+                       head: int):
+        """Feed the prompt's tokens from ``head`` on through one-row paged
+        decode steps of ``slot``: each writes its page chain and advances
+        its recurrent state, as the decode steps that first produced them
+        did.  Returns the last step's logits."""
+        dev = self.device
+        packed = self.params
+        if self.adapters is not None:
+            tenant = torch.tensor([self.adapters.tenant_index(req.tenant)],
+                                  device=dev)
+            packed = batched_pack_tree(self.params, self.adapters.layout,
+                                       self.adapters.b_full,
+                                       self.adapters.projs, tenant)
+        pt = np.full((1, self.max_pages), -1, np.int32)
+        pt[0, :len(pages)] = pages
+        ssm = self.state.ssm
+        st = self.state._replace(
+            ssm=type(ssm)(*(x[:, slot:slot + 1] for x in ssm)),
+            page_table=torch.as_tensor(pt, device=dev),
+            lengths=torch.tensor([head], dtype=torch.int32, device=dev))
+        tail = torch.as_tensor(req.prompt[head:], dtype=torch.long,
+                               device=dev)
+        for t in range(tail.shape[0]):
+            lg, st = decode_step_paged(packed, tail[t].reshape(1, 1),
+                                       self.cfg, st)
+        for arena, new in zip(ssm, st.ssm):
+            arena[:, slot] = new[:, 0]
+        return lg
 
     # -- host-side bookkeeping ---------------------------------------------
 
@@ -621,7 +693,8 @@ class Engine:
         tree = {"arena": self.state._replace(
                     page_table=torch.as_tensor(self._pt, device=dev),
                     lengths=torch.as_tensor(self._len, device=dev)),
-                "tok": self._tok, "out": self._out, "counts": self._counts}
+                "tok": self._tok, "out": self._out, "counts": self._counts,
+                "sample_gen": self._gen.get_state()}
         if self.adapters is not None:
             tree["adapter_b"] = tuple(self.adapters.b_full)
             tree["adapter_v"] = tuple(self.adapters.projs)
@@ -668,9 +741,10 @@ class Engine:
 
     def snapshot(self, workdir: str, *, keep: int = 3) -> int:
         """Serialize the whole engine through the checkpoint layer (the
-        arenas, page tables, slot map, output rings, adapter buffers and
-        host bookkeeping).  Request ids must be strings (they key the
-        JSON manifest).  Returns the snapshot's step."""
+        arenas, page tables, slot map, output rings, adapter buffers, the
+        sampling generator's state and host bookkeeping).  Request ids
+        must be strings (they key the JSON manifest).  Returns the
+        snapshot's step."""
         checkpoint.save(workdir, self._step_count, self._snapshot_tree(),
                         keep=keep, extra={"serve": self._snapshot_extra()})
         return self._step_count
@@ -711,6 +785,7 @@ class Engine:
         eng.state = tree["arena"]
         eng._tok, eng._out = tree["tok"], tree["out"]
         eng._counts = tree["counts"]
+        eng._gen.set_state(tree["sample_gen"])
         if adapters is not None:
             adapters.b_full = list(tree["adapter_b"])
             adapters.projs = list(tree["adapter_v"])

@@ -4,7 +4,8 @@ index, and its tensor-core route.
 On the CPU (no card needed):
 
 * ``lowrank_forward.tc_route`` sends every bf16 (K, N, r) that the
-  decode steps of qwen2-7b and mamba2-780m give the batched form to
+  decode steps of qwen2-7b, mamba2-780m and zamba2-7b give the batched
+  form to
   ``"tc"``, and fp32, unaligned rows and a pointer off a 16-byte boundary
   to ``"simt"``.
 * The indexed plain form (``b`` the store's ``(T, N, r)`` stack, ``rows``
@@ -28,7 +29,7 @@ On the CPU (no card needed):
 
 The ``cuda``-marked tests hold the kernel against its plain version on
 the card (bf16, 2e-2·max|y|: bf16 output rounding, fp32 sums in another
-order) at the eight decode shapes of the two models, at ragged aligned
+order) at the thirteen decode shapes of the three models, at ragged aligned
 N, at batch 1, 3, 4, 16 and seq 1, 2 with repeated tenants and T = 8;
 check that two launches agree bit for bit, that an index outside
 [0, T) surfaces as a CUDA error, and that a bf16 paged decode step of a
@@ -62,9 +63,13 @@ RANK = 128
 LOWRANK = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "in_proj",
            "out_proj", "unembed")
 EMU_REL = 1e-5
-# the eight decode (K, N) of the two served models, r = 128
+# the decode (K, N) of the served models, r = 128: qwen2-7b's five,
+# mamba2-780m's three and zamba2-7b's five new ones (its wq, wk, wv, wo
+# are qwen2's (3584, 3584); in_proj's 14576 is no multiple of a tile)
 DECODE = [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584),
-          (3584, 152064), (1536, 6448), (3072, 1536), (1536, 50432)]
+          (3584, 152064), (1536, 6448), (3072, 1536), (1536, 50432),
+          (3584, 14576), (7168, 3584), (3584, 14336), (14336, 3584),
+          (3584, 32000)]
 
 
 def _model_shapes(arch):
@@ -80,7 +85,7 @@ def _model_shapes(arch):
     return sorted(out)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-7b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ["qwen2-7b", "mamba2-780m", "zamba2-7b"])
 def test_every_decode_shape_takes_the_tensor_cores(arch):
     shapes = _model_shapes(arch)
     assert set(shapes) <= set(DECODE) and len(shapes) >= 3

@@ -25,7 +25,7 @@ from repro.optim import subspace as jsubspace  # noqa: E402
 from repro.serve import AdapterStore as JStore  # noqa: E402
 from repro.serve import batched_pack_tree as jbatched  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.configs import TrainConfig, get_config  # noqa: E402
+from repro_torch.configs import ModelConfig, TrainConfig, get_config  # noqa
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.common import tree_flatten_with_path  # noqa: E402
 from repro_torch.models.linear import (LRPack, effective_weight,  # noqa
@@ -267,10 +267,13 @@ def test_effective_weight_matches_jax():
 def test_other_families_are_refused():
     moe = dataclasses.replace(get_config("llama-tiny"), family="moe",
                               num_experts=4)
-    # zamba2-7b's family: mamba2 layers with a shared attention block
-    hybrid = dataclasses.replace(get_config("mamba2-780m"), family="hybrid",
-                                 attn_every=6).reduced()
-    for cfg in (moe, hybrid):
+    # families the port's registry does not hold yet, built from the
+    # reference's configs: phi-3-vision-4.2b (vlm) and whisper-small
+    # (audio, enc-dec)
+    vlm, encdec = (ModelConfig(**dataclasses.asdict(
+        jget_config(name).reduced()))
+        for name in ("phi-3-vision-4.2b", "whisper-small"))
+    for cfg in (moe, vlm, encdec):
         with pytest.raises(NotImplementedError, match="not ported"):
             lm.param_specs(cfg)
         with pytest.raises(NotImplementedError, match="not ported"):

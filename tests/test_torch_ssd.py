@@ -11,14 +11,16 @@
   ``LRPack`` in prefill (with and without its state) and in decode.
 * The wrapper's refusals, which both routes make.
 * The kernel's launch split (``ssd_plan``, ``ssd_cta``): a full card at
-  mamba2-780m's prefill shapes, every output element owned by exactly
+  mamba2-780m's and zamba2-7b's prefill shapes (zamba2's N = 64 leaves
+  chunk parts with y rows and no state rows), every output element owned
+  by exactly
   one chunk CTA, every causal entry of G by exactly one Gram CTA (one
   Gram per shared B/C group, not one per head).
 * The kernel's arithmetic emulated on the CPU: the 3xTF32 split of its
   three contractions (hi rounded to 10 mantissa bits, ties away, lo = a
   - hi cut to 10 bits as the MMA reads it; lo*hi + hi*lo + hi*hi summed
   in fp64) and its fp64 warp-shuffle scan for ``cumsum(da)``, against
-  the plain version at the four prefill shapes.
+  the plain version at the four prefill shapes of each model.
 * The backward kernel's split (``ssd_bwd_plan``, ``ssd_bwd_cta``,
   ``ssd_bwd_tiles``): every head's dx, ddt, dda and every group's db,
   dc owned by one CTA, a slice's heads in order, the warps' datt tiles
@@ -36,6 +38,7 @@ carries the two cumsums' last-bit differences (measured: 2.2e-5).
 
 The ``cuda``-marked tests hold the CUDA kernel to its plain version on
 the card (ragged and path shapes, the plan's split for both b/c layouts
+at both models' prefill shapes
 and the launcher's refusal of any other, repeated launches, a decay far
 past expf's overflow, bf16), and its backward kernel
 (``csrc/ssd_chunk_bwd.cu``) to ``ref.ssd_intra_chunk_bwd`` (ragged
@@ -75,6 +78,11 @@ SSD_TOL = 1e-4      # chip_smoke.py's [kernel] limit, ·max|y| and ·max|state|
 # and 512 tokens)
 PATH_SHAPES = [(1, 100, 48, 64, 128), (1, 128, 48, 64, 128),
                (2, 128, 48, 64, 128), (4, 128, 48, 64, 128)]
+# zamba2-7b's prefills (the same prompts; 112 heads, N = 64): two state
+# tiles but four strip pairs, so chunk parts 2 and 3 own y rows and no
+# state rows
+ZAMBA_SHAPES = [(1, 100, 112, 64, 64), (1, 128, 112, 64, 64),
+                (2, 128, 112, 64, 64), (4, 128, 112, 64, 64)]
 
 
 @pytest.fixture(scope="module")
@@ -334,7 +342,7 @@ def test_mamba2_mixer_decode_matches_jax(jref):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("shared", [True, False])
-@pytest.mark.parametrize("shape", PATH_SHAPES)
+@pytest.mark.parametrize("shape", PATH_SHAPES + ZAMBA_SHAPES)
 def test_ssd_plan_fills_the_card_at_the_path_shapes(shape, shared):
     BC, Q, H, P, N = shape
     plan = sc.ssd_plan(BC, Q, H, N, P, shared)
@@ -343,8 +351,9 @@ def test_ssd_plan_fills_the_card_at_the_path_shapes(shape, shared):
 
 
 # the path shapes, the ragged card shapes and edge cases
-PLAN_SHAPES = PATH_SHAPES + [(1, 1, 1, 1, 1), (3, 20, 5, 16, 8),
-                             (2, 45, 3, 70, 33), (1, 128, 2, 128, 128),
+PLAN_SHAPES = PATH_SHAPES + ZAMBA_SHAPES + [
+    (1, 1, 1, 1, 1), (3, 20, 5, 16, 8), (2, 45, 3, 70, 33),
+    (1, 128, 2, 128, 128),
                              (2, 17, 9, 8, 100), (1, 113, 7, 4, 31)]
 
 
@@ -435,7 +444,7 @@ def _mixer_draw(shape, seed):
     return tuple(_t(a.astype(np.float32)) for a in (x, dt, da, b1, c1))
 
 
-@pytest.mark.parametrize("shape", PATH_SHAPES)
+@pytest.mark.parametrize("shape", PATH_SHAPES + ZAMBA_SHAPES)
 def test_3xtf32_split_keeps_fp32_accuracy(shape):
     """The kernel's arithmetic against the plain version: max err /
     max|out| measured on the CPU at most 5.4e-7 (y) and 2.1e-7 (state),
@@ -522,7 +531,7 @@ def test_ssd_kernel_matches_plain_on_card(cuda, shape, broadcast):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("broadcast", [False, True])
-@pytest.mark.parametrize("shape", PATH_SHAPES)
+@pytest.mark.parametrize("shape", PATH_SHAPES + ZAMBA_SHAPES)
 def test_ssd_kernel_every_split_on_card(cuda, shape, broadcast):
     """The plan's split for each b/c layout against the plain version,
     launched twice (no launch leaves state for the next); the launcher

@@ -66,7 +66,8 @@ def _model_shapes(arch):
     return sorted(out)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-7b", "mamba2-780m", "llama-100m"])
+@pytest.mark.parametrize("arch", ["qwen2-7b", "mamba2-780m", "llama-100m",
+                                  "zamba2-7b"])
 def test_every_full_size_bf16_shape_takes_the_tensor_cores(arch):
     shapes = _model_shapes(arch)
     assert len(shapes) >= 3
