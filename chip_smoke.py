@@ -27,9 +27,12 @@
    (BC 128 = batch 16 x 8 chunks), the forward and the backward kernel
    (``ssd_intra_chunk_bwd``), the backward also with a decay whose
    masked differences pass 4 x 88.7 (every gradient finite) and three
-   launches bit-identical, timed queued and eager; then ``[ssd
-   checked]``: both SSD kernels' bounds-checked builds at the training
-   shape, bit-identical to the unchecked builds, no index trapped.  Each
+   launches bit-identical, timed queued and eager; the same at
+   zamba2-7b's training shape (BC 64 = batch 8 x 1024, 112 heads, N =
+   64; the backward's split logged: 7 slices of 16 heads, 448 heads
+   CTAs, 2 column blocks, 128 group CTAs); then ``[ssd checked]``: both SSD
+   kernels' bounds-checked builds at mamba2-780m's training shape,
+   bit-identical to the unchecked builds, no index trapped.  Each
    forward row logs its launch plan
    (per pass of the mainloop: tile width, splits of K, cluster size,
    units, persistent or not; or the per-row-B kernel's), and a shared-B
@@ -127,7 +130,33 @@
    under remat) and 48 backward, every bf16 GEMM ``"tc"``, and a profile
    of two steps with the SSD backward's device time; then
    ``[train==plain mamba2]``, its 2-layer fp32 cut through the kernels
-   against the CPU, as above.
+   against the CPU, as above.  Then ``[train zamba2]``: zamba2-7b, the
+   hybrid, at full width and depth (81 Mamba2 layers, the shared
+   attention + MLP block applied 13 times, 6,751,130,832 parameters;
+   bf16 compute over fp32 B, m, v, r = 128), batch 8 x 1024, ``lazy_k``
+   3, lr 5e-4, 10 steps: finite, falling losses, 162 SSD forward
+   launches a step (81 and 81 under remat) and 81 backward at (64, 128,
+   112, 64, 64), every bf16 GEMM ``"tc"``, ms/step, tok/s, peak and
+   state bytes, and a profile of two inner steps; ``[train==plain
+   zamba2]``, its 3-layer fp32 cut (``attn_every`` 2: a group, the
+   shared block, a tail layer) at batch 1 x 256 through the kernels
+   against the CPU; and ``[serve trained tenant zamba2 lazy==merged]``:
+   that cut trained 2 steps on the card, its checkpoint loaded by
+   ``load_tenant`` and served lazy == merged.  To run these alone,
+   import ``chip_smoke`` in a scratch script, build with
+   ``_build.build_all`` and call ``train_zamba2(dev, mods, smi,
+   configs)``, ``train_equals_plain(dev, mods, configs, "lowrank_adam
+   fp32", (), ZAMBA_TRAIN_PLAIN_TOL, arch="zamba2-7b", batch=1)`` and
+   ``serve_trained_zamba2(dev, mods, configs)``.
+   ``python3 chip_smoke.py --zamba2-study`` runs only the measurements
+   behind two choices of this path: the SSD backward's ragged heads
+   instance (the ``_build.RAGGED`` build) timed against the
+   constant-bound instance at both training shapes, and ``[train
+   zamba2]`` at five lrs under one warm-up, 12 steps each (no result
+   line).  Every phase takes about 900 s on an H100 80GB HBM3 at 700 W,
+   the zamba2 training phases about 150 s of it; their CPU
+   counterparts, against the JAX package at the reduced hybrid, are
+   ``tests/test_torch_hybrid_train.py``.
 8. The paper's samplers and the paths that use them: every sampler
    (Gaussian, Stiefel, coordinate, ``dependent_diag``) batched at the
    llama-100m group shapes, held to its laws on the card (``Vᵀ V``, one
@@ -1233,6 +1262,10 @@ ZAMBA_SHAPES = {(3584, 14576): ("in_proj", 512),
                 (3584, 14336): ("w_gate,w_up", 512),
                 (14336, 3584): ("w_down", 512),
                 (3584, 32000): ("unembed", 1)}
+# (BC, Q, H, P, N) of zamba2-7b's training step at batch 8 x 1024: 64
+# chunks, 112 heads, N = 64 (the backward's heads instance with constant
+# bounds at Q = 128, N = 64)
+ZAMBA_TRAIN_SSD_SHAPE = (64, 128, 112, 64, 64)
 # (BC, Q, H, P, N) of zamba2-7b's prefills: 112 heads, N = 64 (two state
 # tiles against four strip pairs: chunk parts 2 and 3 own y rows alone)
 ZAMBA_SSD_SHAPES = {(1, 100, 112, 64, 64): "100-token prompt",
@@ -1390,8 +1423,9 @@ def compare_ssd_bwd_kernel(mods, dev, shape=SSD_TRAIN_SHAPE):
             tri = Q * (Q + 1) // 2
             ops_n = 2 * (BC * H * (2 * tri * P + 2 * Q * N * P)
                          + BC * groups * 3 * tri * N)
-            nbytes = 4 * (4 * BC * Q * H * P + 4 * BC * Q * H
-                          + 4 * BC * Q * groups * N)
+            # x, dy, dx; ds (BC, H, N, P); dt, da, ddt, dda; b, c, db, dc
+            nbytes = 4 * (3 * BC * Q * H * P + BC * H * N * P
+                          + 4 * BC * Q * H + 4 * BC * Q * groups * N)
             bms, by = bound_of(nbytes, 3 * ops_n, TF32_FLOP_PER_S)
             fp32_bms, fp32_by = bound_of(nbytes, ops_n, FP32_FLOP_PER_S)
             ms = queued_ms(lambda: sc.ssd_intra_chunk_bwd(*ops), calls=10)
@@ -1414,8 +1448,9 @@ def compare_ssd_bwd_kernel(mods, dev, shape=SSD_TRAIN_SHAPE):
                        grids_ms=grids)
             log(f"[kernel] ssd_intra_chunk_bwd {list(shape)} route=tc: plan "
                 f"{plan.slices} slices of {plan.heads_per_slice} heads, "
-                f"{plan.heads_ctas} heads CTAs, then {plan.group_ctas} group "
-                f"CTAs; ms={ms:.4f} [queued; eager {eager_ms:.4f} ms/call] "
+                f"{plan.heads_ctas} heads CTAs, then {plan.n_blocks} column "
+                f"blocks of {sc.GROUP_COLS}, {plan.group_ctas} group CTAs; "
+                f"ms={ms:.4f} [queued; eager {eager_ms:.4f} ms/call] "
                 f"plain_ms={plain_ms:.4f} library_ms=null bound_ms="
                 f"{bms:.4f} ({by}; fp32 SIMT {fp32_bms:.4f}, {fp32_by}; "
                 f"{nbytes / 1e6:.0f} MB, {ops_n / 1e9:.1f} GFLOP); device ms "
@@ -1426,6 +1461,40 @@ def compare_ssd_bwd_kernel(mods, dev, shape=SSD_TRAIN_SHAPE):
         del x, dt, da, b, c, dy, ds, ops, runs, want
     torch.cuda.empty_cache()
     return out
+
+
+def ragged_bwd_ms(mods, dev, shape):
+    """The backward's ragged heads instance (``_build.RAGGED``, the
+    instance every shape but the training shapes takes) against the
+    constant-bound instance ``shape`` takes (Q = 128, P a multiple of 64,
+    N = 128 or 64) on the same inputs, dt and A by the mixer's laws, each
+    timed queued: what the ragged instance's runtime loop bounds cost.
+    The two must give the same outputs bit for bit."""
+    from repro_torch.kernels import _build
+    sc = mods["sc"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    BC, Q, H, P, N = shape
+    x, dt, da, b, c = _ssd_operands(gen, dev, shape)
+    dy = torch.randn_like(x)
+    ds = torch.randn((BC, H, N, P), generator=gen, device=dev)
+    ts = [x, dt, da, b, c, dy, ds]
+    plan = sc.ssd_bwd_plan(BC, H, N, 1)
+    outs = {d: [torch.empty_like(t) for t in ts[:5]]
+            for d in ((), _build.RAGGED)}
+    for d, o in outs.items():
+        sc._bwd_launch(ts, o, plan, d)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*outs.values())):
+        raise SystemExit(f"ssd_intra_chunk_bwd {list(shape)}: the ragged "
+                         f"instance's outputs differ from the constant-bound "
+                         f"instance's")
+    ms = {d: queued_ms(lambda d=d: sc._bwd_launch(ts, outs[d], plan, d),
+                       calls=10) for d in outs}
+    log(f"[zamba2 study] ssd_intra_chunk_bwd {list(shape)}: the ragged "
+        f"heads instance {ms[_build.RAGGED]:.4f} ms queued against the "
+        f"constant-bound instance's {ms[()]:.4f} "
+        f"({ms[_build.RAGGED] / ms[()]:.3f}x), outputs bit-identical")
 
 
 def ssd_checked(mods, dev, shape=SSD_TRAIN_SHAPE):
@@ -1993,7 +2062,9 @@ def train(dev, mods, smi, cfg, tcfg, batch, seq, steps, tag="train",
         f"grad_accum={tcfg.grad_accum}")
     loader = StatelessLoader("lm", 0, device=dev, batch=batch, seq_len=seq,
                              vocab=cfg.vocab_size)
+    t_made = time.perf_counter()
     tr = Trainer(cfg, tcfg, loader, device=dev)
+    t_made = time.perf_counter() - t_made
     if dev.type == "cuda":
         # free what earlier phases left in reference cycles (the serving
         # engine's timing wrappers hold its weights) before the peak is
@@ -2002,7 +2073,8 @@ def train(dev, mods, smi, cfg, tcfg, batch, seq, steps, tag="train",
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         log(f"[{tag}] {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
-            f"allocated when the run starts")
+            f"allocated when the run starts (the trainer made in "
+            f"{t_made:.1f} s)")
     def step_note(s):
         if (s - 1) % tcfg.lazy_k:
             return ""
@@ -2109,6 +2181,93 @@ def train_mamba2(dev, mods, smi, configs):
     gc.collect()
     torch.cuda.empty_cache()
     return counts
+
+
+ZAMBA_TRAIN = dict(batch=8, seq=1024, steps=10)    # 8 192 tokens a step
+ZAMBA_LR = 5e-4
+
+
+def zamba2_train_config(configs, lr=ZAMBA_LR):
+    """zamba2-7b at full width and depth and ``[train zamba2]``'s
+    ``lowrank_adam`` settings (lazy_k 3, a 2-step warm-up) at ``lr``."""
+    return train_config(configs, arch="zamba2-7b", lazy_k=3, lr=lr,
+                        warmup_steps=2, total_steps=1000)
+
+
+def train_zamba2(dev, mods, smi, configs):
+    """[train zamba2]: zamba2-7b at full width and depth (81 Mamba2
+    layers, the shared attention + MLP block applied 13 times, a 3-layer
+    tail; bf16 compute over fp32 B, m and v, Stiefel V at r = 128), batch
+    8 x seq 1024 (8 SSD chunks a sequence), lazy_k 3, lr 5e-4, 10 steps
+    (three merges): finite, falling losses (the lr and the steps from
+    ``--zamba2-study`` on an H100: after 10 steps the mean of the last 3
+    is 0.064 below the first at 5e-4, at most 0.013 below it at 1e-3 and
+    3e-4, whose losses swing, and none below it at 2e-4 and 1e-4; after
+    8 steps 5e-4's margin was 0.016); per step 162 SSD
+    forward launches (81 and 81 recomputed under remat) and 81 backward
+    launches at (64, 128, 112, 64, 64); every bf16 GEMM on the tensor
+    cores; then a profile of two inner steps with the SSD kernels'
+    device time.  Returns the SSD launch counts of the 10 steps."""
+    sc = mods["sc"]
+    cfg, tcfg = zamba2_train_config(configs)
+    steps = ZAMBA_TRAIN["steps"]
+    run_mods = dict(mods, counters=tuple(mods["counters"]) + (sc,))
+    tr, _ = train(dev, run_mods, smi, cfg, tcfg, ZAMBA_TRAIN["batch"],
+                  ZAMBA_TRAIN["seq"], steps, tag="train zamba2")
+    counts = dict(sc.LAUNCHES)
+    n_mamba = cfg.num_layers
+    want = {("ssd_intra_chunk", ZAMBA_TRAIN_SSD_SHAPE): 2 * n_mamba * steps,
+            ("ssd_intra_chunk_bwd", ZAMBA_TRAIN_SSD_SHAPE): n_mamba * steps}
+    log("[train zamba2] launches " + ", ".join(
+        f"{k}{list(sh)}={n} ({n / steps:.0f} a step)"
+        for (k, sh), n in counts.items()))
+    if counts != want:
+        raise SystemExit(f"SSD launches {counts}, the path should make "
+                         f"{want}")
+    t0 = time.perf_counter()
+    profile_train(tr, tag="profile-train zamba2", match=("ssd_",))
+    log(f"[train zamba2] the profile took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+# --zamba2-study: the lrs tried, all under the same warm-up, and the steps
+STUDY_LRS = (1e-3, 5e-4, 3e-4, 2e-4, 1e-4)
+STUDY_STEPS = 12
+
+
+def zamba2_study(dev, mods, smi, configs):
+    """``python3 chip_smoke.py --zamba2-study``: the measurements behind
+    two choices of ``[train zamba2]``'s path, and nothing else.  First the
+    SSD backward's ragged heads instance against the constant-bound
+    instance at both training shapes (:func:`ragged_bwd_ms`; why Q = 128,
+    N = 64 has an instance of its own).  Then zamba2-7b as ``[train
+    zamba2]`` trains it, at each lr of ``STUDY_LRS``, every run with the
+    same 2-step warm-up, weights and batches, ``STUDY_STEPS`` steps: each
+    step's loss, and after 8, 10 and 12 steps the mean of the last 3
+    against the first (the margin the phase's gate has at each lr)."""
+    for shape in (SSD_TRAIN_SHAPE, ZAMBA_TRAIN_SSD_SHAPE):
+        ragged_bwd_ms(mods, dev, shape)
+    for lr in STUDY_LRS:
+        cfg, tcfg = zamba2_train_config(configs, lr)
+        tag = f"zamba2 study lr={lr:g}"
+        try:
+            tr, losses = train(dev, mods, smi, cfg, tcfg,
+                               ZAMBA_TRAIN["batch"], ZAMBA_TRAIN["seq"],
+                               STUDY_STEPS, tag=tag, falling=False)
+        except SystemExit as e:     # a diverged run is a result here
+            log(f"[{tag}] stopped: {e}")
+            continue
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[{tag}] first loss {losses[0]:.4f}; mean of the last 3 "
+            + ", ".join(f"after {n} steps {sum(losses[n - 3:n]) / 3:.4f} "
+                        f"(margin {losses[0] - sum(losses[n - 3:n]) / 3:+.4f})"
+                        for n in (8, 10, 12)))
 
 
 def train_launches(mods):
@@ -2247,15 +2406,16 @@ def profile_train(tr, steps=2, tag="profile-train", match=(), top=12):
     """Where a training step's time goes: device time by kernel over
     ``steps`` inner steps (no outer merge among them; a GaLore window
     may hold a basis refresh), against the host clock, and the device
-    time of the kernels whose names hold one of ``match``.  The profiler
-    slows the host, so the idle share is an upper bound."""
+    time of the kernels whose names hold one of ``match``.  Only the
+    device is traced (the host's ops would cost the trace tens of
+    thousands of events a step at zamba2-7b); the profiler still slows
+    the host, so the idle share is an upper bound."""
     from torch.profiler import ProfilerActivity, profile
     if tr.method.make_outer_step(tr.cfg, tr.tcfg) is not None and any(
             (tr.step + i) % tr.tcfg.lazy_k == 0 for i in range(steps)):
         raise SystemExit("profile window would include an outer merge")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         tr.run(steps)
         torch.cuda.synchronize()
@@ -2317,15 +2477,21 @@ PLAIN_RUNS = (
 # CPU's).  About six times its gap as measured on an H100 80GB HBM3 (700
 # W; 1.68e-7, the same to the last digit in five runs)
 MAMBA_PLAIN_TOL = 1e-6
+# [train==plain zamba2]: zamba2-7b's 3-layer fp32 cut (a group of two
+# Mamba2 layers, the shared block, a tail layer), batch 1 x 256, as above;
+# about 5.7 times its gap as measured on an H100 80GB HBM3 (700 W),
+# 1.76e-7
+ZAMBA_TRAIN_PLAIN_TOL = 1e-6
 
 
 def train_equals_plain(dev, mods, configs, label="fp32", fields=(),
-                       tol=1e-4, steps=5, arch=TRAIN_ARCH):
+                       tol=1e-4, steps=5, arch=TRAIN_ARCH, batch=4):
     """Phase 7: the kernel route on the card against the plain route on
     the CPU, fp32 compute, from the same weights, V draws, rounding bits
-    (drawn on the CPU for both) and batches.  Under bf16 masters the
-    low-rank weights are stored in bf16, so the merge is the
-    stochastically rounded one."""
+    (drawn on the CPU for both) and batches of ``batch`` x 256, on the
+    full-width cut (2 layers; the hybrid 3 with ``attn_every`` 2, as
+    :func:`cut_config`).  Under bf16 masters the low-rank weights are
+    stored in bf16, so the merge is the stochastically rounded one."""
     from repro_torch.data.synthetic import StatelessLoader
     from repro_torch.models import lm
     from repro_torch.models.common import (tree_flatten_with_path,
@@ -2333,10 +2499,9 @@ def train_equals_plain(dev, mods, configs, label="fp32", fields=(),
     from repro_torch.optim import subspace
     from repro_torch.train.trainer import Trainer
     fields = dict(dict(lr=1e-3), **dict(fields))
-    cfg, tcfg = train_config(configs, layers=2, dtype="float32",
-                             compute_dtype="float32", lazy_k=2,
-                             warmup_steps=1, total_steps=steps, arch=arch,
-                             **fields)
+    cfg = cut_config(configs, arch)
+    tcfg = configs.TrainConfig(rank=RANK, compute_dtype="float32", lazy_k=2,
+                               warmup_steps=1, total_steps=steps, **fields)
     cpu = torch.device("cpu")
     params = lm.init_params(cfg, seed=7, device=cpu)
     if tcfg.master_dtype == "bfloat16":
@@ -2347,7 +2512,7 @@ def train_equals_plain(dev, mods, configs, label="fp32", fields=(),
             [p for p, _ in flat],
             [x.bfloat16() if i in low else x for i, (_, x) in
              enumerate(flat)])
-    loader = StatelessLoader("lm", 3, device=cpu, batch=4, seq_len=256,
+    loader = StatelessLoader("lm", 3, device=cpu, batch=batch, seq_len=256,
                              vocab=cfg.vocab_size)
     for mod in mods.get("counters", ()) + ((mods["sc"],) if "sc" in mods
                                            else ()):
@@ -2360,9 +2525,9 @@ def train_equals_plain(dev, mods, configs, label="fp32", fields=(),
     worst = max(abs(a - b) / abs(b) for a, b in zip(card, plain))
     tag = "train==plain" + ("" if arch == TRAIN_ARCH
                             else f" {arch.split('-')[0]}")
-    log(f"[{tag}] {cfg.name} 2 layers, {label}, fp32 compute, batch "
-        f"4x256 lazy_k=2, {steps} steps: card {card}, cpu {plain}, max rel "
-        f"diff {worst:.3g} (tol {tol})")
+    log(f"[{tag}] {cfg.name} {cfg.num_layers} layers, {label}, fp32 "
+        f"compute, batch {batch}x256 lazy_k=2, {steps} steps: card {card}, "
+        f"cpu {plain}, max rel diff {worst:.3g} (tol {tol})")
     if "lf" in mods:
         # fp32 at r = 128: every forward launch on the SIMT route (the
         # small-rank route takes r <= lf.SMALL_RANK only)
@@ -2374,7 +2539,7 @@ def train_equals_plain(dev, mods, configs, label="fp32", fields=(),
         if set(by_route) - {"simt"}:
             raise SystemExit(f"[{tag}] an fp32 r = {tcfg.rank} forward left "
                              f"the SIMT route: {by_route}")
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         sc = mods["sc"]
         fwd, bwd = (sum(n for k, n in sc.LAUNCHES.items() if k[0] == kernel)
                     for kernel in ("ssd_intra_chunk", "ssd_intra_chunk_bwd"))
@@ -3305,6 +3470,29 @@ def serve_trained_tenant(dev, mods, smi, configs, workdir, root):
                        tenant="trained", tag=f"{tag} lazy==merged")
 
 
+def serve_trained_zamba2(dev, mods, configs):
+    """[serve trained tenant zamba2 lazy==merged]: zamba2-7b's 3-layer
+    fp32 cut trained 2 steps on the card, its checkpoint loaded by
+    ``load_tenant`` into a store of that cut, lazy == merged within
+    phase 5's limit."""
+    import tempfile
+    serve_mod = mods["serve"]
+    cfg = cut_config(configs, "zamba2-7b")
+    tcfg = configs.TrainConfig(rank=RANK, compute_dtype="float32",
+                               warmup_steps=2, total_steps=1000, lazy_k=4,
+                               lr=1e-3)
+    with tempfile.TemporaryDirectory() as wd:
+        resil_trainer(dev, cfg, tcfg, wd, batch=1, seq=256,
+                      checkpoint_every=2).run(2)
+        store = serve_mod.AdapterStore(cfg, configs.TrainConfig(rank=RANK),
+                                       1, device=dev)
+        store.load_tenant("trained", wd)
+    lazy_equals_merged(dev, mods, "zamba2-7b", S=256, store=store,
+                       tenant="trained",
+                       tag="serve trained tenant zamba2 lazy==merged")
+    free()
+
+
 SNAP_TOKENS = 16          # new tokens per request
 SNAP_AT, SNAP_KILL = 3, 6  # engine steps of the snapshot and the SIGTERM
 
@@ -3521,6 +3709,9 @@ def main():
     mods = dict(lf=lf, lb=lb, lu=lu, sa=sa, sc=sc, ref=ref,
                 dispatch=dispatch, lm=lm, configs=configs, serve=serve_mod,
                 counters=(lf, lb, lu, sa))
+    if sys.argv[1:2] == ["--zamba2-study"]:
+        zamba2_study(dev, mods, smi, configs)
+        return
     def mark(label):
         log(f"[time] {label} done at {time.perf_counter() - t0:.0f} s")
     rows = compare_kernels(lf, ref, dev)
@@ -3533,6 +3724,10 @@ def main():
     ssd_train_row = compare_ssd_kernel(
         mods, dev, {SSD_TRAIN_SHAPE: "training, batch 16 x 1024"})[0]
     ssd_bwd_row = compare_ssd_bwd_kernel(mods, dev)
+    zamba_train_ssd_row = compare_ssd_kernel(
+        mods, dev, {ZAMBA_TRAIN_SSD_SHAPE: "training, batch 8 x 1024"})[0]
+    zamba_ssd_bwd_row = compare_ssd_bwd_kernel(mods, dev,
+                                               ZAMBA_TRAIN_SSD_SHAPE)
     ssd_checked(mods, dev)
     train_rows = compare_train_kernels(mods, dev)
     state_rows = compare_state_kernels(mods, dev)
@@ -3581,6 +3776,11 @@ def main():
     train_equals_plain(dev, mods, configs, "lowrank_adam fp32", (),
                        MAMBA_PLAIN_TOL, arch="mamba2-780m")
     mark("mamba2-780m training")
+    zamba_train_counts = train_zamba2(dev, mods, smi, configs)
+    train_equals_plain(dev, mods, configs, "lowrank_adam fp32", (),
+                       ZAMBA_TRAIN_PLAIN_TOL, arch="zamba2-7b", batch=1)
+    serve_trained_zamba2(dev, mods, configs)
+    mark("zamba2-7b training")
     enc_rows = compare_encoder_kernels(mods, dev)
     enc_counts = finetune(dev, mods, smi, configs)
     mark("encoder fine-tuning")
@@ -3641,6 +3841,31 @@ def main():
         "route": "cuda", "path": "tc", "source": SSD_BWD_SOURCE,
         "replaces": SSD_BWD_REPLACES,
         "launches": mamba_train_counts[("ssd_intra_chunk_bwd",
+                                        row["shape"])],
+        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        "timing": "queued", "eager_ms": row["eager_ms"],
+        "grids_ms": row["grids_ms"]})
+    row = zamba_train_ssd_row
+    kernels.append({
+        "name": f"ssd_intra_chunk [fp32, B/C head stride 0] "
+                f"{list(row['shape'])} (zamba2-7b {row['tokens']})",
+        "route": "cuda", "path": "tc", "source": SSD_SOURCE,
+        "replaces": SSD_REPLACES,
+        "launches": zamba_train_counts[("ssd_intra_chunk", row["shape"])],
+        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        "timing": "queued", "eager_ms": row["eager_ms"]})
+    row = zamba_ssd_bwd_row
+    kernels.append({
+        "name": f"ssd_intra_chunk_bwd [fp32, one B/C group] "
+                f"{list(row['shape'])} (zamba2-7b training, batch 8 x "
+                f"1024)",
+        "route": "cuda", "path": "tc", "source": SSD_BWD_SOURCE,
+        "replaces": SSD_BWD_REPLACES,
+        "launches": zamba_train_counts[("ssd_intra_chunk_bwd",
                                         row["shape"])],
         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

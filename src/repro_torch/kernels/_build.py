@@ -10,8 +10,11 @@ once, one ``nvcc`` process each.
 
 A build variant is an argument, ``defines``: preprocessor names passed
 as ``-D`` flags (``CHECKED``: every shared-memory and global index of
-the SSD kernels asserted in bounds, ``csrc/tf32_mma.cuh``).  They enter
-the flags, so the hash, and the library's name.
+the SSD kernels asserted in bounds, ``csrc/tf32_mma.cuh``; ``RAGGED``:
+the SSD backward's ragged heads instance at every shape, which the card
+tests hold bit-equal to the constant-bound instances and
+``chip_smoke.py --zamba2-study`` times against them).  They enter the
+flags, so the hash, and the library's name.
 """
 from __future__ import annotations
 
@@ -30,6 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # the bounds-checked build of the SSD kernels
 CHECKED = ("LRK_CHECKED",)
+# the SSD backward with its ragged heads instance at every shape
+RAGGED = ("LRK_RAGGED_ONLY",)
 
 _LOADED: dict = {}
 

@@ -63,9 +63,11 @@
 //   dS and att, 226 KB, one CTA an SM; the Gram, D and E (136 registers a
 //   thread) stay in registers.  Row strides 8 mod 32 (x, dY, dS, att) and
 //   4 mod 32 (B, C) keep every fragment read free of bank conflicts.  The
-//   heads kernel has two instances: Q = N = 128 with P a multiple of 64
-//   (every loop bound a constant), and the ragged shapes (Q, N, P any of
-//   1..128, zero-filled and masked on store).
+//   heads kernel has three instances: Q = 128 with P a multiple of 64
+//   and N = 128 (mamba2) or N = 64 (zamba2), every loop bound a constant,
+//   and the ragged shapes (Q, N, P any of 1..128, zero-filled and masked
+//   on store), whose runtime bounds cost it half again its time at the
+//   same shape (1.52x, measured on an H100 at 700 W).
 // * No atomics, every sum in a fixed order, so repeated calls give
 //   bit-identical outputs.  The fp64 warp scans of clog and dda are
 //   rounded once.
@@ -268,10 +270,12 @@ __device__ __forceinline__ float sum_over_t(float v) {
   return v;
 }
 
-// 1. per (bc, group, slice): the slice's heads in order.  kFull: Q = N =
-// 128 and P a multiple of 64 (mamba2's shapes), every loop bound and tile
-// count a constant; else the ragged shapes, zero-filled and masked.
-template <bool kFull>
+// 1. per (bc, group, slice): the slice's heads in order.  kFull: Q = 128
+// and P a multiple of 64, every loop bound and tile count over Q and P a
+// constant; kN > 0: N (its multiple of 8) is kN, every bound over N a
+// constant (mamba2's shapes take <true, 128>, zamba2's <true, 64>); else
+// the ragged shapes, zero-filled and masked.
+template <bool kFull, int kN>
 __global__ void __launch_bounds__(kThreads, 1)
     ssd_bwd_heads_kernel(const Args a) {
   extern __shared__ __align__(16) float sm[];
@@ -300,7 +304,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int h0 = grp * a.rep + sl * a.hs;
   const int h1 = imin(h0 + a.hs, (grp + 1) * a.rep);
   const Slots slots(a, warp);
-  const int Q = kFull ? kMax : a.Q, N8 = kFull ? kMax : a.N8;
+  const int Q = kFull ? kMax : a.Q, N8 = kN ? kN : a.N8;
   const int Qp = kFull ? kMax : a.Qp, S = kFull ? 8 : a.S;
   const int pairs = kFull ? 4 : a.pairs;
 
@@ -505,21 +509,21 @@ __global__ void __launch_bounds__(kThreads, 1)
         float dw[2] = {};
 #pragma unroll
         for (int q = 0; q < kMax / 32; ++q) {
-          if (!kFull && 32 * q >= N8) continue;
+          if (32 * q >= N8) continue;
           float acc[4][4] = {}, cor[4][4] = {};
           for (int p = 0; p < pw8; p += 8) {
             Frag<true, true> f;
             load_a(f, xs + 16 * warp * kXS + p, kXS, gq, tq);
 #pragma unroll
             for (int u = 0; u < 4; ++u) {
-              if (!kFull && 8 * (4 * q + u) >= N8) continue;
+              if (8 * (4 * q + u) >= N8) continue;
               load_b_nrow(f, dss + 8 * (4 * q + u) * kXS + p, kXS, gq, tq);
               f.mma3(acc[u], cor[u]);
             }
           }
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
-            if (!kFull && 8 * (4 * q + u) >= N8) continue;
+            if (8 * (4 * q + u) >= N8) continue;
             const int n = 8 * (4 * q + u) + 2 * tq;
             LRK_CHECK("B (shared)", (j0 + 8) * kBS + n + 1, kMax * kBS);
             const float2 b0 =
@@ -855,10 +859,13 @@ cudaError_t allow_shared_memory() {
   if (err != cudaSuccess) return err;
   if (dev < kMaxDevices && done[dev]) return cudaSuccess;
   const cudaFuncAttribute attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
-  err = cudaFuncSetAttribute(ssd_bwd_heads_kernel<true>, attr,
+  err = cudaFuncSetAttribute(ssd_bwd_heads_kernel<true, kMax>, attr,
                              kHeadsFloats * (int)sizeof(float));
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ssd_bwd_heads_kernel<false>, attr,
+    err = cudaFuncSetAttribute(ssd_bwd_heads_kernel<true, 64>, attr,
+                               kHeadsFloats * (int)sizeof(float));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_bwd_heads_kernel<false, 0>, attr,
                                kHeadsFloats * (int)sizeof(float));
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(ssd_bwd_groups_kernel, attr,
@@ -911,10 +918,19 @@ extern "C" int ssd_intra_chunk_bwd_launch(
   if (err != cudaSuccess) return (int)err;
   const unsigned heads = (unsigned)(BC * G * slices);
   const size_t smem = kHeadsFloats * sizeof(float);
-  if (Q == kMax && N == kMax && P % kPC == 0)
-    ssd_bwd_heads_kernel<true><<<heads, kThreads, smem, st>>>(a);
+#ifdef LRK_RAGGED_ONLY
+  // a measurement build: the ragged instance at every shape, so its
+  // runtime bounds can be timed against the constant-bound instances
+  const bool full = false;
+#else
+  const bool full = Q == kMax && P % kPC == 0;
+#endif
+  if (full && N == kMax)
+    ssd_bwd_heads_kernel<true, kMax><<<heads, kThreads, smem, st>>>(a);
+  else if (full && N == 64)
+    ssd_bwd_heads_kernel<true, 64><<<heads, kThreads, smem, st>>>(a);
   else
-    ssd_bwd_heads_kernel<false><<<heads, kThreads, smem, st>>>(a);
+    ssd_bwd_heads_kernel<false, 0><<<heads, kThreads, smem, st>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   ssd_bwd_groups_kernel<<<(unsigned)(BC * G * nblk), kThreads,
                           kGroupFloats * sizeof(float), st>>>(a);

@@ -49,16 +49,14 @@ def padded_vocab(cfg) -> int:
 
 def _require_ported(cfg) -> None:
     """Refuse a family the port does not run: MoE, MLA, enc-dec, vlm and
-    audio (it trains and serves the dense and SSM families, and serves
-    the hybrid)."""
+    audio (it trains and serves the dense, SSM and hybrid families)."""
     if cfg.family not in ("dense", "ssm", "hybrid") or cfg.use_mla \
             or cfg.num_experts or cfg.first_dense_layers \
             or cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported to "
-            f"repro_torch (it trains and serves the dense and SSM "
-            f"families, and serves the hybrid); see ROADMAP.md Queue 1 "
-            f"item 9")
+            f"repro_torch (it trains and serves the dense, SSM and hybrid "
+            f"families); see ROADMAP.md Queue 1 item 9")
 
 
 def _hybrid(cfg) -> bool:
@@ -263,7 +261,12 @@ def forward_hidden(params, tokens, cfg):
 
     With ``cfg.remat`` each block runs under ``torch.utils.checkpoint``
     (the reference's ``jax.checkpoint`` around the scan body): only the
-    block inputs are kept, and the backward recomputes the block.
+    block inputs are kept, and the backward recomputes the block.  The
+    hybrid's shared block is checkpointed once per application (the
+    reference checkpoints whole groups with a nested per-layer remat;
+    the numbers are the same), so zamba2-7b keeps 94 block inputs.  Its
+    parameters enter every application's recompute by closure, so their
+    gradient is the sum over the applications.
     """
     _require_ported(cfg)
     apply = dense_block if cfg.family == "dense" else _mamba_block

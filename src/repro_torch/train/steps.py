@@ -1,6 +1,6 @@
 """Step builders of the training methods.
 
-Counterpart of ``repro.train.steps`` for the dense and SSM LMs:
+Counterpart of ``repro.train.steps`` for the dense, SSM and hybrid LMs:
 ``build_loss_fn``, ``make_train_step`` (Algorithm 1's inner step,
 ``lowrank_adam`` and ``lowrank_lion``, with gradient accumulation),
 ``make_outer_step`` (merge + resample), ``make_adamw_train_step`` (the
@@ -25,10 +25,11 @@ from .loss import chunked_ce
 
 def build_loss_fn(cfg) -> Callable:
     """loss_fn(packed_params, batch) -> scalar (batch-mean token CE)."""
-    if cfg.is_encoder_decoder or cfg.family not in ("dense", "ssm"):
+    if cfg.is_encoder_decoder or cfg.family not in ("dense", "ssm",
+                                                    "hybrid"):
         raise NotImplementedError(
-            f"{cfg.name}: the dense and SSM families train in repro_torch; "
-            f"see ROADMAP.md Queue 1 item 9")
+            f"{cfg.name}: the dense, SSM and hybrid families train in "
+            f"repro_torch; see ROADMAP.md Queue 1 item 9")
 
     def loss_fn(packed, batch):
         h, _ = lm.forward_hidden(packed, batch["tokens"], cfg)

@@ -18,6 +18,16 @@ The criteria for state that went through a bf16 or int8 round, where
 an fp32 difference in the last bits moves a round only at an edge:
 :func:`bf16_steps_close` and :func:`quant_close`.
 
+The reference's SSD decay with the port's masked exp,
+:func:`overflow_free_decay`, to monkeypatch into a JAX run where the
+stock ``_segsum_decay`` turns a masked difference past exp's range into
+a NaN gradient.
+
+A training checkpoint that crosses between the packages, written at
+step :data:`SAVED`: :func:`assert_same_format` (the port's records are
+the reference's, byte for byte) and :func:`assert_reference_restores`
+(the reference restores the port's unquarantined).
+
 The kernels' 3xTF32 arithmetic (``csrc/tf32_mma.cuh``), for emulating
 them on the CPU: :func:`tf32` (the split's rounding), :func:`trunc_tf32`
 (what the MMA reads of an fp32 operand) and :func:`mm3` (one 3xTF32
@@ -25,13 +35,18 @@ product).
 """
 import contextlib
 import dataclasses
+import os
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import ref as kref
 from repro_torch.optim import quant
+from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import steps
+
+SAVED = 2          # a crossing checkpoint's step; the next resample is at 4
+PORT_ONLY = {"opt||gen"}
 
 
 def sr_bf16_f64(x, bits):
@@ -45,6 +60,58 @@ def sr_bf16_f64(x, bits):
     up = bits.double() >= 65536.0 * (1.0 - (x.abs() - low) / step)
     return (torch.where(up, low + step, low) * torch.sign(x)).to(
         torch.bfloat16)
+
+
+def overflow_free_decay(da):
+    """The reference's ``_segsum_decay`` with the port's masked exp: the
+    masked differences are never exponentiated (JAX is imported here, so
+    the card's JAX-free tests can import this module)."""
+    import jax.numpy as jnp
+    Q = da.shape[-1]
+    clog = jnp.cumsum(da, axis=-1)
+    diff = clog[..., :, None] - clog[..., None, :]
+    return jnp.exp(jnp.where(jnp.tril(jnp.ones((Q, Q), bool)), diff,
+                             -jnp.inf))
+
+
+def _npz(wd, step=SAVED):
+    return np.load(os.path.join(wd, f"step_{step:08d}", "arrays.npz"))
+
+
+def assert_same_format(jwd, pwd):
+    """The port's step ``SAVED`` in ``pwd`` has the JAX one's records:
+    names (but the port's own), shapes, dtypes, CRCs (but ``opt||key``),
+    quant tags, and bytes."""
+    from repro.train import checkpoint as jckpt
+    jm, pm = jckpt.read_manifest(jwd, SAVED), ckpt.read_manifest(pwd, SAVED)
+    assert set(pm["crc"]) - PORT_ONLY == set(jm["crc"])
+    assert pm["quant"] == jm["quant"]
+    jz, pz = _npz(jwd), _npz(pwd)
+    for k in jm["crc"]:
+        assert pm["shapes"][k] == jm["shapes"][k], k
+        assert pm["dtypes"][k] == jm["dtypes"][k], k
+        assert pz[k].dtype == jz[k].dtype, k
+        if k.endswith("||key"):
+            assert pz[k].shape == (2,) and pz[k].dtype == np.uint32
+            continue
+        assert pm["crc"][k] == jm["crc"][k], k
+        assert pz[k].tobytes() == jz[k].tobytes(), k
+
+
+def assert_reference_restores(pwd, jtemplate, method):
+    """``repro.train.checkpoint.restore_latest`` takes the port's
+    checkpoint without a quarantine, and what it reads back is the
+    port's records byte for byte."""
+    from repro.train import checkpoint as jckpt
+    restored, man = jckpt.restore_latest(pwd, jtemplate,
+                                         expect_method=method)
+    assert restored is not None, "the reference quarantined the step"
+    assert man["step"] == SAVED
+    assert not [n for n in os.listdir(pwd) if n.endswith(".corrupt")]
+    flat, pz = jckpt._flatten(restored), _npz(pwd)
+    for k, arr in flat.items():
+        assert arr.shape == pz[k].shape, k
+        assert arr.tobytes() == pz[k].tobytes(), k
 
 
 @contextlib.contextmanager

@@ -48,7 +48,8 @@ from repro_torch.configs import TrainConfig, get_config  # noqa: E402
 from repro_torch.optim import quant, subspace, zo  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
 from repro_torch.train.trainer import Trainer  # noqa: E402
-from _torch_parity import quant_close  # noqa: E402
+from _torch_parity import (SAVED, _npz, assert_reference_restores,  # noqa
+                           assert_same_format, quant_close)
 
 CFG = get_config("llama-tiny").reduced().replace(num_layers=1)
 JCFG = jget_config("llama-tiny").reduced().replace(num_layers=1)
@@ -78,8 +79,6 @@ CASES = {
 # reference's re-saves of the port's)
 TRAINED = ("adam", "adam_int8_bf16", "lion_int8_bf16", "dependent_diag",
            "galore", "adamw", "lowrank_lr")
-SAVED = 2          # the checkpoint's step; the next resample is at 4
-PORT_ONLY = {"opt||gen"}
 
 
 def _t(a):
@@ -156,47 +155,9 @@ def _copy(src, tmp_path, name):
     return dst
 
 
-def _npz(wd, step=SAVED):
-    return np.load(os.path.join(wd, f"step_{step:08d}", "arrays.npz"))
-
-
 def _port_trainer(kw, wd):
     return Trainer(CFG, TrainConfig(**kw), _port_loader(_jloader()), wd,
                    device="cpu")
-
-
-def assert_same_format(jwd, pwd):
-    """The port's step ``SAVED`` in ``pwd`` has the JAX one's records:
-    names (but the port's own), shapes, dtypes, CRCs (but ``opt||key``),
-    quant tags, and bytes."""
-    jm, pm = jckpt.read_manifest(jwd, SAVED), ckpt.read_manifest(pwd, SAVED)
-    assert set(pm["crc"]) - PORT_ONLY == set(jm["crc"])
-    assert pm["quant"] == jm["quant"]
-    jz, pz = _npz(jwd), _npz(pwd)
-    for k in jm["crc"]:
-        assert pm["shapes"][k] == jm["shapes"][k], k
-        assert pm["dtypes"][k] == jm["dtypes"][k], k
-        assert pz[k].dtype == jz[k].dtype, k
-        if k.endswith("||key"):
-            assert pz[k].shape == (2,) and pz[k].dtype == np.uint32
-            continue
-        assert pm["crc"][k] == jm["crc"][k], k
-        assert pz[k].tobytes() == jz[k].tobytes(), k
-
-
-def assert_reference_restores(pwd, jtemplate, method):
-    """``repro.train.checkpoint.restore_latest`` takes the port's
-    checkpoint without a quarantine, and what it reads back is the
-    port's records byte for byte."""
-    restored, man = jckpt.restore_latest(pwd, jtemplate,
-                                         expect_method=method)
-    assert restored is not None, "the reference quarantined the step"
-    assert man["step"] == SAVED
-    assert not [n for n in os.listdir(pwd) if n.endswith(".corrupt")]
-    flat, pz = jckpt._flatten(restored), _npz(pwd)
-    for k, arr in flat.items():
-        assert arr.shape == pz[k].shape, k
-        assert arr.tobytes() == pz[k].tobytes(), k
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

@@ -285,12 +285,6 @@ def test_prefill_then_decode_equals_the_teacher_forced_forward(kind):
     assert err <= RTOL * want[:, :vs].abs().max().item()
 
 
-def test_training_the_hybrid_is_refused():
-    from repro_torch.train import steps
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        steps.build_loss_fn(MODELS["reduced"].cfg)
-
-
 # ---------------------------------------------------------------------------
 # The serving engine
 # ---------------------------------------------------------------------------

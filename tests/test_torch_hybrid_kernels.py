@@ -20,7 +20,19 @@ On the card:
   ``tests/test_torch_decode_forward.py``, the SSD kernel's in
   ``tests/test_torch_ssd.py``);
 * a bf16 paged decode step of the reduced hybrid, and a sampled bf16
-  decode step of the engine, under ``set_sync_debug_mode("error")``.
+  decode step of the engine, under ``set_sync_debug_mode("error")``;
+* the SSD kernel and its backward at zamba2-7b's training shape (BC 64
+  = batch 8 x 1024 in chunks of 128, 112 heads, P 64, N 64, one B/C
+  group; the backward on its heads instance with constant bounds at Q
+  = 128, N = 64): each output
+  and gradient within 1e-4 of its largest magnitude of the plain
+  version's, dt and A by the mixer's laws and under a decay far past
+  expf's overflow; three backward launches bit-identical; the backward
+  equal bit for bit to the ragged instance's (``_build.RAGGED``) at
+  that shape and at mamba2-780m's; the bounds-checked builds trap on no
+  index and equal the unchecked builds bit for bit.  The split of that
+  launch and the instance it takes are checked on the CPU in
+  ``tests/test_torch_hybrid_train.py``.
 """
 import numpy as np
 import pytest
@@ -48,6 +60,9 @@ PREFILL_SHAPES = [(3584, 14576, 512), (7168, 3584, 512), (3584, 3584, 512),
 # (BC, Q, H, P, N) of zamba2-7b's prefills of 100, 128, 256, 512 tokens
 SSD_SHAPES = [(1, 100, 112, 64, 64), (1, 128, 112, 64, 64),
               (2, 128, 112, 64, 64), (4, 128, 112, 64, 64)]
+# (BC, Q, H, P, N) of zamba2-7b's training step at batch 8 x 1024
+SSD_TRAIN_SHAPE = (64, 128, 112, 64, 64)
+SSD_REL = 1e-4      # fp32 sums in another order, clog up to hundreds
 
 
 def test_prefill_shapes_are_the_models():
@@ -191,3 +206,111 @@ def test_sampled_bf16_decode_step_makes_no_host_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(((tok >= 0) & (tok < cfg.vocab_size)).all())
+
+
+def _ssd_train_operands(dev, strong, seed):
+    """x, dt, da, b, c (one B/C group), dy, dstate at the training shape,
+    dt and A by the mixer's laws (dt = softplus(z + dt_bias), dt_bias the
+    inverse softplus of exp(U[log 1e-3, log 0.1]), A = -U[1, 16]);
+    ``strong``: dt = softplus(z), so masked differences reach hundreds."""
+    BC, Q, H, P, N = SSD_TRAIN_SHAPE
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def uniform(lo, hi, *size):
+        return lo + (hi - lo) * torch.rand(size, generator=g, device=dev)
+    dt0 = torch.exp(uniform(np.log(1e-3), np.log(0.1), H))
+    bias = 0.0 if strong else dt0 + torch.log(-torch.expm1(-dt0))
+    dt = torch.nn.functional.softplus(
+        torch.randn((BC, Q, H), generator=g, device=dev) + bias)
+    da = dt * -uniform(1.0, 16.0, H)
+    x, dy = (torch.randn((BC, Q, H, P), generator=g, device=dev)
+             for _ in range(2))
+    b, c = (torch.randn((BC, Q, 1, N), generator=g, device=dev)
+            for _ in range(2))
+    ds = torch.randn((BC, H, N, P), generator=g, device=dev)
+    return x, dt, da, b, c, dy, ds
+
+
+def _within(got, want, name):
+    assert got.shape == want.shape and bool(torch.isfinite(got).all()), name
+    err = (got - want).abs().max().item()
+    assert err <= SSD_REL * want.abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strong", [False, True])
+def test_ssd_kernel_matches_plain_at_the_zamba2_training_shape(cuda,
+                                                               strong):
+    x, dt, da, b, c, _, _ = _ssd_train_operands(cuda, strong, seed=1)
+    H = x.shape[2]
+    bh, ch = (t.expand(-1, -1, H, -1) for t in (b, c))
+    sc.reset_launches()
+    y, st = sc.ssd_intra_chunk(x, dt, da, bh, ch)
+    torch.cuda.synchronize()
+    want_y, want_st = ref.ssd_intra_chunk(x, dt, da, bh, ch)
+    _within(y, want_y, "y")
+    _within(st, want_st, "state")
+    assert sc.LAUNCHES == {("ssd_intra_chunk", SSD_TRAIN_SHAPE): 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strong", [False, True])
+def test_ssd_bwd_kernel_matches_plain_at_the_zamba2_training_shape(cuda,
+                                                                   strong):
+    """The constant-bound heads instance at 7 slices of 16 heads and 2 column
+    blocks: every gradient within SSD_REL of the plain version's, three
+    launches bit-identical."""
+    ops = _ssd_train_operands(cuda, strong, seed=2)
+    if strong:
+        clog = torch.cumsum(ops[2], dim=1)
+        assert (clog[:, :1] - clog[:, -1:]).max().item() > 4 * 88.7
+    sc.reset_launches()
+    runs = [sc.ssd_intra_chunk_bwd(*ops) for _ in range(3)]
+    torch.cuda.synchronize()
+    want = ref.ssd_intra_chunk_bwd(*ops)
+    for name, got, w in zip(("dx", "ddt", "dda", "db", "dc"), runs[0], want):
+        _within(got, w, name)
+    for again in runs[1:]:
+        for a, w in zip(runs[0], again):
+            assert torch.equal(a, w)
+    assert sc.LAUNCHES == {("ssd_intra_chunk_bwd", SSD_TRAIN_SHAPE): 3}
+
+
+@pytest.mark.cuda
+def test_ssd_checked_builds_equal_unchecked_at_the_zamba2_training_shape(
+        cuda):
+    x, dt, da, b, c, dy, ds = _ssd_train_operands(cuda, False, seed=3)
+    H = x.shape[2]
+    bh, ch = (t.expand(-1, -1, H, -1) for t in (b, c))
+    fwd = [sc.ssd_intra_chunk(x, dt, da, bh, ch, checked=chk)
+           for chk in (False, True)]
+    bwd = [sc.ssd_intra_chunk_bwd(x, dt, da, b, c, dy, ds, checked=chk)
+           for chk in (False, True)]
+    torch.cuda.synchronize()
+    for u, w in zip(fwd[0] + bwd[0], fwd[1] + bwd[1]):
+        assert torch.equal(u, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [SSD_TRAIN_SHAPE, (8, 128, 48, 64, 128)])
+def test_ssd_bwd_constant_instances_equal_the_ragged_one(cuda, shape):
+    """The constant-bound heads instances (Q = 128 with N = 64 at
+    zamba2-7b's shape, N = 128 at mamba2-780m's with 8 chunks) give the
+    ragged instance's gradients bit for bit: the same products in the
+    same order, fewer bounds read at run time."""
+    from repro_torch.kernels import _build
+    BC, Q, H, P, N = shape
+    g = torch.Generator(device=cuda)
+    g.manual_seed(sum(shape))
+    ops = [torch.randn(s, generator=g, device=cuda) for s in (
+        (BC, Q, H, P), (BC, Q, H), (BC, Q, H), (BC, Q, 1, N), (BC, Q, 1, N),
+        (BC, Q, H, P), (BC, H, N, P))]
+    ops[1] = torch.nn.functional.softplus(ops[1] - 4.0)
+    ops[2] = -ops[1] * 4.0
+    want = sc.ssd_intra_chunk_bwd(*ops)
+    outs = [torch.empty_like(t) for t in ops[:5]]
+    sc._bwd_launch(ops, outs, sc.ssd_bwd_plan(BC, H, N, 1), _build.RAGGED)
+    torch.cuda.synchronize()
+    for a, w in zip(outs, want):
+        assert torch.equal(a, w)

@@ -64,11 +64,9 @@ from repro_torch.models.linear import LRPack  # noqa: E402
 from repro_torch.optim import subspace  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
 from repro_torch.train.trainer import Trainer  # noqa: E402
-from _torch_parity import (assert_float64, float64_plain_path,  # noqa
-                           widened)
-from test_torch_checkpoint import (SAVED,  # noqa: E402
-                                   assert_reference_restores,
-                                   assert_same_format)
+from _torch_parity import (SAVED, assert_float64,  # noqa: E402
+                           assert_reference_restores, assert_same_format,
+                           float64_plain_path, overflow_free_decay, widened)
 
 REL = 1e-5
 REL_DA = 1e-4
@@ -366,15 +364,6 @@ def _jax_run(segsum_decay=None):
     return start, np.array(losses, np.float64), projs, skipped
 
 
-def _overflow_free_decay(da):
-    """The reference's ``_segsum_decay`` with the port's masked exp."""
-    Q = da.shape[-1]
-    clog = jnp.cumsum(da, axis=-1)
-    diff = clog[..., :, None] - clog[..., None, :]
-    return jnp.exp(jnp.where(jnp.tril(jnp.ones((Q, Q), bool)), diff,
-                             -jnp.inf))
-
-
 @pytest.fixture(scope="module")
 def jax_run():
     return _jax_run()
@@ -382,7 +371,7 @@ def jax_run():
 
 @pytest.fixture(scope="module")
 def jax_run_safe():
-    return _jax_run(_overflow_free_decay)
+    return _jax_run(overflow_free_decay)
 
 
 def _port_run(jax_run, f64=False):
