@@ -14,8 +14,9 @@
    seq 1, read by tenant index from a store of 4 tenants with rows
    [0, 2, 2, 1]) against their plain PyTorch version at the five (K, N)
    shapes of qwen2-7b, at mamba2-780m's three and zamba2-7b's six
-   (shared B at M = 512, or 1 for the unembedding) and at
-   mistral-nemo-12b's six (M = 128, or 1 for the unembedding), in
+   (shared B at M = 512, or 1 for the unembedding), at
+   mistral-nemo-12b's six and qwen3-moe-30b-a3b's four (M = 128, or 1
+   for the unembedding), in
    bf16, and times kernel, plain version and a cuBLAS yardstick (the per-row-B form's three with the stream
    held while the host queues the calls, which leaves the host's time
    out, beside the eager time per call).  Holds the SSD intra-chunk
@@ -92,8 +93,25 @@
    set, frequencies from two fixed rows against the tempered softmax,
    and a sampled bf16 decode step under ``set_sync_debug_mode("error")``.
    ``[time]`` lines mark each phase's end.  Then
-   mistral-nemo-12b at full width and depth (40 layers, bf16, 4 tenants,
-   4 requests of 128 prompt and 16 new tokens), every launch ``"tc"``.
+   mistral-nemo-12b at full width and 20 of its 40 layers (bf16, 4
+   tenants, 4 requests of 128 prompt and 16 new tokens), every launch
+   ``"tc"``.
+   Then qwen3-moe-30b-a3b, the MoE family (128 experts, top-8, capacity
+   dispatch), at full width and 24 of its 48 layers (the one cut: 4
+   tenants' B beside the weights do not fit the card at full depth),
+   bf16, 4 tenants, qwen2-7b's 8 requests: every low-rank forward
+   launch (the attention projections and the unembedding; the expert
+   products, adapters included, are library calls, as the reference's
+   are einsums) on ``"tc"``, the share of routed pairs dropped by
+   capacity at prefill and at decode, and the decode profile, which
+   must show no gather of B; ``[lazy==merged qwen3moe]`` (a 2-layer
+   fp32 cut, every expert merged as W_e + V_e B_eᵀ, prefill of 128
+   tokens) and ``[serve==plain qwen3moe]`` (that cut, 2 tenants, 128
+   tokens each and 4 decode steps, card against the CPU), each run
+   routed alike (equal top-k experts and keep masks, the smallest
+   k-th/(k+1)-th probability gap logged and above twice the largest
+   probability difference, which rules out a flip); ``[bf16 decode qwen3moe]`` (no host
+   sync, no gather of B under the profiler).
 6. Trains llama-100m at full width and depth (12 layers) with
    ``lowrank_adam``: bf16 compute over fp32 B masters and moments,
    Stiefel V at r = 128, batch 64 x seq 256, lazy_k = 4, 14 steps
@@ -220,6 +238,7 @@ holds the card's name and power limit, and the one before that the
 per-kernel JSON.  Any failed check exits non-zero.  Without CUDA the
 script exits non-zero before printing any result.
 """
+import contextlib
 import dataclasses
 import gc
 import json
@@ -247,6 +266,13 @@ DEC_TENANTS, DEC_ROWS = 4, (0, 2, 2, 1)
 SHAPES = {(3584, 3584): ("wq,wo", 128), (3584, 512): ("wk,wv", 128),
           (3584, 18944): ("w_gate,w_up", 128),
           (18944, 3584): ("w_down", 128), (3584, 152064): ("unembed", 1)}
+# qwen3-moe-30b-a3b (the MoE family; 128 experts, top-8) -> the (K, N)
+# of its low-rank forward: wq, wk and wv, wo at a 128-token prefill, the
+# unembedding on the last position.  The expert products are library
+# calls, as the reference's are einsums outside any Pallas kernel.
+MOE = "qwen3-moe-30b-a3b"
+QWEN3_SHAPES = {(2048, 4096): ("wq", 128), (2048, 512): ("wk,wv", 128),
+                (4096, 2048): ("wo", 128), (2048, 152064): ("unembed", 1)}
 RANK = 128
 RTOL = 2e-2        # bf16 output rounding, plus fp32 sums in another order
 # times ``queued_ms`` may double its hold for a host too slow to queue
@@ -255,6 +281,12 @@ HOLD_DOUBLINGS = 4
 
 def log(*a):
     print(*a, flush=True)
+
+
+def short(arch):
+    """A model's name in the phase tags: ``qwen3moe`` for
+    qwen3-moe-30b-a3b, else the part before the first dash."""
+    return arch.split("-")[0] + ("moe" if "-moe-" in arch else "")
 
 
 def time_ms(fn, iters=20, warmup=3):
@@ -559,17 +591,22 @@ def compare_kernels(lf, ref, dev, shapes=SHAPES):
 
 
 def make_store(cfg, tcfg, n_tenants, dev, AdapterStore, scale=0.02):
-    """A store with ``n_tenants`` random adapters over one shared V."""
+    """A store with ``n_tenants`` random adapters over one shared V, each
+    drawn in fp32 and rounded to the store's dtype as it is drawn (what
+    the store would round it to), so no fp32 copy of a whole group is
+    held (qwen3-moe's expert V is 6.4 GB in fp32)."""
     store = AdapterStore(cfg, tcfg, max_tenants=n_tenants, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
-    projs = [scale * torch.randn(v.shape, generator=gen, device=dev)
-             for v in store.projs]
+    dt = store.projs[0].dtype
+    projs = [(scale * torch.randn(v.shape, generator=gen, device=dev))
+             .to(dt) for v in store.projs]
     for t in range(n_tenants):
-        bs = [scale * torch.randn(b.shape[:-3] + b.shape[-2:],
-                                  generator=gen, device=dev)
+        bs = [(scale * torch.randn(b.shape[:-3] + b.shape[-2:],
+                                   generator=gen, device=dev)).to(dt)
               for b in store.b_full]
         store.add_tenant(f"tenant{t}", bs, projs)
+        del bs
     return store
 
 
@@ -583,26 +620,120 @@ def make_store(cfg, tcfg, n_tenants, dev, AdapterStore, scale=0.02):
 SERVE_RUNS = {"qwen2-7b": ((128,) * 8, 160, 32),
               "mamba2-780m": ((100, 128, 256, 512) * 2, 544, 32),
               "zamba2-7b": ((100, 128, 256, 512) * 2, 544, 32),
-              "mistral-nemo-12b": ((128,) * 4, 160, 16)}
+              "mistral-nemo-12b": ((128,) * 4, 160, 16),
+              MOE: ((128,) * 8, 160, 32)}
+# depth cuts, the one cut of each such run: qwen3-moe-30b-a3b's 48 layers
+# hold 61 GB of bf16 weights, its expert V 7.7 GB and each tenant's B
+# 5.7 GB, 91 GB with 4 tenants against the card's 80; 24 layers hold 46.
+# mistral-nemo-12b serves 20 of its 40 layers, to keep every phase
+# inside the run's time (its shapes, held at every depth, are unchanged)
+SERVE_LAYERS = {MOE: 24, "mistral-nemo-12b": 20}
+
+
+class RouteTap:
+    """Stands in for ``moe.route`` while entered and hands each routing
+    to :meth:`seen`, which keeps what it needs on the device (no host
+    sync: the counts and masks are read after the run)."""
+
+    def __init__(self, moe_mod):
+        self.moe, self.real = moe_mod, moe_mod.route
+
+    def route(self, *a, **kw):
+        r = self.real(*a, **kw)
+        self.seen(r)
+        return r
+
+    def __enter__(self):
+        self.moe.route = self.route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.real
+
+
+class DropShares(RouteTap):
+    """The routed (token, expert) pairs that MoE capacity dropped, apart
+    for prefill and decode (set ``phase`` before each)."""
+
+    def __init__(self, moe_mod, dev):
+        super().__init__(moe_mod)
+        self.phase = "prefill"
+        self.n = {k: [torch.zeros((), dtype=torch.long, device=dev), 0]
+                  for k in ("prefill", "decode")}
+
+    def seen(self, r):
+        acc = self.n[self.phase]
+        acc[0] += (~r.keep).sum()
+        acc[1] += r.keep.numel()
+
+    def shares(self):
+        return {k: (int(d.item()), n) for k, (d, n) in self.n.items()}
+
+
+class RoutingLog(RouteTap):
+    """Each routing's top-k experts, keep mask, probabilities and
+    smallest k-th/(k+1)-th probability gap."""
+
+    def __init__(self, moe_mod):
+        super().__init__(moe_mod)
+        self.calls = []
+
+    def seen(self, r):
+        k = r.top_idx.shape[-1]
+        top = torch.topk(r.probs, k + 1, dim=-1).values
+        self.calls.append((r.top_idx, r.keep, r.probs,
+                           (top[:, k - 1] - top[:, k]).min()))
+
+
+def same_routing(tag, a, b):
+    """Two runs routed alike: equal top-k and keep masks call by call, and
+    the smallest gap above twice the largest probability difference."""
+    if len(a.calls) != len(b.calls) or not a.calls:
+        raise SystemExit(f"[{tag}] {len(a.calls)} routings against "
+                         f"{len(b.calls)}")
+    gap, dprob, dropped, pairs = math.inf, 0.0, 0, 0
+    for (ia, ka, pa, ga), (ib, kb, pb, gb) in zip(a.calls, b.calls):
+        if not (torch.equal(ia.cpu(), ib.cpu())
+                and torch.equal(ka.cpu(), kb.cpu())):
+            raise SystemExit(f"[{tag}] the two runs routed differently")
+        gap = min(gap, ga.item(), gb.item())
+        dprob = max(dprob, (pa.double().cpu() - pb.double().cpu()).abs()
+                    .max().item())
+        dropped += int((~ka).sum().item())
+        pairs += ka.numel()
+    log(f"[{tag}] routing equal over {len(a.calls)} calls: smallest "
+        f"k-th/(k+1)-th probability gap {gap:.3g}, largest probability "
+        f"difference {dprob:.3g}; {dropped} of {pairs} pairs dropped by "
+        f"capacity")
+    # a flip needs the k-th and (k+1)-th probabilities to cross, each
+    # moving by at most dprob: a gap over 2 dprob rules it out
+    if not gap > 2 * dprob:
+        raise SystemExit(f"[{tag}] a routing gap {gap} within twice the "
+                         f"largest probability difference {dprob}")
 
 
 def serve(dev, mods, smi, arch="qwen2-7b"):
-    """Phase 4: one model at full width and depth, 4 tenants, the
-    requests of ``SERVE_RUNS`` through the engine.  Returns the forward's
-    launch counts and, for the SSM and hybrid families, the SSD
-    kernel's."""
+    """Phase 4: one model at full width and depth (or the depth of
+    ``SERVE_LAYERS``), 4 tenants, the requests of ``SERVE_RUNS`` through
+    the engine.  Returns the forward's launch counts and, for the SSM and
+    hybrid families, the SSD kernel's; logs MoE's capacity drops."""
     import numpy as np
     lf, sc, lm, configs, serve_mod = (mods["lf"], mods["sc"], mods["lm"],
                                       mods["configs"], mods["serve"])
-    tag = "serve" if arch == "qwen2-7b" else f"serve {arch.split('-')[0]}"
+    tag = "serve" if arch == "qwen2-7b" else f"serve {short(arch)}"
     prompts, max_len, new = SERVE_RUNS[arch]
     cfg = configs.get_config(arch)
+    full_depth = cfg.num_layers
+    cfg = cfg.replace(num_layers=SERVE_LAYERS.get(arch, full_depth))
     log(f"[{tag}] {arch} d_model={cfg.d_model} layers={cfg.num_layers} "
-        f"vocab={cfg.vocab_size} dtype={cfg.dtype}")
+        f"of {full_depth} vocab={cfg.vocab_size} dtype={cfg.dtype}" + (
+            f" experts={cfg.num_experts} top_k={cfg.top_k} "
+            f"moe_d_ff={cfg.moe_d_ff}" if cfg.family == "moe" else ""))
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = lm.init_params(cfg, seed=0, device=dev)
+    torch.cuda.empty_cache()        # the init's fp32 draws, cached
     tcfg = configs.TrainConfig(rank=RANK)
     store = make_store(cfg, tcfg, 4, dev, serve_mod.AdapterStore)
     torch.cuda.synchronize()
@@ -619,9 +750,12 @@ def serve(dev, mods, smi, arch="qwen2-7b"):
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
     prefill_s, decode_s = [], []
+    drops = DropShares(mods["moe"], dev) if cfg.family == "moe" else None
 
-    def timed(fn, bucket, key=None):
+    def timed(fn, bucket, key=None, phase=None):
         def wrapper(*a, **kw):
+            if drops is not None:
+                drops.phase = phase
             torch.cuda.synchronize()
             t = time.perf_counter()
             out = fn(*a, **kw)
@@ -632,8 +766,9 @@ def serve(dev, mods, smi, arch="qwen2-7b"):
         return wrapper
 
     eng._prefill = timed(eng._prefill, prefill_s,
-                         key=lambda req, *_: len(req.prompt))
-    eng._decode = timed(eng._decode, decode_s)
+                         key=lambda req, *_: len(req.prompt),
+                         phase="prefill")
+    eng._decode = timed(eng._decode, decode_s, phase="decode")
     rng = np.random.default_rng(0)
     for i, n in enumerate(prompts):
         eng.submit(serve_mod.Request(
@@ -642,7 +777,8 @@ def serve(dev, mods, smi, arch="qwen2-7b"):
     for mod in (lf, sc, mods["lb"]):
         mod.reset_launches()
     t0 = time.perf_counter()
-    out = eng.run()
+    with drops or contextlib.nullcontext():
+        out = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts, ssd_counts = dict(lf.LAUNCHES), dict(sc.LAUNCHES)
@@ -690,9 +826,16 @@ def serve(dev, mods, smi, arch="qwen2-7b"):
         f"batched={lf.launches('batched')}; per step "
         f"{lf.launches('batched') / len(decode_s):.0f}, per prefill "
         f"{lf.launches('shared') / len(prefill_s):.0f}")
+    if drops is not None:
+        log(f"[{tag}] launches by (form, route, K, N): " + ", ".join(
+            f"{k}={n}" for k, n in sorted(counts.items())))
+        for phase, (n, pairs) in drops.shares().items():
+            log(f"[{tag}] {phase}: {n} of {pairs} routed pairs dropped by "
+                f"capacity ({100 * n / pairs:.2f}%)")
     log(f"[{tag}] first tokens req0: {out['req0'][:8].tolist()}")
     profile_prefill(params, store, cfg, lm, max(prompts), tag, rng)
-    profile_decode(eng, cfg, serve_mod, rng, tag=tag)
+    profile_decode(eng, cfg, serve_mod, rng, tag=tag,
+                   steps=1 if cfg.family == "moe" else 2)
     del eng, store, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -701,16 +844,20 @@ def serve(dev, mods, smi, arch="qwen2-7b"):
 
 def device_rows(prof):
     """The profiler's device-side rows (a CPU op's row repeats its
-    kernels' time) and their total device microseconds."""
+    kernels' time) and their total device microseconds, aggregated once
+    a profile: the aggregation walks every event in Python, 10-15 s for
+    two serving decode steps on the card's host."""
     from torch.autograd import DeviceType
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    dev_us = sum(e.self_device_time_total for e in rows)
-    if dev_us <= 0:
-        raise SystemExit("the profiler saw no device time")
-    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    return rows, dev_us
+    if not hasattr(prof, "device_rows"):
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        dev_us = sum(e.self_device_time_total for e in rows)
+        if dev_us <= 0:
+            raise SystemExit("the profiler saw no device time")
+        rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+        prof.device_rows = rows, dev_us
+    return prof.device_rows
 
 
 def log_profile(tag, what, prof, wall, steps, top=8):
@@ -778,19 +925,24 @@ def profile_decode(eng, cfg, serve_mod, rng, steps=2, tag="serve"):
     rows, _ = device_rows(prof)
     simt = [e.key for e in rows
             if "gemm_partial" in e.key or "finish" in e.key]
-    # a gather of the adapters' B: an index_select of a >= 3-D stack
-    gathers = [e for e in prof.key_averages(group_by_input_shape=True)
-               if e.key == "aten::index_select" and e.input_shapes
-               and len(e.input_shapes[0]) >= 3]
+    gathers = b_gathers(prof)
     dec = sum(e.self_device_time_total for e in rows
               if "skinny_kernel" in e.key) / 1e3 / steps
     log(f"[{ptag}] the per-row-B forward's kernels {dec:.2f} ms/step; "
         f"SIMT rows {simt or 'none'}; index_select of a B stack "
-        f"{[e.input_shapes for e in gathers] or 'none'}")
+        f"{gathers or 'none'}")
     if simt or gathers or dec <= 0:
         raise SystemExit(f"{tag}: the bf16 decode step ran the SIMT "
-                         f"per-row-B path or gathered B: {simt}, "
-                         f"{[e.input_shapes for e in gathers]}")
+                         f"per-row-B path or gathered B: {simt}, {gathers}")
+
+
+def b_gathers(prof):
+    """The input shapes of a profile's gathers of the adapters' B: an
+    ``index_select`` of a stack of 3 or more dims (read from the events
+    themselves, not from a second aggregation by shape)."""
+    return sorted({str(e.input_shapes) for e in prof.events()
+                   if e.name == "aten::index_select" and e.input_shapes
+                   and len(e.input_shapes[0]) >= 3})
 
 
 def write_slot(ps, st, slot, pages, page):
@@ -840,12 +992,13 @@ def lazy_equals_merged(dev, mods, arch="qwen2-7b", S=24, store=None,
     """Phase 5: lazy (B, V) serving == merged W + V B^T, fp32, on the
     full-width cut of :func:`cut_config`: prefill of ``S`` tokens and one
     paged decode step.  ``store`` (of that cut) serves ``tenant`` in
-    place of a random one."""
+    place of a random one.  MoE (every expert merged as W_e + V_e B_eᵀ)
+    must route both runs alike."""
     lm, configs, serve_mod = mods["lm"], mods["configs"], mods["serve"]
     from repro_torch.models.common import tree_map
     from repro_torch.models.linear import effective_weight
     tag = tag or ("lazy==merged" if arch == "qwen2-7b"
-                  else f"lazy==merged {arch.split('-')[0]}")
+                  else f"lazy==merged {short(arch)}")
     cfg = cut_config(configs, arch)
     params = lm.init_params(cfg, seed=3, device=dev)
     if store is None:
@@ -865,25 +1018,31 @@ def lazy_equals_merged(dev, mods, arch="qwen2-7b", S=24, store=None,
     lazy_dec = serve_mod.batched_pack_tree(params, store.layout,
                                            store.b_full, store.projs,
                                            tenants)
-    logits = []
+    logits, routes = [], []
     for pre_p, dec_p in ((lazy_pre, lazy_dec), (merged, merged)):
-        st = lm.alloc_decode_state(cfg, 1, (S // page + 1) * page,
-                                   device=dev)
-        lg_pre, st = lm.prefill(pre_p, prompt, cfg, st)
-        ps = paged_from_prefill(lm, cfg, st, S, page, dev)
-        # the decode step must stay on the device (a host sync would
-        # stall every layer and rule out graph capture): any sync raises
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-            torch.cuda.set_sync_debug_mode("error")
-        try:
-            lg_dec, _ = lm.decode_step_paged(dec_p, nxt, cfg, ps)
-        finally:
+        routes.append(RoutingLog(mods["moe"]) if cfg.family == "moe"
+                      else contextlib.nullcontext())
+        with routes[-1]:
+            st = lm.alloc_decode_state(cfg, 1, (S // page + 1) * page,
+                                       device=dev)
+            lg_pre, st = lm.prefill(pre_p, prompt, cfg, st)
+            ps = paged_from_prefill(lm, cfg, st, S, page, dev)
+            # the decode step must stay on the device (a host sync would
+            # stall every layer and rule out graph capture): any sync
+            # raises
             if dev.type == "cuda":
-                torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                lg_dec, _ = lm.decode_step_paged(dec_p, nxt, cfg, ps)
+            finally:
+                if dev.type == "cuda":
+                    torch.cuda.set_sync_debug_mode("default")
         # the real vocab lanes: the padding's -1e30 would set the scale
         logits.append((lg_pre[..., :cfg.vocab_size].float(),
                        lg_dec[..., :cfg.vocab_size].float()))
+    if cfg.family == "moe":
+        same_routing(tag, *routes)
     tol = 1e-4     # relative to max|logit|: fp32 sums in another order
     for name, a, b in (("prefill", logits[0][0], logits[1][0]),
                        ("decode", logits[0][1], logits[1][1])):
@@ -902,7 +1061,9 @@ def bf16_decode_without_sync(dev, mods, arch="qwen2-7b"):
     """Phase 5c: a bf16 paged decode step of a 2-layer full-width cut,
     batch 4 over a store of 4 tenants read in place, under
     ``set_sync_debug_mode("error")`` (any host sync raises), with every
-    forward launch on the tensor cores."""
+    forward launch on the tensor cores; for MoE (whose expert products
+    read each tenant's B stack outside the kernels) a second step under
+    the profiler, which must gather no B."""
     lf, lm, configs, serve_mod = (mods["lf"], mods["lm"], mods["configs"],
                                   mods["serve"])
     cfg = configs.get_config(arch).replace(num_layers=2)
@@ -927,7 +1088,7 @@ def bf16_decode_without_sync(dev, mods, arch="qwen2-7b"):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    tag = f"bf16 decode {arch.split('-')[0]}"
+    tag = f"bf16 decode {short(arch)}"
     finite = bool(torch.isfinite(lg[..., :cfg.vocab_size]).all().item())
     log(f"[{tag}] 2 layers, batch 4 over {DEC_TENANTS} tenants: no host "
         f"sync; launches {dict(lf.LAUNCHES)}; logits finite {finite}")
@@ -935,6 +1096,19 @@ def bf16_decode_without_sync(dev, mods, arch="qwen2-7b"):
         raise SystemExit(f"{tag}: non-finite logits or no tensor-core "
                          f"per-row-B launch")
     require_tc(mods, tag)
+    if cfg.family == "moe":
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            lm.decode_step_paged(packed, tok, cfg, ps)
+            torch.cuda.synchronize()
+        gathers = b_gathers(prof)
+        log(f"[{tag}] index_select of a B stack "
+            f"{gathers or 'none'} (the expert products read each tenant's "
+            f"(E, n, r) view of the store)")
+        if gathers:
+            raise SystemExit(f"{tag}: the decode step gathered B: {gathers}")
     del params, store, packed
     torch.cuda.empty_cache()
 
@@ -947,6 +1121,10 @@ SERVE_PLAIN_TOL = 1.5e-5
 # 80GB HBM3 (700 W), 4.86e-6: its cut adds a shared attention + MLP
 # block and a third Mamba2 layer to mamba2's two
 ZAMBA_PLAIN_TOL = 2.5e-5
+# [serve==plain qwen3moe]: about five times the gap measured on an H100
+# 80GB HBM3 (700 W), 2.49e-6: 2 full-width layers, 128 experts, a
+# 128-token prefill whose capacity drops 41% of the pairs, routed alike
+QWEN3_PLAIN_TOL = 1.25e-5
 
 
 def serve_equals_plain(dev, mods, arch="mamba2-780m", S=256, steps=4,
@@ -955,7 +1133,8 @@ def serve_equals_plain(dev, mods, arch="mamba2-780m", S=256, steps=4,
     tenants: prefill of ``S`` tokens per tenant, then ``steps`` batched
     paged decode steps on fixed tokens, through the kernels on the card
     and through the plain versions on the CPU, from the same weights and
-    adapters; the logits within ``tol`` · max|logit|."""
+    adapters; the logits within ``tol`` · max|logit|, and MoE routed
+    alike on both."""
     lm, configs, serve_mod = mods["lm"], mods["configs"], mods["serve"]
     from repro_torch.models.common import tree_map
     cfg = cut_config(configs, arch)
@@ -969,42 +1148,51 @@ def serve_equals_plain(dev, mods, arch="mamba2-780m", S=256, steps=4,
     toks = torch.randint(0, cfg.vocab_size, (steps, 2, 1), generator=gen)
     page = 16
     mods["sc"].reset_launches()
-    runs = []
+    mods["lf"].reset_launches()
+    runs, routes = [], []
     for where in (dev, cpu):
-        if where.type == "cpu":
-            p, store = params, cpu_store
-        else:
-            p = tree_map(lambda t: t.to(where), params)
-            store = serve_mod.AdapterStore(cfg, tcfg, max_tenants=2,
+        routes.append(RoutingLog(mods["moe"]) if cfg.family == "moe"
+                      else contextlib.nullcontext())
+        with routes[-1]:
+            if where.type == "cpu":
+                p, store = params, cpu_store
+            else:
+                p = tree_map(lambda t: t.to(where), params)
+                store = serve_mod.AdapterStore(cfg, tcfg, max_tenants=2,
+                                               device=where)
+                for t in range(2):
+                    store.add_tenant(
+                        f"tenant{t}",
+                        [b[..., t, :, :] for b in cpu_store.b_full],
+                        cpu_store.projs)
+            lgs = []
+            # the recurrent state is per slot; the hybrid's shared block
+            # reads slot t's K/V from pages [t P, (t + 1) P)
+            n_pg = S // page + 1
+            pages = torch.arange(2 * n_pg, dtype=torch.int32,
+                                 device=where).reshape(2, n_pg)
+            ps = lm.alloc_paged_state(cfg, 2, 2 * n_pg, page, n_pg * page,
+                                      device=where)
+            ps = ps._replace(page_table=pages,
+                             lengths=torch.full((2,), S, dtype=torch.int32,
+                                                device=where))
+            for t in range(2):  # prefill each tenant's prompt into slot t
+                st = lm.alloc_decode_state(cfg, 1, n_pg * page,
                                            device=where)
-            for t in range(2):
-                store.add_tenant(f"tenant{t}",
-                                 [b[..., t, :, :] for b in cpu_store.b_full],
-                                 cpu_store.projs)
-        lgs = []
-        # the recurrent state is per slot; the hybrid's shared block reads
-        # slot t's K/V from pages [t P, (t + 1) P)
-        n_pg = S // page + 1
-        pages = torch.arange(2 * n_pg, dtype=torch.int32,
-                             device=where).reshape(2, n_pg)
-        ps = lm.alloc_paged_state(cfg, 2, 2 * n_pg, page, n_pg * page,
-                                  device=where)
-        ps = ps._replace(page_table=pages,
-                         lengths=torch.full((2,), S, dtype=torch.int32,
-                                            device=where))
-        for t in range(2):      # prefill each tenant's prompt into slot t
-            st = lm.alloc_decode_state(cfg, 1, n_pg * page, device=where)
-            lg, st = lm.prefill(store.lrpack_tree(p, f"tenant{t}"),
-                                prompts[t:t + 1].to(where), cfg, st)
-            lgs.append(lg)
-            write_slot(ps, st, t, pages[t].long(), page)
-        packed = serve_mod.batched_pack_tree(
-            p, store.layout, store.b_full, store.projs,
-            torch.arange(2, device=where))
-        for k in range(steps):
-            lg, ps = lm.decode_step_paged(packed, toks[k].to(where), cfg, ps)
-            lgs.append(lg)
+                lg, st = lm.prefill(store.lrpack_tree(p, f"tenant{t}"),
+                                    prompts[t:t + 1].to(where), cfg, st)
+                lgs.append(lg)
+                write_slot(ps, st, t, pages[t].long(), page)
+            packed = serve_mod.batched_pack_tree(
+                p, store.layout, store.b_full, store.projs,
+                torch.arange(2, device=where))
+            for k in range(steps):
+                lg, ps = lm.decode_step_paged(packed, toks[k].to(where),
+                                              cfg, ps)
+                lgs.append(lg)
         runs.append([g[..., :cfg.vocab_size].float().cpu() for g in lgs])
+    if cfg.family == "moe":
+        same_routing(f"serve==plain {short(arch)}", *routes)
     worst = 0.0
     for a, b in zip(*runs):
         err = (a - b).abs().max().item() / b.abs().max().item()
@@ -1012,13 +1200,17 @@ def serve_equals_plain(dev, mods, arch="mamba2-780m", S=256, steps=4,
             raise SystemExit("serving through the kernels gave non-finite "
                              "logits")
         worst = max(worst, err)
-    log(f"[serve==plain {arch.split('-')[0]}] {arch} {cfg.num_layers} "
+    lf = mods["lf"]
+    log(f"[serve==plain {short(arch)}] {arch} {cfg.num_layers} "
         f"layers fp32, 2 tenants: prefill of {S} tokens each + {steps} "
         f"decode steps at batch 2, card against cpu: max abs err / "
         f"max|logit| {worst:.3g} (tol {tol}); card launches "
-        f"ssd_intra_chunk={mods['sc'].launches()}")
-    if not mods["sc"].launches():
+        f"ssd_intra_chunk={mods['sc'].launches()}, lowrank_forward "
+        f"shared={lf.launches('shared')} batched={lf.launches('batched')}")
+    if cfg.family in ("ssm", "hybrid") and not mods["sc"].launches():
         raise SystemExit("the card run missed ssd_intra_chunk")
+    if not (lf.launches("shared") and lf.launches("batched")):
+        raise SystemExit("the card run missed a form of lowrank_forward")
     if worst > tol:
         raise SystemExit(f"serving through the kernels disagrees with the "
                          f"plain route: {worst} > {tol}")
@@ -3658,6 +3850,7 @@ def main():
     from repro_torch.kernels import ssd_chunk as sc
     from repro_torch.kernels import subspace_adam as sa
     from repro_torch.models import lm
+    from repro_torch.models import moe as moe_mod
     from repro_torch import serve as serve_mod
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3707,8 +3900,8 @@ def main():
             raise SystemExit(f"lib{name} holds no tensor-core instruction")
 
     mods = dict(lf=lf, lb=lb, lu=lu, sa=sa, sc=sc, ref=ref,
-                dispatch=dispatch, lm=lm, configs=configs, serve=serve_mod,
-                counters=(lf, lb, lu, sa))
+                dispatch=dispatch, lm=lm, moe=moe_mod, configs=configs,
+                serve=serve_mod, counters=(lf, lb, lu, sa))
     if sys.argv[1:2] == ["--zamba2-study"]:
         zamba2_study(dev, mods, smi, configs)
         return
@@ -3718,6 +3911,7 @@ def main():
     mamba_rows = compare_kernels(lf, ref, dev, MAMBA_SHAPES)
     zamba_rows = compare_kernels(lf, ref, dev, ZAMBA_SHAPES)
     nemo_rows = compare_kernels(lf, ref, dev, NEMO_SHAPES)
+    qwen3_rows = compare_kernels(lf, ref, dev, QWEN3_SHAPES)
     split_determinism(mods, dev)
     ssd_rows = compare_ssd_kernel(mods, dev)
     zamba_ssd_rows = compare_ssd_kernel(mods, dev, ZAMBA_SSD_SHAPES)
@@ -3749,6 +3943,11 @@ def main():
     mark("zamba2-7b serving and sampled decoding")
     nemo_counts, _ = serve(dev, mods, smi, "mistral-nemo-12b")
     mark("mistral-nemo-12b serving")
+    qwen3_counts, _ = serve(dev, mods, smi, MOE)
+    lazy_equals_merged(dev, mods, MOE, S=128)
+    serve_equals_plain(dev, mods, MOE, S=128, tol=QWEN3_PLAIN_TOL)
+    bf16_decode_without_sync(dev, mods, MOE)
+    mark("qwen3-moe-30b-a3b serving")
 
     sampler_laws(dev, mods)
     cfg, tcfg = train_config(configs, lazy_k=4, lr=3e-3, warmup_steps=2,
@@ -3791,7 +3990,8 @@ def main():
     for model, rws, cnt in (("", rows, counts),
                             ("mamba2-780m ", mamba_rows, mamba_counts),
                             ("zamba2-7b ", zamba_rows, zamba_counts),
-                            ("mistral-nemo-12b ", nemo_rows, nemo_counts)):
+                            ("mistral-nemo-12b ", nemo_rows, nemo_counts),
+                            (f"{MOE} ", qwen3_rows, qwen3_counts)):
         for row in rws:
             kernels.append({
                 "name": f"lowrank_forward[{row['form']} B] K={row['K']} "

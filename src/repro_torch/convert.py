@@ -3,7 +3,8 @@
 The reference's parameter tree, as nested dicts of numpy arrays (for
 example ``jax.tree.map(np.asarray, lm.init_params(cfg, key))``), becomes
 the port's tree under the same names, the same ``(L, k, n_out)``
-stacking and the same ``y = x @ W`` orientation.  Its grouped training
+stacking (MoE experts ``(L, E, k, n_out)``, the router fp32) and the
+same ``y = x @ W`` orientation.  Its grouped training
 state (``repro.optim.subspace.SubspaceState`` with numpy leaves) becomes
 the port's grouped master weights and subspace state
 (:func:`subspace_from_numpy`); a GaLore state becomes the port's

@@ -1,11 +1,15 @@
-"""Decoder-only LM: the dense, SSM (Mamba2) and hybrid families, for
-training and serving.
+"""Decoder-only LM: the dense, SSM (Mamba2), hybrid and MoE families.
 
 Counterpart of ``repro.models.lm`` for the dense family (``qwen2-7b``,
-the LLaMA grid), the SSM family (``mamba2-780m``) and the hybrid family
+the LLaMA grid), the SSM family (``mamba2-780m``), the hybrid family
 (``zamba2-7b``: Mamba2 layers with ONE shared attention + MLP block
 applied after every ``attn_every``-th of them, then a tail of the
-``L % attn_every`` layers left).  Layers stay stacked on a leading ``L``
+``L % attn_every`` layers left) and the MoE family
+(``qwen3-moe-30b-a3b``: attention, then a routed expert FFN,
+:mod:`repro_torch.models.moe`, with experts stacked ``(L, E, k, n)``).
+The dense, SSM and hybrid families train and serve; MoE serves (its
+aux loss is in ``forward_hidden``'s ``aux``, but ``build_loss_fn``
+refuses it).  Layers stay stacked on a leading ``L``
 axis, as in the reference, and a Python loop over ``L`` takes the place
 of ``lax.scan``.  Every matmul weight is consumed through
 :func:`repro_torch.models.linear.linear`, so a packed adapter threads
@@ -38,6 +42,7 @@ from .attention import (KVCache, blockwise_attention, cache_update,
 from .common import (ParamSpec, act_dtype, apply_rope, prm_dtype, rms_norm,
                      swiglu, tree_init, tree_map)
 from .linear import linear
+from .moe import moe_ffn
 from .ssm import SSMState, mamba2_mixer
 
 VOCAB_PAD = 256
@@ -48,15 +53,25 @@ def padded_vocab(cfg) -> int:
 
 
 def _require_ported(cfg) -> None:
-    """Refuse a family the port does not run: MoE, MLA, enc-dec, vlm and
-    audio (it trains and serves the dense, SSM and hybrid families)."""
-    if cfg.family not in ("dense", "ssm", "hybrid") or cfg.use_mla \
-            or cfg.num_experts or cfg.first_dense_layers \
+    """Refuse what the port does not run: enc-dec, vlm and audio, and
+    MLA, shared experts and leading dense layers (deepseek-v2) (ROADMAP.md
+    Queue 1 item 9), and MoE's grouped dispatch (item 10).  It trains and
+    serves the dense, SSM and hybrid families and serves MoE."""
+    what = None
+    if cfg.family not in ("dense", "ssm", "hybrid", "moe") \
             or cfg.is_encoder_decoder:
+        what = f"the {cfg.family!r} family"
+    elif cfg.use_mla or cfg.num_shared_experts or cfg.first_dense_layers:
+        what = "MLA, shared experts, leading dense layers"
+    if what is not None:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported to "
-            f"repro_torch (it trains and serves the dense, SSM and hybrid "
-            f"families); see ROADMAP.md Queue 1 item 9")
+            f"{cfg.name}: not ported to repro_torch ({what}); it trains "
+            f"and serves the dense, SSM and hybrid families and serves "
+            f"MoE; see ROADMAP.md Queue 1 item 9")
+    if cfg.family == "moe" and cfg.moe_groups > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: not ported to repro_torch (grouped MoE dispatch, "
+            f"moe_groups={cfg.moe_groups}); see ROADMAP.md Queue 1 item 10")
 
 
 def _hybrid(cfg) -> bool:
@@ -105,6 +120,15 @@ def _mlp_specs(cfg, d, ff):
             "w_down": _w((ff, d), cfg)}
 
 
+def _moe_specs(cfg, d):
+    """The router (fp32, kept dense by the ``router`` exclusion) and the
+    experts stacked ``(E, k, n)``."""
+    e, f = cfg.num_experts, cfg.moe_d_ff
+    return {"router": ParamSpec((d, e), torch.float32, "scaled"),
+            "w_gate": _w((e, d, f), cfg), "w_up": _w((e, d, f), cfg),
+            "w_down": _w((e, f, d), cfg)}
+
+
 def _ssm_specs(cfg, d):
     d_in, n, h = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
     g = max(1, cfg.ssm_groups)
@@ -126,9 +150,10 @@ def _layer_specs(cfg, d):
     """Specs of one stacked layer (without the leading L axis)."""
     if cfg.family in ("ssm", "hybrid"):
         return {"ln1": _w((d,), cfg, "ones"), "ssm": _ssm_specs(cfg, d)}
+    ffn = {"moe": _moe_specs(cfg, d)} if cfg.family == "moe" \
+        else {"mlp": _mlp_specs(cfg, d, cfg.d_ff)}
     return {"ln1": _w((d,), cfg, "ones"), "attn": _attn_specs(cfg, d),
-            "ln2": _w((d,), cfg, "ones"),
-            "mlp": _mlp_specs(cfg, d, cfg.d_ff)}
+            "ln2": _w((d,), cfg, "ones"), **ffn}
 
 
 def param_specs(cfg) -> dict:
@@ -234,6 +259,20 @@ def dense_block(h, p, cfg, **kw):
     return h, kv
 
 
+def moe_block(h, p, cfg, **kw):
+    """Pre-norm attention, then the routed expert FFN; ``kw`` goes to
+    :func:`attn_apply`.  Returns (h, kv, aux)."""
+    a, kv = attn_apply(rms_norm(h, p["ln1"], cfg.norm_eps), p["attn"], cfg,
+                       **kw)
+    h = h + a
+    m = p["moe"]
+    out, aux = moe_ffn(rms_norm(h, p["ln2"], cfg.norm_eps), m["router"],
+                       m["w_gate"], m["w_up"], m["w_down"], top_k=cfg.top_k,
+                       capacity_factor=cfg.capacity_factor,
+                       norm_topk=cfg.norm_topk, groups=cfg.moe_groups)
+    return h + out, kv, aux
+
+
 def _embed(params, tokens, cfg):
     return params["embed"]["tok"][tokens.long()]
 
@@ -253,8 +292,10 @@ def _shared_after(cfg, i: int) -> Optional[int]:
 
 def forward_hidden(params, tokens, cfg):
     """(B, S) tokens -> ((B, S, d) final hidden after the final norm,
-    aux).  ``aux`` holds the reference's MoE loss terms, zero for the
-    dense, SSM and hybrid families.  A dense block is attention and MLP;
+    aux).  ``aux`` holds the reference's MoE loss terms, ``lb_loss`` and
+    ``router_z`` summed over the layers (zero for the dense, SSM and
+    hybrid families).  A dense block is attention and MLP, an MoE block
+    attention and the routed experts;
     an SSM block ``h + mamba2_mixer(rms_norm(h, ln1))`` (the reference's
     ``mamba_body``); the hybrid runs the shared dense block
     (``params["shared_attn"]``) after every ``attn_every``-th SSM block.
@@ -269,22 +310,29 @@ def forward_hidden(params, tokens, cfg):
     gradient is the sum over the applications.
     """
     _require_ported(cfg)
-    apply = dense_block if cfg.family == "dense" else _mamba_block
+    apply = {"dense": dense_block, "moe": moe_block}.get(cfg.family,
+                                                          _mamba_block)
 
     def run(fn, h, p):
         def block(h):
-            return fn(h, p, cfg)[0]
+            out = fn(h, p, cfg)
+            if fn is moe_block:
+                return out[0], out[2]["lb_loss"], out[2]["router_z"]
+            return out[0]
         return checkpoint(block, h, use_reentrant=False) if cfg.remat \
             else block(h)
 
     h = _embed(params, tokens, cfg)
+    lb = rz = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.num_layers):
         h = run(apply, h, _layer(params["layers"], i))
+        if apply is moe_block:
+            h, a, z = h
+            lb, rz = lb + a, rz + z
         if _shared_after(cfg, i) is not None:
             h = run(dense_block, h, params["shared_attn"])
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    zero = torch.zeros((), dtype=torch.float32, device=h.device)
-    return h, {"lb_loss": zero, "router_z": zero}
+    return h, {"lb_loss": lb, "router_z": rz}
 
 
 def logits(params, hidden, cfg):
@@ -302,7 +350,7 @@ def logits(params, hidden, cfg):
 # ---------------------------------------------------------------------------
 
 class DecodeState(NamedTuple):
-    kv: Optional[KVCache]         # dense family
+    kv: Optional[KVCache]         # dense and MoE families
     ssm: Optional[SSMState]       # SSM and hybrid families
     shared_kv: Optional[KVCache]  # hybrid: one cache per shared-block app
     pos: int                      # tokens already in cache
@@ -323,10 +371,15 @@ def alloc_decode_state(cfg, batch: int, max_len: int, *,
         return KVCache.alloc(layers, batch, max_len, cfg.num_kv_heads,
                              cfg.resolved_head_dim, dtype=act_dtype(cfg),
                              device=device)
-    if cfg.family == "dense":
+    if _attention_layers(cfg):
         return DecodeState(kv(cfg.num_layers), None, None, 0)
     shared = kv(_n_attn_apps(cfg)) if _hybrid(cfg) else None
     return DecodeState(None, _alloc_ssm(cfg, batch, device), shared, 0)
+
+
+def _attention_layers(cfg) -> bool:
+    """Every stacked layer holds attention with a KV cache (dense, MoE)."""
+    return cfg.family in ("dense", "moe")
 
 
 def _mamba_block(h, lp, cfg, **kw):
@@ -336,18 +389,19 @@ def _mamba_block(h, lp, cfg, **kw):
 
 
 def prefill(params, tokens, cfg, state: DecodeState):
-    """Full forward writing the caches (the SSM and hybrid families: each
-    layer's end state and conv window; the hybrid also each application
-    of its shared block's K/V); returns (last-position logits, state)."""
+    """Full forward writing the caches (the dense and MoE families: each
+    layer's K/V; the SSM and hybrid families: each layer's end state and
+    conv window; the hybrid also each application of its shared block's
+    K/V); returns (last-position logits, state)."""
     _require_ported(cfg)
     h = _embed(params, tokens, cfg)
     S = h.shape[1]
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
-        if cfg.family == "dense":
-            h, _ = dense_block(h, lp, cfg,
-                               cache=(state.kv.k[i], state.kv.v[i]),
-                               cache_index=0)
+        if _attention_layers(cfg):
+            blk = moe_block if cfg.family == "moe" else dense_block
+            h = blk(h, lp, cfg, cache=(state.kv.k[i], state.kv.v[i]),
+                    cache_index=0)[0]
             continue
         h, (ns, nc) = _mamba_block(h, lp, cfg, want_state=True)
         state.ssm.ssm[i].copy_(ns)
@@ -371,10 +425,11 @@ class PagedDecodeState(NamedTuple):
     """Paged decode caches (serving engine).
 
     ``kv_k`` / ``kv_v``: ``(L, n_pages, page, Hkv, D)`` arenas (dense
-    family); ``ssm``: the slot-indexed :class:`SSMState` of the SSM and
-    hybrid families (O(1) per slot, so not paged); ``shared_k`` /
-    ``shared_v``: the hybrid's shared-attention arenas ``(n_apps,
-    n_pages, page, Hkv, D)``, one per application of its shared block;
+    and MoE families); ``ssm``: the slot-indexed :class:`SSMState` of
+    the SSM and hybrid families (O(1) per slot, so not paged);
+    ``shared_k`` / ``shared_v``: the hybrid's shared-attention arenas
+    ``(n_apps, n_pages, page, Hkv, D)``, one per application of its
+    shared block;
     ``page_table``: ``(batch, max_pages)`` int32, ``-1`` = unmapped, one
     page-id space for every layer and application; ``lengths``:
     ``(batch,)`` int32 tokens stored per slot, ``0`` marks an inactive
@@ -400,7 +455,7 @@ def alloc_paged_state(cfg, batch: int, num_pages: int, page_size: int,
         return (torch.zeros(shp, dtype=act_dtype(cfg), device=device),
                 torch.zeros(shp, dtype=act_dtype(cfg), device=device))
     kv_k = kv_v = ssm = sk = sv = None
-    if cfg.family == "dense":
+    if _attention_layers(cfg):
         kv_k, kv_v = arenas(cfg.num_layers)
     else:
         ssm = _alloc_ssm(cfg, batch, device)
@@ -422,7 +477,9 @@ def decode_step_paged(params, token, cfg, state: PagedDecodeState):
     families step every slot's recurrent state (inactive rows included,
     as in the reference) into new tensors; ``state.ssm`` is left as it
     was.  The hybrid's application ``g`` of its shared block reads and
-    writes the arenas ``shared_k[g]``, ``shared_v[g]``.
+    writes the arenas ``shared_k[g]``, ``shared_v[g]``.  MoE routes every
+    row, inactive ones included, as the reference does: they take expert
+    capacity like the active rows.
     """
     _require_ported(cfg)
     h = _embed(params, token, cfg)
@@ -432,10 +489,11 @@ def decode_step_paged(params, token, cfg, state: PagedDecodeState):
         ssm = SSMState(torch.empty_like(ssm.ssm), torch.empty_like(ssm.conv))
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
-        if cfg.family == "dense":
-            h, _ = dense_block(h, lp, cfg, pos_offset=lengths,
-                               cache=(state.kv_k[i], state.kv_v[i]),
-                               decode=True, paged=(pt, lengths))
+        if _attention_layers(cfg):
+            blk = moe_block if cfg.family == "moe" else dense_block
+            h = blk(h, lp, cfg, pos_offset=lengths,
+                    cache=(state.kv_k[i], state.kv_v[i]), decode=True,
+                    paged=(pt, lengths))[0]
             continue
         h, (ns, nc) = _mamba_block(
             h, lp, cfg, ssm_state=state.ssm.ssm[i],

@@ -39,6 +39,9 @@ from ..train import chaos, checkpoint
 # no subspace, and galore's projected moments are no weight delta.
 ADAPTER_METHODS = ("lowrank_adam", "lowrank_lion", "lowrank_lr")
 
+# elements of V compared at a time when a tenant joins (256 MB in fp32)
+_DRIFT_PIECE = 1 << 26
+
 _SEP = re.escape(checkpoint.SEP)
 _GROUP_KEY = re.compile(rf"^opt{_SEP}groups{_SEP}(\d+){_SEP}(b|proj)$")
 
@@ -213,14 +216,19 @@ class AdapterStore:
     def _check_proj_drift(self, tenant, projs):
         """Validation only — never mutates.  The incoming V is compared
         after the store's own dtype cast, so a bf16 store accepts the
-        fp32 V it was installed from."""
+        fp32 V it was installed from; in fp32 pieces of at most
+        ``_DRIFT_PIECE`` elements, so a large group (an MoE's expert V:
+        3.2 GB in bf16 for qwen3-moe at 24 layers) takes no whole fp32
+        copy."""
         if not self._proj_loaded:
             return
         for g, v in enumerate(projs):
-            have = self.projs[g]
-            got = v.to(self.device, have.dtype)
-            if not torch.allclose(have.float(), got.float(), rtol=1e-5,
-                                  atol=1e-6):
+            have = self.projs[g].reshape(-1)
+            got = v.to(self.device, have.dtype).reshape(-1)
+            if not all(torch.allclose(have[i:i + _DRIFT_PIECE].float(),
+                                      got[i:i + _DRIFT_PIECE].float(),
+                                      rtol=1e-5, atol=1e-6)
+                       for i in range(0, have.numel(), _DRIFT_PIECE)):
                 raise AdapterMismatchError(
                     f"tenant {tenant!r}: projection V of group {g} "
                     f"differs from the store's shared V — tenants must "

@@ -22,9 +22,9 @@ steps.  The per-step loop is:
      whole ``(max_batch, vocab)`` block every step).  The prefill's
      first token is greedy, as in the reference.
 
-The dense family pages its KV cache; the SSM family (Mamba2) keeps one
-fixed-size recurrent state per slot, which prefill writes into the
-request's slot; the hybrid (zamba2) does both: its shared attention
+The dense and MoE families page their KV cache; the SSM family (Mamba2)
+keeps one fixed-size recurrent state per slot, which prefill writes into
+the request's slot; the hybrid (zamba2) does both: its shared attention
 block's KV pages (one arena per application) beside the per-slot SSM
 state.  A pure-SSM sequence holds no page chain: nothing of it lives in
 the page pool, so pool pressure never preempts it, and its admission is
@@ -36,6 +36,11 @@ the longest prefix the chunked scan takes (a multiple of ``ssd_chunk``,
 or the whole sequence when shorter than one chunk) and teacher-forcing
 the rest through one-row paged decode steps, the last of which gives
 the next token (the reference fails there; a deliberate departure).
+An MoE decode step routes all ``max_batch`` rows, inactive ones included,
+so the rows share each expert's capacity as in the reference: a
+sequence's tokens can depend on its batch neighbours, and a preempted
+MoE sequence re-prefilled whole can route otherwise than the decode
+steps that first produced its tokens.
 
 A per-row logit health check (non-finite / collapsed) quarantines only
 the offending rows: a faulted row's length does not advance, so its

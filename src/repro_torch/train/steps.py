@@ -25,6 +25,12 @@ from .loss import chunked_ce
 
 def build_loss_fn(cfg) -> Callable:
     """loss_fn(packed_params, batch) -> scalar (batch-mean token CE)."""
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            f"{cfg.name}: MoE training is not ported to repro_torch (the "
+            f"router's aux loss LB_COEFF * lb_loss + ZLOSS_COEFF * "
+            f"router_z, the expert backward); MoE serves only; see "
+            f"ROADMAP.md Queue 1 item 9, the MoE training slice")
     if cfg.is_encoder_decoder or cfg.family not in ("dense", "ssm",
                                                     "hybrid"):
         raise NotImplementedError(

@@ -28,6 +28,15 @@ step :data:`SAVED`: :func:`assert_same_format` (the port's records are
 the reference's, byte for byte) and :func:`assert_reference_restores`
 (the reference restores the port's unquarantined).
 
+MoE routing, recorded on both sides and held equal before any value
+is compared (a top-k choice that flips at a near-tie moves an output by
+far more than rounding does): :func:`port_routing_recorder`,
+:func:`jax_routing_recorder` (the reference's routing, re-derived beside
+each ``moe_ffn`` call and read out by ``jax.debug.callback``) and
+:func:`assert_same_routing` (equal ``top_idx`` and keep masks, and the
+smallest gap between the k-th and (k+1)-th probability above the
+comparison's error scale).
+
 The kernels' 3xTF32 arithmetic (``csrc/tf32_mma.cuh``), for emulating
 them on the CPU: :func:`tf32` (the split's rounding), :func:`trunc_tf32`
 (what the MMA reads of an fp32 operand) and :func:`mm3` (one 3xTF32
@@ -257,3 +266,90 @@ def mm3(a, b, eq):
     def f(u, v):
         return torch.einsum(eq, u.double(), v.double())
     return (f(al, bh) + f(ah, bl) + f(ah, bh)).float()
+
+
+# the k-th/(k+1)-th probability gap must exceed this many times the
+# largest probability difference between the two sides: a flip needs the
+# two probabilities to cross, each moving by at most that difference
+GAP_FACTOR = 2.0
+
+
+def kth_gap(probs, k):
+    """Per token, the k-th largest probability minus the (k+1)-th."""
+    top = torch.topk(torch.from_numpy(np.array(probs, np.float64)), k + 1,
+                     dim=-1).values
+    return top[:, k - 1] - top[:, k]
+
+
+def port_routing_recorder(record):
+    """A stand-in for ``repro_torch.models.moe.route`` that appends each
+    call's ``(probs, top_idx, keep)`` (numpy) to ``record``."""
+    from repro_torch.models import moe
+    real = moe.route
+
+    def route(*a, **kw):
+        r = real(*a, **kw)
+        record.append(tuple(t.detach().cpu().numpy()
+                            for t in (r.probs, r.top_idx, r.keep)))
+        return r
+    return route
+
+
+def jax_routing(xf, router_w, k, capacity):
+    """The reference's routing of ``xf`` (T, d), as
+    ``repro.models.moe.moe_ffn`` derives it: fp32 softmax, top-k, the
+    position of each pair in its expert's queue by a stable sort."""
+    import jax
+    import jax.numpy as jnp
+    T, E = xf.shape[0], router_w.shape[-1]
+    probs = jax.nn.softmax(xf.astype(jnp.float32)
+                           @ router_w.astype(jnp.float32), axis=-1)
+    _, top_idx = jax.lax.top_k(probs, k)
+    flat_e = top_idx.reshape(-1)
+    order = jnp.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    grp_start = jnp.searchsorted(sorted_e, jnp.arange(E), side="left")
+    pos_sorted = jnp.arange(T * k, dtype=jnp.int32) - grp_start[sorted_e]
+    pos = jnp.zeros((T * k,), jnp.int32).at[order].set(pos_sorted)
+    return probs, top_idx, pos < capacity
+
+
+def jax_routing_recorder(record):
+    """A stand-in for ``repro.models.lm.moe_ffn`` that calls it and
+    appends each call's routing (:func:`jax_routing`) to ``record``,
+    in program order, also inside ``jit`` and ``lax.scan``."""
+    import jax
+    from repro.models import lm as jlm
+    from repro.models import moe as jmoe
+    real = jlm.moe_ffn
+
+    def moe_ffn(x, router_w, *w, top_k, capacity_factor=1.25, **kw):
+        B, S, d = x.shape
+        C = jmoe._capacity(B * S, top_k, router_w.shape[-1],
+                           capacity_factor)
+        jax.debug.callback(
+            lambda *a: record.append(tuple(np.asarray(t) for t in a)),
+            *jax_routing(x.reshape(B * S, d), router_w, top_k, C),
+            ordered=True)
+        return real(x, router_w, *w, top_k=top_k,
+                    capacity_factor=capacity_factor, **kw)
+    return moe_ffn
+
+
+def assert_same_routing(got, want, k):
+    """Equal ``top_idx`` and keep masks call by call, and each call's
+    smallest k-th/(k+1)-th probability gap above ``GAP_FACTOR`` times
+    its largest probability difference.  Returns the smallest gap."""
+    assert len(got) == len(want) and got, (len(got), len(want))
+    gaps = []
+    for (gp, gi, gk), (wp, wi, wk) in zip(got, want):
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_array_equal(gk, wk)
+        dprob = float(np.abs(np.asarray(gp, np.float64)
+                             - np.asarray(wp, np.float64)).max())
+        gap = float(kth_gap(wp, k).min())
+        assert gap > GAP_FACTOR * dprob, (gap, dprob)
+        gaps.append(gap)
+    print(f"routing equal over {len(got)} calls; smallest k-th gap "
+          f"{min(gaps):.3g}")
+    return min(gaps)

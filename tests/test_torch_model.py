@@ -265,19 +265,29 @@ def test_effective_weight_matches_jax():
 
 
 def test_other_families_are_refused():
-    moe = dataclasses.replace(get_config("llama-tiny"), family="moe",
-                              num_experts=4)
-    # families the port's registry does not hold yet, built from the
-    # reference's configs: phi-3-vision-4.2b (vlm) and whisper-small
-    # (audio, enc-dec)
-    vlm, encdec = (ModelConfig(**dataclasses.asdict(
+    # what the port does not run yet, built from the reference's configs:
+    # deepseek-v2-236b (MLA, shared experts, a leading dense layer),
+    # phi-3-vision-4.2b (vlm) and whisper-small (audio, enc-dec), each
+    # ROADMAP Queue 1 item 9; qwen3-moe-30b-a3b with grouped dispatch,
+    # item 10
+    mla, vlm, encdec = (ModelConfig(**dataclasses.asdict(
         jget_config(name).reduced()))
-        for name in ("phi-3-vision-4.2b", "whisper-small"))
-    for cfg in (moe, vlm, encdec):
-        with pytest.raises(NotImplementedError, match="not ported"):
+        for name in ("deepseek-v2-236b", "phi-3-vision-4.2b",
+                     "whisper-small"))
+    assert mla.use_mla and mla.num_shared_experts and mla.first_dense_layers
+    grouped = get_config("qwen3-moe-30b-a3b").reduced().replace(moe_groups=2)
+    for cfg, item in ((mla, 9), (vlm, 9), (encdec, 9), (grouped, 10)):
+        with pytest.raises(NotImplementedError,
+                           match=f"not ported.*Queue 1 item {item}"):
             lm.param_specs(cfg)
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(NotImplementedError,
+                           match=f"not ported.*Queue 1 item {item}"):
             lm.alloc_paged_state(cfg, 1, 2, 4, 8, device="cpu")
+    # MoE serves but does not train: the loss refuses it, naming the slice
+    from repro_torch.train.steps import build_loss_fn
+    with pytest.raises(NotImplementedError,
+                       match="MoE training.*Queue 1 item 9"):
+        build_loss_fn(get_config("qwen3-moe-30b-a3b").reduced())
     # SSM trains too: forward_hidden takes the reference's SSM branch
     ssm = get_config("mamba2-780m").reduced()
     params = lm.init_params(ssm, device="cpu")
