@@ -59,7 +59,7 @@
    route; its bound the larger of G's, V's and the output's bytes and
    the two bf16 products of G's hi and lo parts at the tensor-core
    peak).
-4. Serves qwen2-7b at full width and depth (28 layers) in bf16 with 4
+4. Serves qwen2-7b at full width and 14 of its 28 layers in bf16 with 4
    tenants: 8 requests of 128 prompt tokens and 32 new tokens through
    the continuous-batching engine, and checks that the main path
    launched the forward kernel in both forms; profiles one 128-token
@@ -80,9 +80,10 @@
    (prefill of 256 tokens each, 4 decode steps at batch 2) through the
    kernels on the card and through the plain versions on the CPU, from
    the same weights and adapters, and holds the logits together.  Then
-   the same for zamba2-7b, the hybrid (81 Mamba2 layers, one shared
+   the same for zamba2-7b, the hybrid (Mamba2 layers, one shared
    attention + MLP block after every 6th: its KV pages beside the
-   per-slot SSM state), at full width and depth, with 81 SSD launches a
+   per-slot SSM state), at full width and 27 of its 81 layers (the
+   shared block 4 times, a 3-layer tail), one SSD launch a layer per
    prefill; its lazy == merged and card == plain checks on a 3-layer
    fp32 cut with ``attn_every`` 2 (a group, the shared block, a tail
    layer); ``[serve preempt zamba2]`` on that cut, where a pool of 26
@@ -93,12 +94,13 @@
    set, frequencies from two fixed rows against the tempered softmax,
    and a sampled bf16 decode step under ``set_sync_debug_mode("error")``.
    ``[time]`` lines mark each phase's end.  Then
-   mistral-nemo-12b at full width and 20 of its 40 layers (bf16, 4
+   mistral-nemo-12b at full width and 10 of its 40 layers (bf16, 4
    tenants, 4 requests of 128 prompt and 16 new tokens), every launch
    ``"tc"``.
    Then qwen3-moe-30b-a3b, the MoE family (128 experts, top-8, capacity
-   dispatch), at full width and 24 of its 48 layers (the one cut: 4
-   tenants' B beside the weights do not fit the card at full depth),
+   dispatch), at full width and 6 of its 48 layers (4 tenants' B beside
+   the weights do not fit the card at full depth, and 6 keep the run's
+   time),
    bf16, 4 tenants, qwen2-7b's 8 requests: every low-rank forward
    launch (the attention projections and the unembedding; the expert
    products, adapters included, are library calls, as the reference's
@@ -160,7 +162,23 @@
    shared block, a tail layer) at batch 1 x 256 through the kernels
    against the CPU; and ``[serve trained tenant zamba2 lazy==merged]``:
    that cut trained 2 steps on the card, its checkpoint loaded by
-   ``load_tenant`` and served lazy == merged.  To run these alone,
+   ``load_tenant`` and served lazy == merged.  Then ``[train qwen3moe]``:
+   qwen3-moe-30b-a3b at full width and 20 of its 48 layers (bf16 over
+   fp32 B, m, v, Stiefel V at r = 128), batch 8 x 1024 (C = 640),
+   ``lazy_k`` 3, lr 1e-3, 10 steps: finite, falling losses; the first
+   step's remat recompute routed as its forward in every layer; the
+   pairs dropped by capacity each step; peak GiB by init, inner step and
+   outer step; ms per merge + resample and per resample; optimizer and
+   subspace state against arithmetic; every launch of rows 1, 2, 3 and 6
+   in the path's count, on ``"tc"``; a profile of two inner steps.
+   ``[train==plain qwen3moe]``: its 2-layer fp32 cut at batch 1 x 256,
+   lazy_k 2, 5 steps, each replayed on the CPU from the card's state,
+   routed alike, the loss, every gradient and the merged W held
+   together; and ``[serve trained tenant qwen3moe lazy==merged]``: that
+   run's B and V installed as a tenant and served lazy == merged.
+   ``python3 chip_smoke.py --qwen3moe-study`` runs only ``[train
+   qwen3moe]`` at five lrs under one warm-up, 12 steps each.  To run
+   these alone,
    import ``chip_smoke`` in a scratch script, build with
    ``_build.build_all`` and call ``train_zamba2(dev, mods, smi,
    configs)``, ``train_equals_plain(dev, mods, configs, "lowrank_adam
@@ -624,10 +642,15 @@ SERVE_RUNS = {"qwen2-7b": ((128,) * 8, 160, 32),
               MOE: ((128,) * 8, 160, 32)}
 # depth cuts, the one cut of each such run: qwen3-moe-30b-a3b's 48 layers
 # hold 61 GB of bf16 weights, its expert V 7.7 GB and each tenant's B
-# 5.7 GB, 91 GB with 4 tenants against the card's 80; 24 layers hold 46.
-# mistral-nemo-12b serves 20 of its 40 layers, to keep every phase
-# inside the run's time (its shapes, held at every depth, are unchanged)
-SERVE_LAYERS = {MOE: 24, "mistral-nemo-12b": 20}
+# 5.7 GB, 91 GB with 4 tenants against the card's 80 (24 layers hold 46).
+# To keep every phase inside the run's time (the shapes, held at every
+# depth, are unchanged): mistral-nemo-12b serves 10 of its 40 layers,
+# qwen3-moe-30b-a3b 6 of 48, zamba2-7b 27 of 81 (the shared block 4 times
+# and the 3-layer tail) and qwen2-7b 14 of 28: with the MoE training
+# phases every phase took 1090 s at fuller depths on an H100, and 1214 s
+# on a slower host
+SERVE_LAYERS = {MOE: 6, "mistral-nemo-12b": 10, "zamba2-7b": 27,
+                "qwen2-7b": 14}
 
 
 class RouteTap:
@@ -685,17 +708,26 @@ class RoutingLog(RouteTap):
                            (top[:, k - 1] - top[:, k]).min()))
 
 
-def same_routing(tag, a, b):
+def same_routing(tag, a, b, gap_rule=True):
     """Two runs routed alike: equal top-k and keep masks call by call, and
-    the smallest gap above twice the largest probability difference."""
+    (``gap_rule``) the smallest gap above twice the largest probability
+    difference; both are logged."""
     if len(a.calls) != len(b.calls) or not a.calls:
         raise SystemExit(f"[{tag}] {len(a.calls)} routings against "
                          f"{len(b.calls)}")
     gap, dprob, dropped, pairs = math.inf, 0.0, 0, 0
-    for (ia, ka, pa, ga), (ib, kb, pb, gb) in zip(a.calls, b.calls):
+    for n, ((ia, ka, pa, ga), (ib, kb, pb, gb)) in enumerate(
+            zip(a.calls, b.calls)):
         if not (torch.equal(ia.cpu(), ib.cpu())
                 and torch.equal(ka.cpu(), kb.cpu())):
-            raise SystemExit(f"[{tag}] the two runs routed differently")
+            rows = (ia.cpu() != ib.cpu()).any(-1)
+            d = (pa.double().cpu() - pb.double().cpu()).abs().max().item()
+            raise SystemExit(
+                f"[{tag}] the two runs routed differently in call {n} of "
+                f"{len(a.calls)}: top-k of {int(rows.sum())} tokens, keep "
+                f"of {int((ka.cpu() != kb.cpu()).sum())} pairs; smallest "
+                f"gaps {ga.item():.3g} / {gb.item():.3g}, largest "
+                f"probability difference {d:.3g}")
         gap = min(gap, ga.item(), gb.item())
         dprob = max(dprob, (pa.double().cpu() - pb.double().cpu()).abs()
                     .max().item())
@@ -707,7 +739,7 @@ def same_routing(tag, a, b):
         f"capacity")
     # a flip needs the k-th and (k+1)-th probabilities to cross, each
     # moving by at most dprob: a gap over 2 dprob rules it out
-    if not gap > 2 * dprob:
+    if gap_rule and not gap > 2 * dprob:
         raise SystemExit(f"[{tag}] a routing gap {gap} within twice the "
                          f"largest probability difference {dprob}")
 
@@ -988,12 +1020,12 @@ def paged_from_prefill(lm, cfg, st, S, page, dev):
 
 
 def lazy_equals_merged(dev, mods, arch="qwen2-7b", S=24, store=None,
-                       tenant="tenant0", tag=None):
+                       tenant="tenant0", tag=None, gap_rule=True):
     """Phase 5: lazy (B, V) serving == merged W + V B^T, fp32, on the
     full-width cut of :func:`cut_config`: prefill of ``S`` tokens and one
     paged decode step.  ``store`` (of that cut) serves ``tenant`` in
     place of a random one.  MoE (every expert merged as W_e + V_e B_eᵀ)
-    must route both runs alike."""
+    must route both runs alike (``gap_rule``: see :func:`same_routing`)."""
     lm, configs, serve_mod = mods["lm"], mods["configs"], mods["serve"]
     from repro_torch.models.common import tree_map
     from repro_torch.models.linear import effective_weight
@@ -1042,7 +1074,7 @@ def lazy_equals_merged(dev, mods, arch="qwen2-7b", S=24, store=None,
         logits.append((lg_pre[..., :cfg.vocab_size].float(),
                        lg_dec[..., :cfg.vocab_size].float()))
     if cfg.family == "moe":
-        same_routing(tag, *routes)
+        same_routing(tag, *routes, gap_rule=gap_rule)
     tol = 1e-4     # relative to max|logit|: fp32 sums in another order
     for name, a, b in (("prefill", logits[0][0], logits[1][0]),
                        ("decode", logits[0][1], logits[1][1])):
@@ -1796,8 +1828,14 @@ def _agree(name, got, want, tol_max, tol_elt=0.0):
     return err.max().item()
 
 
-def compare_train_kernels(mods, dev):
-    """Phase 3: the training kernels at the llama-100m shapes."""
+def compare_train_kernels(mods, dev, shapes=None, merge_shapes=None,
+                          M=TRAIN_M, shared=True):
+    """Phase 3: the training kernels at the llama-100m shapes (or
+    ``shapes``, which maps (K, N) to its leaves or to (leaves, M) where a
+    shape has rows of its own, and ``merge_shapes``; ``shared``: the
+    forward-only form too)."""
+    shapes = TRAIN_SHAPES if shapes is None else shapes
+    merge_shapes = MERGE_SHAPES if merge_shapes is None else merge_shapes
     ref, dispatch = mods["ref"], mods["dispatch"]
     lf, lb, lu, sa = mods["lf"], mods["lb"], mods["lu"], mods["sa"]
     gen = torch.Generator(device=dev)
@@ -1828,8 +1866,9 @@ def compare_train_kernels(mods, dev):
     def randn(*shape, scale=1.0):
         return scale * torch.randn(shape, generator=gen, device=dev)
 
-    M, r = TRAIN_M, RANK
-    for (K, N), leaves in TRAIN_SHAPES.items():
+    r, M0 = RANK, M
+    for (K, N), leaves in shapes.items():
+        leaves, M = leaves if isinstance(leaves, tuple) else (leaves, M0)
         x = randn(M, K).to(bf)
         w = randn(K, N, scale=K ** -0.5).to(bf)
         v = randn(K, r, scale=r ** -0.5).to(bf)
@@ -1860,22 +1899,23 @@ def compare_train_kernels(mods, dev):
                                                          return_p=True)),
                     queued_ms(lib_fwd)))
         # forward, shared B and no p: the forward-only lowrank_lr's form
-        lf.reset_launches()
-        y = lf.lowrank_forward(x, w, v, b)
-        torch.cuda.synchronize()
-        path = launch_path(lf)
-        err = _agree(f"forward[shared] y K={K} N={N}", y,
-                     ref.lowrank_forward(x, w, v, b), RTOL, RTOL)
-        del y
-        row("lowrank_forward[shared]", (M, K, N), leaves, err,
-            f"{RTOL}*(max|y|+|y|)",
-            time_auto(lambda: lf.lowrank_forward(x, w, v, b)),
-            time_auto(lambda: ref.lowrank_forward(x, w, v, b)),
-            time_auto(lambda: x @ w + (x @ v) @ b.T),
-            bound_of(nbytes - 2 * M * r, ops, BF16_FLOP_PER_S), path,
-            plan=plan_of(lf, "shared", M, K, N),
-            queued=(queued_ms(lambda: lf.lowrank_forward(x, w, v, b)),
-                    queued_ms(lambda: x @ w + (x @ v) @ b.T)))
+        if shared:
+            lf.reset_launches()
+            y = lf.lowrank_forward(x, w, v, b)
+            torch.cuda.synchronize()
+            path = launch_path(lf)
+            err = _agree(f"forward[shared] y K={K} N={N}", y,
+                         ref.lowrank_forward(x, w, v, b), RTOL, RTOL)
+            del y
+            row("lowrank_forward[shared]", (M, K, N), leaves, err,
+                f"{RTOL}*(max|y|+|y|)",
+                time_auto(lambda: lf.lowrank_forward(x, w, v, b)),
+                time_auto(lambda: ref.lowrank_forward(x, w, v, b)),
+                time_auto(lambda: x @ w + (x @ v) @ b.T),
+                bound_of(nbytes - 2 * M * r, ops, BF16_FLOP_PER_S), path,
+                plan=plan_of(lf, "shared", M, K, N),
+                queued=(queued_ms(lambda: lf.lowrank_forward(x, w, v, b)),
+                        queued_ms(lambda: x @ w + (x @ v) @ b.T)))
         # backward
         dy = randn(M, N, scale=1e-2).to(bf)
         lb.reset_launches()
@@ -1904,7 +1944,7 @@ def compare_train_kernels(mods, dev):
         del x, w, v, b, p, dy
         torch.cuda.empty_cache()
 
-    for shape, leaves in MERGE_SHAPES.items():
+    for shape, leaves in merge_shapes.items():
         lead, (K, N) = shape[:-2], shape[-2:]
         w = randn(*shape, scale=K ** -0.5).to(bf)
         v = randn(*lead, K, r, scale=r ** -0.5).to(bf)
@@ -1931,7 +1971,7 @@ def compare_train_kernels(mods, dev):
         del w, v, b, got, want, w3, v3, b3t
         torch.cuda.empty_cache()
 
-    for shape, leaves in MERGE_SHAPES.items():
+    for shape, leaves in merge_shapes.items():
         bshape = shape[:-2] + (shape[-1], r)
         b, g = randn(*bshape, scale=0.02), randn(*bshape, scale=1e-3)
         m, v = randn(*bshape, scale=1e-4), randn(*bshape, scale=1e-4) ** 2
@@ -2254,10 +2294,18 @@ def train(dev, mods, smi, cfg, tcfg, batch, seq, steps, tag="train",
         f"grad_accum={tcfg.grad_accum}")
     loader = StatelessLoader("lm", 0, device=dev, batch=batch, seq_len=seq,
                              vocab=cfg.vocab_size)
+    if dev.type == "cuda":
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
     t_made = time.perf_counter()
     tr = Trainer(cfg, tcfg, loader, device=dev)
     t_made = time.perf_counter() - t_made
     if dev.type == "cuda":
+        torch.cuda.synchronize()
+        init_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[{tag}] init peak {init_gib:.2f} GiB while the trainer was "
+            f"made")
         # free what earlier phases left in reference cycles (the serving
         # engine's timing wrappers hold its weights) before the peak is
         # reset, so the peak is this run's own
@@ -2460,6 +2508,622 @@ def zamba2_study(dev, mods, smi, configs):
             + ", ".join(f"after {n} steps {sum(losses[n - 3:n]) / 3:.4f} "
                         f"(margin {losses[0] - sum(losses[n - 3:n]) / 3:+.4f})"
                         for n in (8, 10, 12)))
+
+
+# ---------------------------------------------------------------------------
+# MoE training: qwen3-moe-30b-a3b through Algorithm 1
+# ---------------------------------------------------------------------------
+
+# [train qwen3moe]: full width, 20 of the 48 layers (at 24 the weights,
+# B, m, v, V and the step's transients come to 76-78 GB by arithmetic),
+# batch 8 x 1024, lazy_k 3, 10 steps (three merges)
+QWEN3_TRAIN = dict(layers=20, batch=8, seq=1024, steps=10)
+QWEN3_LR = 1e-3
+QWEN3_TRAIN_M = QWEN3_TRAIN["batch"] * QWEN3_TRAIN["seq"]
+# the chunked CE's rows a launch: the batch times its chunk of 512 tokens
+QWEN3_CE_M = QWEN3_TRAIN["batch"] * 512
+# (K, N) the low-rank forward and backward see -> (leaves, rows)
+QWEN3_TRAIN_SHAPES = {(2048, 4096): ("wq", QWEN3_TRAIN_M),
+                      (2048, 512): ("wk,wv", QWEN3_TRAIN_M),
+                      (4096, 2048): ("wo", QWEN3_TRAIN_M),
+                      (2048, 152064): ("unembed", QWEN3_CE_M)}
+# the expert groups the merge and the update see at 20 layers -> leaves
+QWEN3_EXPERT_GROUPS = {(2, 20, 128, 2048, 768): "w_gate,w_up",
+                       (1, 20, 128, 768, 2048): "w_down"}
+# the merge's [kernel] rows check the plain version over this many items
+# at a time (fp32, 256 x 2048 x 768 a piece: 1.6 GB)
+MERGE_PIECE = 256
+
+
+def qwen3_train_config(configs, lr=QWEN3_LR):
+    """qwen3-moe-30b-a3b at full width and ``QWEN3_TRAIN``'s depth and
+    ``[train qwen3moe]``'s ``lowrank_adam`` settings (lazy_k 3, a 2-step
+    warm-up) at ``lr``."""
+    return train_config(configs, arch=MOE, layers=QWEN3_TRAIN["layers"],
+                        lazy_k=3, lr=lr, warmup_steps=2, total_steps=1000)
+
+
+def qwen3_want_launches(cfg, tcfg, steps, merges, ce_chunks):
+    """The launches ``steps`` steps of ``[train qwen3moe]`` should make,
+    by counter key: each attention projection forward twice a layer (the
+    block and its recompute under remat) and backward once; the
+    unembedding the same for each CE chunk; one merge and one
+    ``subspace_adam`` per group at each outer step and each step; every
+    GEMM and merge on the tensor cores (the update on its one route)."""
+    from repro_torch.models import lm
+    from repro_torch.optim import subspace
+    L, d = cfg.num_layers, cfg.d_model
+    q = cfg.num_heads * cfg.resolved_head_dim
+    kv = cfg.num_kv_heads * cfg.resolved_head_dim
+    lf, lb = {}, {}
+    for (K, N), n in (((d, q), L), ((d, kv), 2 * L), ((q, d), L),
+                      ((d, lm.padded_vocab(cfg)), ce_chunks)):
+        lf[("p", "tc", K, N)] = lf.get(("p", "tc", K, N), 0) + 2 * n * steps
+        lb[("tc", K, N)] = lb.get(("tc", K, N), 0) + n * steps
+    lu, sa = {}, {}
+    for spec in subspace.build_layout(lm.param_specs(cfg), tcfg).groups:
+        shape = (len(spec.leaf_idx),) + spec.shape
+        lu[("lowrank_merge", "tc", shape)] = merges
+        sa[("subspace_adam", shape[:-2] + (shape[-1], spec.rank))] = steps
+    return lf, lb, lu, sa
+
+
+class MoETrainTap(RouteTap):
+    """``[train qwen3moe]``'s routings: the pairs dropped by capacity,
+    counted on the device and read once a step; while ``record``, each
+    call's top-k experts and keep mask (the first step's forward and its
+    recompute under remat)."""
+
+    def __init__(self, moe_mod, dev):
+        super().__init__(moe_mod)
+        self.record, self.calls = True, []
+        self.dropped = torch.zeros((), dtype=torch.long, device=dev)
+        self.pairs = 0
+
+    def seen(self, r):
+        if self.record:
+            self.calls.append((r.top_idx, r.keep))
+        self.dropped += (~r.keep).sum()
+        self.pairs += r.keep.numel()
+
+    def share(self):
+        d, n = int(self.dropped.item()), self.pairs
+        self.dropped.zero_()
+        self.pairs = 0
+        return d, n
+
+
+def state_against_arithmetic(tr, tag):
+    """The subspace state (B, m, v fp32 per group) and the optimizer
+    state (also V in the compute dtype per group, fp32 m and v per dense
+    leaf, two int32 step counters) measured against their arithmetic.
+    (A function of its own: no local keeps the state alive afterwards.)"""
+    lay = tr.opt_state.layout
+    sub = sum(12 * math.prod((len(spec.leaf_idx),) + spec.shape[:-2])
+              * spec.shape[-1] * spec.rank for spec in lay.groups)
+    vsize = torch.empty((), dtype=getattr(
+        torch, lay.compute_dtype)).element_size()
+    proj = sum(vsize * math.prod((len(spec.leaf_idx),) + spec.shape[:-1])
+               * spec.rank for spec in lay.groups)
+    dense = sum(8 * w.numel() for w in tr.params.dense)
+    want = sub + proj + dense + 8
+    got_sub, got = state_bytes(tr), opt_state_bytes(tr.opt_state)
+    log(f"[{tag}] subspace state (B, m, v) {got_sub} bytes, arithmetic "
+        f"{sub}; optimizer state {got} bytes, arithmetic {want} (V {proj}, "
+        f"dense moments {dense})")
+    if (got_sub, got) != (sub, want):
+        raise SystemExit(f"[{tag}] state bytes off their arithmetic")
+
+
+def remat_routes_alike(tag, calls, layers):
+    """The first step's routings: each layer's forward (calls 0..L-1) and
+    its recompute in the backward (calls L..2L-1, last layer first) chose
+    the same experts and kept the same pairs.  ``torch.utils.checkpoint``
+    checks shapes only, so a flip would give wrong gradients silently."""
+    if len(calls) != 2 * layers:
+        raise SystemExit(f"[{tag}] {len(calls)} routings in the first step, "
+                         f"not {layers} and {layers} recomputed")
+    for i in range(layers):
+        (fi, fk), (ri, rk) = calls[i], calls[2 * layers - 1 - i]
+        if not (torch.equal(fi, ri) and torch.equal(fk, rk)):
+            raise SystemExit(f"[{tag}] layer {i}'s recompute routed unlike "
+                             f"its forward")
+    log(f"[{tag}] remat: the recompute of each of the {layers} layers "
+        f"routed as its forward in the first step (top-k and keep equal)")
+
+
+def train_qwen3moe(dev, mods, smi, configs, lr=QWEN3_LR, steps=None,
+                   tag="train qwen3moe", falling=True, profile=True):
+    """[train qwen3moe]: qwen3-moe-30b-a3b at full width, 20 of its 48
+    layers (d 2048, 32/4 heads x 128, qk-norm, 128 experts top-8,
+    moe_d_ff 768, vocab 152064 padded; bf16 compute over fp32 B, m and v,
+    Stiefel V at r = 128), batch 8 x 1024 (T = 8192, C = 640), lazy_k 3,
+    10 steps (three merges): finite, falling losses; the first step's
+    recompute routed as its forward; the pairs dropped each step; peak
+    GiB by init, step and merge; ms per merge + resample and per
+    resample; optimizer and subspace state against arithmetic; every
+    launch of rows 1, 2, 3 and 6 in the count the path should make, the
+    GEMMs and merges on the tensor cores; then a profile of two inner
+    steps.  Returns the launch counters of the run."""
+    from repro_torch.optim import subspace
+    lf, lb, lu, sa = mods["lf"], mods["lb"], mods["lu"], mods["sa"]
+    cfg, tcfg = qwen3_train_config(configs, lr)
+    steps = steps or QWEN3_TRAIN["steps"]
+    batch, seq = QWEN3_TRAIN["batch"], QWEN3_TRAIN["seq"]
+    tap = MoETrainTap(mods["moe"], dev)
+    peaks = {"step": 0.0, "merge": 0.0}
+    outer_ms, draw_ms, drops = [], [], []
+    cuda = dev.type == "cuda"
+
+    def gib():
+        return torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
+
+    def mark_peak(kind):
+        if cuda:
+            torch.cuda.synchronize()
+            peaks[kind] = max(peaks[kind], gib())
+            torch.cuda.reset_peak_memory_stats()
+
+    def timed_outer(real):
+        def outer(params, state):
+            mark_peak("step")
+            draw = subspace._sample_proj_group
+
+            def timed_draw(*a, **kw):
+                if cuda:
+                    torch.cuda.synchronize()
+                t = time.perf_counter()
+                v = draw(*a, **kw)
+                if cuda:
+                    torch.cuda.synchronize()
+                draw_ms[-1] += 1e3 * (time.perf_counter() - t)
+                return v
+            draw_ms.append(0.0)
+            subspace._sample_proj_group = timed_draw
+            t0 = time.perf_counter()
+            try:
+                out = real(params, state)
+            finally:
+                subspace._sample_proj_group = draw
+            if cuda:
+                torch.cuda.synchronize()
+            outer_ms.append(1e3 * (time.perf_counter() - t0))
+            mark_peak("merge")
+            return out
+        return outer
+
+    def hook(tr, s):
+        mark_peak("step")
+        d, n = tap.share()
+        drops.append(d / max(n, 1))
+        log(f"[{tag}] step {s}: {d} of {n} routed pairs dropped by "
+            f"capacity ({100 * d / max(n, 1):.2f}%, the forward and its "
+            f"recompute)")
+        if s == 1:
+            remat_routes_alike(tag, tap.calls, cfg.num_layers)
+            tap.record, tap.calls = False, []
+            tr._outer = timed_outer(tr._outer)
+
+    with tap:
+        tr, losses = train(dev, mods, smi, cfg, tcfg, batch, seq, steps,
+                           tag=tag, falling=falling, hook=hook)
+    counts = {"lf": dict(lf.LAUNCHES), "lb": dict(lb.LAUNCHES),
+              "lu": dict(lu.LAUNCHES), "sa": dict(sa.LAUNCHES)}
+    log(f"[{tag}] peak {peaks['step']:.2f} GiB in an inner step, "
+        f"{peaks['merge']:.2f} GiB in an outer step, on {smi}")
+    log(f"[{tag}] outer steps (merge + resample) " + ", ".join(
+        f"{ms:.1f}" for ms in outer_ms) + " ms; the resample's draws "
+        + ", ".join(f"{ms:.1f}" for ms in draw_ms) + " ms")
+    log(f"[{tag}] dropped share by step: " + ", ".join(
+        f"{100 * x:.2f}%" for x in drops))
+    state_against_arithmetic(tr, tag)
+    if cuda:
+        want_lf, want_lb, want_lu, want_sa = qwen3_want_launches(
+            cfg, tcfg, steps, len(outer_ms),
+            ce_chunks=seq // min(cfg.loss_chunk, seq))
+        for name, got_c, want_c in (("lowrank_forward", counts["lf"],
+                                     want_lf),
+                                    ("lowrank_backward", counts["lb"],
+                                     want_lb),
+                                    ("lowrank_merge", counts["lu"], want_lu),
+                                    ("subspace_adam", counts["sa"], want_sa)):
+            log(f"[{tag}] launches {name}: " + ", ".join(
+                f"{list(k)}={n}" for k, n in got_c.items()))
+            if got_c != want_c:
+                raise SystemExit(f"[{tag}] {name} launches {got_c}, the path "
+                                 f"should make {want_c}")
+    if profile:
+        t0 = time.perf_counter()
+        profile_train(tr, tag=f"profile-{tag}",
+                      match=("tc::", "adam_kernel", "merge_tc"))
+        log(f"[{tag}] the profile took {time.perf_counter() - t0:.1f} s")
+    if cuda:
+        torch.cuda.synchronize()
+    del tr
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return counts, losses
+
+
+QWEN3_STUDY_LRS = (1e-3, 5e-4, 3e-4, 2e-4, 1e-4)
+QWEN3_STUDY_STEPS = 12
+
+
+def qwen3moe_study(dev, mods, smi, configs):
+    """``python3 chip_smoke.py --qwen3moe-study``: the lr of ``[train
+    qwen3moe]`` and nothing else.  qwen3-moe-30b-a3b as that phase trains
+    it, at each lr of ``QWEN3_STUDY_LRS``, every run with the same 2-step
+    warm-up, weights and batches, ``QWEN3_STUDY_STEPS`` steps: each
+    step's loss, and after 8, 10 and 12 steps the mean of the last 3
+    against the first."""
+    for lr in QWEN3_STUDY_LRS:
+        tag = f"qwen3moe study lr={lr:g}"
+        try:
+            _, losses = train_qwen3moe(dev, mods, smi, configs, lr=lr,
+                                       steps=QWEN3_STUDY_STEPS, tag=tag,
+                                       falling=False, profile=False)
+        except SystemExit as e:     # a diverged run is a result here
+            log(f"[{tag}] stopped: {e}")
+            continue
+        log(f"[{tag}] first loss {losses[0]:.4f}; mean of the last 3 "
+            + ", ".join(f"after {n} steps {sum(losses[n - 3:n]) / 3:.4f} "
+                        f"(margin {losses[0] - sum(losses[n - 3:n]) / 3:+.4f})"
+                        for n in (8, 10, 12)))
+
+
+def compare_moe_update_kernels(mods, dev):
+    """Rows 3 and 6 at qwen3-moe-30b-a3b's expert groups (20 layers): the
+    merge over a group's whole (G, L, E, k, n) buffer in one launch (the
+    w_gate,w_up group holds 8.05 G elements, past 2^31: every item, those
+    past element 2^31 among them, is held against the plain version, in
+    pieces of ``MERGE_PIECE`` items), and ``subspace_adam`` on the
+    groups' B.  The plain merge is timed over the same pieces (its fp32
+    whole would not fit), the library call is ``torch.baddbmm`` in place
+    on a bf16 copy of B."""
+    ref, dispatch = mods["ref"], mods["dispatch"]
+    lu, sa = mods["lu"], mods["sa"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    bf, r = torch.bfloat16, RANK
+    rows = []
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        # drawn in pieces of 2^27 elements (a w_gate,w_up group in fp32
+        # whole would take 32 GB)
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        flat, piece = out.view(-1), 1 << 27
+        for a in range(0, flat.numel(), piece):
+            z = min(flat.numel(), a + piece)
+            flat[a:z] = (scale * torch.randn(z - a, generator=gen,
+                                             device=dev)).to(dtype)
+        return out
+
+    for shape, leaves in QWEN3_EXPERT_GROUPS.items():
+        lead, (K, N) = shape[:-2], shape[-2:]
+        items = math.prod(lead)
+        w = randn(*shape, scale=K ** -0.5, dtype=bf)
+        v = randn(*lead, K, r, scale=r ** -0.5, dtype=bf)
+        b = randn(*lead, N, r, scale=0.02)
+        lu.reset_launches()
+        got = lu.lowrank_merge(w, v, b)
+        torch.cuda.synchronize()
+        path = launch_path(lu, at=1)
+        w3, v3, b3 = (t.reshape(items, *t.shape[-2:]) for t in (w, v, b))
+        got3 = got.reshape(items, K, N)
+        err, past = 0.0, 0
+        for a in range(0, items, MERGE_PIECE):
+            z = min(items, a + MERGE_PIECE)
+            want = ref.lowrank_merge(w3[a:z], v3[a:z], b3[a:z])
+            err = max(err, _agree(f"merge {shape} items {a}..{z - 1}",
+                                  got3[a:z], want, RTOL, RTOL))
+            past += sum(1 for i in range(a, z) if (i + 1) * K * N > 2 ** 31)
+            del want
+        log(f"[kernel] lowrank_merge {list(shape)}: {w.numel()} elements "
+            f"in one launch; all {items} items held against the plain "
+            f"version, {past} of them past element 2^31")
+
+        def plain():
+            for a in range(0, items, MERGE_PIECE):
+                z = min(items, a + MERGE_PIECE)
+                got3[a:z] = ref.lowrank_merge(w3[a:z], v3[a:z], b3[a:z])
+        b3t = b3.to(bf).transpose(1, 2)
+        nbytes = 2 * (2 * K * N + K * r) * items + 4 * N * r * items
+        bms, by = bound_of(nbytes, 2 * K * N * r * items, BF16_FLOP_PER_S)
+        ms = queued_ms(lambda: lu.lowrank_merge(w, v, b, out=got), calls=5)
+        plain_ms = queued_ms(plain, calls=2)
+        lib_ms = queued_ms(lambda: torch.baddbmm(w3, v3, b3t, out=got3),
+                           calls=5)
+        rows.append(dict(kernel="lowrank_merge", shape=shape, leaves=leaves,
+                         path=path, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                         bound_by=by))
+        log(f"[kernel] lowrank_merge      {str(shape):22s} ({leaves}) "
+            f"route={path} max_abs_err={err:.4g} (tol {RTOL}*(max|W'|+|W'|)"
+            f") ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+            f"bound_ms={bms:.4f} ({by}) [queued]")
+        del w, v, b, got, w3, v3, b3, got3, b3t
+        free()
+
+    for shape, leaves in QWEN3_EXPERT_GROUPS.items():
+        bshape = shape[:-2] + (shape[-1], r)
+        b, g = randn(*bshape, scale=0.02), randn(*bshape, scale=1e-3)
+        m = randn(*bshape, scale=1e-4)
+        v = randn(*bshape, scale=1e-4) ** 2
+        step = torch.tensor(5, dtype=torch.int32, device=dev)
+        scalars = dispatch.adam_scalars(1e-3, step, ADAM["beta1"],
+                                        ADAM["beta2"], dev)
+        sa.reset_launches()
+        got = sa.subspace_adam(b, g, m, v, scalars, **ADAM)
+        torch.cuda.synchronize()
+        if not sa.launches():
+            raise SystemExit(f"subspace_adam {bshape} launched no kernel")
+        lr, bc1, bc2 = scalars
+        want = ref.subspace_adam(b, g, m, v, lr=lr, bc1=bc1, bc2=bc2, **ADAM)
+        err = max(_agree(f"adam {bshape} {n}", x, y, 1e-6)
+                  for n, x, y in zip("bmv", got, want))
+        del got, want
+        n = b.numel()
+        pb = b.clone()
+        pb.grad = g
+        opt = torch.optim.AdamW([pb], lr=1e-3, betas=(ADAM["beta1"],
+                                                      ADAM["beta2"]),
+                                eps=ADAM["eps"], weight_decay=ADAM["wd"],
+                                fused=True)
+        ms = queued_ms(lambda: sa.subspace_adam(b, g, m, v, scalars, **ADAM),
+                       calls=10)
+        plain_ms = queued_ms(lambda: ref.subspace_adam(
+            b, g, m, v, lr=lr, bc1=bc1, bc2=bc2, **ADAM), calls=5)
+        lib_ms = queued_ms(opt.step, calls=10)
+        bms, by = bound_of(28 * n, 15 * n, FP32_FLOP_PER_S)
+        rows.append(dict(kernel="subspace_adam", shape=bshape, leaves=leaves,
+                         path="simt", max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                         bound_by=by))
+        log(f"[kernel] subspace_adam      {str(bshape):22s} ({leaves}) "
+            f"max_abs_err={err:.4g} (tol 1e-6*max|x|) ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+            f"bound_ms={bms:.4f} ({by}) [queued]")
+        del b, g, m, v, pb, opt
+        free()
+    return rows
+
+
+def qwen3_train_rows(train_rows, update_rows, counts):
+    """The JSON rows of rows 1, 2, 3 and 6 at qwen3-moe's training shapes,
+    with their launches from ``[train qwen3moe]``."""
+    out = []
+    for row in train_rows + update_rows:
+        kernel, shape = row["kernel"], row["shape"]
+        if kernel == "lowrank_forward[p]":
+            n = shape_launches(counts["lf"], "p", *shape[1:])
+        elif kernel == "lowrank_backward":
+            n = sum(c for k, c in counts["lb"].items() if k[1:] == shape[1:])
+        elif kernel == "lowrank_merge":
+            n = sum(c for k, c in counts["lu"].items()
+                    if k[0] == kernel and k[2] == shape)
+        else:
+            n = counts["sa"].get((kernel, shape), 0)
+        out.append({
+            "name": f"{kernel} {list(shape)} ({MOE} {row['leaves']})",
+            "route": "cuda", "path": row["path"],
+            "source": TRAIN_SOURCES[kernel],
+            "replaces": TRAIN_REPLACES[kernel], "launches": n,
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            **({} if row.get("plan") is None else {"plan": row["plan"]}),
+            **({} if row.get("queued") is None else
+               {"queued_ms": row["queued"][0],
+                "library_queued_ms": row["queued"][1]}),
+            **({"timing": "queued"} if kernel in ("lowrank_merge",
+                                                  "subspace_adam") else {})})
+    return out
+
+
+# [train==plain qwen3moe]: qwen3-moe-30b-a3b's 2-layer fp32 cut at batch
+# 1 x 256, every step replayed on the CPU from the card's state; limits
+# relative to each quantity's largest magnitude: the step's loss, every
+# gradient of the step (each group's B, the router and the other dense
+# leaves), and the merged W of each group after an outer step.  About 5x
+# the gaps measured on an H100 80GB HBM3 (700 W; the same to the last
+# digit in every run): loss 7.57e-8, gradients 1.22e-5 (fp32
+# sums in other orders through 128 experts' products); the merged W
+# equal bit for bit (fp32 W: the SIMT merge sums in the plain order), so
+# its limit is fp32 rounding
+QWEN3_TRAIN_PLAIN_TOL = dict(loss=4e-7, grad=6e-5, merged=1e-6)
+
+
+def copy_into(dst, src):
+    """Copy ``src`` (a trainer's params or optimizer state) into ``dst``,
+    a structure of the same shapes on another device: tensors with
+    ``copy_`` (no new allocation), a generator by its state where both
+    are of one device type (else it is left: a CUDA generator's state
+    is no CPU generator's); returns ``dst``."""
+    if torch.is_tensor(src):
+        return dst.copy_(src)
+    if isinstance(src, torch.Generator):
+        if src.device.type == dst.device.type:
+            dst.set_state(src.get_state())
+        return dst
+    if isinstance(src, (tuple, list)):
+        for d, x in zip(dst, src):
+            copy_into(d, x)
+    elif isinstance(src, dict):
+        for k in src:
+            copy_into(dst[k], src[k])
+    elif dataclasses.is_dataclass(src) and not isinstance(src, type):
+        for f in dataclasses.fields(src):
+            copy_into(getattr(dst, f.name), getattr(src, f.name))
+    return dst
+
+
+def _rel(a, b):
+    """max |a - b| / max |b| in float64, on ``a``'s device."""
+    a, b = a.detach().double(), b.detach().to(a.device).double()
+    return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+
+def train_equals_plain_replayed(dev, mods, configs, tol=None, steps=5,
+                                batch=1):
+    """[train==plain qwen3moe]: the kernel route on the card against the
+    plain route on the CPU, qwen3-moe-30b-a3b's 2-layer full-width fp32
+    cut, batch ``batch`` x 256, ``lowrank_adam``, lazy_k 2, ``steps``
+    steps.  Each step is replayed on the CPU from the card's state
+    (weights, B, m, v, V, the step; at an outer step the CPU merges and
+    takes the card's fresh V, whose draw is no kernel): a
+    trajectory run on its own parts by more than rounding after a few
+    steps (a first Adam step after each merge is sign-like, so an
+    element whose gradient lies at fp32's rounding noise moves by lr
+    either way), and at 5 steps the card's and the CPU's routing then
+    differed in one token of 256.  From equal states each
+    step must route alike in every call (forward and remat recompute;
+    the smallest k-th/(k+1)-th gap and the largest probability
+    difference logged), and give the loss, every gradient and, after an
+    outer step, every merged W within ``tol``.  Returns the card's
+    trained B and V, one of each per group (the tenant of
+    :func:`serve_trained_qwen3moe`)."""
+    from repro_torch.data.synthetic import StatelessLoader
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import subspace
+    from repro_torch.train.trainer import Trainer
+    tol = tol or QWEN3_TRAIN_PLAIN_TOL
+    tag = f"train==plain {short(MOE)}"
+    cfg = cut_config(configs, MOE)
+    tcfg = configs.TrainConfig(rank=RANK, compute_dtype="float32", lazy_k=2,
+                               warmup_steps=1, total_steps=steps, lr=1e-3)
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=7, device=dev)
+    loader = StatelessLoader("lm", 3, device=cpu, batch=batch, seq_len=256,
+                             vocab=cfg.vocab_size)
+    plain_params = tree_map(lambda t: t.cpu(), params)
+    card = Trainer(cfg, tcfg, loader, device=dev, params=params)
+    real_draw = subspace._sample_proj_group
+    draws = []
+
+    def recorded_draw(*a, **kw):
+        draws.append(real_draw(*a, **kw))
+        return draws[-1]
+
+    def injected_draw(name, gen, spec, n, c, dtype, device, energy=None):
+        return draws.pop(0).to(device, dtype)
+    # the CPU trainer's own start is overwritten before its first step
+    subspace._sample_proj_group = \
+        lambda name, gen, spec, n, c, dtype, device, energy=None: \
+        torch.zeros((n,) + spec.shape[:-1] + (spec.rank,), dtype=dtype,
+                    device=device)
+    try:
+        plain = Trainer(cfg, tcfg, loader, device=cpu, params=plain_params,
+                        sample_device=cpu)
+    finally:
+        subspace._sample_proj_group = real_draw
+    del params, plain_params
+    log(f"[{tag}] the weights and both trainers made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for mod in mods.get("counters", ()):
+        mod.reset_launches()
+    real_update = subspace.inner_update
+    grads = []
+
+    def recorded_update(g, *a, **kw):
+        # copies: the update clips the gradients in place
+        grads.append([t.detach().clone()
+                      for t in list(g.dense) + list(g.groups)])
+        return real_update(g, *a, **kw)
+    worst = dict(loss=0.0, grad=0.0, merged=0.0)
+    subspace.inner_update = recorded_update
+    try:
+        merged = False
+        for s in range(steps):
+            # the grouped W changes at an outer step only
+            copy_into(plain.params.dense, card.params.dense)
+            if merged:
+                copy_into(plain.params.groups, card.params.groups)
+            copy_into(plain.opt_state, card.opt_state)
+            plain.step = card.step
+            merged = merging = card.outer_due()
+            grads.clear()
+            routes, losses, secs = [], [], []
+            for tr, draw in ((card, recorded_draw), (plain, injected_draw)):
+                routes.append(RoutingLog(mods["moe"]))
+                subspace._sample_proj_group = draw
+                t1 = time.perf_counter()
+                try:
+                    with routes[-1]:
+                        losses.append(tr.run(1).losses[0])
+                finally:
+                    subspace._sample_proj_group = real_draw
+                secs.append(time.perf_counter() - t1)
+            if draws:
+                raise SystemExit(f"[{tag}] the CPU took {len(draws)} fewer "
+                                 f"draws than the card")
+            same_routing(f"{tag} step {s + 1}", *routes, gap_rule=False)
+            got = dict(loss=abs(losses[0] - losses[1]) / abs(losses[1]),
+                       grad=max(_rel(a, b) for a, b in zip(*grads)))
+            if merging:
+                got["merged"] = max(_rel(a, b) for a, b in zip(
+                    card.params.groups, plain.params.groups))
+            log(f"[{tag}] step {s + 1}"
+                + (" (after an outer merge)" if merging else "")
+                + f" ({secs[0]:.1f} s on the card, {secs[1]:.1f} s on the "
+                f"CPU): loss card {losses[0]:.7f} cpu {losses[1]:.7f}; "
+                + ", ".join(f"{k} max rel diff {v:.3g}"
+                            for k, v in got.items()))
+            for k, v in got.items():
+                worst[k] = max(worst[k], v)
+    finally:
+        subspace.inner_update = real_update
+    log(f"[{tag}] {cfg.name} {cfg.num_layers} layers, fp32 compute, batch "
+        f"{batch}x256 lazy_k=2, {steps} steps each replayed from the card's "
+        f"state: max rel diff " + ", ".join(
+            f"{k} {v:.3g} (tol {tol[k]})" for k, v in worst.items()))
+    if "lf" in mods:
+        by_route = {}
+        for (_, route, _, _), n in mods["lf"].LAUNCHES.items():
+            by_route[route] = by_route.get(route, 0) + n
+        log(f"[{tag}] card launches: forward by route {by_route}, "
+            f"backward {mods['lb'].launches()}, merge "
+            f"{mods['lu'].launches('lowrank_merge')}, subspace_adam "
+            f"{mods['sa'].launches('subspace_adam')} (fp32, r = {RANK})")
+        if set(by_route) - {"simt"} or not (
+                mods["lb"].launches() and mods["lu"].launches("lowrank_merge")
+                and mods["sa"].launches("subspace_adam")):
+            raise SystemExit(f"[{tag}] the card run missed a training kernel "
+                             f"or left the SIMT route: {by_route}")
+    bad = {k: v for k, v in worst.items() if not v <= tol[k]}
+    if bad:
+        raise SystemExit(f"[{tag}] training through the kernels disagrees "
+                         f"with the plain route: {bad} over {tol}")
+    trained = ([g.b for g in card.opt_state.groups],
+               [g.proj for g in card.opt_state.groups])
+    del card, plain
+    free()
+    return trained
+
+
+def serve_trained_qwen3moe(dev, mods, configs, trained):
+    """[serve trained tenant qwen3moe lazy==merged]: the B and V that
+    ``[train==plain qwen3moe]``'s card trainer left (qwen3-moe's 2-layer
+    fp32 cut, 5 steps; every expert's), installed as a tenant of a store
+    of that cut, lazy == merged within phase 5's limit, routed alike.
+    (They are installed by ``add_tenant``: the cut's checkpoint, 7.5 GB
+    of fp32, takes 32 s to write; ``load_tenant`` reads a trained MoE
+    checkpoint in ``tests/test_torch_moe_train_methods.py``.)"""
+    serve_mod = mods["serve"]
+    cfg = cut_config(configs, MOE)
+    store = serve_mod.AdapterStore(cfg, configs.TrainConfig(rank=RANK), 1,
+                                   device=dev)
+    store.add_tenant("trained", *trained)
+    # equal masks are asked for; the gap rule is not: a trained router has
+    # pairs nearer a tie than the random init's (2.79e-7 against a
+    # probability difference of 2.68e-7 between the lazy and merged runs
+    # on an H100), which the two runs still route alike
+    lazy_equals_merged(dev, mods, MOE, S=128, store=store, tenant="trained",
+                       tag="serve trained tenant qwen3moe lazy==merged",
+                       gap_rule=False)
+    free()
 
 
 def train_launches(mods):
@@ -3905,6 +4569,9 @@ def main():
     if sys.argv[1:2] == ["--zamba2-study"]:
         zamba2_study(dev, mods, smi, configs)
         return
+    if sys.argv[1:2] == ["--qwen3moe-study"]:
+        qwen3moe_study(dev, mods, smi, configs)
+        return
     def mark(label):
         log(f"[time] {label} done at {time.perf_counter() - t0:.0f} s")
     rows = compare_kernels(lf, ref, dev)
@@ -3926,6 +4593,9 @@ def main():
     train_rows = compare_train_kernels(mods, dev)
     state_rows = compare_state_kernels(mods, dev)
     project_rows = compare_project_kernel(mods, dev)
+    q3_gemm_rows = compare_train_kernels(mods, dev, QWEN3_TRAIN_SHAPES, {},
+                                         shared=False)
+    q3_update_rows = compare_moe_update_kernels(mods, dev)
     mark("[kernel] rows")
     counts, _ = serve(dev, mods, smi)
     lazy_equals_merged(dev, mods)
@@ -3980,6 +4650,10 @@ def main():
                        ZAMBA_TRAIN_PLAIN_TOL, arch="zamba2-7b", batch=1)
     serve_trained_zamba2(dev, mods, configs)
     mark("zamba2-7b training")
+    q3_train_counts, _ = train_qwen3moe(dev, mods, smi, configs)
+    serve_trained_qwen3moe(dev, mods, configs,
+                           train_equals_plain_replayed(dev, mods, configs))
+    mark("qwen3-moe-30b-a3b training")
     enc_rows = compare_encoder_kernels(mods, dev)
     enc_counts = finetune(dev, mods, smi, configs)
     mark("encoder fine-tuning")
@@ -4089,6 +4763,8 @@ def main():
                 "library_queued_ms": row["queued"][1]}),
             **({} if row["eager_ms"] is None else
                {"timing": "queued", "eager_ms": row["eager_ms"]})})
+    kernels.extend(qwen3_train_rows(q3_gemm_rows, q3_update_rows,
+                                    q3_train_counts))
     # compressed state: one row per kernel and group shape, in the form the
     # training runs launch (the q8 updates on a bf16 b with rounding
     # bits); the q8 updates' fp32-b form, which no run launches, rides in

@@ -19,7 +19,7 @@ class AdamWMethod(Method):
     name = "adamw"
     family = "bp"
 
-    def init(self, params, tcfg, gen):
+    def init(self, params, tcfg, gen, donate=False):
         return params, adamw.init(params)
 
     def make_inner_step(self, cfg, tcfg,

@@ -31,9 +31,12 @@ class Method(abc.ABC):
         return self.name
 
     @abc.abstractmethod
-    def init(self, params, tcfg, gen) -> Tuple[Any, Any]:
+    def init(self, params, tcfg, gen, donate: bool = False
+             ) -> Tuple[Any, Any]:
         """``(params, opt_state)`` from a model param tree; ``gen`` is the
-        ``torch.Generator`` the paradigm draws from."""
+        ``torch.Generator`` the paradigm draws from.  ``donate`` hands
+        the tree over (a method that regroups the weights may then free
+        each leaf as it copies it; the tree stays valid)."""
 
     @abc.abstractmethod
     def make_inner_step(self, cfg, tcfg,

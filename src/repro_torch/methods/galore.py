@@ -22,8 +22,8 @@ class GaLoreMethod(Method):
     name = "galore"
     family = "bp"
 
-    def init(self, params, tcfg, gen):
-        return galore.init_grouped(params, tcfg, gen)
+    def init(self, params, tcfg, gen, donate=False):
+        return galore.init_grouped(params, tcfg, gen, donate)
 
     def make_inner_step(self, cfg, tcfg,
                         loss_fn: Optional[Callable] = None) -> Callable:

@@ -25,8 +25,9 @@ class _LowRankBase(Method):
     update rule is the layout's ``algo``."""
     algo = "adam"
 
-    def init(self, params, tcfg, gen):
-        return subspace.init_grouped(params, tcfg, gen, algo=self.algo)
+    def init(self, params, tcfg, gen, donate=False):
+        return subspace.init_grouped(params, tcfg, gen, algo=self.algo,
+                                     donate=donate)
 
     def make_inner_step(self, cfg, tcfg,
                         loss_fn: Optional[Callable] = None) -> Callable:

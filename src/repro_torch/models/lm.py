@@ -7,10 +7,10 @@ applied after every ``attn_every``-th of them, then a tail of the
 ``L % attn_every`` layers left) and the MoE family
 (``qwen3-moe-30b-a3b``: attention, then a routed expert FFN,
 :mod:`repro_torch.models.moe`, with experts stacked ``(L, E, k, n)``).
-The dense, SSM and hybrid families train and serve; MoE serves (its
-aux loss is in ``forward_hidden``'s ``aux``, but ``build_loss_fn``
-refuses it).  Layers stay stacked on a leading ``L``
-axis, as in the reference, and a Python loop over ``L`` takes the place
+Every family here trains and serves (MoE's aux loss terms come back
+in ``forward_hidden``'s ``aux``, and ``build_loss_fn`` adds them).
+Layers stay stacked on a leading ``L`` axis, as in the reference, and
+a Python loop over ``L`` takes the place
 of ``lax.scan``.  Every matmul weight is consumed through
 :func:`repro_torch.models.linear.linear`, so a packed adapter threads
 through unchanged.
@@ -40,8 +40,9 @@ from .. import resolve_device
 from .attention import (KVCache, blockwise_attention, cache_update,
                         paged_decode_attention, paged_write)
 from .common import (ParamSpec, act_dtype, apply_rope, prm_dtype, rms_norm,
-                     swiglu, tree_init, tree_map)
-from .linear import linear
+                     swiglu, tree_flatten_with_path, tree_init, tree_map,
+                     tree_unflatten)
+from .linear import BatchLRPack, LRPack, linear
 from .moe import moe_ffn
 from .ssm import SSMState, mamba2_mixer
 
@@ -56,7 +57,7 @@ def _require_ported(cfg) -> None:
     """Refuse what the port does not run: enc-dec, vlm and audio, and
     MLA, shared experts and leading dense layers (deepseek-v2) (ROADMAP.md
     Queue 1 item 9), and MoE's grouped dispatch (item 10).  It trains and
-    serves the dense, SSM and hybrid families and serves MoE."""
+    serves the dense, SSM, hybrid and MoE families."""
     what = None
     if cfg.family not in ("dense", "ssm", "hybrid", "moe") \
             or cfg.is_encoder_decoder:
@@ -66,8 +67,8 @@ def _require_ported(cfg) -> None:
     if what is not None:
         raise NotImplementedError(
             f"{cfg.name}: not ported to repro_torch ({what}); it trains "
-            f"and serves the dense, SSM and hybrid families and serves "
-            f"MoE; see ROADMAP.md Queue 1 item 9")
+            f"and serves the dense, SSM, hybrid and MoE families; see "
+            f"ROADMAP.md Queue 1 item 9")
     if cfg.family == "moe" and cfg.moe_groups > 1:
         raise NotImplementedError(
             f"{cfg.name}: not ported to repro_torch (grouped MoE dispatch, "
@@ -194,6 +195,26 @@ def init_params(cfg, seed: int = 0, *, device=None) -> dict:
 def _layer(tree, i: int):
     """Layer ``i`` of an ``(L, ...)``-stacked tree (packs included)."""
     return tree_map(lambda x: x[i], tree)
+
+
+def _layers(tree, n: int) -> list:
+    """The ``n`` layers of an ``(L, ...)``-stacked tree taken apart at
+    once with ``unbind`` (an :class:`LRPack`'s ``w``, ``b`` and ``v``
+    alike): its backward stacks the layers' gradients in one pass, where
+    indexing each layer alone makes the backward add a full-size,
+    zero-padded gradient of the stacked leaf per layer (qwen3-moe's
+    expert B views at 20 layers: 1 GB a layer and group)."""
+    def split(x):
+        if isinstance(x, BatchLRPack):
+            return [x[i] for i in range(n)]
+        if isinstance(x, LRPack):
+            return [LRPack(w, b, v) for w, b, v in
+                    zip(x.w.unbind(0), x.b.unbind(0), x.v.unbind(0))]
+        return list(x.unbind(0))
+    flat = tree_flatten_with_path(tree)
+    cols = [split(x) for _, x in flat]
+    paths = [p for p, _ in flat]
+    return [tree_unflatten(paths, [c[i] for c in cols]) for i in range(n)]
 
 
 def attn_apply(h, p, cfg, *, pos_offset=0, cache=None, cache_index=None,
@@ -324,8 +345,8 @@ def forward_hidden(params, tokens, cfg):
 
     h = _embed(params, tokens, cfg)
     lb = rz = torch.zeros((), dtype=torch.float32, device=h.device)
-    for i in range(cfg.num_layers):
-        h = run(apply, h, _layer(params["layers"], i))
+    for i, lp in enumerate(_layers(params["layers"], cfg.num_layers)):
+        h = run(apply, h, lp)
         if apply is moe_block:
             h, a, z = h
             lb, rz = lb + a, rz + z

@@ -15,6 +15,15 @@ stays free of host syncs:
 * the kept slots per expert (the load-balance term) are counted with
   ``index_add_``, not ``bincount``.
 
+The dispatch (token rows into expert slots) and the combine (expert
+slots back into (token, slot) pairs) are row gathers whose backward is
+a gather too (:class:`_Gather`): each token sums the gradients of its
+``top_k`` slots in slot order, so a training step's gradients repeat
+bit for bit (``index_select``'s backward, an ``index_add_``, sums a
+token's slots with CUDA atomics in a varying order).  The gradient
+reaches the router (through ``top_w`` and, in ``lb_loss``, through the
+mean of ``probs``) and an :class:`LRPack`'s ``b``, never ``w`` or ``v``.
+
 ``expert_mm`` takes a plain ``(E, k, n)`` tensor, an :class:`LRPack`
 (``(E, k, r)`` V, ``(E, n, r)`` B: one adapter, the prefill) or a
 :class:`BatchLRPack` with ``rows`` (the decode step): its ``b`` is the
@@ -91,6 +100,27 @@ def route(xf: torch.Tensor, router_w, top_k: int, capacity: int,
                    table[:, :capacity])
 
 
+class _Gather(torch.autograd.Function):
+    """``rows = cat(src, 0)[idx]``: rows of ``src`` (n, d), where the
+    index ``n`` reads a zero row.  ``inv`` (n, m) lists, for each row of
+    ``src``, the output rows that read it (``len(idx)`` for none); the
+    backward sums ``cat(grad, 0)[inv[i, j]]`` over j in order, with no
+    atomics."""
+
+    @staticmethod
+    def forward(ctx, src, idx, inv):
+        ctx.save_for_backward(inv)
+        pad = torch.cat([src, src.new_zeros((1, src.shape[1]))])
+        return pad.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inv, = ctx.saved_tensors
+        pad = torch.cat([grad, grad.new_zeros((1, grad.shape[1]))])
+        rows = pad.index_select(0, inv.reshape(-1))
+        return rows.reshape(inv.shape + (-1,)).sum(1), None, None
+
+
 def _per_tenant(p: torch.Tensor, tenant: torch.Tensor,
                 b: torch.Tensor) -> torch.Tensor:
     """``y[e, c] = p[e, c] B[e, tenant[e, c]]ᵀ`` from the ``(E, T, n, r)``
@@ -146,22 +176,28 @@ def moe_ffn(x: torch.Tensor, router_w, w_gate, w_up, w_down, *,
     xf = x.reshape(T, d)
     r = route(xf, router_w, k, C, norm_topk)
 
-    x_pad = torch.cat([xf, xf.new_zeros((1, d))])
-    gathered = x_pad.index_select(0, r.table.reshape(-1)).reshape(E, C, d)
+    # each pair's expert slot (E C: dropped) and each slot's pair (T k:
+    # empty), the two index maps of the dispatch and the combine
+    n = T * k
+    slot = torch.where(r.keep, r.flat_e * C + r.pos, E * C)
+    pair = torch.full((E * C + 1,), n, dtype=torch.long, device=x.device)
+    pair.scatter_(0, slot, torch.arange(n, device=x.device))
+    pair = pair[:E * C]
+    gathered = _Gather.apply(xf, r.table.reshape(-1),
+                             slot.reshape(T, k)).reshape(E, C, d)
     g = expert_mm(gathered, w_gate, r.table, S, B)
     u = expert_mm(gathered, w_up, r.table, S, B)
     y_e = expert_mm(F.silu(g) * u, w_down, r.table, S, B)    # (E, C, d)
 
-    # combine: each (token, slot) pair's expert output, weighted, summed
-    idx = r.flat_e * C + torch.where(r.keep, r.pos, 0)
-    val = y_e.reshape(E * C, d).index_select(0, idx)
-    val = torch.where(r.keep[:, None], val, 0.0)
+    # combine: each (token, slot) pair's expert output (zero where the
+    # pair was dropped), weighted, summed
+    val = _Gather.apply(y_e.reshape(E * C, d), slot, pair.reshape(-1, 1))
     val = val * r.top_w.reshape(-1, 1).to(val.dtype)
     y = val.reshape(T, k, d).sum(1)
 
     me = r.probs.mean(0)
-    ce = torch.zeros((E,), dtype=torch.float32, device=x.device).index_add_(
-        0, r.flat_e, r.keep.float()) / max(T * k, 1)
+    ce = torch.zeros_like(me).index_add_(
+        0, r.flat_e, r.keep.to(me.dtype)) / max(T * k, 1)
     lb_loss = E * (me * ce).sum()
     router_z = torch.logsumexp(r.logits, dim=-1).square().mean()
     return y.reshape(B, S, d).to(x.dtype), {"lb_loss": lb_loss,

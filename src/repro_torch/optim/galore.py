@@ -65,11 +65,16 @@ def init(params, tcfg, gen: torch.Generator) -> GaLoreState:
     return GaLoreState(**fields)
 
 
-def init_grouped(params, tcfg, gen: torch.Generator):
+def init_grouped(params, tcfg, gen: torch.Generator, donate: bool = False):
     """``(GroupedParams, GaLoreState)``: the per-step weight write then
-    lands on the stacked buffers."""
-    state = init(params, tcfg, gen)
-    return subspace.group_params(params, state.layout), state
+    lands on the stacked buffers (``donate``: see
+    ``subspace.group_params``)."""
+    params = subspace.params_of(params)
+    grouped = subspace.group_params(
+        params, subspace.build_layout(params, tcfg, quantize_state=False),
+        donate)
+    state = init(grouped, tcfg, gen)
+    return dataclasses.replace(grouped, layout=state.layout), state
 
 
 def _fix_signs(u: torch.Tensor) -> torch.Tensor:

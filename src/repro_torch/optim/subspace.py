@@ -60,6 +60,10 @@ from . import quant
 from .adamw import clip_by_global_norm
 
 EXCLUDE_DEFAULT = r"(/embed/|/tok$|/pos$|router|conv_w)"
+# fp32 elements of one piece of a group's V draw (1 GiB): a group whose
+# draw is larger (qwen3-moe's expert groups, G L E matrices) is drawn
+# piece by piece, by the same law
+SAMPLE_PIECE = 1 << 28
 
 
 class GroupSpec(NamedTuple):
@@ -147,7 +151,7 @@ def is_lowrank_leaf(path: str, x, tcfg) -> bool:
     shape = tuple(x.shape)
     if len(shape) == 2:
         return min(shape) >= tcfg.min_dim_for_lowrank
-    if len(shape) == 3:  # scan-stacked (L, k, n_out) or experts (E, k, n)
+    if len(shape) == 3:  # scan-stacked (L, k, n_out)
         return min(shape[1:]) >= tcfg.min_dim_for_lowrank
     if len(shape) == 4:  # scan-stacked experts (L, E, k, n_out)
         return min(shape[2:]) >= tcfg.min_dim_for_lowrank
@@ -197,39 +201,79 @@ def _sample_proj_group(name: str, gen: torch.Generator, spec: GroupSpec,
                        energy: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
     """One batched draw for a whole group, ``(G,) + lead + (k, r)``:
-    leading layer dims fold into the sample batch.  Under
-    ``dependent_diag`` each member's ``(k,)`` energy row is repeated
-    across its own leading dims (one EMA per member, shared by its
-    layers), and a member whose row sums to zero draws from a row of
-    ones: the warm-up, whose uniform pi is the coordinate law."""
+    leading layer (and expert) dims fold into the sample batch, drawn in
+    pieces of at most ``SAMPLE_PIECE`` fp32 elements (one piece for all
+    but the largest groups).  Under ``dependent_diag`` each member's
+    ``(k,)`` energy row is repeated across its own leading dims (one EMA
+    per member, shared by its layers and experts), and a member whose
+    row sums to zero draws from a row of ones: the warm-up, whose uniform
+    pi is the coordinate law."""
     lead, k_dim = spec.shape[:-2], spec.shape[-2]
     lead_n = 1
     for d in lead:
         lead_n *= d
     batch = n_members * lead_n
-    kw = {}
+    diag = None
     if name == "dependent_diag":
         e = torch.where(energy.sum(-1, keepdim=True) > 0, energy,
                         torch.ones_like(energy))
-        kw["diag_energy"] = e[:, None, :].expand(
-            n_members, lead_n, k_dim).reshape(batch, k_dim)
-    v = samplers.sample_v_batched(name, gen, batch, k_dim, spec.rank, c=c,
-                                  dtype=dtype, **kw)
-    return v.reshape((n_members,) + tuple(lead) + (k_dim, spec.rank)).to(
-        device)
+        diag = e[:, None, :].expand(n_members, lead_n,
+                                    k_dim).reshape(batch, k_dim)
+    per = max(1, SAMPLE_PIECE // (k_dim * spec.rank))
+    out = None
+    for a in range(0, batch, per):
+        z = min(batch, a + per)
+        kw = {} if diag is None else {"diag_energy": diag[a:z]}
+        v = samplers.sample_v_batched(name, gen, z - a, k_dim, spec.rank,
+                                      c=c, dtype=dtype, **kw)
+        if z - a == batch:
+            out = v.to(device)
+            break
+        if out is None:
+            out = torch.empty((batch, k_dim, spec.rank), dtype=dtype,
+                              device=device)
+        out[a:z] = v
+        del v
+    return out.reshape((n_members,) + tuple(lead) + (k_dim, spec.rank))
 
 
-def group_params(params, layout: SubspaceLayout) -> GroupedParams:
+def _set_leaf(tree: dict, path, leaf) -> None:
+    for k in path[:-1]:
+        tree = tree[k]
+    tree[path[-1]] = leaf
+
+
+def group_params(params, layout: SubspaceLayout,
+                 donate: bool = False) -> GroupedParams:
     """Stack each group's member weights into one ``(G,)+lead+(k, n)``
-    buffer (one stack per group, at init).  Other leaves pass through."""
+    buffer (one buffer per group, at init).  Other leaves pass through.
+
+    ``donate=True`` hands the caller's tree over: as each member is
+    copied into its group's buffer, the tree's leaf is replaced by its
+    view of the buffer, so the member's own storage is freed at once
+    (qwen3-moe's w_gate and w_up leaves at 20 layers are 8 GB each) and
+    the copies never all coexist with the leaves."""
     if isinstance(params, GroupedParams):
         return params
     flat = tree_flatten_with_path(params)
+    groups = []
+    for spec in layout.groups:
+        one = flat[spec.leaf_idx[0]][1]
+        buf = torch.empty((len(spec.leaf_idx),) + tuple(one.shape),
+                          dtype=one.dtype, device=one.device)
+        del one
+        for j, i in enumerate(spec.leaf_idx):
+            path, leaf = flat[i]
+            buf[j].copy_(leaf)
+            del leaf
+            if donate:
+                flat[i] = (path, buf[j])
+                _set_leaf(params, path, buf[j])
+        groups.append(buf)
     return GroupedParams(
         dense=tuple(flat[i][1] for i in layout.dense_idx),
-        groups=tuple(torch.stack([flat[i][1] for i in spec.leaf_idx])
-                     for spec in layout.groups),
-        layout=layout, paths=tuple(p for p, _ in flat))
+        groups=tuple(groups), layout=layout,
+        paths=tuple(p for p, _ in flat))
 
 
 def params_of(params):
@@ -300,11 +344,17 @@ def init(params, tcfg, gen: torch.Generator, algo: str = "adam",
                          layout=layout)
 
 
-def init_grouped(params, tcfg, gen: torch.Generator, algo: str = "adam"):
+def init_grouped(params, tcfg, gen: torch.Generator, algo: str = "adam",
+                 donate: bool = False):
     """The trainer's entry: ``(grouped_params, state)`` built from one
-    layout."""
-    state = init(params, tcfg, gen, algo)
-    return group_params(params, state.layout), state
+    layout.  The weights are grouped before the state is drawn, so a
+    donated tree (:func:`group_params`) is gone before B, m, v and V take
+    their room."""
+    params = params_of(params)
+    grouped = group_params(params, build_layout(params, tcfg, algo),
+                           donate)
+    state = init(grouped, tcfg, gen, algo)
+    return dataclasses.replace(grouped, layout=state.layout), state
 
 
 # ---------------------------------------------------------------------------
@@ -444,10 +494,11 @@ def inner_update(grads: Trainable, trainable: Trainable,
     updates (AdamW, or Lion under ``algo="lion"``) land in the params'
     dense leaves; low-rank updates land in each group's stacked B through
     one fused launch per group.  ``lr`` is a 0-d tensor on the device (or
-    a number); nothing here waits on the host.
+    a number); nothing here waits on the host.  ``grads`` is the step's
+    own: its fp32 tensors are clipped in place.
     """
     flat, gn = clip_by_global_norm(list(grads.dense) + list(grads.groups),
-                                   tcfg.grad_clip)
+                                   tcfg.grad_clip, inplace=True)
     nd = len(grads.dense)
     g_dense, g_groups = flat[:nd], flat[nd:]
     layout = state.layout

@@ -1,7 +1,8 @@
 """Step builders of the training methods.
 
-Counterpart of ``repro.train.steps`` for the dense, SSM and hybrid LMs:
-``build_loss_fn``, ``make_train_step`` (Algorithm 1's inner step,
+Counterpart of ``repro.train.steps`` for the dense, SSM, hybrid and MoE
+LMs: ``build_loss_fn`` (the MoE family adds the router's aux terms),
+``make_train_step`` (Algorithm 1's inner step,
 ``lowrank_adam`` and ``lowrank_lion``, with gradient accumulation),
 ``make_outer_step`` (merge + resample), ``make_adamw_train_step`` (the
 dense AdamW baseline) and ``make_zo_train_step`` (the forward-only
@@ -22,25 +23,29 @@ from ..optim import adamw, galore, subspace, zo
 from ..optim.schedule import SCHEDULES
 from .loss import chunked_ce
 
+LB_COEFF = 0.01
+ZLOSS_COEFF = 1e-3
+
 
 def build_loss_fn(cfg) -> Callable:
-    """loss_fn(packed_params, batch) -> scalar (batch-mean token CE)."""
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: MoE training is not ported to repro_torch (the "
-            f"router's aux loss LB_COEFF * lb_loss + ZLOSS_COEFF * "
-            f"router_z, the expert backward); MoE serves only; see "
-            f"ROADMAP.md Queue 1 item 9, the MoE training slice")
+    """loss_fn(packed_params, batch) -> scalar: the batch-mean token CE,
+    plus ``LB_COEFF * lb_loss + ZLOSS_COEFF * router_z`` for the MoE
+    family (the router's aux terms, summed over the layers by
+    ``lm.forward_hidden``)."""
     if cfg.is_encoder_decoder or cfg.family not in ("dense", "ssm",
-                                                    "hybrid"):
+                                                    "hybrid", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: the dense, SSM and hybrid families train in "
-            f"repro_torch; see ROADMAP.md Queue 1 item 9")
+            f"{cfg.name}: the dense, SSM, hybrid and MoE families train "
+            f"in repro_torch; see ROADMAP.md Queue 1 item 9")
 
     def loss_fn(packed, batch):
-        h, _ = lm.forward_hidden(packed, batch["tokens"], cfg)
-        return chunked_ce(h, packed["unembed"], batch["labels"],
+        h, aux = lm.forward_hidden(packed, batch["tokens"], cfg)
+        loss = chunked_ce(h, packed["unembed"], batch["labels"],
                           true_vocab=cfg.vocab_size, chunk=cfg.loss_chunk)
+        if cfg.family == "moe":
+            loss = loss + LB_COEFF * aux["lb_loss"] + \
+                ZLOSS_COEFF * aux["router_z"]
+        return loss
 
     return loss_fn
 

@@ -106,12 +106,17 @@ class Trainer:
             tcfg, self.device)).removeprefix("torch.")
         self.state_dtype = resolve_state_dtype(tcfg)
         self.master_dtype = resolve_master_dtype(tcfg)
-        if params is None:
+        made = params is None
+        if made:
             params = lm.init_params(cfg, seed=tcfg.seed, device=self.device)
         gen = torch.Generator(device=torch.device(
             sample_device if sample_device is not None else self.device))
         gen.manual_seed(tcfg.seed + 1)
-        self.params, self.opt_state = self.method.init(params, tcfg, gen)
+        # weights made here are handed over: the grouping frees each leaf
+        # as it copies it
+        self.params, self.opt_state = self.method.init(params, tcfg, gen,
+                                                       donate=made)
+        del params
         self.health = health.init_health(self.device)
         self.guard_steps = 0          # host mirror of health.seen
         self.rollbacks = 0            # lifetime (carried via the manifest)

@@ -32,10 +32,11 @@ MoE routing, recorded on both sides and held equal before any value
 is compared (a top-k choice that flips at a near-tie moves an output by
 far more than rounding does): :func:`port_routing_recorder`,
 :func:`jax_routing_recorder` (the reference's routing, re-derived beside
-each ``moe_ffn`` call and read out by ``jax.debug.callback``) and
+each ``moe_ffn`` call and read out by ``jax.debug.callback``),
 :func:`assert_same_routing` (equal ``top_idx`` and keep masks, and the
 smallest gap between the k-th and (k+1)-th probability above the
-comparison's error scale).
+comparison's error scale) and, for training runs whose later steps
+start from weights an update apart, :func:`assert_same_masks`.
 
 The kernels' 3xTF32 arithmetic (``csrc/tf32_mma.cuh``), for emulating
 them on the CPU: :func:`tf32` (the split's rounding), :func:`trunc_tf32`
@@ -353,3 +354,25 @@ def assert_same_routing(got, want, k):
     print(f"routing equal over {len(got)} calls; smallest k-th gap "
           f"{min(gaps):.3g}")
     return min(gaps)
+
+
+def assert_same_masks(got, want, k, first):
+    """Equal top-k and keep masks in every call, and the first ``first``
+    calls (a run's first step, from the same weights on both sides) also
+    under :func:`assert_same_routing`'s gap rule.  Training runs start
+    their later steps from weights an update apart: a first Adam or
+    GaLore step is sign-like, so an element whose gradient lies at fp32's
+    rounding noise moves by lr either way, and the probabilities part by
+    more than rounding (up to 5e-5 in the MoE training tests).  Equal
+    masks are what keeps the values comparable; the later calls' gaps
+    are printed."""
+    assert len(got) == len(want) and len(got) >= first, (len(got),
+                                                         len(want))
+    assert_same_routing(got[:first], want[:first], k)
+    for (gp, gi, gk), (wp, wi, wk) in zip(got[first:], want[first:]):
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_array_equal(gk, wk)
+        gap = float(kth_gap(wp, k).min())
+        print(f"later step: smallest k-th gap {gap:.3g}, largest "
+              f"probability difference "
+              f"{np.abs(np.asarray(gp, np.float64) - wp).max():.3g}")

@@ -283,11 +283,12 @@ def test_other_families_are_refused():
         with pytest.raises(NotImplementedError,
                            match=f"not ported.*Queue 1 item {item}"):
             lm.alloc_paged_state(cfg, 1, 2, 4, 8, device="cpu")
-    # MoE serves but does not train: the loss refuses it, naming the slice
+    # the loss refuses vlm and enc-dec, naming the slice; MoE trains
     from repro_torch.train.steps import build_loss_fn
-    with pytest.raises(NotImplementedError,
-                       match="MoE training.*Queue 1 item 9"):
-        build_loss_fn(get_config("qwen3-moe-30b-a3b").reduced())
+    for cfg in (vlm, encdec):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+            build_loss_fn(cfg)
+    assert callable(build_loss_fn(get_config("qwen3-moe-30b-a3b").reduced()))
     # SSM trains too: forward_hidden takes the reference's SSM branch
     ssm = get_config("mamba2-780m").reduced()
     params = lm.init_params(ssm, device="cpu")
