@@ -48,11 +48,13 @@
    the four (K, N) of the model (timed eager, and also with the stream
    held while the host queues them, kernel and cuBLAS yardstick alike),
    the merge at its four group shapes (bf16 W and V, fp32 B: the
-   tensor-core route), subspace-Adam at the four group B shapes (against
-   fused ``torch.optim.AdamW``); and the compressed-state kernels at the
-   same shapes: subspace-Lion (fp32
-   state), the int8-moment Adam and Lion (bf16 b with rounding bits, and
-   fp32 b without) and the stochastically rounded merge (bf16 W, V, B);
+   tensor-core route), subspace-Adam at the four group B shapes
+   (against fused ``torch.optim.AdamW``; equal to its plain version in
+   all four (b, g) dtype instances, route ``"vec16"``); and the
+   compressed-state kernels at the same shapes: subspace-Lion (fp32
+   state; equal in all four instances), the int8-moment Adam and Lion
+   (bf16 b with rounding bits, and fp32 b without) and the
+   stochastically rounded merge (bf16 W, V, B);
    the forward in its shared-B form (no ``p``) at M = 16384, as the
    forward-only ``lowrank_lr`` runs it; and GaLore's projection
    ``Gᵀ V`` at the four group shapes (fp32 G, bf16 V: the tensor-core
@@ -258,6 +260,7 @@ script exits non-zero before printing any result.
 """
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -1828,6 +1831,53 @@ def _agree(name, got, want, tol_max, tol_elt=0.0):
     return err.max().item()
 
 
+# the route of the fp32-state updates (subspace_adam, subspace_lion): 16-byte
+# streaming accesses, one tile a block (csrc/subspace_adam.cu)
+UPDATE_PATH = "vec16"
+# what the profiler's name of each update kernel holds: the fp32-state
+# kernels are update_kernel<Rule, b, g>, the q8 ones q8_kernel<b, g, adam>
+PROFILE_KEYS = {"subspace_adam": "::AdamRule,",
+                "subspace_lion": "::LionRule,",
+                "subspace_adam_q8": "q8_kernel<",
+                "subspace_lion_q8": "q8_kernel<"}
+UPDATE_DTYPES = ((torch.float32, torch.float32),
+                 (torch.float32, torch.bfloat16),
+                 (torch.bfloat16, torch.float32),
+                 (torch.bfloat16, torch.bfloat16))
+
+
+def update_exact(mods, kernel, b, g, moments, scalars):
+    """``kernel`` ("subspace_adam", moments (m, v), or "subspace_lion",
+    moments (m,)) against its plain version on the same inputs in each of
+    the four (b, g) dtype instances (b and g cast to them): every output
+    equal (``torch.equal``), or the run fails.  Returns the max abs
+    error, 0."""
+    ref, sa = mods["ref"], mods["sa"]
+    if kernel == "subspace_adam":
+        lr, bc1, bc2 = scalars
+        plain = functools.partial(ref.subspace_adam, lr=lr, bc1=bc1, bc2=bc2,
+                                  **ADAM)
+        kern = functools.partial(sa.subspace_adam, **ADAM)
+    else:
+        plain = functools.partial(ref.subspace_lion, lr=scalars[0], **LION)
+        kern = functools.partial(sa.subspace_lion, **LION)
+    err = 0.0
+    for bd, gd in UPDATE_DTYPES:
+        bb, gg = b.to(bd), g.to(gd)
+        got = kern(bb, gg, *moments, scalars)
+        want = plain(bb, gg, *moments)
+        for name, x, y in zip("bmv", got, want):
+            e = (x - y).abs().max().item()
+            err = max(err, e)
+            if not torch.equal(x, y):
+                raise SystemExit(
+                    f"kernel disagrees with its plain version: {kernel} "
+                    f"{tuple(b.shape)} b {bd} g {gd} {name}' "
+                    f"max_abs_err={e:.4g} (exact expected)")
+        del bb, gg, got, want
+    return err
+
+
 def compare_train_kernels(mods, dev, shapes=None, merge_shapes=None,
                           M=TRAIN_M, shared=True):
     """Phase 3: the training kernels at the llama-100m shapes (or
@@ -1855,7 +1905,7 @@ def compare_train_kernels(mods, dev, shapes=None, merge_shapes=None,
         log(f"[kernel] {kernel:18s} {str(shape):22s} ({leaves}) "
             f"route={path} max_abs_err={err:.4g} (tol {tol}) ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-            f"bound_ms={bms:.4f} ({by})" + (
+            f"bound_ms={bms:.4f} ({by}; {bms / ms:.1%} of it)" + (
                 "" if eager_ms is None else
                 f" [queued{', L2 flushed' if cold else ''}; eager "
                 f"{eager_ms:.4f} ms/call]") + (
@@ -1978,12 +2028,8 @@ def compare_train_kernels(mods, dev, shapes=None, merge_shapes=None,
         step = torch.tensor(5, dtype=torch.int32, device=dev)
         scalars = dispatch.adam_scalars(1e-3, step, ADAM["beta1"],
                                         ADAM["beta2"], dev)
-        got = sa.subspace_adam(b, g, m, v, scalars, **ADAM)
-        torch.cuda.synchronize()
+        err = update_exact(mods, "subspace_adam", b, g, (m, v), scalars)
         lr, bc1, bc2 = scalars
-        want = ref.subspace_adam(b, g, m, v, lr=lr, bc1=bc1, bc2=bc2, **ADAM)
-        err = max(_agree(f"adam {bshape} {n}", x, y, 1e-6)
-                  for n, x, y in zip("bmv", got, want))
         n = b.numel()
         pb = b.clone()
         pb.grad = g
@@ -1995,17 +2041,18 @@ def compare_train_kernels(mods, dev, shapes=None, merge_shapes=None,
         # (an eager call's host time is near the kernel's), the L2 flushed
         # before each (w_down's 27.5 MB would stay there; in training the
         # state was last read a step before)
-        row("subspace_adam", bshape, leaves, err, "1e-6*max|x|",
+        row("subspace_adam", bshape, leaves, err,
+            "exact, 4 (b, g) dtypes",
             queued_ms(lambda: sa.subspace_adam(b, g, m, v, scalars, **ADAM),
                       cold=True),
             queued_ms(lambda: ref.subspace_adam(b, g, m, v, lr=lr, bc1=bc1,
                                                 bc2=bc2, **ADAM), cold=True),
             queued_ms(opt.step, cold=True),
-            bound_of(28 * n, 15 * n, FP32_FLOP_PER_S),
+            bound_of(28 * n, 15 * n, FP32_FLOP_PER_S), UPDATE_PATH,
             eager_ms=time_ms(lambda: sa.subspace_adam(b, g, m, v, scalars,
                                                       **ADAM), iters=50),
             cold=True)
-        del b, g, m, v, got, want, pb, opt
+        del b, g, m, v, pb, opt
     torch.cuda.empty_cache()
     return rows
 
@@ -2080,15 +2127,15 @@ def compare_state_kernels(mods, dev):
         n = math.prod(bshape)
         b, g, m = randn(*bshape, scale=0.02), randn(*bshape, scale=1e-3), \
             randn(*bshape, scale=1e-3)
-        # Lion, fp32 state (run 6d's form: fp32 b and g)
-        got = sa.subspace_lion(b, g, m, sc1, **LION)
-        torch.cuda.synchronize()
-        err = exact(f"lion {bshape}", got,
-                    ref.subspace_lion(b, g, m, lr=sc1[0], **LION))
-        row("subspace_lion", "fp32 state", bshape, leaves, err, "exact",
+        # Lion, fp32 state (run 6d's form, fp32 b and g, timed; all four
+        # (b, g) dtype instances held exact)
+        err = update_exact(mods, "subspace_lion", b, g, (m,), sc1)
+        row("subspace_lion", "fp32 state", bshape, leaves, err,
+            "exact, 4 (b, g) dtypes",
             lambda: sa.subspace_lion(b, g, m, sc1, **LION),
             lambda: ref.subspace_lion(b, g, m, lr=sc1[0], **LION),
-            nbytes(b, g, m, *got), 8 * n, FP32_FLOP_PER_S)
+            nbytes(b, g, m) + 8 * n, 8 * n, FP32_FLOP_PER_S,
+            note=f" route={UPDATE_PATH}")
         # int8 moments, (R, 128) rows
         R = n // QROW
         mq = quant.quantize(m)
@@ -2735,7 +2782,7 @@ def train_qwen3moe(dev, mods, smi, configs, lr=QWEN3_LR, steps=None,
     if profile:
         t0 = time.perf_counter()
         profile_train(tr, tag=f"profile-{tag}",
-                      match=("tc::", "adam_kernel", "merge_tc"))
+                      match=("tc::", PROFILE_KEYS["subspace_adam"]))
         log(f"[{tag}] the profile took {time.perf_counter() - t0:.1f} s")
     if cuda:
         torch.cuda.synchronize()
@@ -2854,15 +2901,12 @@ def compare_moe_update_kernels(mods, dev):
         scalars = dispatch.adam_scalars(1e-3, step, ADAM["beta1"],
                                         ADAM["beta2"], dev)
         sa.reset_launches()
-        got = sa.subspace_adam(b, g, m, v, scalars, **ADAM)
-        torch.cuda.synchronize()
-        if not sa.launches():
-            raise SystemExit(f"subspace_adam {bshape} launched no kernel")
+        err = update_exact(mods, "subspace_adam", b, g, (m, v), scalars)
+        if sa.launches() != len(UPDATE_DTYPES):
+            raise SystemExit(f"subspace_adam {bshape} launched "
+                             f"{sa.launches()} kernels, not "
+                             f"{len(UPDATE_DTYPES)}")
         lr, bc1, bc2 = scalars
-        want = ref.subspace_adam(b, g, m, v, lr=lr, bc1=bc1, bc2=bc2, **ADAM)
-        err = max(_agree(f"adam {bshape} {n}", x, y, 1e-6)
-                  for n, x, y in zip("bmv", got, want))
-        del got, want
         n = b.numel()
         pb = b.clone()
         pb.grad = g
@@ -2877,13 +2921,14 @@ def compare_moe_update_kernels(mods, dev):
         lib_ms = queued_ms(opt.step, calls=10)
         bms, by = bound_of(28 * n, 15 * n, FP32_FLOP_PER_S)
         rows.append(dict(kernel="subspace_adam", shape=bshape, leaves=leaves,
-                         path="simt", max_abs_err=err, ms=ms,
+                         path=UPDATE_PATH, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
                          bound_by=by))
         log(f"[kernel] subspace_adam      {str(bshape):22s} ({leaves}) "
-            f"max_abs_err={err:.4g} (tol 1e-6*max|x|) ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-            f"bound_ms={bms:.4f} ({by}) [queued]")
+            f"route={UPDATE_PATH} max_abs_err={err:.4g} (tol exact, 4 (b, "
+            f"g) dtypes) ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by}; "
+            f"{bms / ms:.1%} of it) [queued]")
         del b, g, m, v, pb, opt
         free()
     return rows
@@ -2911,6 +2956,7 @@ def qwen3_train_rows(train_rows, update_rows, counts):
             "replaces": TRAIN_REPLACES[kernel], "launches": n,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_share": row["bound_ms"] / row["ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             **({} if row.get("plan") is None else {"plan": row["plan"]}),
             **({} if row.get("queued") is None else
@@ -3203,7 +3249,7 @@ def train_state_runs(dev, mods, smi, configs, fp32_bytes):
             for shape, n in got.items():
                 counts[(kernel, shape)] = counts.get((kernel, shape), 0) + n
         profile_train(tr, steps=1, tag=f"profile {tag}",
-                      match=("q8_kernel", "lion_kernel"), top=0)
+                      match=(PROFILE_KEYS[kernels[0]],), top=0)
         del tr
         torch.cuda.empty_cache()
     return counts
@@ -3252,7 +3298,8 @@ def method_runs(dev, mods, smi, configs):
             raise SystemExit(f"{tag} missed a kernel at a shape: {got}")
         counts.update(new)
         profile_train(tr, steps=2 if cadence == "refreshes" else 1,
-                      tag=f"profile {tag}", match=("tc::",), top=8)
+                      tag=f"profile {tag}", match=("tc::",) if total else (),
+                      top=8)
         del tr
         torch.cuda.empty_cache()
     return counts
@@ -3265,7 +3312,8 @@ def profile_train(tr, steps=2, tag="profile-train", match=(), top=12):
     time of the kernels whose names hold one of ``match``.  Only the
     device is traced (the host's ops would cost the trace tens of
     thousands of events a step at zamba2-7b); the profiler still slows
-    the host, so the idle share is an upper bound."""
+    the host, so the idle share is an upper bound.  A string of ``match``
+    that names no kernel of the window fails the run."""
     from torch.profiler import ProfilerActivity, profile
     if tr.method.make_outer_step(tr.cfg, tr.tcfg) is not None and any(
             (tr.step + i) % tr.tcfg.lazy_k == 0 for i in range(steps)):
@@ -3283,9 +3331,14 @@ def profile_train(tr, steps=2, tag="profile-train", match=(), top=12):
     for e in rows[:top]:
         log(f"[{tag}] {e.self_device_time_total / 1e3 / steps:8.2f} "
             f"ms/step  x{e.count // steps:5d}  {e.key[:90]}")
+    missing = [m for m in match if not any(m in e.key for e in rows)]
+    if missing:
+        raise SystemExit(f"[{tag}] no kernel of the window is named by "
+                         f"{missing}")
     for e in rows:
         if any(m in e.key for m in match):
-            log(f"[{tag}] {e.key[:60]}: {e.count // steps} calls/step, "
+            name = e.key.replace("(anonymous namespace)::", "")
+            log(f"[{tag}] {name[:60]}: {e.count // steps} calls/step, "
                 f"{e.self_device_time_total / e.count / 1e3:.4f} ms device "
                 f"time per call")
     bwd = [e for e in rows if "ssd_bwd_" in e.key]
@@ -4626,7 +4679,7 @@ def main():
                   steps=14)
     peak_6a = torch.cuda.max_memory_allocated() / 2 ** 30
     train_counts = train_launches(mods)
-    profile_train(tr, match=("adam_kernel", "tc::"))
+    profile_train(tr, match=(PROFILE_KEYS["subspace_adam"], "tc::"))
     fp32_bytes = state_bytes(tr)
     del tr
     torch.cuda.empty_cache()
@@ -4756,6 +4809,7 @@ def main():
             "launches": train_counts[(row["kernel"], row["shape"])],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_share": row["bound_ms"] / row["ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             **({} if row["plan"] is None else {"plan": row["plan"]}),
             **({} if row["queued"] is None else
@@ -4780,7 +4834,9 @@ def main():
         by_key[key] = {
             "name": f"{row['kernel']} [{row['form']}] {list(row['shape'])} "
                     f"({row['leaves']})",
-            "route": "cuda", "path": "simt",
+            "route": "cuda",
+            "path": UPDATE_PATH if row["kernel"] == "subspace_lion"
+            else "simt",
             "source": TRAIN_SOURCES[row["kernel"]],
             "replaces": TRAIN_REPLACES[row["kernel"]],
             "launches": state_counts.get(key, 0),

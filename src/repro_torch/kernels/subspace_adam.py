@@ -16,10 +16,14 @@ Replace the Pallas TPU kernels of ``repro/kernels/subspace_adam.py``:
 kernels write ``b'`` in fp32; the q8 kernels in ``b``'s dtype.  ``lr``
 (and the bias corrections ``bc1``, ``bc2`` for Adam) reach the kernels
 as a small fp32 tensor on the device, so a step never waits on the host
-for them.  One launch covers a whole group buffer.  The route is the
-tensor's device alone: a CPU tensor takes the plain version in
-:mod:`.ref`; a CUDA tensor launches the kernel or raises.  ``LAUNCHES``
-counts launches per ``(kernel, shape of b)``.
+for them.  One launch covers a whole group buffer; the fp32-state
+kernels' grid is :func:`update_grid`'s, and every operand of theirs
+(the q8 kernels' too) must be 16-byte aligned (an int8 payload 8-byte)
+for their vector accesses.  The route is the tensor's device alone: a
+CPU tensor takes the plain version in :mod:`.ref`; a CUDA tensor
+launches the kernel or raises (a misaligned view too).  ``LAUNCHES``
+counts launches per ``(kernel, shape of b)``: a call of an fp32-state
+kernel is two where its group is not a whole number of tiles.
 """
 from __future__ import annotations
 
@@ -37,6 +41,12 @@ from .lowrank_forward import DTYPE_CODE, _route
 # "subspace_adam" | "subspace_lion" | "subspace_adam_q8" | "subspace_lion_q8"
 LAUNCHES: collections.Counter = collections.Counter()
 QROW = 128                # elements per quantization row (the q8 kernels)
+# the fp32-state kernels' launch (csrc/subspace_adam.cu)
+THREADS = 256             # lanes a block
+VEC = 4                   # consecutive elements a lane owns per vector step
+UNROLL = 4                # vector steps a lane loads before its arithmetic
+TILE = THREADS * UNROLL * VEC     # elements a block takes per trip
+ALIGN = 16                # bytes: the vector accesses' word
 
 
 def launches(kernel: Optional[str] = None) -> int:
@@ -53,9 +63,11 @@ _VP, _CI, _CF, _CL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                       ctypes.c_longlong)
 _ARGTYPES = {
     ("subspace_adam", "subspace_adam_launch"):
-        [_CI, _CI] + [_VP] * 8 + [_CL] + [_CF] * 6 + [_VP],
+        [_CI, _CI] + [_VP] * 8 + [_CL] + [_CF] * 6
+        + [_CI, ctypes.POINTER(_CI), _VP],
     ("subspace_adam", "subspace_lion_launch"):
-        [_CI, _CI] + [_VP] * 6 + [_CL] + [_CF] * 5 + [_VP],
+        [_CI, _CI] + [_VP] * 6 + [_CL] + [_CF] * 5
+        + [_CI, ctypes.POINTER(_CI), _VP],
     ("subspace_q8", "subspace_adam_q8_launch"):
         [_CI, _CI] + [_VP] * 13 + [_CL] + [_CF] * 6 + [_VP],
     ("subspace_q8", "subspace_lion_q8_launch"):
@@ -109,18 +121,59 @@ def _check_shapes(name, shape, **tensors) -> None:
                          f"{tuple(shape)}")
 
 
-def _launch(name, source, entry, b, args):
+def _launch(name, source, entry, b, args, launched=None):
+    """One call of the C entry; counts one launch, or ``launched.value``
+    where the entry writes how many grids it queued."""
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream(b.device).cuda_stream
         rc = _kernel(source, entry)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error "
                            f"{rc} (b {tuple(b.shape)})")
-    LAUNCHES[(name, tuple(b.shape))] += 1
+    LAUNCHES[(name, tuple(b.shape))] += (1 if launched is None
+                                         else launched.value)
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
+
+
+def _check_aligned(name, tensors: dict) -> None:
+    """Refuse an operand that the kernels' vector accesses cannot read:
+    each must start on a 16-byte word (an int8 payload on an 8-byte
+    one).  A misaligned view is refused, never routed elsewhere."""
+    for t_name, t in tensors.items():
+        if t is not None and t.data_ptr() % (8 if t.dtype == torch.int8
+                                             else ALIGN):
+            raise ValueError(f"{name}: {t_name} is not aligned for the "
+                             f"kernel's vector accesses")
+
+
+def update_grid(n: int) -> int:
+    """The grid of :func:`subspace_adam` and :func:`subspace_lion` over
+    ``n`` >= 1 elements: one block of ``THREADS`` lanes a whole tile of
+    ``TILE``; in vector step u < ``UNROLL`` of the tile from t·TILE, lane
+    l owns the ``VEC`` elements from t·TILE + (u·THREADS + l)·VEC.  Where
+    ``TILE`` does not divide n, the kernel's entry launches one block
+    more over the ragged last tile, and reports the two launches."""
+    return n // TILE
+
+
+def _launch_update(kernel: str, ins, outs, scalars: torch.Tensor,
+                   consts) -> None:
+    """One call of an fp32-state kernel ("subspace_adam" or
+    "subspace_lion"): ``ins`` (b, g, m[, v]) and ``outs`` (b', m'[, v'],
+    fp32), which may be the inputs themselves; ``consts`` the rule's
+    constants after n (β1, 1 − β1, β2, 1 − β2[, eps], wd).  The wrappers
+    check everything but the alignment, checked here first."""
+    b, g = ins[0], ins[1]
+    _check_aligned(kernel, dict(zip(("b", "g", "m", "v"), ins))
+                   | dict(zip(("b'", "m'", "v'"), outs)))
+    n, launched = b.numel(), _CI(0)
+    _launch(kernel, "subspace_adam", kernel + "_launch", b,
+            (DTYPE_CODE[b.dtype], DTYPE_CODE[g.dtype],
+             *(t.data_ptr() for t in (*ins, *outs)), scalars.data_ptr(), n,
+             *consts, update_grid(n), ctypes.byref(launched)), launched)
 
 
 # ---------------------------------------------------------------------------
@@ -144,11 +197,8 @@ def subspace_adam(b: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     outs = tuple(torch.empty(b.shape, dtype=torch.float32, device=b.device)
                  for _ in range(3))
     if b.numel():
-        _launch(name, "subspace_adam", "subspace_adam_launch", b,
-                (DTYPE_CODE[b.dtype], DTYPE_CODE[g.dtype], b.data_ptr(),
-                 g.data_ptr(), m.data_ptr(), v.data_ptr(),
-                 *(o.data_ptr() for o in outs), scalars.data_ptr(),
-                 b.numel(), beta1, 1 - beta1, beta2, 1 - beta2, eps, wd))
+        _launch_update(name, (b, g, m, v), outs, scalars,
+                       (beta1, 1 - beta1, beta2, 1 - beta2, eps, wd))
     return outs
 
 
@@ -167,11 +217,8 @@ def subspace_lion(b: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     outs = tuple(torch.empty(b.shape, dtype=torch.float32, device=b.device)
                  for _ in range(2))
     if b.numel():
-        _launch(name, "subspace_adam", "subspace_lion_launch", b,
-                (DTYPE_CODE[b.dtype], DTYPE_CODE[g.dtype], b.data_ptr(),
-                 g.data_ptr(), m.data_ptr(),
-                 *(o.data_ptr() for o in outs), scalars.data_ptr(),
-                 b.numel(), beta1, 1 - beta1, beta2, 1 - beta2, wd))
+        _launch_update(name, (b, g, m), outs, scalars,
+                       (beta1, 1 - beta1, beta2, 1 - beta2, wd))
     return outs
 
 
@@ -185,13 +232,8 @@ def _check_q8(name, b, g, bits, moments) -> None:
                          f"got b {tuple(b.shape)}")
     # each lane reads 8 contiguous elements: 16-byte vectors (8-byte for
     # the int8 payloads)
-    wide = dict(b=b, g=g, bits=bits, **{f"{k}q": q for k, (q, _) in
-                                          moments.items()})
-    for t_name, t in wide.items():
-        if t is not None and t.data_ptr() % (8 if t.dtype == torch.int8
-                                             else 16):
-            raise ValueError(f"{name}: {t_name} is not aligned for the "
-                             f"kernel's vector accesses")
+    _check_aligned(name, dict(b=b, g=g, bits=bits, **{
+        f"{k}q": q for k, (q, _) in moments.items()}))
     R = b.shape[0]
     _check_shapes(name, b.shape, g=g, bits=bits,
                   **{k: q for k, (q, _) in moments.items()})

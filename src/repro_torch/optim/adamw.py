@@ -43,28 +43,75 @@ def global_norm(tensors) -> torch.Tensor:
                           for t in tensors))
 
 
+def _dense(t: torch.Tensor) -> bool:
+    """No element shared, no gap: some order of t's dims is contiguous."""
+    want = 1
+    for stride, size in sorted((st, n) for n, st in zip(t.shape, t.stride())
+                               if n != 1):
+        if stride != want:
+            return False
+        want *= size
+    return True
+
+
+def _span(t: torch.Tensor):
+    """(storage, first byte, byte past the last) of a dense tensor."""
+    size = t.element_size()
+    lo = t.storage_offset() * size
+    return t.untyped_storage().data_ptr(), lo, lo + t.numel() * size
+
+
+def writable_once(tensors) -> list:
+    """For each tensor, whether it may be written in place without
+    touching what another entry holds: ``"own"`` for an fp32 tensor that
+    is dense (no stride 0 or overlap) and shares no byte with another
+    entry, or is the first of entries that view the very same bytes;
+    ``"alias"`` for a later entry over the bytes of an ``"own"`` one (an
+    aliased gradient: autograd gives ``x + y``'s leaves one tensor);
+    ``"copy"`` for the rest, a partial overlap among them."""
+    spans = [_span(t) if t.dtype == torch.float32 and t.numel()
+             and _dense(t) else None
+             for t in tensors]
+    by_storage: dict = {}
+    for s in set(filter(None, spans)):
+        by_storage.setdefault(s[0], []).append(s)
+    partial = {a for group in by_storage.values() for a in group
+               for b in group if a != b and a[1] < b[2] and b[1] < a[2]}
+    out, seen = [], set()
+    for s in spans:
+        if s is None or s in partial:
+            out.append("copy")
+        else:
+            out.append("alias" if s in seen else "own")
+            seen.add(s)
+    return out
+
+
 def clip_by_global_norm(tensors, max_norm: float, inplace: bool = False):
     """(clipped tensors, global norm).  ``max_norm`` 0 disables clipping
     (the norm is then reported as 0, as in the reference).  The clipped
     tensors are fp32: the reference scales by an fp32 array, which
     promotes a bf16 gradient (a bf16 B master's) to fp32 unrounded.
     ``inplace``: the caller owns ``tensors`` (fresh gradients), so an
-    fp32 one is scaled where it lies, once per storage, rather than
-    copied (qwen3-moe's B gradients at 20 layers are 4.9 GB)."""
+    fp32 one is scaled where it lies rather than copied (qwen3-moe's B
+    gradients at 20 layers are 4.9 GB): each storage's bytes once, and
+    an entry that aliases them returns them as scaled (the reference
+    scales each leaf once); entries that overlap in part are copied
+    before anything is scaled in place."""
     tensors = list(tensors)
     if not max_norm:
         dev = tensors[0].device if tensors else None
         return tensors, torch.zeros((), device=dev)
     gn = global_norm(tensors)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
-    out, seen = [], set()
-    for t in tensors:
-        if inplace and t.dtype == torch.float32 and t.numel() \
-                and t.data_ptr() not in seen:
-            seen.add(t.data_ptr())
-            out.append(t.mul_(scale))
-        else:
-            out.append(t.float() * scale)
+    how = writable_once(tensors) if inplace else ["copy"] * len(tensors)
+    out = [t.float() * scale if h == "copy" else None
+           for t, h in zip(tensors, how)]
+    for i, (t, h) in enumerate(zip(tensors, how)):
+        if h == "own":
+            out[i] = t.mul_(scale)
+        elif h == "alias":
+            out[i] = t
     return out, gn
 
 

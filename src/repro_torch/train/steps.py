@@ -80,6 +80,22 @@ def _microbatches(batch: dict, n: int) -> list:
             for i in range(n)]
 
 
+def accumulate(gsum: Optional[list], grads) -> list:
+    """``gsum`` plus a microbatch's ``grads``, in fp32, in place where
+    that is safe.  The first microbatch's fp32 gradients become the sums
+    themselves, but for one whose bytes another entry shares (autograd
+    gives ``x + y``'s leaves one tensor): that one is copied, so each sum
+    owns its bytes.  A later gradient whose storage is a sum's is copied
+    before any sum is added to."""
+    if gsum is None:
+        return [g if h == "own" else g.to(torch.float32, copy=True)
+                for g, h in zip(grads, adamw.writable_once(grads))]
+    stores = {a.untyped_storage().data_ptr() for a in gsum}
+    grads = [g.clone() if g.untyped_storage().data_ptr() in stores else g
+             for g in grads]
+    return [a.add_(g) for a, g in zip(gsum, grads)]
+
+
 def make_train_step(cfg, tcfg, loss_fn: Optional[Callable] = None):
     """Inner step: one backward through the packed model, then the
     method's update (subspace-Adam or -Lion on B, AdamW or Lion on the
@@ -117,9 +133,7 @@ def make_train_step(cfg, tcfg, loss_fn: Optional[Callable] = None):
             for mb in _microbatches(batch, accum):
                 loss, grads = value_and_grads(params, opt_state, trainable,
                                               pdt, mb)
-                grads = [g.float() for g in grads]
-                gsum = grads if gsum is None else [
-                    a.add_(g) for a, g in zip(gsum, grads)]
+                gsum = accumulate(gsum, grads)
                 lsum = lsum + loss
             # true divisions (a CUDA tensor divided by a Python number is
             # multiplied by its reciprocal)

@@ -42,6 +42,10 @@ The kernels' 3xTF32 arithmetic (``csrc/tf32_mma.cuh``), for emulating
 them on the CPU: :func:`tf32` (the split's rounding), :func:`trunc_tf32`
 (what the MMA reads of an fp32 operand) and :func:`mm3` (one 3xTF32
 product).
+
+The fp32-state updates' index map (``csrc/subspace_adam.cu``'s
+``update_kernel``) in numpy, :class:`UpdateIndexMap`, and the walk of a
+launch of it over n elements, :func:`assert_update_covers_once`.
 """
 import contextlib
 import dataclasses
@@ -376,3 +380,69 @@ def assert_same_masks(got, want, k, first):
         print(f"later step: smallest k-th gap {gap:.3g}, largest "
               f"probability difference "
               f"{np.abs(np.asarray(gp, np.float64) - wp).max():.3g}")
+
+
+class UpdateIndexMap:
+    """The index expressions of ``csrc/subspace_adam.cu``'s
+    ``update_kernel`` in numpy.  The whole tiles' launch: block t takes
+    the tile from :meth:`tile_start` (t·tile, 64-bit); in vector step u,
+    lane l owns the ``vec`` elements from there + :meth:`lane_starts`
+    ((u·threads + l)·vec), all of them.  Where :meth:`ragged` (tile does
+    not divide n), one block more takes the tile from
+    :meth:`ragged_start` ((n // tile)·tile) the same way, but updates a
+    vector that ends by n (:meth:`vector_fits`) whole and, of the one
+    that does not, the elements :meth:`tail` one at a time.  A planted
+    fault overrides one expression."""
+
+    def __init__(self, threads, unroll, vec):
+        self.threads, self.unroll, self.vec = threads, unroll, vec
+        self.tile = threads * unroll * vec
+
+    def tile_start(self, t):
+        return t.astype(np.int64) * np.int64(self.tile)
+
+    def ragged_start(self, n):
+        return np.int64(n) // self.tile * self.tile
+
+    def lane_starts(self):
+        u, lane = np.meshgrid(np.arange(self.unroll),
+                              np.arange(self.threads), indexing="ij")
+        return ((u * self.threads + lane) * self.vec).ravel()
+
+    def ragged(self, n):
+        return n % self.tile > 0
+
+    def vector_fits(self, i, n):
+        return i + self.vec <= n
+
+    def tail(self, i, n):
+        return np.arange(i, n)
+
+
+def assert_update_covers_once(n, grid, imap) -> None:
+    """Assert that a call of ``imap`` over n elements, ``grid`` blocks
+    over the whole tiles and the ragged tile's block, updates every index
+    of [0, n) exactly once.  The whole tiles must lie back to back from
+    0 and end by n, each updated once; the ragged tile is walked element
+    by element."""
+    starts = imap.tile_start(np.arange(grid))
+    assert (starts == np.arange(grid, dtype=np.int64) * imap.tile).all(), \
+        "whole tiles not back to back from 0"
+    lanes = imap.lane_starts()
+    one = (lanes[:, None] + np.arange(imap.vec)).ravel()
+    assert one.min() >= 0 and one.max() < imap.tile and (
+        np.bincount(one, minlength=imap.tile) == 1).all(), \
+        "a whole tile's vectors miss or repeat an element"
+    done = grid * imap.tile
+    assert done <= n, "a whole tile runs past n"
+    writes = [np.zeros(0, np.int64)]
+    if imap.ragged(n):
+        i = imap.ragged_start(n) + lanes
+        fits = imap.vector_fits(i, n)
+        writes.append((i[fits][:, None] + np.arange(imap.vec)).ravel())
+        writes += [imap.tail(j, n) for j in i[~fits]]
+    idx = np.concatenate(writes)
+    assert idx.size == 0 or (idx.min() >= done and idx.max() < n), \
+        "the ragged tile writes outside the whole tiles' end and n"
+    assert (np.bincount(idx - done, minlength=n - done) == 1).all(), \
+        "the ragged tile misses or repeats an element"
