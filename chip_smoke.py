@@ -15,8 +15,9 @@
    [0, 2, 2, 1]) against their plain PyTorch version at the five (K, N)
    shapes of qwen2-7b, at mamba2-780m's three and zamba2-7b's six
    (shared B at M = 512, or 1 for the unembedding), at
-   mistral-nemo-12b's six and qwen3-moe-30b-a3b's four (M = 128, or 1
-   for the unembedding), in
+   mistral-nemo-12b's six, qwen3-moe-30b-a3b's four and
+   deepseek-v2-236b's ten (M = 128, or 1 for the unembedding; deepseek's
+   w_uk·w_uv in the shared-B form only: a decode step absorbs them), in
    bf16, and times kernel, plain version and a cuBLAS yardstick (the per-row-B form's three with the stream
    held while the host queues the calls, which leaves the host's time
    out, beside the eager time per call).  Holds the SSD intra-chunk
@@ -115,7 +116,17 @@
    routed alike (equal top-k experts and keep masks, the smallest
    k-th/(k+1)-th probability gap logged and above twice the largest
    probability difference, which rules out a flip); ``[bf16 decode qwen3moe]`` (no host
-   sync, no gather of B under the profiler).
+   sync, no gather of B under the profiler).  Then deepseek-v2-236b, the
+   MLA family (latent KV attention with the absorbed paged decode, 160
+   experts top-6 beside 2 shared ones, a leading dense layer), at full
+   width and 4 of its 60 layers (the dense layer and 3 MoE layers), bf16,
+   4 tenants, qwen2-7b's 8 requests: every row-1 launch ``"tc"`` and in
+   the path's count (37 shared-B a prefill, 29 per-row-B a decode step),
+   the capacity drops, the profiles; then ``[lazy==merged deepseek]``,
+   ``[serve==plain deepseek]`` (its weights and adapters drawn on the
+   card and copied to the CPU; the host's ``MemAvailable`` logged first)
+   and ``[bf16 decode deepseek]`` on its 2-layer cut (the dense layer and
+   one MoE layer), as qwen3-moe's.
 6. Trains llama-100m at full width and depth (12 layers) with
    ``lowrank_adam``: bf16 compute over fp32 B masters and moments,
    Stiefel V at r = 128, batch 64 x seq 256, lazy_k = 4, 14 steps
@@ -294,6 +305,24 @@ SHAPES = {(3584, 3584): ("wq,wo", 128), (3584, 512): ("wk,wv", 128),
 MOE = "qwen3-moe-30b-a3b"
 QWEN3_SHAPES = {(2048, 4096): ("wq", 128), (2048, 512): ("wk,wv", 128),
                 (4096, 2048): ("wo", 128), (2048, 152064): ("unembed", 1)}
+# deepseek-v2-236b (the MLA family: latent KV attention, 160 experts top-6
+# beside 2 shared ones, a leading dense layer) -> the (K, N) of its
+# low-rank forward at a 128-token prefill (the unembedding on the last
+# position).  A decode step absorbs w_uk and w_uv into torch products
+# (the reference's einsums), so their per-row-B form never launches on
+# the path and their rows are shared-B only (DEEPSEEK_PREFILL_ONLY); the
+# card tests hold that form at their shape too.
+DEEPSEEK = "deepseek-v2-236b"
+DEEPSEEK_SHAPES = {(5120, 1536): ("w_dq", 128), (1536, 24576): ("w_uq", 128),
+                   (5120, 576): ("w_dkv", 128),
+                   (512, 16384): ("w_uk,w_uv", 128),
+                   (16384, 5120): ("wo", 128),
+                   (5120, 3072): ("shared w_gate,w_up", 128),
+                   (3072, 5120): ("shared w_down", 128),
+                   (5120, 12288): ("dense w_gate,w_up", 128),
+                   (12288, 5120): ("dense w_down", 128),
+                   (5120, 102400): ("unembed", 1)}
+DEEPSEEK_PREFILL_ONLY = ((512, 16384),)
 RANK = 128
 RTOL = 2e-2        # bf16 output rounding, plus fp32 sums in another order
 # times ``queued_ms`` may double its hold for a host too slow to queue
@@ -530,8 +559,9 @@ def split_determinism(mods, dev, repeats=3):
             raise SystemExit(f"[determinism] {name} failed")
 
 
-def compare_kernels(lf, ref, dev, shapes=SHAPES):
-    """Phase 2: kernel vs plain version and yardstick, both forms, at the
+def compare_kernels(lf, ref, dev, shapes=SHAPES, prefill_only=()):
+    """Phase 2: kernel vs plain version and yardstick, both forms (the
+    shared-B form alone at the (K, N) of ``prefill_only``), at the
     (K, N) -> (leaves, prefill rows) of ``shapes``."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -539,8 +569,8 @@ def compare_kernels(lf, ref, dev, shapes=SHAPES):
     for (K, N), (leaves, prefill_rows) in shapes.items():
         w = torch.randn((K, N), generator=gen, device=dev) / K ** 0.5
         v = torch.randn((K, RANK), generator=gen, device=dev) / K ** 0.5
-        for form, M, batch in (("shared", prefill_rows, None),
-                               ("batched", 4, 4)):
+        forms = (("shared", prefill_rows, None), ("batched", 4, 4))
+        for form, M, batch in forms[:1 if (K, N) in prefill_only else 2]:
             extra = ()
             if batch is None:
                 x = torch.randn((M, K), generator=gen, device=dev)
@@ -642,7 +672,7 @@ SERVE_RUNS = {"qwen2-7b": ((128,) * 8, 160, 32),
               "mamba2-780m": ((100, 128, 256, 512) * 2, 544, 32),
               "zamba2-7b": ((100, 128, 256, 512) * 2, 544, 32),
               "mistral-nemo-12b": ((128,) * 4, 160, 16),
-              MOE: ((128,) * 8, 160, 32)}
+              MOE: ((128,) * 8, 160, 32), DEEPSEEK: ((128,) * 8, 160, 32)}
 # depth cuts, the one cut of each such run: qwen3-moe-30b-a3b's 48 layers
 # hold 61 GB of bf16 weights, its expert V 7.7 GB and each tenant's B
 # 5.7 GB, 91 GB with 4 tenants against the card's 80 (24 layers hold 46).
@@ -651,9 +681,13 @@ SERVE_RUNS = {"qwen2-7b": ((128,) * 8, 160, 32),
 # qwen3-moe-30b-a3b 6 of 48, zamba2-7b 27 of 81 (the shared block 4 times
 # and the 3-layer tail) and qwen2-7b 14 of 28: with the MoE training
 # phases every phase took 1090 s at fuller depths on an H100, and 1214 s
-# on a slower host
+# on a slower host.  deepseek-v2-236b serves 4 of its 60 layers (the
+# dense layer and 3 MoE layers, so that the stacked layers run deeper
+# than the leading one): 60 hold 471 GB of bf16 weights, 4 with 4
+# tenants 30.5 GiB.  With its phases (about 30 s) every phase took 780 s
+# on an H100 80GB HBM3 (700 W)
 SERVE_LAYERS = {MOE: 6, "mistral-nemo-12b": 10, "zamba2-7b": 27,
-                "qwen2-7b": 14}
+                "qwen2-7b": 14, DEEPSEEK: 4}
 
 
 class RouteTap:
@@ -861,6 +895,22 @@ def serve(dev, mods, smi, arch="qwen2-7b"):
         f"batched={lf.launches('batched')}; per step "
         f"{lf.launches('batched') / len(decode_s):.0f}, per prefill "
         f"{lf.launches('shared') / len(prefill_s):.0f}")
+    if cfg.use_mla:
+        # every leaf of the path carries an adapter at full width: a layer
+        # makes 6 MLA (w_dq, w_uq, w_dkv, w_uk, w_uv, wo) + 3 MLP (the
+        # leading layer's dense MLP, the shared experts') shared-B
+        # launches a prefill and 4 + 3 per-row-B a decode step (w_uk and
+        # w_uv absorbed), the unembedding one more each
+        per = (9 * cfg.num_layers + 1, 7 * cfg.num_layers + 1)
+        want = (per[0] * len(prefill_s), per[1] * len(decode_s))
+        got = (lf.launches("shared", "tc"), lf.launches("batched", "tc"))
+        log(f"[{tag}] row-1 launches on \"tc\": shared {got[0]}, batched "
+            f"{got[1]}; the path's count {per[0]} a prefill x "
+            f"{len(prefill_s)}, {per[1]} a decode step x {len(decode_s)} = "
+            f"{want[0]}, {want[1]}; all routes {lf.launches()}")
+        if got != want or lf.launches() != sum(want):
+            raise SystemExit(f"{tag}: row-1 launches {dict(lf.LAUNCHES)} "
+                             f"against the path's count {want}")
     if drops is not None:
         log(f"[{tag}] launches by (form, route, K, N): " + ", ".join(
             f"{k}={n}" for k, n in sorted(counts.items())))
@@ -1160,23 +1210,50 @@ ZAMBA_PLAIN_TOL = 2.5e-5
 # 80GB HBM3 (700 W), 2.49e-6: 2 full-width layers, 128 experts, a
 # 128-token prefill whose capacity drops 41% of the pairs, routed alike
 QWEN3_PLAIN_TOL = 1.25e-5
+# [serve==plain deepseek]: about five times the gap measured on an H100
+# 80GB HBM3 (700 W), 5.19e-6 (4.25e-6 to 5.34e-6 at five seeds): 2
+# full-width layers, the dense one and an MoE layer of 160 experts
+DEEPSEEK_PLAIN_TOL = 2.5e-5
+# its weights' seed.  The cut routes 1 584 pairs over 160 experts, so a
+# token's 6th and 7th probabilities can lie within the card's and the
+# CPU's fp32 rounding of each other, where the two runs may pick
+# different experts and no comparison of values holds: at seed 5 one
+# token's pair crossed (gap 4.1e-8 against a largest probability
+# difference of 8.9e-7), at seed 6 the gap rule failed (4.9e-7 against
+# 6.3e-7).  At seed 11 the smallest gap is 3.72e-5, 59 times the
+# difference (seeds 7 and 8: 42 and 55 times; 9 and 10: 3.5 times).
+DEEPSEEK_PLAIN_SEED = 11
+
+
+def mem_available_gib():
+    """The host's ``MemAvailable`` (``/proc/meminfo``), GiB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2 ** 20
+    return float("nan")
 
 
 def serve_equals_plain(dev, mods, arch="mamba2-780m", S=256, steps=4,
-                       tol=SERVE_PLAIN_TOL):
+                       tol=SERVE_PLAIN_TOL, draw_on_card=False, seed=5):
     """Phase 5b: the full-width fp32 cut of :func:`cut_config`, two
     tenants: prefill of ``S`` tokens per tenant, then ``steps`` batched
     paged decode steps on fixed tokens, through the kernels on the card
     and through the plain versions on the CPU, from the same weights and
-    adapters; the logits within ``tol`` · max|logit|, and MoE routed
-    alike on both."""
+    adapters (drawn on the CPU, or with ``draw_on_card`` on the card and
+    copied over: deepseek's cut holds 5.4 G parameters, a minute of the
+    CPU's generator; from ``seed``); the logits within ``tol`` ·
+    max|logit|, and MoE routed alike on both."""
     lm, configs, serve_mod = mods["lm"], mods["configs"], mods["serve"]
     from repro_torch.models.common import tree_map
     cfg = cut_config(configs, arch)
     cpu = torch.device("cpu")
+    log(f"[serve==plain {short(arch)}] host MemAvailable "
+        f"{mem_available_gib():.1f} GiB before the phase")
     tcfg = configs.TrainConfig(rank=RANK)
-    params = lm.init_params(cfg, seed=5, device=cpu)
-    cpu_store = make_store(cfg, tcfg, 2, cpu, serve_mod.AdapterStore)
+    src = dev if draw_on_card else cpu
+    params = lm.init_params(cfg, seed=seed, device=src)
+    src_store = make_store(cfg, tcfg, 2, src, serve_mod.AdapterStore)
     gen = torch.Generator()
     gen.manual_seed(6)
     prompts = torch.randint(0, cfg.vocab_size, (2, S), generator=gen)
@@ -1189,8 +1266,8 @@ def serve_equals_plain(dev, mods, arch="mamba2-780m", S=256, steps=4,
         routes.append(RoutingLog(mods["moe"]) if cfg.family == "moe"
                       else contextlib.nullcontext())
         with routes[-1]:
-            if where.type == "cpu":
-                p, store = params, cpu_store
+            if where == src:
+                p, store = params, src_store
             else:
                 p = tree_map(lambda t: t.to(where), params)
                 store = serve_mod.AdapterStore(cfg, tcfg, max_tenants=2,
@@ -1198,8 +1275,8 @@ def serve_equals_plain(dev, mods, arch="mamba2-780m", S=256, steps=4,
                 for t in range(2):
                     store.add_tenant(
                         f"tenant{t}",
-                        [b[..., t, :, :] for b in cpu_store.b_full],
-                        cpu_store.projs)
+                        [b[..., t, :, :] for b in src_store.b_full],
+                        src_store.projs)
             lgs = []
             # the recurrent state is per slot; the hybrid's shared block
             # reads slot t's K/V from pages [t P, (t + 1) P)
@@ -4632,6 +4709,8 @@ def main():
     zamba_rows = compare_kernels(lf, ref, dev, ZAMBA_SHAPES)
     nemo_rows = compare_kernels(lf, ref, dev, NEMO_SHAPES)
     qwen3_rows = compare_kernels(lf, ref, dev, QWEN3_SHAPES)
+    ds_rows = compare_kernels(lf, ref, dev, DEEPSEEK_SHAPES,
+                              DEEPSEEK_PREFILL_ONLY)
     split_determinism(mods, dev)
     ssd_rows = compare_ssd_kernel(mods, dev)
     zamba_ssd_rows = compare_ssd_kernel(mods, dev, ZAMBA_SSD_SHAPES)
@@ -4671,6 +4750,12 @@ def main():
     serve_equals_plain(dev, mods, MOE, S=128, tol=QWEN3_PLAIN_TOL)
     bf16_decode_without_sync(dev, mods, MOE)
     mark("qwen3-moe-30b-a3b serving")
+    ds_counts, _ = serve(dev, mods, smi, DEEPSEEK)
+    lazy_equals_merged(dev, mods, DEEPSEEK, S=128)
+    serve_equals_plain(dev, mods, DEEPSEEK, S=128, tol=DEEPSEEK_PLAIN_TOL,
+                       draw_on_card=True, seed=DEEPSEEK_PLAIN_SEED)
+    bf16_decode_without_sync(dev, mods, DEEPSEEK)
+    mark("deepseek-v2-236b serving")
 
     sampler_laws(dev, mods)
     cfg, tcfg = train_config(configs, lazy_k=4, lr=3e-3, warmup_steps=2,
@@ -4718,7 +4803,8 @@ def main():
                             ("mamba2-780m ", mamba_rows, mamba_counts),
                             ("zamba2-7b ", zamba_rows, zamba_counts),
                             ("mistral-nemo-12b ", nemo_rows, nemo_counts),
-                            (f"{MOE} ", qwen3_rows, qwen3_counts)):
+                            (f"{MOE} ", qwen3_rows, qwen3_counts),
+                            (f"{DEEPSEEK} ", ds_rows, ds_counts)):
         for row in rws:
             kernels.append({
                 "name": f"lowrank_forward[{row['form']} B] K={row['K']} "

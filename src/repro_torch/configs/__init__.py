@@ -1,8 +1,10 @@
 """Config registry of the port: the architectures of the families it
-has ported, dense, SSM, hybrid and MoE.
+has ported, dense, SSM, hybrid and MoE (with MLA).
 
-``qwen2-7b``, ``mistral-nemo-12b``, ``mamba2-780m``, ``zamba2-7b`` and
-``qwen3-moe-30b-a3b`` are the serving targets; the paper's LLaMA grid
+``qwen2-7b``, ``mistral-nemo-12b``, ``mamba2-780m``, ``zamba2-7b``,
+``qwen3-moe-30b-a3b`` and ``deepseek-v2-236b`` (multi-head latent
+attention, shared experts, a leading dense layer; it serves, and its
+training is refused) are the serving targets; the paper's LLaMA grid
 (with ``llama-tiny``), ``mamba2-780m`` and ``zamba2-7b`` are what
 training runs, and the small dense model the CPU tests run.
 ``internlm2-20b`` and ``mistral-large-123b`` are the registry's other
@@ -11,8 +13,9 @@ their families are ported.
 """
 from __future__ import annotations
 
-from . import (internlm2_20b, llama_paper, mamba2_780m, mistral_large_123b,
-               mistral_nemo_12b, qwen2_7b, qwen3_moe_30b_a3b, zamba2_7b)
+from . import (deepseek_v2_236b, internlm2_20b, llama_paper, mamba2_780m,
+               mistral_large_123b, mistral_nemo_12b, qwen2_7b,
+               qwen3_moe_30b_a3b, zamba2_7b)
 from .base import ModelConfig, TrainConfig
 
 CONFIGS = {
@@ -23,6 +26,7 @@ CONFIGS = {
     "mamba2-780m": mamba2_780m.CONFIG,
     "zamba2-7b": zamba2_7b.CONFIG,
     "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b.CONFIG,
+    "deepseek-v2-236b": deepseek_v2_236b.CONFIG,
     "llama-20m": llama_paper.LLAMA_20M,
     "llama-60m": llama_paper.LLAMA_60M,
     "llama-100m": llama_paper.LLAMA_100M,

@@ -1,5 +1,5 @@
 """Attention: blockwise prefill (causal, or bidirectional for the
-encoder) and paged decode.
+encoder), paged decode, and MLA's absorbed paged decode.
 
 Counterpart of ``repro.models.attention``.  Plain PyTorch ops that keep
 the reference's arithmetic — scores and the online softmax in fp32,
@@ -10,7 +10,9 @@ reference, and no fused library attention is used here.
 Layout conventions (as in the reference):
   q: (B, Sq, Hq, D)   k: (B, Skv, Hkv, D)   v: (B, Skv, Hkv, Dv)
 Paged arenas: (n_pages, page, H, D); a sequence's token t lives at
-``arena[page_table[b, t // page], t % page]``.
+``arena[page_table[b, t // page], t % page]``.  MLA's arenas hold the
+compressed ``c_kv`` and the roped ``k_rope``: (n_pages, page, 1, kvl)
+and (n_pages, page, 1, rope).
 """
 from __future__ import annotations
 
@@ -153,17 +155,61 @@ def paged_decode_attention(q: torch.Tensor, k_arena: torch.Tensor,
     return out.reshape(B, 1, Hq, Dv).to(q.dtype)
 
 
+def paged_mla_attention(q_eff: torch.Tensor, q_rope: torch.Tensor,
+                        cc_arena: torch.Tensor, cr_arena: torch.Tensor,
+                        page_table: torch.Tensor, lengths: torch.Tensor, *,
+                        softmax_scale: float) -> torch.Tensor:
+    """Absorbed-MLA decode over paged compressed caches (online softmax,
+    fp32).
+
+    q_eff: (B, H, kvl) fp32, already absorbed through ``W_uk``; q_rope:
+    (B, H, rope); arenas: (n_pages, page, kvl) and (n_pages, page, rope);
+    lengths: (B,) valid tokens per slot including the one written this
+    step.  Returns the fp32 context (B, H, kvl): the caller applies
+    ``W_uv``.  Rows with no mapped pages produce finite zeros.
+    """
+    B, H, kvl = q_eff.shape
+    page = cc_arena.shape[1]
+    dev = q_eff.device
+    qr = q_rope.float()
+    acc = torch.zeros((B, H, kvl), dtype=torch.float32, device=dev)
+    m = torch.full((B, H), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, H), dtype=torch.float32, device=dev)
+    for j in range(page_table.shape[1]):
+        rows = page_table[:, j]
+        safe = torch.clamp(rows, min=0).long()
+        cc = cc_arena[safe].float()                       # (B, page, kvl)
+        cr = cr_arena[safe].float()
+        s = (torch.einsum("bhk,btk->bht", q_eff, cc)
+             + torch.einsum("bhr,btr->bht", qr, cr)) * softmax_scale
+        pos = j * page + torch.arange(page, device=dev)
+        mask = ((rows[:, None] >= 0) & (pos[None, :] < lengths[:, None])
+                )[:, None, :]
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bht,btk->bhk", p, cc)
+        m = m_new
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
 class KVCache(NamedTuple):
-    """Per-layer-stacked KV cache. k/v: (L, B, Smax, Hkv, D)."""
+    """Per-layer-stacked KV cache. k: (L, B, Smax, Hkv, D), v: (L, B,
+    Smax, Hkv, Dv) (MLA keeps ``c_kv`` in k and the roped ``k_rope`` in
+    v, with ``Hkv == 1``)."""
     k: torch.Tensor
     v: torch.Tensor
 
     @staticmethod
     def alloc(layers: int, batch: int, max_len: int, kv_heads: int,
-              head_dim: int, *, dtype, device) -> "KVCache":
+              head_dim: int, v_dim: Optional[int] = None, *, dtype,
+              device) -> "KVCache":
         shape = (layers, batch, max_len, kv_heads, head_dim)
+        vshape = shape[:-1] + (v_dim or head_dim,)
         return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                       v=torch.zeros(shape, dtype=dtype, device=device))
+                       v=torch.zeros(vshape, dtype=dtype, device=device))
 
 
 def cache_update(cache_k: torch.Tensor, cache_v: torch.Tensor,

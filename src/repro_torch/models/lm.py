@@ -6,9 +6,21 @@ the LLaMA grid), the SSM family (``mamba2-780m``), the hybrid family
 applied after every ``attn_every``-th of them, then a tail of the
 ``L % attn_every`` layers left) and the MoE family
 (``qwen3-moe-30b-a3b``: attention, then a routed expert FFN,
-:mod:`repro_torch.models.moe`, with experts stacked ``(L, E, k, n)``).
-Every family here trains and serves (MoE's aux loss terms come back
-in ``forward_hidden``'s ``aux``, and ``build_loss_fn`` adds them).
+:mod:`repro_torch.models.moe`, with experts stacked ``(L, E, k, n)``;
+``deepseek-v2-236b``: multi-head latent attention (MLA), shared experts
+beside the routed ones, and ``first_dense_layers`` leading dense layers
+stacked apart in ``params["dense_layers"]``).  Every family here trains
+and serves (MoE's aux loss terms come back in ``forward_hidden``'s
+``aux``, and ``build_loss_fn`` adds them), but MLA, which serves only.
+
+MLA (:func:`mla_apply`) caches the compressed ``c_kv`` and the roped
+``k_rope`` (one "head" each).  Prefill expands them to per-head K and V
+through ``w_uk`` / ``w_uv``; a decode step absorbs ``w_uk`` into the
+query and ``w_uv`` into the context instead (:func:`_uk_absorb`,
+:func:`_uv_absorb`: fp32 torch products, as the reference's einsums
+outside any Pallas kernel), with an adapter's ``V Bᵀ`` applied in rank-r
+form and a decode pack's per-row ``B`` read from the store's stack in
+place.
 Layers stay stacked on a leading ``L`` axis, as in the reference, and
 a Python loop over ``L`` takes the place
 of ``lax.scan``.  Every matmul weight is consumed through
@@ -38,11 +50,12 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from .attention import (KVCache, blockwise_attention, cache_update,
-                        paged_decode_attention, paged_write)
+                        paged_decode_attention, paged_mla_attention,
+                        paged_write)
 from .common import (ParamSpec, act_dtype, apply_rope, prm_dtype, rms_norm,
                      swiglu, tree_flatten_with_path, tree_init, tree_map,
                      tree_unflatten)
-from .linear import BatchLRPack, LRPack, linear
+from .linear import BatchLRPack, LRPack, linear, weight_of
 from .moe import moe_ffn
 from .ssm import SSMState, mamba2_mixer
 
@@ -54,21 +67,16 @@ def padded_vocab(cfg) -> int:
 
 
 def _require_ported(cfg) -> None:
-    """Refuse what the port does not run: enc-dec, vlm and audio, and
-    MLA, shared experts and leading dense layers (deepseek-v2) (ROADMAP.md
-    Queue 1 item 9), and MoE's grouped dispatch (item 10).  It trains and
-    serves the dense, SSM, hybrid and MoE families."""
-    what = None
+    """Refuse what the port does not run: enc-dec, vlm and audio
+    (ROADMAP.md Queue 1 item 9), and MoE's grouped dispatch (item 10).
+    It runs the dense, SSM, hybrid and MoE families, MLA, shared experts
+    and leading dense layers (deepseek-v2) included."""
     if cfg.family not in ("dense", "ssm", "hybrid", "moe") \
             or cfg.is_encoder_decoder:
-        what = f"the {cfg.family!r} family"
-    elif cfg.use_mla or cfg.num_shared_experts or cfg.first_dense_layers:
-        what = "MLA, shared experts, leading dense layers"
-    if what is not None:
         raise NotImplementedError(
-            f"{cfg.name}: not ported to repro_torch ({what}); it trains "
-            f"and serves the dense, SSM, hybrid and MoE families; see "
-            f"ROADMAP.md Queue 1 item 9")
+            f"{cfg.name}: not ported to repro_torch (the {cfg.family!r} "
+            f"family); it runs the dense, SSM, hybrid and MoE families; "
+            f"see ROADMAP.md Queue 1 item 9")
     if cfg.family == "moe" and cfg.moe_groups > 1:
         raise NotImplementedError(
             f"{cfg.name}: not ported to repro_torch (grouped MoE dispatch, "
@@ -121,13 +129,37 @@ def _mlp_specs(cfg, d, ff):
             "w_down": _w((ff, d), cfg)}
 
 
+def _mla_specs(cfg, d):
+    h = cfg.num_heads
+    nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    qlr, kvl = cfg.q_lora_rank, cfg.kv_lora_rank
+    return {
+        "w_dq": _w((d, qlr), cfg),
+        "q_norm": _w((qlr,), cfg, "ones"),
+        "w_uq": _w((qlr, h * (nope + rope)), cfg),
+        "w_dkv": _w((d, kvl + rope), cfg),
+        "kv_norm": _w((kvl,), cfg, "ones"),
+        "w_uk": _w((kvl, h * nope), cfg),
+        "w_uv": _w((kvl, h * vd), cfg),
+        "wo": _w((h * vd, d), cfg),
+    }
+
+
 def _moe_specs(cfg, d):
-    """The router (fp32, kept dense by the ``router`` exclusion) and the
-    experts stacked ``(E, k, n)``."""
+    """The router (fp32, kept dense by the ``router`` exclusion), the
+    experts stacked ``(E, k, n)`` and, with ``num_shared_experts``, one
+    shared SwiGLU MLP of their summed width."""
     e, f = cfg.num_experts, cfg.moe_d_ff
-    return {"router": ParamSpec((d, e), torch.float32, "scaled"),
-            "w_gate": _w((e, d, f), cfg), "w_up": _w((e, d, f), cfg),
-            "w_down": _w((e, f, d), cfg)}
+    s = {"router": ParamSpec((d, e), torch.float32, "scaled"),
+         "w_gate": _w((e, d, f), cfg), "w_up": _w((e, d, f), cfg),
+         "w_down": _w((e, f, d), cfg)}
+    if cfg.num_shared_experts:
+        s["shared"] = _mlp_specs(cfg, d, cfg.num_shared_experts * f)
+    return s
+
+
+def _attn_or_mla_specs(cfg, d):
+    return _mla_specs(cfg, d) if cfg.use_mla else _attn_specs(cfg, d)
 
 
 def _ssm_specs(cfg, d):
@@ -151,10 +183,19 @@ def _layer_specs(cfg, d):
     """Specs of one stacked layer (without the leading L axis)."""
     if cfg.family in ("ssm", "hybrid"):
         return {"ln1": _w((d,), cfg, "ones"), "ssm": _ssm_specs(cfg, d)}
-    ffn = {"moe": _moe_specs(cfg, d)} if cfg.family == "moe" \
-        else {"mlp": _mlp_specs(cfg, d, cfg.d_ff)}
+    if cfg.family == "moe":
+        return {"ln1": _w((d,), cfg, "ones"),
+                "attn": _attn_or_mla_specs(cfg, d),
+                "ln2": _w((d,), cfg, "ones"), "moe": _moe_specs(cfg, d)}
     return {"ln1": _w((d,), cfg, "ones"), "attn": _attn_specs(cfg, d),
-            "ln2": _w((d,), cfg, "ones"), **ffn}
+            "ln2": _w((d,), cfg, "ones"),
+            "mlp": _mlp_specs(cfg, d, cfg.d_ff)}
+
+
+def _n_stacked(cfg) -> int:
+    """Layers in the stacked ``params["layers"]``: all but the leading
+    dense ones."""
+    return cfg.num_layers - cfg.first_dense_layers
 
 
 def param_specs(cfg) -> dict:
@@ -166,8 +207,17 @@ def param_specs(cfg) -> dict:
         "embed": {"tok": _w((vp, d), cfg, "normal")},
         "final_norm": _w((d,), cfg, "ones"),
         "unembed": _w((d, vp), cfg),
-        "layers": tree_map(lambda sp: _stack(sp, cfg.num_layers), layer),
+        "layers": tree_map(lambda sp: _stack(sp, _n_stacked(cfg)), layer),
     }
+    if cfg.first_dense_layers:
+        # deepseek: leading dense-MLP layers, stacked apart, with the
+        # config's attention (MLA)
+        lead = {"ln1": _w((d,), cfg, "ones"),
+                "attn": _attn_or_mla_specs(cfg, d),
+                "ln2": _w((d,), cfg, "ones"),
+                "mlp": _mlp_specs(cfg, d, cfg.moe_dense_ff or cfg.d_ff)}
+        specs["dense_layers"] = tree_map(
+            lambda sp: _stack(sp, cfg.first_dense_layers), lead)
     if _hybrid(cfg):
         # zamba2: ONE attention + MLP block, unstacked, reused after
         # every attn_every-th Mamba layer (weight sharing)
@@ -265,32 +315,162 @@ def attn_apply(h, p, cfg, *, pos_offset=0, cache=None, cache_index=None,
     return linear(out.reshape(B, S, hq * dh), p["wo"]), new_kv
 
 
+def _picked(y, rows):
+    """``y[i, rows[i]]`` of a ``(B, T, ...)`` product against every
+    tenant of the store (``torch.gather``: no index of a B stack)."""
+    idx = rows.reshape((-1, 1) + (1,) * (y.ndim - 2)).expand(
+        (y.shape[0], 1) + y.shape[2:])
+    return y.gather(1, idx)[:, 0]
+
+
+def _uk_absorb(q32, p, h: int, nope: int):
+    """Absorb q_nope through ``W_uk``: (B, H, nope) fp32 -> (B, H, kvl).
+
+    With a packed ``p`` the correction is applied in rank-r form, ``W_uk
+    + V Bᵀ`` never formed: ``t = q B`` per head, then ``t Vᵀ``.  A
+    :class:`BatchLRPack` with ``rows`` holds the store's ``(T, n, r)``
+    stack: ``t`` is taken against every tenant's ``B`` and each row's
+    picked, so no ``B`` is gathered."""
+    w = weight_of(p).float().reshape(-1, h, nope)
+    y = torch.einsum("bhn,khn->bhk", q32, w)
+    if isinstance(p, LRPack):
+        if isinstance(p, BatchLRPack):
+            b4 = p.b.float().reshape(p.b.shape[-3], h, nope, -1)
+            if p.rows is None:
+                t = torch.einsum("bhn,bhnr->bhr", q32, b4)
+            else:
+                t = _picked(torch.einsum("bhn,thnr->bthr", q32, b4), p.rows)
+        else:
+            t = torch.einsum("bhn,hnr->bhr", q32,
+                             p.b.float().reshape(h, nope, -1))
+        y = y + torch.einsum("bhr,kr->bhk", t, p.v.float())
+    return y
+
+
+def _uv_absorb(ctx, p, h: int, vd: int):
+    """Absorb the fp32 context through ``W_uv``: (B, H, kvl) -> (B, H,
+    vd), a packed ``p``'s correction in rank-r form (as
+    :func:`_uk_absorb`)."""
+    w = weight_of(p).float().reshape(-1, h, vd)
+    y = torch.einsum("bhk,khv->bhv", ctx, w)
+    if isinstance(p, LRPack):
+        t = torch.einsum("bhk,kr->bhr", ctx, p.v.float())
+        if isinstance(p, BatchLRPack):
+            b4 = p.b.float().reshape(p.b.shape[-3], h, vd, -1)
+            if p.rows is None:
+                y = y + torch.einsum("bhr,bhvr->bhv", t, b4)
+            else:
+                y = y + _picked(torch.einsum("bhr,thvr->bthv", t, b4),
+                                p.rows)
+        else:
+            y = y + torch.einsum("bhr,hvr->bhv", t,
+                                 p.b.float().reshape(h, vd, -1))
+    return y
+
+
+def mla_apply(h, p, cfg, *, pos_offset=0, cache=None, cache_index=None,
+              decode=False, paged=None):
+    """Multi-head latent attention (deepseek-v2).  Returns (out, the
+    compressed caches or None).
+
+    Prefill expands K and V per head (``k = [k_nope, k_rope]``, the rope
+    part shared by the heads) and runs blockwise attention at qk dim
+    ``nope + rope``; with ``cache`` (the dense ``(B, Smax, 1, kvl)`` and
+    ``(B, Smax, 1, rope)`` slices) it persists ``c_kv`` and the roped
+    ``k_rope``.  Decoding needs ``paged=(page_table, lengths)`` over the
+    arenas ``(n_pages, page, 1, kvl)`` / ``(n_pages, page, 1, rope)`` and
+    runs the absorbed form.  ``pos_offset`` is an int or a per-row
+    ``(B,)`` tensor, as in :func:`attn_apply`.
+    """
+    B, S, _ = h.shape
+    hq = cfg.num_heads
+    nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kvl = cfg.kv_lora_rank
+    scale = (nope + rope) ** -0.5
+    ar = torch.arange(S, device=h.device)
+    if torch.is_tensor(pos_offset):
+        positions = pos_offset[:, None] + ar
+    else:
+        positions = (pos_offset + ar).expand(B, S)
+
+    cq = rms_norm(linear(h, p["w_dq"]), p["q_norm"], cfg.norm_eps)
+    q = linear(cq, p["w_uq"]).reshape(B, S, hq, nope + rope)
+    q_nope = q[..., :nope]
+    q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    dkv = linear(h, p["w_dkv"])                          # (B, S, kvl+rope)
+    # fresh tensors, both: c_kv feeds w_uk / w_uv in prefill
+    c_kv = rms_norm(dkv[..., :kvl], p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(dkv[..., kvl:][:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]      # (B, S, rope)
+
+    if decode:
+        if paged is None:
+            raise NotImplementedError(
+                "repro_torch decodes over paged caches only")
+        pt, lengths = paged
+        cc_a, cr_a = cache
+        paged_write(cc_a, c_kv, pt, lengths)
+        paged_write(cr_a, k_rope, pt, lengths)
+        q_eff = _uk_absorb(q_nope[:, 0].float(), p["w_uk"], hq, nope)
+        ctx = paged_mla_attention(q_eff, q_rope[:, 0], cc_a[:, :, 0],
+                                  cr_a[:, :, 0], pt, lengths + 1,
+                                  softmax_scale=scale)
+        out = _uv_absorb(ctx, p["w_uv"], hq, vd).reshape(B, 1, hq * vd)
+        return linear(out.to(h.dtype), p["wo"]), (cc_a, cr_a)
+
+    k_nope = linear(c_kv, p["w_uk"]).reshape(B, S, hq, nope)
+    v = linear(c_kv, p["w_uv"]).reshape(B, S, hq, vd)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, hq, rope)],
+                  dim=-1)
+    out = blockwise_attention(
+        torch.cat([q_nope, q_rope], dim=-1), k, v, causal=True,
+        q_offset=pos_offset, q_chunk=cfg.attn_chunk // 2,
+        kv_chunk=cfg.attn_chunk, softmax_scale=scale)
+    new_cache = None
+    if cache is not None:   # prefill: persist the compressed caches
+        cc, cr = cache
+        i = cache_index or 0
+        cc[:, i:i + S, 0] = c_kv.to(cc.dtype)
+        cr[:, i:i + S, 0] = k_rope.to(cr.dtype)
+        new_cache = (cc, cr)
+    return linear(out.reshape(B, S, hq * vd), p["wo"]), new_cache
+
+
+def _attend(h, p, cfg, **kw):
+    """A block's pre-norm attention: MLA where the layer holds MLA's
+    weights (deepseek's MoE and leading dense layers), else GQA."""
+    fn = mla_apply if "w_dkv" in p["attn"] else attn_apply
+    return fn(rms_norm(h, p["ln1"], cfg.norm_eps), p["attn"], cfg, **kw)
+
+
 def mlp_apply(h, p, cfg):
     return linear(swiglu(linear(h, p["w_gate"]), linear(h, p["w_up"])),
                   p["w_down"])
 
 
 def dense_block(h, p, cfg, **kw):
-    """Pre-norm attention and SwiGLU MLP; ``kw`` (``causal``, the cache
-    and decode arguments) goes to :func:`attn_apply`."""
-    a, kv = attn_apply(rms_norm(h, p["ln1"], cfg.norm_eps), p["attn"], cfg,
-                       **kw)
+    """Pre-norm attention (:func:`_attend`) and SwiGLU MLP; ``kw``
+    (``causal``, the cache and decode arguments) goes to the
+    attention."""
+    a, kv = _attend(h, p, cfg, **kw)
     h = h + a
     h = h + mlp_apply(rms_norm(h, p["ln2"], cfg.norm_eps), p["mlp"], cfg)
     return h, kv
 
 
 def moe_block(h, p, cfg, **kw):
-    """Pre-norm attention, then the routed expert FFN; ``kw`` goes to
-    :func:`attn_apply`.  Returns (h, kv, aux)."""
-    a, kv = attn_apply(rms_norm(h, p["ln1"], cfg.norm_eps), p["attn"], cfg,
-                       **kw)
+    """Pre-norm attention (:func:`_attend`), then the routed expert FFN
+    and, where the layer has one, the shared experts' MLP on the same
+    normed input; ``kw`` goes to the attention.  Returns (h, kv, aux)."""
+    a, kv = _attend(h, p, cfg, **kw)
     h = h + a
     m = p["moe"]
-    out, aux = moe_ffn(rms_norm(h, p["ln2"], cfg.norm_eps), m["router"],
-                       m["w_gate"], m["w_up"], m["w_down"], top_k=cfg.top_k,
-                       capacity_factor=cfg.capacity_factor,
+    hn = rms_norm(h, p["ln2"], cfg.norm_eps)
+    out, aux = moe_ffn(hn, m["router"], m["w_gate"], m["w_up"], m["w_down"],
+                       top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
                        norm_topk=cfg.norm_topk, groups=cfg.moe_groups)
+    if "shared" in m:
+        out = out + mlp_apply(hn, m["shared"], cfg)
     return h + out, kv, aux
 
 
@@ -311,6 +491,21 @@ def _shared_after(cfg, i: int) -> Optional[int]:
     return None
 
 
+def _blocks(params, cfg) -> list:
+    """Every layer in order as ``(block, layer params)``: the leading
+    dense layers (``params["dense_layers"]``; cache slots
+    ``[0:first_dense_layers]``), then the stacked layers (dense, MoE or
+    Mamba2 blocks; the slots after them)."""
+    out = []
+    if cfg.first_dense_layers:
+        out = [(dense_block, lp) for lp in
+               _layers(params["dense_layers"], cfg.first_dense_layers)]
+    blk = {"dense": dense_block, "moe": moe_block}.get(cfg.family,
+                                                        _mamba_block)
+    return out + [(blk, lp) for lp in _layers(params["layers"],
+                                               _n_stacked(cfg))]
+
+
 def forward_hidden(params, tokens, cfg):
     """(B, S) tokens -> ((B, S, d) final hidden after the final norm,
     aux).  ``aux`` holds the reference's MoE loss terms, ``lb_loss`` and
@@ -328,11 +523,10 @@ def forward_hidden(params, tokens, cfg):
     reference checkpoints whole groups with a nested per-layer remat;
     the numbers are the same), so zamba2-7b keeps 94 block inputs.  Its
     parameters enter every application's recompute by closure, so their
-    gradient is the sum over the applications.
+    gradient is the sum over the applications.  A leading dense layer
+    (deepseek) runs first and is checkpointed like any block.
     """
     _require_ported(cfg)
-    apply = {"dense": dense_block, "moe": moe_block}.get(cfg.family,
-                                                          _mamba_block)
 
     def run(fn, h, p):
         def block(h):
@@ -345,9 +539,9 @@ def forward_hidden(params, tokens, cfg):
 
     h = _embed(params, tokens, cfg)
     lb = rz = torch.zeros((), dtype=torch.float32, device=h.device)
-    for i, lp in enumerate(_layers(params["layers"], cfg.num_layers)):
-        h = run(apply, h, lp)
-        if apply is moe_block:
+    for i, (fn, lp) in enumerate(_blocks(params, cfg)):
+        h = run(fn, h, lp)
+        if fn is moe_block:
             h, a, z = h
             lb, rz = lb + a, rz + z
         if _shared_after(cfg, i) is not None:
@@ -392,6 +586,12 @@ def alloc_decode_state(cfg, batch: int, max_len: int, *,
         return KVCache.alloc(layers, batch, max_len, cfg.num_kv_heads,
                              cfg.resolved_head_dim, dtype=act_dtype(cfg),
                              device=device)
+    if cfg.use_mla:     # c_kv in k, the roped k_rope in v
+        return DecodeState(
+            KVCache.alloc(cfg.num_layers, batch, max_len, 1,
+                          cfg.kv_lora_rank, v_dim=cfg.qk_rope_dim,
+                          dtype=act_dtype(cfg), device=device),
+            None, None, 0)
     if _attention_layers(cfg):
         return DecodeState(kv(cfg.num_layers), None, None, 0)
     shared = kv(_n_attn_apps(cfg)) if _hybrid(cfg) else None
@@ -411,16 +611,15 @@ def _mamba_block(h, lp, cfg, **kw):
 
 def prefill(params, tokens, cfg, state: DecodeState):
     """Full forward writing the caches (the dense and MoE families: each
-    layer's K/V; the SSM and hybrid families: each layer's end state and
-    conv window; the hybrid also each application of its shared block's
-    K/V); returns (last-position logits, state)."""
+    layer's K/V, MLA's compressed ``c_kv`` and ``k_rope``, the leading
+    dense layers' first; the SSM and hybrid families: each layer's end
+    state and conv window; the hybrid also each application of its
+    shared block's K/V); returns (last-position logits, state)."""
     _require_ported(cfg)
     h = _embed(params, tokens, cfg)
     S = h.shape[1]
-    for i in range(cfg.num_layers):
-        lp = _layer(params["layers"], i)
+    for i, (blk, lp) in enumerate(_blocks(params, cfg)):
         if _attention_layers(cfg):
-            blk = moe_block if cfg.family == "moe" else dense_block
             h = blk(h, lp, cfg, cache=(state.kv.k[i], state.kv.v[i]),
                     cache_index=0)[0]
             continue
@@ -446,7 +645,8 @@ class PagedDecodeState(NamedTuple):
     """Paged decode caches (serving engine).
 
     ``kv_k`` / ``kv_v``: ``(L, n_pages, page, Hkv, D)`` arenas (dense
-    and MoE families); ``ssm``: the slot-indexed :class:`SSMState` of
+    and MoE families; MLA keeps ``c_kv`` and ``k_rope`` with ``Hkv == 1``,
+    the leading dense layers in ``[0:first_dense_layers]``); ``ssm``: the slot-indexed :class:`SSMState` of
     the SSM and hybrid families (O(1) per slot, so not paged);
     ``shared_k`` / ``shared_v``: the hybrid's shared-attention arenas
     ``(n_apps, n_pages, page, Hkv, D)``, one per application of its
@@ -470,18 +670,23 @@ def alloc_paged_state(cfg, batch: int, num_pages: int, page_size: int,
     _require_ported(cfg)
     max_pages = -(-max_len // page_size)
 
-    def arenas(layers):
-        shp = (layers, num_pages, page_size, cfg.num_kv_heads,
-               cfg.resolved_head_dim)
-        return (torch.zeros(shp, dtype=act_dtype(cfg), device=device),
-                torch.zeros(shp, dtype=act_dtype(cfg), device=device))
+    def arenas(layers, heads, k_dim, v_dim):
+        shp = (layers, num_pages, page_size, heads)
+        return (torch.zeros(shp + (k_dim,), dtype=act_dtype(cfg),
+                            device=device),
+                torch.zeros(shp + (v_dim,), dtype=act_dtype(cfg),
+                            device=device))
     kv_k = kv_v = ssm = sk = sv = None
-    if _attention_layers(cfg):
-        kv_k, kv_v = arenas(cfg.num_layers)
+    dh = cfg.resolved_head_dim
+    if cfg.use_mla:
+        kv_k, kv_v = arenas(cfg.num_layers, 1, cfg.kv_lora_rank,
+                            cfg.qk_rope_dim)
+    elif _attention_layers(cfg):
+        kv_k, kv_v = arenas(cfg.num_layers, cfg.num_kv_heads, dh, dh)
     else:
         ssm = _alloc_ssm(cfg, batch, device)
         if _hybrid(cfg):
-            sk, sv = arenas(_n_attn_apps(cfg))
+            sk, sv = arenas(_n_attn_apps(cfg), cfg.num_kv_heads, dh, dh)
     return PagedDecodeState(
         kv_k, kv_v, ssm, sk, sv,
         torch.full((batch, max_pages), -1, dtype=torch.int32,
@@ -508,10 +713,8 @@ def decode_step_paged(params, token, cfg, state: PagedDecodeState):
     ssm = state.ssm
     if ssm is not None:
         ssm = SSMState(torch.empty_like(ssm.ssm), torch.empty_like(ssm.conv))
-    for i in range(cfg.num_layers):
-        lp = _layer(params["layers"], i)
+    for i, (blk, lp) in enumerate(_blocks(params, cfg)):
         if _attention_layers(cfg):
-            blk = moe_block if cfg.family == "moe" else dense_block
             h = blk(h, lp, cfg, pos_offset=lengths,
                     cache=(state.kv_k[i], state.kv_v[i]), decode=True,
                     paged=(pt, lengths))[0]

@@ -37,6 +37,10 @@ def build_loss_fn(cfg) -> Callable:
         raise NotImplementedError(
             f"{cfg.name}: the dense, SSM, hybrid and MoE families train "
             f"in repro_torch; see ROADMAP.md Queue 1 item 9")
+    if cfg.use_mla:
+        raise NotImplementedError(
+            f"{cfg.name}: MLA serves in repro_torch but does not train yet "
+            f"(MLA training, ROADMAP.md Queue 1 item 9)")
 
     def loss_fn(packed, batch):
         h, aux = lm.forward_hidden(packed, batch["tokens"], cfg)

@@ -266,28 +266,31 @@ def test_effective_weight_matches_jax():
 
 def test_other_families_are_refused():
     # what the port does not run yet, built from the reference's configs:
-    # deepseek-v2-236b (MLA, shared experts, a leading dense layer),
     # phi-3-vision-4.2b (vlm) and whisper-small (audio, enc-dec), each
     # ROADMAP Queue 1 item 9; qwen3-moe-30b-a3b with grouped dispatch,
-    # item 10
+    # item 10.  deepseek-v2-236b (MLA, shared experts, a leading dense
+    # layer) serves, and its training is refused (item 9, MLA training)
     mla, vlm, encdec = (ModelConfig(**dataclasses.asdict(
         jget_config(name).reduced()))
         for name in ("deepseek-v2-236b", "phi-3-vision-4.2b",
                      "whisper-small"))
     assert mla.use_mla and mla.num_shared_experts and mla.first_dense_layers
+    assert "dense_layers" in lm.param_specs(mla)
     grouped = get_config("qwen3-moe-30b-a3b").reduced().replace(moe_groups=2)
-    for cfg, item in ((mla, 9), (vlm, 9), (encdec, 9), (grouped, 10)):
+    for cfg, item in ((vlm, 9), (encdec, 9), (grouped, 10)):
         with pytest.raises(NotImplementedError,
                            match=f"not ported.*Queue 1 item {item}"):
             lm.param_specs(cfg)
         with pytest.raises(NotImplementedError,
                            match=f"not ported.*Queue 1 item {item}"):
             lm.alloc_paged_state(cfg, 1, 2, 4, 8, device="cpu")
-    # the loss refuses vlm and enc-dec, naming the slice; MoE trains
+    # the loss refuses vlm, enc-dec and MLA, naming the slice; MoE trains
     from repro_torch.train.steps import build_loss_fn
-    for cfg in (vlm, encdec):
+    for cfg in (vlm, encdec, mla):
         with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
             build_loss_fn(cfg)
+    with pytest.raises(NotImplementedError, match="MLA training"):
+        build_loss_fn(mla)
     assert callable(build_loss_fn(get_config("qwen3-moe-30b-a3b").reduced()))
     # SSM trains too: forward_hidden takes the reference's SSM branch
     ssm = get_config("mamba2-780m").reduced()
